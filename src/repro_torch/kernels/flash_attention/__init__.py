@@ -1,0 +1,6 @@
+from .kernel import flash_attention_cuda
+from .ops import flash_attention, flash_attention_plain
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_plain",
+           "flash_attention_ref"]

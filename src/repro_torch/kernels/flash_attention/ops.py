@@ -1,0 +1,43 @@
+"""Public flash attention entry point (model-layout adapter).
+
+Counterpart of ``repro/kernels/flash_attention/ops.py::flash_attention``.
+A CUDA tensor goes to the CUDA kernel (or raises); a CPU tensor goes to the
+plain version. ``block_q`` / ``block_k`` keep the reference's signature and
+its ``ValueError`` on sizes they do not divide; the CUDA kernel picks its
+own tiles.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernel import flash_attention_cuda
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_plain"]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """The plain version in model layout: q (B, Sq, H, D); k, v
+    (B, Skv, Hk, D). Folds GQA groups, runs the reference, unfolds."""
+    B, Sq, H, D = q.shape
+    Hk = k.shape[2]
+    qg = q.reshape(B, Sq, Hk, H // Hk, D).permute(0, 2, 3, 1, 4)
+    out = flash_attention_ref(qg, k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Skv, Hk, D) -> (B, Sq, H, D)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if Sq % min(block_q, Sq) or Skv % min(block_k, Skv):
+        raise ValueError("sequence not divisible by block size")
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash attention for device {q.device}")
+    return flash_attention_plain(q, k, v, causal=causal)

@@ -1,0 +1,113 @@
+"""Serving driver: ``python -m repro_torch.launch.serve --arch <id> ...``
+
+Port of ``repro/launch/serve.py``: a batched prefill of seeded random
+prompts, then a greedy decode loop, on random weights made from the seed.
+It runs on the card (``device="cuda"``, full width and depth) unless the
+caller asks for the CPU, where it takes the plain attention path; without
+CUDA and without ``device="cpu"`` it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.kernels import _build
+from repro_torch.models import build_model, init_params
+
+__all__ = ["main", "serve_loop"]
+
+
+def _resolve_device(device: str | torch.device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("serve_loop: CUDA is not available; pass "
+                           "device='cpu' to run the plain path on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"serve_loop runs on cuda or cpu, not {device}")
+    return device
+
+
+def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
+               gen_tokens: int = 16, seed: int = 0,
+               device: str | torch.device = "cuda",
+               reduced: bool = False) -> dict:
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
+    ``gen_tokens`` tokens greedily (the first from the prefill's logits).
+
+    Returns ``prefill_s``, ``decode_s``, ``decode_tok_per_s`` and ``tokens``
+    (batch, gen_tokens).
+    """
+    device = _resolve_device(device)
+    cfg = get_config(arch, reduced=reduced)
+    max_len = prompt_len + gen_tokens
+    cfg = dataclasses.replace(cfg, q_chunk=max(prompt_len // 2, 16),
+                              kv_chunk=max(prompt_len // 2, 16),
+                              max_cache_len=max_len)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model.param_decls(), gen, device)
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, size=(batch, prompt_len)),
+        dtype=torch.int64, device=device)
+
+    on_card = device.type == "cuda"
+    if on_card:
+        _build.build()               # set-up, outside the timed prefill
+
+    def clock() -> float:
+        if on_card:
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    with torch.inference_mode():
+        cache = model.init_cache(batch, max_len=max_len, device=device)
+        t0 = clock()
+        logits, cache = model.prefill(params, prompts, cache)
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        t_prefill = clock() - t0
+        generated = [tok]
+        t0 = clock()
+        for _ in range(gen_tokens - 1):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            generated.append(tok)
+        t_decode = clock() - t0
+        out_tokens = torch.cat(generated, dim=1).cpu().numpy()
+    return {
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),
+        "tokens": out_tokens,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-tokens", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced (CPU-test) width of the arch")
+    args = ap.parse_args(argv)
+    out = serve_loop(args.arch, batch=args.batch,
+                     prompt_len=args.prompt_len, gen_tokens=args.gen_tokens,
+                     device=args.device,
+                     reduced=args.reduced)
+    print(f"[serve] prefill={out['prefill_s']:.3f}s "
+          f"decode={out['decode_s']:.3f}s "
+          f"({out['decode_tok_per_s']:.1f} tok/s)")
+    print(f"[serve] sample tokens: {out['tokens'][0][:8].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

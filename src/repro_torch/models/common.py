@@ -1,0 +1,67 @@
+"""Shared layer primitives: RMS norm, SiLU and rotary embeddings.
+
+Same conventions as the JAX package's ``models/common.py``: compute in the
+activation dtype, normalise and rotate in fp32. The rest of that module
+(layer norm, gelu, squared ReLU, M-RoPE, cross entropy) comes with the
+slices that use it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["matmul", "rms_norm", "silu", "ACTIVATIONS", "rope_table",
+           "apply_rope"]
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, as ``jnp.einsum`` promotes
+    (bf16 activations against fp32 weights give fp32)."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    # the reference's sigmoid, op for op in x's dtype: 1 / (1 + exp(-x));
+    # torch.sigmoid rounds once and differs from it by a bf16 ulp
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+ACTIVATIONS = {"silu": silu}
+
+
+def rope_table(positions: torch.Tensor, head_dim: int,
+               theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for integer positions.
+
+    positions: (...,) int  ->  cos, sin: (..., head_dim // 2) fp32.
+    """
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (split-half convention).  x: (B, S, H, D);
+    cos/sin: (B, S, D/2) or (S, D/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if cos.dim() == 2:         # (S, D/2) -> broadcast over batch, heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                      # (B, S, D/2) -> broadcast over heads
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)

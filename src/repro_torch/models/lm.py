@@ -1,0 +1,131 @@
+"""Decoder-only LM, ``family="dense"``: port of ``repro/models/lm.py``.
+
+Token embedding, a stack of layers (RMSNorm -> GQA attention with RoPE ->
+residual -> RMSNorm -> SwiGLU MLP -> residual), final RMSNorm, vocab head.
+Parameters are the nested dict the schema declares, with a leading stacked
+layer axis; a Python loop over that axis takes the place of ``lax.scan``.
+
+Entry points, as in the reference:
+
+* ``forward(params, tokens)``           -> (logits (B, S, V), aux);
+* ``prefill(params, tokens, cache)``    -> (last-token logits, cache);
+* ``decode_step(params, token, cache)`` -> (logits (B, 1, V), cache).
+
+The cache is written in place (see ``attention.py``); the returned cache
+holds the same buffers with the advanced length. Other families raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .attention import KVCache, attention, attention_decls, init_cache
+from .common import matmul, rms_norm
+from .config import ModelConfig
+from .ffn import mlp, mlp_decls
+from .param import ArrayDecl, normal_init, ones_init, tree_map
+
+__all__ = ["LM", "Cache"]
+
+_PENDING_FAMILIES = {"moe": "A.8", "ssm": "A.9", "hybrid": "A.10",
+                     "encdec": "A.11", "vlm": "A.7"}
+
+
+class Cache(NamedTuple):
+    """Stacked per-layer serving cache: kv.k / kv.v are
+    (n_layers, B, max_len, kv_heads, head_dim); kv.length is one () int32
+    for the batch (the reference broadcasts it per layer)."""
+    kv: KVCache
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family in _PENDING_FAMILIES:
+            raise NotImplementedError(
+                f"family {cfg.family!r}: ROADMAP item "
+                f"{_PENDING_FAMILIES[cfg.family]}")
+        if cfg.family != "dense":
+            raise ValueError(cfg.family)
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------
+    # parameter schema (same tree paths and shapes as the reference)
+    # ------------------------------------------------------------------
+    def param_decls(self) -> dict:
+        cfg = self.cfg
+        L = cfg.n_layers
+        decls = {
+            "embed": ArrayDecl((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                               init=normal_init(0.02)),
+            "final_norm": ArrayDecl((cfg.d_model,), ("embed",),
+                                    init=ones_init),
+            "layers": {
+                "ln1": ArrayDecl((L, cfg.d_model), ("layers", "embed"),
+                                 init=ones_init),
+                "attn": attention_decls(cfg, layers=L),
+                "ln2": ArrayDecl((L, cfg.d_model), ("layers", "embed"),
+                                 init=ones_init),
+                "mlp": mlp_decls(cfg, layers=L),
+            },
+        }
+        if not cfg.tie_embeddings:
+            decls["head"] = ArrayDecl((cfg.d_model, cfg.vocab),
+                                      ("embed", "vocab"))
+        return decls
+
+    # ------------------------------------------------------------------
+    def _layer(self, lp: dict, x: torch.Tensor, *, cache=None):
+        h, new_kv = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
+                              cache=cache)
+        x = x + h
+        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg)
+        return x, new_kv
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens].to(torch.bfloat16)
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"])
+        head = params["embed"].T if self.cfg.tie_embeddings \
+            else params["head"]
+        return matmul(x, head.to(x.dtype))
+
+    def forward(self, params, tokens: torch.Tensor):
+        """tokens: (B, S) -> logits (B, S, V); also returns the aux loss
+        (0 for the dense family)."""
+        x = self._embed(params, tokens)
+        for i in range(self.cfg.n_layers):
+            lp = tree_map(lambda a: a[i], params["layers"])
+            x, _ = self._layer(lp, x)
+        return self._head(params, x), 0.0
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, *,
+                   device: str | torch.device = "cuda") -> Cache:
+        return Cache(kv=init_cache(self.cfg, batch, max_len,
+                                   layers=self.cfg.n_layers, device=device))
+
+    def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache):
+        x = self._embed(params, tokens)
+        kv = cache.kv
+        new_len = kv.length
+        for i in range(self.cfg.n_layers):
+            lp = tree_map(lambda a: a[i], params["layers"])
+            x, new_kv = self._layer(
+                lp, x, cache=KVCache(kv.k[i], kv.v[i], kv.length))
+            new_len = new_kv.length
+        logits = self._head(params, x[:, -1:])
+        return logits, Cache(kv=KVCache(kv.k, kv.v, new_len))
+
+    def prefill(self, params, tokens: torch.Tensor, cache: Cache):
+        """tokens: (B, S). Returns (last-token logits (B, 1, V), cache)."""
+        return self._apply_cached(params, tokens, cache)
+
+    def decode_step(self, params, token: torch.Tensor, cache: Cache):
+        """token: (B, 1). Returns (logits (B, 1, V), cache)."""
+        return self._apply_cached(params, token, cache)

@@ -1,0 +1,116 @@
+"""Parameter declarations and their materialisation as torch tensors.
+
+A model declares its parameters as a nested dict of :class:`ArrayDecl`
+(shape, dtype, logical axes, initializer), with the same tree paths and
+shapes as the JAX package's ``LM.param_decls()``. From that schema:
+
+* ``init_params``       — seeded random tensors with the JAX package's
+  distributions (fan-in normal, ``normal_init(0.02)``, ones); the values are
+  torch's, not JAX's;
+* ``params_from_numpy`` — carries a parameter tree exported from JAX
+  (``jax.tree.map(np.asarray, params)``) across, path for path and dtype for
+  dtype, so both packages can run on the same weights.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+__all__ = ["ArrayDecl", "init_params", "params_from_numpy", "normal_init",
+           "ones_init", "tree_map", "param_count"]
+
+Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
+                       torch.Tensor]
+
+
+def _fan_in_init(fan_axis: int = -2) -> Initializer:
+    def init(gen, shape, dtype):
+        fan_in = shape[fan_axis] if len(shape) >= 2 else shape[-1]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * scale).to(dtype)
+    return init
+
+
+def ones_init(gen, shape, dtype):
+    return torch.ones(shape, dtype=dtype, device=gen.device)
+
+
+def normal_init(stddev: float = 0.02) -> Initializer:
+    def init(gen, shape, dtype):
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * stddev).to(dtype)
+    return init
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrayDecl:
+    """Declaration of one parameter array."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis names, len == ndim
+    dtype: torch.dtype = torch.bfloat16
+    init: Initializer | None = None       # default: fan-in normal
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(
+                f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+    def initializer(self) -> Initializer:
+        return self.init if self.init is not None else _fan_in_init()
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """Apply ``fn`` to every leaf of a nested dict, keeping its keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        # sorted keys: the order jax.tree.flatten walks a dict in
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def param_count(decls) -> int:
+    return sum(d.size for d in _leaves(decls))
+
+
+def init_params(decls, generator: torch.Generator,
+                device: str | torch.device):
+    """Materialise a tree of ArrayDecl. Draws on ``generator``'s device (a
+    CUDA generator fills a card-sized model in place) and moves the result
+    to ``device``."""
+    def make(d: ArrayDecl) -> torch.Tensor:
+        return d.initializer()(generator, d.shape, d.dtype).to(device)
+    # materialise leaves in sorted-key order so one seed gives one model
+    made = {id(d): make(d) for d in _leaves(decls)}
+    return tree_map(lambda d: made[id(d)], decls)
+
+
+def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a, order="C")      # a writable copy (JAX exports read-only)
+    # JAX exports bf16 as ml_dtypes.bfloat16, which torch cannot read;
+    # the bits go across as uint16 and are reinterpreted, exactly
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, device: str | torch.device):
+    """Nested dict of numpy arrays -> the same tree of torch tensors on
+    ``device``; every path, shape and dtype kept, bf16 bit-exact."""
+    return tree_map(lambda a: _from_numpy(np.asarray(a), device), tree)

@@ -28,6 +28,10 @@ def pytest_configure(config):
         "markers",
         "notracecheck: skip DFLOW_TRACE_CHECK validation (test seeds "
         "deliberate invariant violations)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one. On the card: python -m pytest -m cuda tests/")
 
 
 if os.environ.get("DFLOW_TRACE_CHECK") == "1":

@@ -1,0 +1,163 @@
+"""The port on a CUDA card: each CUDA kernel against its plain version, and
+the model's kernel path against its CPU plain path. Every test is marked
+``cuda`` and skips without a card. This file imports no JAX, so it runs on
+a machine that has none:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Kernel tolerances are tests/test_kernels.py's (2e-5 absolute in fp32 with
+TF32 off, 2e-2 in bf16); the model is held to tests/test_archs.py's bound
+(rel < 0.06 of the largest logit, equal argmax).
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+import repro_torch.kernels.decode_attention.kernel as decode_kernel
+import repro_torch.kernels.flash_attention.kernel as flash_kernel
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.launch.serve import serve_loop
+from repro_torch.models import build_model, init_params
+from repro_torch.models.param import tree_map
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def randn(gen, *shape, dtype):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hk,D", [
+    (1, 32, 2, 2, 16), (2, 64, 4, 2, 32), (1, 100, 8, 2, 64),
+    (8, 512, 32, 4, 64), (1, 64, 12, 2, 128), (2, 8, 6, 1, 32)])
+def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = randn(gen, B, S, H, D, dtype=tdt)
+    k = randn(gen, B, S, Hk, D, dtype=tdt)
+    v = randn(gen, B, S, Hk, D, dtype=tdt)
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=S, block_k=S)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_cuda_reads_strided_views(dtype):
+    """q, k, v as views of one fused (B, S, H + 2 Hk, D) projection: the
+    kernel reads them through their strides, with no copy."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, S, H, Hk, D = 2, 96, 8, 2, 64
+    qkv = randn(gen, B, S, H + 2 * Hk, D, dtype=tdt)
+    q, k, v = qkv.split([H, Hk, Hk], dim=2)
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True, block_q=S, block_k=S)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [1, 63, 300, 544])
+def test_decode_cuda_matches_plain(dtype, length):
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, L, H, Hk, D = 8, 544, 32, 4, 64
+    cache_k = randn(gen, 2, B, L, Hk, D, dtype=tdt)   # a stacked cache
+    cache_v = randn(gen, 2, B, L, Hk, D, dtype=tdt)
+    q = randn(gen, B, 1, H, D, dtype=tdt)
+    n = torch.tensor(length, dtype=torch.int32, device="cuda")
+    before = decode_kernel.launches
+    got = decode_attention(q, cache_k[1], cache_v[1], n, block_k=L)
+    want = decode_attention_plain(q, cache_k[1], cache_v[1], n)
+    torch.cuda.synchronize()
+    assert decode_kernel.launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("B,H,Hk,D,L", [(2, 8, 2, 32, 256),
+                                        (1, 4, 4, 16, 256),
+                                        (3, 6, 1, 64, 256),
+                                        (2, 32, 4, 128, 1000)])
+def test_decode_cuda_other_shapes(B, H, Hk, D, L):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = randn(gen, B, 1, H, D, dtype=torch.bfloat16)
+    k = randn(gen, B, L, Hk, D, dtype=torch.bfloat16)
+    v = randn(gen, B, L, Hk, D, dtype=torch.bfloat16)
+    for length in (1, L // 3, L):
+        n = torch.tensor(length, dtype=torch.int32, device="cuda")
+        got = decode_attention(q, k, v, n, block_k=L)
+        want = decode_attention_plain(q, k, v, n)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_decode_cuda_ignores_stale_tail():
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = randn(gen, 2, 1, 8, 64, dtype=torch.bfloat16)
+    k = randn(gen, 2, 128, 2, 64, dtype=torch.bfloat16)
+    v = randn(gen, 2, 128, 2, 64, dtype=torch.bfloat16)
+    n = torch.tensor(40, dtype=torch.int32, device="cuda")
+    clean = decode_attention(q, k, v, n, block_k=128)
+    k[:, 40:] = 1e4
+    v[:, 40:] = float("nan")
+    dirty = decode_attention(q, k, v, n, block_k=128)
+    assert torch.equal(clean, dirty)
+
+
+def _reduced_model():
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", reduced=True),
+                              q_chunk=16, kv_chunk=16)
+    model = build_model(cfg)
+    params = init_params(model.param_decls(),
+                         torch.Generator().manual_seed(0), "cpu")
+    return model, params
+
+
+def test_lm_cuda_matches_cpu():
+    """prefill(16) + decode(1) of the reduced model: the kernel path on the
+    card against the plain path on the CPU, same weights."""
+    model, params_cpu = _reduced_model()
+    params_gpu = tree_map(lambda a: a.to("cuda"), params_cpu)
+    toks = torch.randint(0, 256, (2, 17),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        cache = model.init_cache(2, model.cfg.max_cache_len, device=dev)
+        _, cache = model.prefill(params, toks[:, :16].to(dev), cache)
+        logits, _ = model.decode_step(params, toks[:, 16:].to(dev), cache)
+        out[dev] = logits[:, 0].float().cpu()
+    ref, got = out["cpu"], out["cuda"]
+    assert float((got - ref).abs().max() / ref.abs().max()) < 0.06
+    assert bool((got.argmax(-1) == ref.argmax(-1)).all())
+
+
+def test_serve_loop_cuda_goes_through_the_kernels():
+    flash_kernel.launches = decode_kernel.launches = 0
+    out = serve_loop("tinyllama-1.1b", batch=2, prompt_len=32, gen_tokens=5,
+                     reduced=True)
+    assert out["tokens"].shape == (2, 5)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 256)).all()
+    n_layers = get_config("tinyllama-1.1b", reduced=True).n_layers
+    assert flash_kernel.launches == n_layers
+    assert decode_kernel.launches == n_layers * 4

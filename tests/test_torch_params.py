@@ -1,0 +1,118 @@
+"""The port's parameter schema, its seeded init, and the bridge that carries
+JAX parameters across (``params_from_numpy``)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.models import init_params as jax_init_params
+from repro_torch.configs import get_config, list_archs
+from repro_torch.models import build_model, init_params, params_from_numpy
+from repro_torch.models.param import param_count
+
+TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_param_schema_matches_jax(reduced):
+    """Same tree paths, shapes and dtypes as LM.param_decls() (the full
+    config too: the schema is shapes only, nothing is allocated)."""
+    jdecls = _paths(jax_build_model(
+        jax_get_config("tinyllama-1.1b", reduced=reduced)).param_decls())
+    tdecls = _paths(build_model(
+        get_config("tinyllama-1.1b", reduced=reduced)).param_decls())
+    assert set(jdecls) == set(tdecls)
+    for path, jd in jdecls.items():
+        td = tdecls[path]
+        assert tuple(jd.shape) == td.shape, path
+        assert tuple(jd.axes) == td.axes, path
+        assert TORCH_DTYPE[jnp.dtype(jd.dtype).name] == td.dtype, path
+    if not reduced:
+        # tinyllama-1.1b: ~1.1 B parameters
+        assert 1.0e9 < param_count(build_model(
+            get_config("tinyllama-1.1b")).param_decls()) < 1.2e9
+
+
+def test_params_from_numpy_keeps_paths_shapes_dtypes_bits():
+    cfg = jax_get_config("tinyllama-1.1b", reduced=True)
+    params = jax_init_params(jax_build_model(cfg).param_decls(),
+                             jax.random.key(0))
+    # an fp32 leaf beside the bf16 ones: the bridge keeps each leaf's dtype
+    params["extra_fp32"] = jnp.arange(6, dtype=jnp.float32).reshape(2, 3)
+    exported = jax.tree.map(np.asarray, params)
+    got = _paths(params_from_numpy(exported, "cpu"))
+    want = _paths(exported)
+    assert set(got) == set(want)
+    for path, a in want.items():
+        t = got[path]
+        assert tuple(t.shape) == a.shape, path
+        assert t.dtype == TORCH_DTYPE[a.dtype.name], path
+        if a.dtype.name == "bfloat16":     # bit-exact through uint16
+            assert np.array_equal(t.view(torch.int16).numpy(),
+                                  a.view(np.int16)), path
+        else:
+            assert np.array_equal(t.numpy(), a), path
+
+
+def test_init_params_shapes_dtypes_and_distributions():
+    cfg = get_config("tinyllama-1.1b", reduced=True)
+    decls = _paths(build_model(cfg).param_decls())
+    params = _paths(init_params(build_model(cfg).param_decls(),
+                                torch.Generator().manual_seed(0), "cpu"))
+    assert set(params) == set(decls)
+    for path, d in decls.items():
+        assert tuple(params[path].shape) == d.shape, path
+        assert params[path].dtype == d.dtype, path
+    for norm in (("final_norm",), ("layers", "ln1"), ("layers", "ln2")):
+        assert bool((params[norm] == 1).all())
+    # normal_init(0.02) for the embedding; fan-in normal (1/sqrt(fan_in))
+    # elsewhere; sample stds within 10% at these sizes (>= 16k draws)
+    assert abs(params[("embed",)].float().std().item() - 0.02) < 0.002
+    wq = params[("layers", "attn", "wq")].float()     # (L, M, H, D): fan-in H
+    assert abs(wq.std().item() - 1 / np.sqrt(wq.shape[-2])) < 0.1 / np.sqrt(
+        wq.shape[-2])
+    w_up = params[("layers", "mlp", "w_up")].float()  # (L, M, F): fan-in M
+    assert abs(w_up.std().item() - 1 / np.sqrt(64)) < 0.1 / np.sqrt(64)
+
+
+def test_init_params_is_seeded():
+    decls = build_model(get_config("tinyllama-1.1b",
+                                   reduced=True)).param_decls()
+    a = _paths(init_params(decls, torch.Generator().manual_seed(3), "cpu"))
+    b = _paths(init_params(decls, torch.Generator().manual_seed(3), "cpu"))
+    c = _paths(init_params(decls, torch.Generator().manual_seed(4), "cpu"))
+    assert all(torch.equal(a[p], b[p]) for p in a)
+    assert not torch.equal(a[("embed",)], c[("embed",)])
+
+
+def test_configs_registry():
+    assert list_archs() == ["tinyllama-1.1b"]
+    cfg = get_config("tinyllama-1.1b")
+    ref = jax_get_config("tinyllama-1.1b")
+    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                  "vocab", "head_dim", "rope_theta", "activation", "glu"):
+        assert getattr(cfg, field) == getattr(ref, field), field
+    red, red_ref = get_config("tinyllama-1.1b", reduced=True), \
+        jax_get_config("tinyllama-1.1b", reduced=True)
+    assert (red.n_layers, red.d_model, red.n_heads, red.n_kv_heads,
+            red.head_dim, red.vocab, red.q_chunk) == \
+        (red_ref.n_layers, red_ref.d_model, red_ref.n_heads,
+         red_ref.n_kv_heads, red_ref.head_dim, red_ref.vocab,
+         red_ref.q_chunk)
+    with pytest.raises(KeyError, match="ROADMAP item A.8"):
+        get_config("qwen3-moe-235b-a22b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
