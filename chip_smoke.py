@@ -6,22 +6,29 @@
 Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` into
-   ``build/repro_torch/`` (one process per source, in parallel);
+2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` (flash_attention,
+   decode_attention, ssd) for ``sm_90a`` into ``build/repro_torch/`` (one
+   process per source, in parallel);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the serving path's shapes (bf16 2e-2, fp32 2e-5 absolute, the JAX
-   package's kernel tolerances; TF32 off), with CUDA-event times of the
-   kernel, the plain version and one PyTorch library call as a yardstick,
-   and the least time the card could take (``bound_ms``);
-4. main path: ``serve_loop("tinyllama-1.1b", batch=8, prompt_len=512,
-   gen_tokens=32)`` at full width and depth on seeded random weights, once
-   to warm up (the first call of each shape pays one-time library and
-   module-loading costs) and once counted: the kernels' launch counts must
-   show every layer of the counted run went through them;
-5. profile: ``torch.profiler`` over a few decode steps of the same model,
-   for the device's busy share and the kernels that take its time;
-6. model check: a depth-2, full-width tinyllama on the card against the
-   same model on the CPU's plain path (relative error < 0.06, equal argmax).
+   at the serving paths' shapes (bf16 2e-2, fp32 2e-5 absolute, the JAX
+   package's kernel tolerances, 5x those relative for ssd's output and 1e-4
+   relative for its final state; TF32 off), with CUDA-event times of the
+   kernel, the plain version and, where one exists, one PyTorch library
+   call as a yardstick, and the least time the card could take
+   (``bound_ms``);
+4. main paths, each at full width and depth on seeded random weights, batch
+   8, 512-token prompts, 32 new tokens: ``serve_loop("tinyllama-1.1b")``
+   (flash and decode attention) and ``serve_loop("mamba2-370m")`` (ssd at
+   prefill; decode is the plain recurrence), each once to warm up (the
+   first call of each shape pays one-time library and module-loading
+   costs) and once counted, its kernels' launch counts set to 0 just before
+   and read just after: they must show every layer of the counted run went
+   through them;
+5. profile: ``torch.profiler`` over a few decode steps of each model, for
+   the device's busy share and the kernels that take its time;
+6. model check: a depth-2, full-width model of each arch on the card
+   against the same model on the CPU's plain path (relative error < 0.06,
+   equal argmax).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -210,15 +217,90 @@ def check_decode(torch, timer, gen) -> dict:
     return rec
 
 
-def profile_decode(torch, steps: int = 4) -> None:
+def check_ssd(torch, timer, gen) -> dict:
+    """The SSD kernel against its plain version: y (relative to its largest
+    magnitude, 5x the bf16/fp32 tolerance, as tests/test_kernels.py holds
+    the Pallas kernel) and the final state (relative, 1e-4, the bound
+    tests/test_models.py holds chunk lengths 4-32 to)."""
+    from repro_torch.kernels.ssd import kernel as ssd_k
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+    H, P, N = 32, 64, 128
+    F = torch.nn.functional
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def rel(got, want) -> float:
+        return max_err(got, want) / (float(want.float().abs().max()) + 1e-30)
+
+    rec, worst = None, 0.0
+    # (label, batch, S, heads, x/B/C dtype, dt dtype, plain chunk, state0,
+    #  timed): the serving shape as the model passes it (chunk 256), with
+    # the zero state of a first prefill and a random one; all fp32; a
+    # ragged S (not a multiple of the kernel's 64); a long S
+    for label, B, S, Hc, dtype, dt_dtype, chunk, with_state, timed in (
+            ("serving", 8, 512, H, torch.bfloat16, torch.float32, 256,
+             False, False),
+            ("serving", 8, 512, H, torch.bfloat16, torch.float32, 256,
+             True, True),
+            ("fp32", 2, 512, H, torch.float32, torch.float32, 128, True,
+             False),
+            ("ragged", 2, 200, 8, torch.bfloat16, torch.float32, 40, True,
+             False),
+            ("long", 1, 8192, 4, torch.float32, torch.float32, 256, True,
+             False)):
+        x = randn(B, S, Hc, P, dtype=dtype)
+        dt = F.softplus(randn(B, S, Hc)).to(dt_dtype)
+        A = -torch.exp(randn(Hc))
+        Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
+        state0 = randn(B, Hc, P, N) if with_state else None
+        y, st = ssd_cuda(x, dt, A, Bm, Cm, state0=state0)
+        y_ref, st_ref = ssd_plain(x, dt, A, Bm, Cm, chunk=chunk,
+                                  state0=state0)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[1]
+        err_y, err_s = rel(y, y_ref), rel(st, st_ref)
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        log(f"[kernels] ssd {label} x={name} dt={str(dt_dtype)[6:]} B={B} "
+            f"S={S} H={Hc} P={P} N={N} state0={'random' if with_state else 'zero'}"
+            f": y rel={err_y:.3e} (tol {5 * TOL[name]:g}), state "
+            f"rel={err_s:.3e} (tol 1e-4), finite={finite}")
+        if not (err_y < 5 * TOL[name] and err_s < 1e-4 and finite):
+            raise AssertionError(f"ssd {label}: y rel {err_y}, state rel "
+                                 f"{err_s}, finite {finite}")
+        worst = max(worst, max_err(y, y_ref))
+        if timed:
+            launches = ssd_k.launches
+            ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, state0=state0))
+            plain_ms = timer.ms(lambda: ssd_plain(
+                x, dt, A, Bm, Cm, chunk=chunk, state0=state0), iters=10)
+            ssd_k.launches = launches     # timing launches are not the path's
+            # the work of the kernel's chunks (Q = 64), lower triangle of
+            # each chunk's Q x Q products only
+            Q = 64
+            tri = Q * (Q + 1) // 2
+            flops = B * Hc * (S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
+            nbytes = (2 * 2 * x.numel() + 4 * dt.numel() + 4 * A.numel()
+                      + 2 * (Bm.numel() + Cm.numel()) + 2 * 4 * st.numel())
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            log(f"[kernels] ssd serving bf16: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, no library call computes SSD, bound "
+                f"{b_ms:.4f} ms by {b_by})")
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def profile_decode(torch, arch: str, steps: int = 4) -> None:
     """Wall time and device kernel time of decode steps at the serving
-    shape (batch 8, 512-token prompts, 22 layers)."""
+    shape (batch 8, 512-token prompts, full depth)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), q_chunk=256,
-                              kv_chunk=256, max_cache_len=544)
+    cfg = dataclasses.replace(get_config(arch), q_chunk=256, kv_chunk=256,
+                              max_cache_len=544)
     model = build_model(cfg)
     params = init_params(model.param_decls(),
                          torch.Generator(device="cuda").manual_seed(0),
@@ -248,10 +330,10 @@ def profile_decode(torch, steps: int = 4) -> None:
                 e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e6
     if not by_name:
-        log("[profile] decode: no device events traced; busy share not "
-            "measured")
+        log(f"[profile] {arch} decode: no device events traced; busy share "
+            "not measured")
         return
-    log(f"[profile] decode at batch 8, cache lengths 515-518, {steps} steps "
+    log(f"[profile] {arch} decode at batch 8, after 514 tokens, {steps} steps "
         f"under the profiler: {wall / steps * 1e3:.3f} ms/step wall, "
         f"{busy / steps * 1e3:.3f} ms/step of device kernels in "
         f"{n_kernels / steps:.0f} launches/step, busy share "
@@ -260,12 +342,12 @@ def profile_decode(torch, steps: int = 4) -> None:
         log(f"[profile]   {us / steps / 1e3:.4f} ms/step  {name[:90]}")
 
 
-def model_check(torch) -> None:
-    """Depth-2, full-width tinyllama: CUDA (kernels) vs CPU (plain path)."""
+def model_check(torch, arch: str) -> None:
+    """Depth-2, full-width model: CUDA (kernels) vs CPU (plain path)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
     from repro_torch.models.param import tree_map
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               q_chunk=32, kv_chunk=32, max_cache_len=72)
     model = build_model(cfg)
     params_cpu = init_params(model.param_decls(),
@@ -283,7 +365,7 @@ def model_check(torch) -> None:
     ref, got = out["cpu"], out["cuda"]
     rel = float((got - ref).abs().max() / (ref.abs().max() + 1e-9))
     same = bool((got.argmax(-1) == ref.argmax(-1)).all())
-    log(f"[model] depth-2 tinyllama prefill(64)+decode(1), cuda vs cpu: "
+    log(f"[model] depth-2 {arch} prefill(64)+decode(1), cuda vs cpu: "
         f"rel={rel:.4f} (< 0.06) argmax_equal={same}")
     if not (rel < 0.06 and same):
         raise AssertionError("model check: CUDA and CPU logits disagree")
@@ -297,6 +379,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as decode_k
     from repro_torch.kernels.flash_attention import kernel as flash_k
+    from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.launch.serve import serve_loop
 
     log(f"[card] {card_line()}")
@@ -318,32 +401,49 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(torch, timer, gen)
     decode = check_decode(torch, timer, gen)
+    ssd = check_ssd(torch, timer, gen)
 
-    serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
-                 device="cuda")
-    out = serve_loop("tinyllama-1.1b", **serve)
-    log(f"[serve] first call (cold): prefill {out['prefill_s']:.4f} s, "
-        f"decode {out['decode_s']:.4f} s, {out['decode_tok_per_s']:.1f} "
-        "tok/s")
-    torch.cuda.reset_peak_memory_stats()
-    flash_k.launches = 0
-    decode_k.launches = 0
-    out = serve_loop("tinyllama-1.1b", **serve)
-    n_flash, n_decode = flash_k.launches, decode_k.launches
-    tokens = out["tokens"]
-    log(f"[serve] tinyllama-1.1b batch=8 prompt=512 gen=32 (22 layers): "
-        f"prefill {out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
-        f"{out['decode_tok_per_s']:.1f} tok/s; launches flash={n_flash} "
-        f"decode={n_decode}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if n_flash != 22 or n_decode != 22 * 31:
-        raise AssertionError(f"launches flash={n_flash} (want 22), "
-                             f"decode={n_decode} (want {22 * 31})")
-    if tokens.shape != (8, 32) or tokens.min() < 0 or tokens.max() >= 32000:
-        raise AssertionError(f"tokens {tokens.shape} out of [0, 32000)")
+    counters = {"flash_attention": flash_k, "decode_attention": decode_k,
+                "ssd": ssd_k}
 
-    profile_decode(torch)
-    model_check(torch)
+    def serve_counted(arch: str, layers: int, vocab: int) -> dict:
+        serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
+                     device="cuda")
+        out = serve_loop(arch, **serve)
+        log(f"[serve] {arch} first call (cold): prefill "
+            f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
+            f"{out['decode_tok_per_s']:.1f} tok/s")
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        out = serve_loop(arch, **serve)
+        counts = {name: k.launches for name, k in counters.items()}
+        tokens = out["tokens"]
+        log(f"[serve] {arch} batch=8 prompt=512 gen=32 ({layers} layers): "
+            f"prefill {out['prefill_s']:.4f} s, decode "
+            f"{out['decode_s']:.4f} s, {out['decode_tok_per_s']:.1f} tok/s; "
+            f"launches {counts}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if tokens.shape != (8, 32) or tokens.min() < 0 \
+                or tokens.max() >= vocab:
+            raise AssertionError(f"{arch}: tokens {tokens.shape} out of "
+                                 f"[0, {vocab})")
+        return counts
+
+    dense = serve_counted("tinyllama-1.1b", 22, 32000)
+    if dense["flash_attention"] != 22 or dense["decode_attention"] != 22 * 31:
+        raise AssertionError(f"tinyllama launches {dense}: want flash 22, "
+                             f"decode {22 * 31}")
+    ssm = serve_counted("mamba2-370m", 48, 50280)
+    if ssm["ssd"] != 48:
+        raise AssertionError(f"mamba2 launches {ssm}: want ssd 48")
+    n_flash, n_decode, n_ssd = (dense["flash_attention"],
+                                dense["decode_attention"], ssm["ssd"])
+
+    for arch in ("tinyllama-1.1b", "mamba2-370m"):
+        profile_decode(torch, arch)
+    for arch in ("tinyllama-1.1b", "mamba2-370m"):
+        model_check(torch, arch)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -354,6 +454,9 @@ def main() -> int:
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:73",
              launches=n_decode, **decode),
+        dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+             replaces="src/repro/kernels/ssd/kernel.py:75",
+             launches=n_ssd, **ssd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ __all__ = ["ARCHS", "get_config", "list_archs"]
 # arch id (CLI form) -> module name
 ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 # archs of the JAX package not ported yet -> the ROADMAP item that brings them
@@ -26,7 +27,6 @@ PENDING = {
     "kimi-k2-1t-a32b": "A.8 (MoE)",
     "qwen3-moe-235b-a22b": "A.8 (MoE)",
     "qwen2-vl-72b": "A.7 (VLM, M-RoPE)",
-    "mamba2-370m": "A.9 (SSM) with B.3 (ssd kernel)",
     "jamba-1.5-large-398b": "A.10 (hybrid)",
     "seamless-m4t-large-v2": "A.11 (encoder-decoder)",
 }

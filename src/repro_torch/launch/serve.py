@@ -3,8 +3,9 @@
 Port of ``repro/launch/serve.py``: a batched prefill of seeded random
 prompts, then a greedy decode loop, on random weights made from the seed.
 It runs on the card (``device="cuda"``, full width and depth) unless the
-caller asks for the CPU, where it takes the plain attention path; without
-CUDA and without ``device="cpu"`` it raises.
+caller asks for the CPU, where it takes the kernels' plain versions; without
+CUDA and without ``device="cpu"`` it raises. The archs are those of
+``repro_torch.configs`` (tinyllama-1.1b, mamba2-370m).
 """
 
 from __future__ import annotations

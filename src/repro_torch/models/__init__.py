@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder LM and its layers."""
+"""Model zoo of the port: the decoder LM (dense and ssm families) and its
+layers."""
 
 from .config import ModelConfig
 from .lm import LM, Cache
@@ -9,5 +10,5 @@ __all__ = ["ModelConfig", "LM", "Cache", "ArrayDecl", "init_params",
 
 
 def build_model(cfg: ModelConfig) -> LM:
-    """Family-dispatching factory (the port builds ``dense`` today)."""
+    """Family-dispatching factory (the port builds ``dense`` and ``ssm``)."""
     return LM(cfg)

@@ -1,4 +1,4 @@
-"""Shared layer primitives: RMS norm, SiLU and rotary embeddings.
+"""Shared layer primitives: RMS norm, SiLU, softplus and rotary embeddings.
 
 Same conventions as the JAX package's ``models/common.py``: compute in the
 activation dtype, normalise and rotate in fp32. The rest of that module
@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul", "rms_norm", "silu", "ACTIVATIONS", "rope_table",
-           "apply_rope"]
+__all__ = ["matmul", "rms_norm", "silu", "softplus", "ACTIVATIONS",
+           "rope_table", "apply_rope"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -33,6 +33,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     # the reference's sigmoid, op for op in x's dtype: 1 / (1 + exp(-x));
     # torch.sigmoid rounds once and differs from it by a bf16 ulp
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    # as the reference computes it, logaddexp(x, 0); F.softplus switches to
+    # x itself above its threshold (20) and rounds differently there
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 ACTIVATIONS = {"silu": silu}

@@ -1,7 +1,11 @@
-"""Decoder-only LM, ``family="dense"``: port of ``repro/models/lm.py``.
+"""Decoder-only LM, families ``dense`` and ``ssm``: port of
+``repro/models/lm.py``.
 
-Token embedding, a stack of layers (RMSNorm -> GQA attention with RoPE ->
-residual -> RMSNorm -> SwiGLU MLP -> residual), final RMSNorm, vocab head.
+* ``dense`` (tinyllama): token embedding, a stack of layers (RMSNorm -> GQA
+  attention with RoPE -> residual -> RMSNorm -> SwiGLU MLP -> residual),
+  final RMSNorm, vocab head.
+* ``ssm`` (mamba2): the same frame with layers ``x + mamba(RMSNorm(x))``.
+
 Parameters are the nested dict the schema declares, with a leading stacked
 layer axis; a Python loop over that axis takes the place of ``lax.scan``.
 
@@ -11,9 +15,10 @@ Entry points, as in the reference:
 * ``prefill(params, tokens, cache)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache)`` -> (logits (B, 1, V), cache).
 
-The cache is written in place (see ``attention.py``); the returned cache
-holds the same buffers with the advanced length. Other families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The cache is written in place (see ``attention.py`` and ``ssm.py``); the
+returned cache holds the same buffers (with the advanced length for KV).
+Other families raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -27,18 +32,23 @@ from .common import matmul, rms_norm
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .param import ArrayDecl, normal_init, ones_init, tree_map
+from .ssm import SSMCache, init_ssm_cache, mamba_block, ssm_decls
 
 __all__ = ["LM", "Cache"]
 
-_PENDING_FAMILIES = {"moe": "A.8", "ssm": "A.9", "hybrid": "A.10",
-                     "encdec": "A.11", "vlm": "A.7"}
+_PENDING_FAMILIES = {"moe": "A.8", "hybrid": "A.10", "encdec": "A.11",
+                     "vlm": "A.7"}
 
 
 class Cache(NamedTuple):
-    """Stacked per-layer serving cache: kv.k / kv.v are
-    (n_layers, B, max_len, kv_heads, head_dim); kv.length is one () int32
-    for the batch (the reference broadcasts it per layer)."""
-    kv: KVCache
+    """Stacked per-layer serving cache; each family fills its member.
+
+    kv (family dense): kv.k / kv.v are (n_layers, B, max_len, kv_heads,
+    head_dim); kv.length is one () int32 for the batch (the reference
+    broadcasts it per layer). ssm (family ssm): every member of the
+    SSMCache has a leading n_layers axis."""
+    kv: KVCache | None = None
+    ssm: SSMCache | None = None
 
 
 class LM:
@@ -47,7 +57,7 @@ class LM:
             raise NotImplementedError(
                 f"family {cfg.family!r}: ROADMAP item "
                 f"{_PENDING_FAMILIES[cfg.family]}")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise ValueError(cfg.family)
         self.cfg = cfg
 
@@ -57,19 +67,23 @@ class LM:
     def param_decls(self) -> dict:
         cfg = self.cfg
         L = cfg.n_layers
+        ln1 = ArrayDecl((L, cfg.d_model), ("layers", "embed"), init=ones_init)
+        if cfg.family == "ssm":
+            layers = {"ln1": ln1, "mamba": ssm_decls(cfg, layers=L)}
+        else:
+            layers = {
+                "ln1": ln1,
+                "attn": attention_decls(cfg, layers=L),
+                "ln2": ArrayDecl((L, cfg.d_model), ("layers", "embed"),
+                                 init=ones_init),
+                "mlp": mlp_decls(cfg, layers=L),
+            }
         decls = {
             "embed": ArrayDecl((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                                init=normal_init(0.02)),
             "final_norm": ArrayDecl((cfg.d_model,), ("embed",),
                                     init=ones_init),
-            "layers": {
-                "ln1": ArrayDecl((L, cfg.d_model), ("layers", "embed"),
-                                 init=ones_init),
-                "attn": attention_decls(cfg, layers=L),
-                "ln2": ArrayDecl((L, cfg.d_model), ("layers", "embed"),
-                                 init=ones_init),
-                "mlp": mlp_decls(cfg, layers=L),
-            },
+            "layers": layers,
         }
         if not cfg.tie_embeddings:
             decls["head"] = ArrayDecl((cfg.d_model, cfg.vocab),
@@ -84,6 +98,11 @@ class LM:
         x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg)
         return x, new_kv
 
+    def _ssm_layer(self, lp: dict, x: torch.Tensor, *, cache=None):
+        h, new_ssm = mamba_block(lp["mamba"], rms_norm(x, lp["ln1"]),
+                                 self.cfg, cache=cache)
+        return x + h, new_ssm
+
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(torch.bfloat16)
 
@@ -95,11 +114,12 @@ class LM:
 
     def forward(self, params, tokens: torch.Tensor):
         """tokens: (B, S) -> logits (B, S, V); also returns the aux loss
-        (0 for the dense family)."""
+        (0 for both families)."""
         x = self._embed(params, tokens)
+        layer = self._ssm_layer if self.cfg.family == "ssm" else self._layer
         for i in range(self.cfg.n_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
-            x, _ = self._layer(lp, x)
+            x, _ = layer(lp, x)
         return self._head(params, x), 0.0
 
     # ------------------------------------------------------------------
@@ -107,11 +127,23 @@ class LM:
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
                    device: str | torch.device = "cuda") -> Cache:
-        return Cache(kv=init_cache(self.cfg, batch, max_len,
-                                   layers=self.cfg.n_layers, device=device))
+        """Zero cache. An SSM cache has no length, so ``max_len`` is unused
+        there (kept for one signature across families)."""
+        L = self.cfg.n_layers
+        if self.cfg.family == "ssm":
+            return Cache(ssm=init_ssm_cache(self.cfg, batch, layers=L,
+                                            device=device))
+        return Cache(kv=init_cache(self.cfg, batch, max_len, layers=L,
+                                   device=device))
 
     def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache):
         x = self._embed(params, tokens)
+        if self.cfg.family == "ssm":
+            for i in range(self.cfg.n_layers):
+                lp = tree_map(lambda a: a[i], params["layers"])
+                x, _ = self._ssm_layer(
+                    lp, x, cache=SSMCache(*(a[i] for a in cache.ssm)))
+            return self._head(params, x[:, -1:]), cache
         kv = cache.kv
         new_len = kv.length
         for i in range(self.cfg.n_layers):

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["ArrayDecl", "init_params", "params_from_numpy", "normal_init",
-           "ones_init", "tree_map", "param_count"]
+           "ones_init", "zeros_init", "tree_map", "param_count"]
 
 Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
                        torch.Tensor]
@@ -35,6 +35,10 @@ def _fan_in_init(fan_axis: int = -2) -> Initializer:
         return (torch.randn(shape, generator=gen, device=gen.device)
                 * scale).to(dtype)
     return init
+
+
+def zeros_init(gen, shape, dtype):
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
 
 
 def ones_init(gen, shape, dtype):

@@ -1,5 +1,6 @@
-"""The port's dense LM and serving loop against the JAX package's, on the
-reduced tinyllama with the JAX weights carried across.
+"""The port's LM and serving loop against the JAX package's, for each family
+the port runs (reduced tinyllama-1.1b, dense; reduced mamba2-370m, ssm), with
+the JAX weights carried across.
 
 Two references, and why:
 
@@ -36,6 +37,7 @@ from repro_torch.models import LM, build_model, params_from_numpy
 
 TIGHT = 2.0 ** -6
 ARCH = "tinyllama-1.1b"
+ARCHS = ["tinyllama-1.1b", "mamba2-370m"]
 
 
 def f32(a) -> np.ndarray:
@@ -53,12 +55,12 @@ def same_argmax(ref, got) -> bool:
     return bool((f32(ref).argmax(-1) == f32(got).argmax(-1)).all())
 
 
-def models(seed):
-    jcfg = jax_get_config(ARCH, reduced=True)
+def models(seed, arch=ARCH):
+    jcfg = jax_get_config(arch, reduced=True)
     jmodel = jax_build_model(jcfg)
     params_j = jax_init_params(jmodel.param_decls(), jax.random.key(seed))
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), "cpu")
-    return jmodel, params_j, build_model(get_config(ARCH, reduced=True)), \
+    return jmodel, params_j, build_model(get_config(arch, reduced=True)), \
         params_t
 
 
@@ -81,13 +83,17 @@ def port_serving(model, params, toks, S):
     pre, cache = model.prefill(params, torch.as_tensor(toks[:, :S]), cache)
     dec, cache = model.decode_step(params, torch.as_tensor(toks[:, S:S + 1]),
                                    cache)
-    assert int(cache.kv.length) == S + 1
+    if model.cfg.family == "ssm":
+        assert cache.kv is None and cache.ssm is not None
+    else:
+        assert int(cache.kv.length) == S + 1 and cache.ssm is None
     return pre, dec
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("seed", [0, 1])
-def test_forward_matches_jax(seed):
-    jmodel, params_j, model, params_t = models(seed)
+def test_forward_matches_jax(seed, arch):
+    jmodel, params_j, model, params_t = models(seed, arch)
     toks = np.random.default_rng(seed).integers(0, 256, size=(2, 17))
     got, aux = model.forward(params_t, torch.as_tensor(toks))
     assert got.shape == (2, 17, 256) and got.dtype == torch.bfloat16
@@ -99,9 +105,10 @@ def test_forward_matches_jax(seed):
     assert rel_err(jitted, got) <= rel_err(jitted, eager) + TIGHT
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("seed", [0, 1])
-def test_prefill_decode_match_jax(seed):
-    jmodel, params_j, model, params_t = models(seed)
+def test_prefill_decode_match_jax(seed, arch):
+    jmodel, params_j, model, params_t = models(seed, arch)
     toks = np.random.default_rng(seed).integers(0, 256, size=(2, 17))
     pre, dec = port_serving(model, params_t, toks, 16)
     assert pre.shape == dec.shape == (2, 1, 256)
@@ -112,7 +119,8 @@ def test_prefill_decode_match_jax(seed):
         assert rel_err(ref_j, got) <= rel_err(ref_j, ref_e) + TIGHT
 
 
-def test_prefill_decode_match_forward():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_match_forward(arch):
     """prefill(S) + decode(1) ≍ forward(S + 1), in the port alone, on the
     weights and tokens tests/test_archs.py holds the JAX package to. The
     bound is a property of these draws, not of the algorithm: bf16 rounding
@@ -120,7 +128,7 @@ def test_prefill_decode_match_forward():
     two paths (softmax of the full row vs online softmax) can part by
     more, in JAX as in the port."""
     S = 16
-    _, _, model, params_t = models(0)
+    _, _, model, params_t = models(0, arch)
     ks = jax.random.split(jax.random.key(2), 4)
     toks = np.array(jax.random.randint(ks[1], (2, S + 1), 0, 256))
     _, dec = port_serving(model, params_t, toks, S)
@@ -129,14 +137,15 @@ def test_prefill_decode_match_forward():
     assert rel_err(ref, got) < 0.06 and same_argmax(ref, got)
 
 
-def test_serve_loop_matches_jax(monkeypatch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_loop_matches_jax(monkeypatch, arch):
     """serve_loop on the CPU, run on the JAX weights (substituted for its
     seeded init) with a model that records each step's logits: every step
     matches JAX's greedy loop (op by op) within the model-level bound and
     picks the same token, so each step runs on the prefix JAX's greedy
     tokens give."""
     batch, prompt_len, gen = 2, 32, 6
-    jmodel, params_j, _, params_t = models(0)
+    jmodel, params_j, _, params_t = models(0, arch)
     steps = []
 
     class Recording(LM):
@@ -147,7 +156,7 @@ def test_serve_loop_matches_jax(monkeypatch):
 
     monkeypatch.setattr(serve, "build_model", Recording)
     monkeypatch.setattr(serve, "init_params", lambda *a, **k: params_t)
-    out = serve.serve_loop(ARCH, batch=batch, prompt_len=prompt_len,
+    out = serve.serve_loop(arch, batch=batch, prompt_len=prompt_len,
                            gen_tokens=gen, seed=0, device="cpu",
                            reduced=True)
     assert out["tokens"].shape == (batch, gen) and len(steps) == gen
@@ -172,17 +181,17 @@ def test_serve_loop_matches_jax(monkeypatch):
                     params_j, jnp.asarray(tok[:, None], jnp.int32), cache)
 
 
-def test_serve_loop_without_cuda_raises(monkeypatch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_loop_without_cuda_raises(monkeypatch, arch):
     """The default device is the card: with no CUDA it raises instead of
     running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve.serve_loop(ARCH, batch=1, prompt_len=16, gen_tokens=2,
+        serve.serve_loop(arch, batch=1, prompt_len=16, gen_tokens=2,
                          reduced=True)
 
 
-@pytest.mark.parametrize("family,item", [("moe", "A.8"), ("ssm", "A.9"),
-                                         ("hybrid", "A.10"),
+@pytest.mark.parametrize("family,item", [("moe", "A.8"), ("hybrid", "A.10"),
                                          ("encdec", "A.11"), ("vlm", "A.7")])
 def test_unported_families_raise(family, item):
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), family=family,

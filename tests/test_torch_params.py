@@ -1,6 +1,8 @@
 """The port's parameter schema, its seeded init, and the bridge that carries
 JAX parameters across (``params_from_numpy``)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,11 @@ from repro_torch.models import build_model, init_params, params_from_numpy
 from repro_torch.models.param import param_count
 
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ARCHS = ["tinyllama-1.1b", "mamba2-370m"]
+# parameter counts of the full configs (analysis/flops.py's figures):
+# tinyllama ~1.1 B; mamba2-370m ~367 M
+FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
+               "mamba2-370m": (3.4e8, 3.9e8)}
 
 
 def _paths(tree, prefix=()):
@@ -26,14 +33,15 @@ def _paths(tree, prefix=()):
     return {prefix: tree}
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("reduced", [True, False])
-def test_param_schema_matches_jax(reduced):
+def test_param_schema_matches_jax(reduced, arch):
     """Same tree paths, shapes and dtypes as LM.param_decls() (the full
     config too: the schema is shapes only, nothing is allocated)."""
     jdecls = _paths(jax_build_model(
-        jax_get_config("tinyllama-1.1b", reduced=reduced)).param_decls())
+        jax_get_config(arch, reduced=reduced)).param_decls())
     tdecls = _paths(build_model(
-        get_config("tinyllama-1.1b", reduced=reduced)).param_decls())
+        get_config(arch, reduced=reduced)).param_decls())
     assert set(jdecls) == set(tdecls)
     for path, jd in jdecls.items():
         td = tdecls[path]
@@ -41,13 +49,14 @@ def test_param_schema_matches_jax(reduced):
         assert tuple(jd.axes) == td.axes, path
         assert TORCH_DTYPE[jnp.dtype(jd.dtype).name] == td.dtype, path
     if not reduced:
-        # tinyllama-1.1b: ~1.1 B parameters
-        assert 1.0e9 < param_count(build_model(
-            get_config("tinyllama-1.1b")).param_decls()) < 1.2e9
+        lo, hi = FULL_PARAMS[arch]
+        assert lo < param_count(build_model(
+            get_config(arch)).param_decls()) < hi
 
 
-def test_params_from_numpy_keeps_paths_shapes_dtypes_bits():
-    cfg = jax_get_config("tinyllama-1.1b", reduced=True)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_numpy_keeps_paths_shapes_dtypes_bits(arch):
+    cfg = jax_get_config(arch, reduced=True)
     params = jax_init_params(jax_build_model(cfg).param_decls(),
                              jax.random.key(0))
     # an fp32 leaf beside the bf16 ones: the bridge keeps each leaf's dtype
@@ -99,7 +108,7 @@ def test_init_params_is_seeded():
 
 
 def test_configs_registry():
-    assert list_archs() == ["tinyllama-1.1b"]
+    assert list_archs() == ["tinyllama-1.1b", "mamba2-370m"]
     cfg = get_config("tinyllama-1.1b")
     ref = jax_get_config("tinyllama-1.1b")
     for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
@@ -116,3 +125,39 @@ def test_configs_registry():
         get_config("qwen3-moe-235b-a22b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_mamba2_config_matches_jax_field_by_field(reduced):
+    cfg = get_config("mamba2-370m", reduced=reduced)
+    ref = jax_get_config("mamba2-370m", reduced=reduced)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert (cfg.ssm_heads, cfg.d_inner) == (ref.ssm_heads, ref.d_inner)
+    if not reduced:       # H = 32 heads of P = 64, N = 128, conv K = 4
+        assert (cfg.n_layers, cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_state, cfg.ssm_conv, cfg.vocab) == \
+            (48, 1024, 32, 64, 128, 4, 50280)
+
+
+def test_mamba2_init_params_distributions():
+    """The SSM initializers: softplus(dt_bias) lies in [1e-3, 1e-1],
+    A_log = log(1..H) on every layer, D = 1, all three fp32; the conv
+    weights normal(0.1) in bf16."""
+    cfg = get_config("mamba2-370m", reduced=True)
+    params = _paths(init_params(build_model(cfg).param_decls(),
+                                torch.Generator().manual_seed(0), "cpu"))
+    L, H = cfg.n_layers, cfg.ssm_heads
+    dt_bias = params[("layers", "mamba", "dt_bias")]
+    a_log = params[("layers", "mamba", "A_log")]
+    d = params[("layers", "mamba", "D")]
+    for t in (dt_bias, a_log, d):
+        assert t.dtype == torch.float32 and tuple(t.shape) == (L, H)
+    dt = torch.nn.functional.softplus(dt_bias.double())
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+    assert float(dt.max()) <= 1e-1 * (1 + 1e-5)
+    want = torch.log(torch.arange(1, H + 1, dtype=torch.float32))
+    assert torch.equal(a_log, want.expand(L, H))
+    assert bool((d == 1).all())
+    conv = params[("layers", "mamba", "conv_x")]
+    assert conv.dtype == torch.bfloat16
+    assert abs(conv.float().std().item() - 0.1) < 0.01
