@@ -10,9 +10,13 @@ Phases, each fatal on failure:
    decode_attention, ssd) for ``sm_90a`` into ``build/repro_torch/`` (one
    process per source, in parallel);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the serving paths' shapes (bf16 2e-2, fp32 2e-5 absolute, the JAX
-   package's kernel tolerances, 5x those relative for ssd's output and 1e-4
-   relative for its final state; TF32 off), with CUDA-event times of the
+   at the serving paths' shapes and at the edges of their designs (decode:
+   lengths on the key-split boundaries, G = 1 and 16, D = 128, a batch-1
+   8192-key cache, the stale tail, a CUDA-graph replay; flash: ragged S,
+   D = 128, G = 1, a 2048-token prompt), to bf16 2e-2 and fp32 2e-5
+   absolute (the JAX package's kernel tolerances; 5x those relative for
+   ssd's output and 1e-4 relative for its final state; TF32 off), with
+   CUDA-event times of the
    kernel, the plain version and, where one exists, one PyTorch library
    call as a yardstick, and the least time the card could take
    (``bound_ms``);
@@ -106,14 +110,35 @@ def bound(flops: float, nbytes: float, flops_peak: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sdpa_ms(torch, timer, q, k, v, causal: bool):
+    """One library call on the same inputs (model layout), or None for a
+    torch without ``enable_gqa``."""
+    F = torch.nn.functional
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        return timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+    except TypeError:
+        return None
+
+
 def check_flash(torch, timer, gen) -> dict:
+    """The flash kernel against its plain version at the prefill shape (bf16
+    causal and full, fp32), a ragged S, D = 128, G = 1 and a long B = 1
+    prompt; the serving shape and the long prompt are timed."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    F = torch.nn.functional
-    B, S, H, Hk, D = 8, 512, 32, 4, 64
     rec, worst = None, 0.0
-    for dtype, causal in ((torch.bfloat16, True), (torch.bfloat16, False),
-                          (torch.float32, True)):
+    # (label, B, S, H, Hk, D, dtype, causal, timed)
+    for label, B, S, H, Hk, D, dtype, causal, timed in (
+            ("serving", 8, 512, 32, 4, 64, torch.bfloat16, True, True),
+            ("serving", 8, 512, 32, 4, 64, torch.bfloat16, False, False),
+            ("serving", 8, 512, 32, 4, 64, torch.float32, True, False),
+            ("ragged", 2, 100, 32, 4, 64, torch.bfloat16, True, False),
+            ("ragged", 2, 100, 32, 4, 64, torch.bfloat16, False, False),
+            ("d128", 2, 256, 32, 4, 128, torch.bfloat16, True, False),
+            ("g1", 2, 256, 8, 8, 64, torch.bfloat16, True, False),
+            ("long", 1, 2048, 32, 4, 64, torch.bfloat16, True, True)):
         q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
         k = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
@@ -122,88 +147,102 @@ def check_flash(torch, timer, gen) -> dict:
         torch.cuda.synchronize()
         err = max_err(got, want)
         name = str(dtype).split(".")[1]
-        log(f"[kernels] flash_attention {name} causal={causal} "
+        log(f"[kernels] flash_attention {label} {name} causal={causal} "
             f"B={B} S={S} H={H} Hk={Hk} D={D}: max_abs_err={err:.3e} "
             f"(tol {TOL[name]:g})")
         if not err < TOL[name]:
-            raise AssertionError(f"flash_attention {name} causal={causal}: "
-                                 f"max_abs_err {err} >= {TOL[name]}")
+            raise AssertionError(f"flash_attention {label} {name} "
+                                 f"causal={causal}: max_abs_err {err} >= "
+                                 f"{TOL[name]}")
         if dtype is torch.bfloat16:
             worst = max(worst, err)
-        if dtype is torch.bfloat16 and causal:   # the prefill path's case
-            ms = timer.ms(lambda: flash_attention_cuda(q, k, v, causal=True))
-            plain_ms = timer.ms(
-                lambda: flash_attention_plain(q, k, v, causal=True), iters=10)
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            try:
-                lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
-            except TypeError:            # a torch without enable_gqa
-                lib_ms = None
-            flops = 4 * B * H * S * S * D / 2
-            nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        if not timed:
+            continue
+        ms = timer.ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+        plain_ms = timer.ms(
+            lambda: flash_attention_plain(q, k, v, causal=True), iters=10)
+        lib_ms = sdpa_ms(torch, timer, q, k, v, causal=True)
+        flops = 4 * B * H * S * S * D / 2
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"[kernels] flash_attention {label} bf16 causal B={B} S={S}: "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
+            f"bound {b_ms:.4f} ms by {b_by})")
+        if label == "serving":
             rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bound_by": b_by}
-            log(f"[kernels] flash_attention bf16 causal: {ms:.4f} ms "
-                f"(plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
-                f"bound {b_ms:.4f} ms by {b_by})")
     rec["max_abs_err"] = worst
     return rec
 
 
 def check_decode(torch, timer, gen) -> dict:
+    """The decode kernel against its plain version: the serving shape at
+    lengths on the split boundaries, G = 1, G = 16, D = 128, fp32, a batch-1
+    8192-key cache; the stale tail; a call captured in a CUDA graph and
+    replayed after `length` changes on the device. The serving shape and
+    the long cache are timed."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
-    F = torch.nn.functional
+    from repro_torch.kernels.decode_attention.kernel import keys_per_split
+    split = keys_per_split()
     B, L, H, Hk, D = 8, 544, 32, 4, 64
     timed_len = 528           # the mean cache length of the serving path
+    edges = (1, split - 1, split, split + 1, 300, timed_len, L)
     rec, worst = None, 0.0
-    for dtype, lengths in ((torch.bfloat16, (1, 63, 300, timed_len, 544)),
-                           (torch.float32, (300,))):
+    # (label, B, L, H, Hk, D, dtype, lengths, timed length)
+    for label, Bc, Lc, Hc, Hkc, Dc, dtype, lengths, timed in (
+            ("serving", B, L, H, Hk, D, torch.bfloat16, edges, timed_len),
+            ("serving", B, L, H, Hk, D, torch.float32, (split, 300), None),
+            ("g1", 2, L, 4, 4, D, torch.bfloat16, (1, split + 1, L), None),
+            ("g16", 2, L, 64, 4, D, torch.bfloat16, (1, split + 1, L), None),
+            ("d128", 2, L, 32, 4, 128, torch.bfloat16, (1, split + 1, L),
+             None),
+            ("long", 1, 8192, H, Hk, D, torch.bfloat16, (8000,), 8000)):
         name = str(dtype).split(".")[1]
         # one layer's view of a stacked cache, as the model passes it
-        cache_k = torch.randn(2, B, L, Hk, D, generator=gen,
+        cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
                               device="cuda").to(dtype)
-        cache_v = torch.randn(2, B, L, Hk, D, generator=gen,
+        cache_v = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
                               device="cuda").to(dtype)
         k, v = cache_k[1], cache_v[1]
-        q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(Bc, 1, Hc, Dc, generator=gen, device="cuda").to(dtype)
         for n in lengths:
             length = torch.tensor(n, dtype=torch.int32, device="cuda")
             got = decode_attention_cuda(q, k, v, length)
             want = decode_attention_plain(q, k, v, length)
             torch.cuda.synchronize()
             err = max_err(got, want)
-            log(f"[kernels] decode_attention {name} B={B} L={L} length={n}: "
-                f"max_abs_err={err:.3e} (tol {TOL[name]:g})")
+            log(f"[kernels] decode_attention {label} {name} B={Bc} L={Lc} "
+                f"H={Hc} Hk={Hkc} D={Dc} length={n}: max_abs_err={err:.3e} "
+                f"(tol {TOL[name]:g})")
             if not err < TOL[name]:
-                raise AssertionError(f"decode_attention {name} length={n}: "
-                                     f"max_abs_err {err} >= {TOL[name]}")
+                raise AssertionError(f"decode_attention {label} {name} "
+                                     f"length={n}: max_abs_err {err} >= "
+                                     f"{TOL[name]}")
             if dtype is torch.bfloat16:
                 worst = max(worst, err)
-            if dtype is torch.bfloat16 and n == timed_len:
-                ms = timer.ms(lambda: decode_attention_cuda(q, k, v, length))
-                plain_ms = timer.ms(
-                    lambda: decode_attention_plain(q, k, v, length))
-                qt = q.transpose(1, 2)
-                kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
-                try:
-                    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, enable_gqa=True))
-                except TypeError:
-                    lib_ms = None
-                flops = 4 * B * H * n * D
-                nbytes = 2 * (2 * B * Hk * n * D + 2 * q.numel())
-                b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            if n != timed:
+                continue
+            ms = timer.ms(lambda: decode_attention_cuda(q, k, v, length))
+            plain_ms = timer.ms(lambda: decode_attention_plain(q, k, v,
+                                                               length))
+            lib_ms = sdpa_ms(torch, timer, q, k[:, :n], v[:, :n],
+                             causal=False)
+            flops = 4 * Bc * Hc * n * Dc
+            nbytes = 2 * (2 * Bc * Hkc * n * Dc + 2 * q.numel())
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            log(f"[kernels] decode_attention {label} bf16 B={Bc} "
+                f"length={n}: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
+            if label == "serving":
                 rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
-                log(f"[kernels] decode_attention bf16 length={n}: "
-                    f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
-                    f"bound {b_ms:.4f} ms by {b_by})")
+
     # stale tail: garbage past `length` must not reach the output
+    k = torch.randn(B, L, Hk, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, L, Hk, D, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
     length = torch.tensor(300, dtype=torch.int32, device="cuda")
-    k, v = cache_k[1].clone(), cache_v[1].clone()
     clean = decode_attention_cuda(q, k, v, length)
     k[:, 300:] = 1e4
     v[:, 300:] = float("nan")
@@ -213,6 +252,22 @@ def check_decode(torch, timer, gen) -> dict:
         raise AssertionError("decode_attention read the cache past length")
     log("[kernels] decode_attention stale tail past length=300: "
         "output unchanged")
+
+    # a call captured in a CUDA graph, replayed after `length` moves on the
+    # device: it must equal an eager call at the new length
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention_cuda(q, k, v, length)
+    for n in (1, split + 1, 299):
+        length.fill_(n)
+        graph.replay()
+        eager = decode_attention_cuda(q, k, v, length)
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            raise AssertionError(f"decode_attention graph replay at length "
+                                 f"{n} differs from an eager call")
+    log("[kernels] decode_attention in a CUDA graph, replayed at lengths "
+        "1, 65, 299 set on the device: equal to eager calls")
     rec["max_abs_err"] = worst
     return rec
 
@@ -292,9 +347,12 @@ def check_ssd(torch, timer, gen) -> dict:
     return rec
 
 
-def profile_decode(torch, arch: str, steps: int = 4) -> None:
+def profile_decode(torch, arch: str, ours: tuple = (),
+                   steps: int = 4) -> None:
     """Wall time and device kernel time of decode steps at the serving
-    shape (batch 8, 512-token prompts, full depth)."""
+    shape (batch 8, 512-token prompts, full depth), and the share of that
+    device time spent in the port's kernels whose names contain one of
+    ``ours``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -340,6 +398,12 @@ def profile_decode(torch, arch: str, steps: int = 4) -> None:
         f"{busy / wall:.3f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile]   {us / steps / 1e3:.4f} ms/step  {name[:90]}")
+    if ours:
+        mine = sum(us for name, us in by_name.items()
+                   if any(frag in name for frag in ours)) / 1e6
+        log(f"[profile] {arch} decode: kernels named {list(ours)} take "
+            f"{mine / steps * 1e3:.4f} ms/step, a share of "
+            f"{mine / busy:.3f} of the device time")
 
 
 def model_check(torch, arch: str) -> None:
@@ -398,6 +462,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("[kernels] TF32 off for fp32 matmuls and convolutions")
     timer = Timer(torch)
+    one = torch.zeros(1, device="cuda")
+    log(f"[kernels] timer floor: one 1-element add under the same method "
+        f"takes {timer.ms(lambda: one.add_(0)):.4f} ms")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(torch, timer, gen)
     decode = check_decode(torch, timer, gen)
@@ -440,8 +507,9 @@ def main() -> int:
     n_flash, n_decode, n_ssd = (dense["flash_attention"],
                                 dense["decode_attention"], ssm["ssd"])
 
-    for arch in ("tinyllama-1.1b", "mamba2-370m"):
-        profile_decode(torch, arch)
+    profile_decode(torch, "tinyllama-1.1b", ours=("split_kernel",
+                                                   "combine_kernel"))
+    profile_decode(torch, "mamba2-370m")
     for arch in ("tinyllama-1.1b", "mamba2-370m"):
         model_check(torch, arch)
 

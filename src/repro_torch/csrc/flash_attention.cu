@@ -5,28 +5,56 @@
 //   (launched by flash_attention_pallas, adapter ops.py :: flash_attention).
 // Same function: blocked online-softmax attention scaled by 1/sqrt(D), with
 // an optional causal mask qpos >= kpos (both counted from 0). m, l and the
-// accumulator are fp32; p is rounded to V's dtype before P.V; the output
-// takes q's dtype. KV tiles wholly above the causal diagonal are skipped.
+// accumulator are fp32; p is rounded to V's dtype before P.V and l sums the
+// unrounded p; masked scores are -1e30; the output takes q's dtype. KV
+// tiles wholly above the causal diagonal are skipped.
 //
 // Layout. q, o: (B, Sq, H, D); k, v: (B, Skv, Hk, D), read through their
 // batch / sequence / head strides (innermost stride 1), so the model's
 // tensors go in without a transposed copy. Heads fold as h = hk * G + g.
 //
-// Design. One block per (16 query positions, b, hk); warp g of the block
-// owns the 16 rows of query head hk*G + g, so the block's rows are the
-// G x 16 query rows of one KV head and every K/V tile it stages in shared
-// memory serves all G heads (no KV repeat, as in the Pallas kernel's
-// (G*bq, D) fold).
-//   bf16: Q.K^T and P.V on the tensor cores with mma.sync m16n8k16
-//         (fp32 accumulate); Q stays in registers as A fragments, P goes
-//         from the score accumulators straight into A fragments.
-//   fp32: scalar fp32 FMA, one thread per query row (no TF32: the fp32
-//         tolerance is 2e-5).
-// Bound on this card: at the prefill shape (B=8, S=512, H=32, D=64, causal)
-// it is the bf16 tensor-core rate (about 2*B*H*S^2*D operations over
-// 989 TFLOP/s); the bytes (q, k, v, o once) are a few MB. mma.sync reaches
-// a fraction of what wgmma would; wgmma with TMA-fed tiles is later work.
+// What bounds it on this card: at the prefill shape (B=8, S=512, H=32,
+// Hk=4, D=64, bf16, causal) it must move 37.7 MB (q, k, v, o once), 11.3 us
+// at 3.35 TB/s, and do 8.6 GFLOP of causal products, 8.7 us at 989 TFLOP/s
+// -- a rate only wgmma reaches (mma.sync gets a fraction of it). Both
+// bounds are close, so the loads have to overlap the products. A Pallas
+// grid steps its KV axis in order with the copies of the next tile
+// overlapped by the compiler; on Hopper a tile loaded by all threads
+// between two barriers leaves the tensor cores idle during the load.
+//
+// bf16 design (the usual Hopper shape):
+//   * A block owns 64 query rows of one (b, hk): P = 64 / G positions x
+//     the G heads of that KV head, rows in (position, g) order, as the Pallas
+//     kernel's (G*bq, D) fold, so each K/V tile serves all G heads. One TMA
+//     box (D, G, P) over q's (B, S, H, D) lands the rows in that order;
+//     positions past Sq are filled with zeros by the TMA unit.
+//   * One producer warp keeps a ring of kStages = 2 K/V tiles (64 keys) in
+//     flight with TMA; `mbarrier`s signal full and empty stages. Shared
+//     tiles use the 128-byte swizzle (64- and 32-byte for D = 32, 16), rows
+//     of 64 columns, so wgmma reads them without bank conflicts.
+//   * One consumer warpgroup runs wgmma m64nNk16 on the 64 rows:
+//     S = Q.K^T with Q and K from shared memory (K-major), then
+//     O += P.V with P from registers (the score accumulators rounded to
+//     bf16 are exactly wgmma's A fragments) and V from shared memory
+//     through the descriptor's transpose (V stays (keys, D)). Up to four
+//     blocks share an SM (D <= 64), so one block's softmax runs while
+//     another's products do; two consumer warpgroups a block measured
+//     slower on the H100.
+//   * The online softmax stays in registers, in base 2: log2(e) is folded
+//     into the scale, and each p is one FFMA and one ex2.approx.
+//   * Causal: the block walks keys up to its last row's position; only the
+//     tiles that cross the diagonal (or Skv) are masked. Blocks start with
+//     the longest rows (the last positions), so the short ones fill the
+//     last wave.
+// The tensor maps are built on the host with cuTensorMapEncodeTiled (from
+// cudaGetDriverEntryPoint: no link against libcuda) and passed as
+// __grid_constant__ parameters.
+//
+// fp32 design (not on a serving path): scalar fp32 FMA, one thread per query
+// row (no TF32: the fp32 tolerance is 2e-5), 16 query positions x G heads a
+// block, K/V tiles of 32 keys staged in shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,14 +64,15 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // finite, as in the reference
-constexpr int kQT = 16;            // query positions per block
-constexpr int kBK = 64;            // keys per shared-memory tile (bf16)
-constexpr int kBKF = 32;           // keys per shared-memory tile (fp32)
-constexpr int kPad = 8;            // bf16 row padding: conflict-free reads
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;  // element strides of batch, sequence, head
 };
+
+// ---------------------------------------------------------------- fp32 ---
+constexpr int kQT = 16;            // query positions per block
+constexpr int kBKF = 32;           // keys per shared-memory tile
 
 struct Params {
   int Sq, Skv, Hk, G;
@@ -51,28 +80,6 @@ struct Params {
   int causal;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Number of KV tiles this block visits: up to the causal diagonal of its
 // last valid query row.
@@ -86,168 +93,6 @@ __device__ __forceinline__ int kv_tiles(int q0, int Sq, int Skv, int bk,
   return n;
 }
 
-// ---------------------------------------------------------------- bf16 ---
-// Fragment layouts (PTX ISA, mma.m16n8k16): gr = lane / 4, tq = lane % 4.
-//   A reg0 (row gr, k 2tq..+1)   reg1 (row gr+8, k 2tq..+1)
-//     reg2 (row gr, k 2tq+8..+9) reg3 (row gr+8, k 2tq+8..+9)
-//   B reg0 (k 2tq..+1, col gr)   reg1 (k 2tq+8..+9, col gr)
-//   C c0,c1 (row gr, col 2tq, 2tq+1)  c2,c3 (row gr+8, same cols)
-template <int D>
-__global__ void __launch_bounds__(512)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  const Params p) {
-  const int Sq = p.Sq, Skv = p.Skv, Hk = p.Hk, G = p.G, causal = p.causal;
-  const Strides qs = p.qs, ks = p.ks, vs = p.vs, os = p.os;
-  const float scale = p.scale;
-  __shared__ __align__(16) bf16 Ks[kBK][D + kPad];
-  __shared__ __align__(16) bf16 Vs[kBK][D + kPad];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int b = blockIdx.y / Hk, hk = blockIdx.y % Hk;
-  const int h = hk * G + warp;
-  const int q0 = blockIdx.x * kQT;
-
-  // This warp's 16 query rows as A fragments, one per 16-wide slice of D.
-  uint32_t qa[D / 16][4];
-  const bf16* qb = q + b * qs.b + h * qs.h;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = q0 + gr + 8 * half;
-      uint32_t lo = 0, hi = 0;
-      if (row < Sq) {
-        const bf16* qp = qb + row * qs.s + kc * 16 + 2 * tq;
-        lo = *reinterpret_cast<const uint32_t*>(qp);
-        hi = *reinterpret_cast<const uint32_t*>(qp + 8);
-      }
-      qa[kc][half] = lo;
-      qa[kc][2 + half] = hi;
-    }
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  const int n_tiles = kv_tiles(q0, Sq, Skv, kBK, causal);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = threadIdx.x; c < kBK * D / 8; c += blockDim.x) {
-      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-      const int key = kv0 + r;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (key < Skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + key * ks.s + col);
-        vx = *reinterpret_cast<const uint4*>(vb + key * vs.s + col);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r][col]) = kx;
-      *reinterpret_cast<uint4*>(&Vs[r][col]) = vx;
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const bf16* kr = &Ks[nt * 8 + gr][kc * 16 + 2 * tq];
-        mma_16816(s[nt], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // Scale, mask, and the running max of each of this thread's two rows.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = gr + (e >= 2 ? 8 : 0);
-        const int key = kv0 + nt * 8 + 2 * tq + (e & 1);
-        float x = s[nt][e] * scale;
-        if (key >= Skv || (causal && key > q0 + row)) x = kNegInf;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
-        rs[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-
-    // O += P V: P (rounded to bf16) from the score accumulators.
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const int r0 = kc * 16 + 2 * tq;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const int col = dt * 8 + gr;
-        mma_16816(acc[dt], pa, pack_bf16(Vs[r0][col], Vs[r0 + 1][col]),
-                  pack_bf16(Vs[r0 + 8][col], Vs[r0 + 9][col]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + gr + 8 * half;
-    if (row >= Sq) continue;
-    bf16* op = o + b * os.b + row * os.s + h * os.h;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * tq) =
-          pack_bf16(acc[dt][2 * half] / l[half], acc[dt][2 * half + 1] / l[half]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- fp32 ---
 // One thread per query row: thread i of the block is head g = i / 16 of the
 // group at query position q0 + i % 16.
 template <int D>
@@ -330,29 +175,550 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// One launch per dtype and head size; blocks of G warps (bf16) or G x 16
-// threads (fp32), one per (16 query positions, b, hk).
 template <int D>
-void run(const bf16* q, const bf16* k, const bf16* v, bf16* o, dim3 grid,
-         const Params& p, cudaStream_t stream) {
-  flash_bf16_kernel<D><<<grid, p.G * 32, 0, stream>>>(q, k, v, o, p);
-}
-
-template <int D>
-void run(const float* q, const float* k, const float* v, float* o, dim3 grid,
-         const Params& p, cudaStream_t stream) {
+void run_f32(const float* q, const float* k, const float* v, float* o,
+             int B, const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.Sq + kQT - 1) / kQT, B * p.Hk);
   flash_f32_kernel<D><<<grid, p.G * kQT, 0, stream>>>(q, k, v, o, p);
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int D,
-           const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.Sq + kQT - 1) / kQT, B * p.Hk);
+// ---------------------------------------------------------------- bf16 ---
+constexpr int kBM = 64;            // query rows a block: one warpgroup
+constexpr int kBN = 64;            // keys a K/V tile
+constexpr int kStages = 2;         // K/V tiles in flight
+constexpr int kConsumers = 128;    // threads of the consumer warpgroup
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+
+// Shared-memory tiling of one head size. A tile is cut into panels of
+// kPanelCols columns (rows of kSw bytes, the swizzle span); a panel of R
+// rows is R * kSw bytes and starts on a 1024-byte boundary.
+template <int D>
+struct Tile {
+  static constexpr int kSw = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kPanelCols = kSw / 2;
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kStepsPerPanel = kPanelCols / 16;  // k16 steps
+  static constexpr int kQPanel = kBM * kSw;
+  static constexpr int kKVPanel = kBN * kSw;
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kKVBytes = kPanels * kKVPanel;     // K or V of a stage
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kBarriers = 8 * (1 + 2 * kStages);
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes
+                               + kBarriers;               // 1024: alignment
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t kLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
+};
+
+struct TmaParams {
+  int Sq, Skv, Hk, G, P, causal;
+  Strides os;
+  float scale_log2;                // 1/sqrt(D) * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A TMA copy of one box of a 4-D tensor map into shared memory; it
+// completes `bar`'s transaction count with the box's bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+         | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulators across
+// the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// 2^x on the special-function unit (flush-to-zero: 2^-126 and below is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 64, fp32) = A (64 x 16, smem) * B (16 x 64, smem) + (accumulate
+// ? d : 0), A and B K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, fp32) += A (64 x 16, registers) * B (16 x N, smem, MN-major:
+// the descriptor's transpose reads V stored (keys, D) as B = V).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Accumulator layout of wgmma m64nN (per warpgroup, fp32): warp w of the
+// group owns rows 16w..16w+15; with gr = lane / 4 and tq = lane % 4,
+// d[4j + e] is row 16w + gr + 8 * (e >> 1), column 8j + 2tq + (e & 1).
+// A fragments from registers follow the same rows: for k16 step kk,
+// a = {(gr, 2tq..+1), (gr+8, 2tq..+1), (gr, 2tq+8..+9), (gr+8, 2tq+8..+9)}
+// of columns 16kk.., i.e. the packed accumulators d[8kk .. 8kk+7].
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  bf16* __restrict__ o, const TmaParams p) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: tiles start on that boundary
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + T::kQBytes;  // stage s: K, then V
+  const uint32_t bars = kv_s + kStages * T::kStageBytes;
+  const uint32_t q_full = bars;             // then full[s], empty[s]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / p.Hk, hk = blockIdx.x % p.Hk;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * p.P;  // longest rows first
+  const int q_last = min(q0 + p.P, p.Sq) - 1;
+  const int kv_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+  const int n_tiles = (kv_end + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * (1 + s), 1);                    // full[s]
+      mbar_init(bars + 8 * (1 + kStages + s), kConsumers);  // empty[s]
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer: Q once, then the ring of K/V tiles ----
+    if (lane == 0) {
+      mbar_expect_tx(q_full, T::kPanels * p.P * p.G * T::kSw);
+#pragma unroll
+      for (int c = 0; c < T::kPanels; ++c)
+        tma_load_4d(q_s + c * T::kQPanel, &tm_q, q_full, c * T::kPanelCols,
+                    hk * p.G, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t full = bars + 8 * (1 + s);
+        if (t >= kStages)   // the consumers released this stage's last tile
+          mbar_wait(bars + 8 * (1 + kStages + s), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, T::kStageBytes);
+        const uint32_t k_dst = kv_s + s * T::kStageBytes;
+#pragma unroll
+        for (int c = 0; c < T::kPanels; ++c) {
+          tma_load_4d(k_dst + c * T::kKVPanel, &tm_k, full,
+                      c * T::kPanelCols, hk, t * kBN, b);
+          tma_load_4d(k_dst + T::kKVBytes + c * T::kKVPanel, &tm_v, full,
+                      c * T::kPanelCols, hk, t * kBN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the warpgroup of warps 0-3, 16 block rows a warp ----
+  const int gr = lane / 4, tq = lane % 4;
+  int qpos[2], head[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gr + 8 * i;                   // block row
+    qpos[i] = q0 + r / p.G;
+    head[i] = hk * p.G + r % p.G;
+    live[i] = r < p.P * p.G && qpos[i] < p.Sq;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};     // this thread's share of its rows' sums
+
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(bars + 8 * (1 + s), (t / kStages) & 1);
+    const uint32_t k_s = kv_s + s * T::kStageBytes;
+    const uint32_t v_s = k_s + T::kKVBytes;
+
+    // S = Q K^T: 64 rows x 64 keys, D / 16 steps of k16 (the first one
+    // overwrites the accumulators).
+    float sc[kBN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int panel = ks / T::kStepsPerPanel;
+      const uint32_t col = (ks % T::kStepsPerPanel) * 32;
+      wgmma_ss_n64(sc,
+                   gmma_desc(q_s + panel * T::kQPanel + col, 16, 8 * T::kSw,
+                             T::kLayout),
+                   gmma_desc(k_s + panel * T::kKVPanel + col, 16, 8 * T::kSw,
+                             T::kLayout),
+                   ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Online softmax: m tracks the raw scores, p = 2^(s c - m c) with
+    // c = log2(e) / sqrt(D), one FFMA and one ex2 an element. Only tiles
+    // across the diagonal or Skv mask.
+    const float c = p.scale_log2;
+    const int kv0 = t * kBN;
+    const bool masked = (p.causal && kv0 + kBN - 1 > q0) || kv0 + kBN > p.Skv;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (masked) {
+          const int key = kv0 + 8 * j + 2 * tq + (e & 1);
+          if (key >= p.Skv || (p.causal && key > qpos[e >> 1]))
+            sc[4 * j + e] = kNegInf;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      }
+    }
+    float corr[2], mc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = ex2((m[i] - mx[i]) * c);
+      m[i] = mx[i];
+      mc[i] = mx[i] * c;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      sc[i] = ex2(fmaf(sc[i], c, -mc[(i >> 1) & 1]));
+      rs[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: P rounded to bf16 as wgmma's A fragments, V transposed by
+    // the descriptor (MN-major: 8-key groups kSw * 8 bytes apart, panels of
+    // 64 columns kKVPanel bytes apart).
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk],
+                  gmma_desc(v_s + kk * 16 * T::kSw, T::kKVPanel, 8 * T::kSw,
+                            T::kLayout));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bars + 8 * (1 + kStages + s));   // empty[s]
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live[i]) continue;
+    bf16* op = o + b * p.os.b + qpos[i] * p.os.s + head[i] * p.os.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * tq) =
+          pack_bf16(acc[4 * j + 2 * i] / l[i], acc[4 * j + 2 * i + 1] / l[i]);
+  }
+}
+
+// cuTensorMapEncodeTiled, from libcuda through the runtime's entry-point
+// lookup.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map over (D, heads, positions, batch) with a box of
+// (cols, box_heads, box_rows, 1). Returns false if the encoder refuses it.
+bool make_map(CUtensorMap* map, const void* base, int D, int heads, int seq,
+              int batch, const Strides& st, int cols, int box_heads,
+              int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int run_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+             int H, const Params& p, cudaStream_t stream) {
+  using T = Tile<D>;
+  const CUtensorMapSwizzle swizzle =
+      T::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const int P = kBM / p.G;          // query positions a block
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(&tm_q, q, D, H, p.Sq, B, p.qs, T::kPanelCols, p.G, P,
+                swizzle)
+      || !make_map(&tm_k, k, D, p.Hk, p.Skv, B, p.ks, T::kPanelCols, 1, kBN,
+                   swizzle)
+      || !make_map(&tm_v, v, D, p.Hk, p.Skv, B, p.vs, T::kPanelCols, 1, kBN,
+                   swizzle))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TmaParams tp{p.Sq, p.Skv, p.Hk, p.G, P, p.causal, p.os,
+                     p.scale * kLog2e};
+  const dim3 grid(B * p.Hk, (p.Sq + P - 1) / P);
+  flash_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(tm_q, tm_k,
+                                                             tm_v, o, tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+           int H, int D, const Params& p, cudaStream_t stream) {
   switch (D) {
-    case 16: run<16>(q, k, v, o, grid, p, stream); break;
-    case 32: run<32>(q, k, v, o, grid, p, stream); break;
-    case 64: run<64>(q, k, v, o, grid, p, stream); break;
-    case 128: run<128>(q, k, v, o, grid, p, stream); break;
+    case 16: return run_bf16<16>(q, k, v, o, B, H, p, stream);
+    case 32: return run_bf16<32>(q, k, v, o, B, H, p, stream);
+    case 64: return run_bf16<64>(q, k, v, o, B, H, p, stream);
+    case 128: return run_bf16<128>(q, k, v, o, B, H, p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int, int D, const Params& p, cudaStream_t stream) {
+  switch (D) {
+    case 16: run_f32<16>(q, k, v, o, B, p, stream); break;
+    case 32: run_f32<32>(q, k, v, o, B, p, stream); break;
+    case 64: run_f32<64>(q, k, v, o, B, p, stream); break;
+    case 128: run_f32<128>(q, k, v, o, B, p, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -362,8 +728,10 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int D,
 
 // C entry points. Pointers are device pointers; strides are in elements for
 // the batch, sequence and head dims of q, k, v, o (innermost stride 1); the
-// caller guarantees H % Hk == 0, H / Hk <= 16 and 16-byte aligned rows.
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
+// caller guarantees H % Hk == 0, H / Hk <= 16, D in {16, 32, 64, 128},
+// 16-byte aligned rows and strides that are multiples of 8 elements (the
+// TMA unit's 16 bytes). Returns cudaGetLastError() after the launch (0 when
+// it was accepted), or cudaErrorInvalidValue when a tensor map is refused.
 #define FLASH_ENTRY(NAME, T)                                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,   \
                       int B, int Sq, int Skv, int H, int Hk, int D,           \
@@ -376,9 +744,9 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int D,
                    Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},             \
                    Strides{vsb, vss, vsh}, Strides{osb, oss, osh},             \
                    causal, 1.0f / sqrtf(static_cast<float>(D))};               \
-    return launch<T>(static_cast<const T*>(q), static_cast<const T*>(k),       \
-                     static_cast<const T*>(v), static_cast<T*>(o), B, D, p,    \
-                     static_cast<cudaStream_t>(stream));                       \
+    return launch(static_cast<const T*>(q), static_cast<const T*>(k),          \
+                  static_cast<const T*>(v), static_cast<T*>(o), B, H, D, p,    \
+                  static_cast<cudaStream_t>(stream));                          \
   }
 
 FLASH_ENTRY(flash_attention_bf16, bf16)

@@ -5,11 +5,18 @@ The port of
 the model layout directly (q (B, 1, H, D), k/v (B, L, Hk, D), e.g. one
 layer's view of the stacked cache) and reads ``length`` on the device; the
 source's head note says how it is tiled and what bounds it.
+
+The key axis is split over blocks of ``keys_per_split()`` keys: each
+writes an fp32 partial (m, l, acc) to scratch allocated here with
+``torch.empty``, and a second kernel merges the partials. The number of
+splits comes from the cache capacity L, never from ``length``, so the call
+never waits on the card and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +29,7 @@ launches = 0
 
 _ENTRY = {torch.bfloat16: "decode_attention_bf16",
           torch.float32: "decode_attention_f32"}
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _MAX_GROUP = 16
 _MAX_GROUP_X_D = 2048
 
@@ -29,10 +37,25 @@ _MAX_GROUP_X_D = 2048
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.library("decode_attention"), _ENTRY[dtype])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def keys_per_split() -> int:
+    """Keys each block of the split kernel takes (``kSplit`` in the
+    source)."""
+    return _build.library("decode_attention").decode_attention_keys_per_split()
+
+
+def scratch_floats(B: int, Hk: int, G: int, L: int, D: int) -> int:
+    """fp32 values of the partials: (m, l) and acc[D] for each (b, hk,
+    split, g)."""
+    n_split = -(-L // keys_per_split())
+    return B * Hk * n_split * G * (2 + D)
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,8 +78,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     G = H // Hk
-    if D % 8 or G > _MAX_GROUP or G * D > _MAX_GROUP_X_D:
-        raise ValueError(f"head_dim {D} (a multiple of 8) or group {G} "
+    if D not in _HEAD_DIMS or G > _MAX_GROUP or G * D > _MAX_GROUP_X_D:
+        raise ValueError(f"head_dim {D} (takes {_HEAD_DIMS}) or group {G} "
                          f"(<= {_MAX_GROUP}, group*head_dim <= "
                          f"{_MAX_GROUP_X_D}) not supported")
     for name, t in (("k", k), ("v", v)):
@@ -67,11 +90,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.stride(-1) != 1:
         raise ValueError(f"q: innermost stride must be 1, got {q.stride()}")
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    n_scratch = scratch_floats(B, Hk, G, L, D)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _entry(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            out.data_ptr(), B, H, Hk, L, D,
+            out.data_ptr(), scratch.data_ptr(), n_scratch, B, H, Hk, L, D,
             q.stride(0), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

@@ -3,7 +3,10 @@
 The port of ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
 It takes the model layout directly (q (B, Sq, H, D), k/v (B, Skv, Hk, D)) and
 reads it through strides; the source's head note says how it is tiled and
-what bounds it.
+what bounds it. In bf16 the kernel reads q, k and v with the TMA unit
+through tensor maps built for each call, which need 16-byte aligned bases
+and strides that are multiples of 16 bytes (8 elements); fp32 runs a
+scalar kernel with the same checks.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, Skv, Hk, D) or v.shape != k.shape or H % Hk:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"empty sequence: Sq {Sq}, Skv {Skv}")
     if D not in _HEAD_DIMS or H // Hk > _MAX_GROUP:
         raise ValueError(f"head_dim {D} (takes {_HEAD_DIMS}) or group "
                          f"{H // Hk} (takes <= {_MAX_GROUP}) not supported")

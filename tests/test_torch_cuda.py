@@ -50,7 +50,12 @@ def randn(gen, *shape, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,Hk,D", [
     (1, 32, 2, 2, 16), (2, 64, 4, 2, 32), (1, 100, 8, 2, 64),
-    (8, 512, 32, 4, 64), (1, 64, 12, 2, 128), (2, 8, 6, 1, 32)])
+    (8, 512, 32, 4, 64), (1, 64, 12, 2, 128), (2, 8, 6, 1, 32),
+    (2, 100, 32, 4, 64),                  # ragged S: a partial last tile
+    (2, 256, 32, 4, 128),                 # D = 128: two swizzle panels
+    (2, 256, 8, 8, 64),                   # G = 1: 128 positions a block
+    (2, 200, 64, 4, 64),                  # G = 16: 8 positions a block
+    (1, 2048, 32, 4, 64)])                # a long prompt
 def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -82,8 +87,10 @@ def test_flash_cuda_reads_strided_views(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("length", [1, 63, 300, 544])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 300, 544])
 def test_decode_cuda_matches_plain(dtype, length):
+    """Lengths 63, 64, 65 sit on the first boundary of the kernel's 64-key
+    splits; 544 fills the cache (9 splits, the last one half full)."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(2)
     B, L, H, Hk, D = 8, 544, 32, 4, 64
@@ -102,7 +109,10 @@ def test_decode_cuda_matches_plain(dtype, length):
 @pytest.mark.parametrize("B,H,Hk,D,L", [(2, 8, 2, 32, 256),
                                         (1, 4, 4, 16, 256),
                                         (3, 6, 1, 64, 256),
-                                        (2, 32, 4, 128, 1000)])
+                                        (2, 32, 4, 128, 1000),
+                                        (2, 4, 4, 64, 544),     # G = 1
+                                        (2, 64, 4, 64, 544),    # G = 16
+                                        (1, 8, 1, 256, 200)])   # D = 256
 def test_decode_cuda_other_shapes(B, H, Hk, D, L):
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = randn(gen, B, 1, H, D, dtype=torch.bfloat16)
@@ -114,6 +124,40 @@ def test_decode_cuda_other_shapes(B, H, Hk, D, L):
         want = decode_attention_plain(q, k, v, n)
         torch.cuda.synchronize()
         assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_decode_cuda_long_cache_batch_one():
+    """Batch 1 against an 8192-key cache: 128 splits for each of the 4 KV
+    heads, merged by the combine kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = randn(gen, 1, 1, 32, 64, dtype=torch.bfloat16)
+    k = randn(gen, 1, 8192, 4, 64, dtype=torch.bfloat16)
+    v = randn(gen, 1, 8192, 4, 64, dtype=torch.bfloat16)
+    n = torch.tensor(8000, dtype=torch.int32, device="cuda")
+    got = decode_attention(q, k, v, n, block_k=512)
+    want = decode_attention_plain(q, k, v, n)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_decode_cuda_graph_replay_follows_length():
+    """A decode call captured in a CUDA graph reads `length` on the device:
+    replayed after the length changes, it equals an eager call."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = randn(gen, 8, 1, 32, 64, dtype=torch.bfloat16)
+    k = randn(gen, 8, 544, 4, 64, dtype=torch.bfloat16)
+    v = randn(gen, 8, 544, 4, 64, dtype=torch.bfloat16)
+    n = torch.tensor(544, dtype=torch.int32, device="cuda")
+    decode_attention(q, k, v, n, block_k=544)            # load the library
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention(q, k, v, n, block_k=544)
+    for length in (1, 64, 65, 300):
+        n.fill_(length)
+        graph.replay()
+        eager = decode_attention(q, k, v, n, block_k=544)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 def test_decode_cuda_ignores_stale_tail():
