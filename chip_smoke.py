@@ -13,13 +13,14 @@ Phases, each fatal on failure:
    at the serving paths' shapes and at the edges of their designs (decode:
    lengths on the key-split boundaries, G = 1 and 16, D = 128, a batch-1
    8192-key cache, the stale tail, a CUDA-graph replay; flash: ragged S,
-   D = 128, G = 1, a 2048-token prompt), to bf16 2e-2 and fp32 2e-5
+   D = 128, G = 1, a 2048-token prompt; ssd: zero and random state0, dt in
+   bf16, fp32, ragged S, S = 513, P = 8, an in-place update of a stacked
+   cache, a batch-1 8192-token prompt), to bf16 2e-2 and fp32 2e-5
    absolute (the JAX package's kernel tolerances; 5x those relative for
    ssd's output and 1e-4 relative for its final state; TF32 off), with
-   CUDA-event times of the
-   kernel, the plain version and, where one exists, one PyTorch library
-   call as a yardstick, and the least time the card could take
-   (``bound_ms``);
+   CUDA-event times of the kernel, the plain version and, where one exists,
+   one PyTorch library call as a yardstick, and the least time the card
+   could take (``bound_ms``);
 4. main paths, each at full width and depth on seeded random weights, batch
    8, 512-token prompts, 32 new tokens: ``serve_loop("tinyllama-1.1b")``
    (flash and decode attention) and ``serve_loop("mamba2-370m")`` (ssd at
@@ -28,8 +29,9 @@ Phases, each fatal on failure:
    costs) and once counted, its kernels' launch counts set to 0 just before
    and read just after: they must show every layer of the counted run went
    through them;
-5. profile: ``torch.profiler`` over a few decode steps of each model, for
-   the device's busy share and the kernels that take its time;
+5. profile: ``torch.profiler`` over a few decode steps of each model and
+   over one mamba2 prefill, for the device's busy share and the kernels
+   that take its time (at prefill, the ssd kernel's share);
 6. model check: a depth-2, full-width model of each arch on the card
    against the same model on the CPU's plain path (relative error < 0.06,
    equal argmax).
@@ -276,85 +278,135 @@ def check_ssd(torch, timer, gen) -> dict:
     """The SSD kernel against its plain version: y (relative to its largest
     magnitude, 5x the bf16/fp32 tolerance, as tests/test_kernels.py holds
     the Pallas kernel) and the final state (relative, 1e-4, the bound
-    tests/test_models.py holds chunk lengths 4-32 to)."""
+    tests/test_models.py holds chunk lengths 4-32 to). The serving shape and
+    a batch-1 8192-token prompt are timed."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
-    H, P, N = 32, 64, 128
+    H, N = 32, 128
     F = torch.nn.functional
+    lib = _build.library("ssd")
+    for P in (16, 32, 64):        # one, two and four warps a block
+        geo = ssd_k.plan(8, H, P, N, torch.bfloat16)
+        if lib.ssd_bf16_smem_bytes(N, geo.warps) != geo.smem_bytes:
+            raise AssertionError(f"ssd plan: {geo.smem_bytes} bytes of "
+                                 f"shared memory, the source says "
+                                 f"{lib.ssd_bf16_smem_bytes(N, geo.warps)}")
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
+    def plan_line(B, Hc, P) -> str:
+        geo = ssd_k.plan(B, Hc, P, N, torch.bfloat16)
+        return (f"{geo.grid[0] * geo.grid[1]} blocks of {geo.warps} warps, "
+                f"{geo.smem_bytes} B shared memory, {geo.blocks_per_sm} "
+                f"blocks an SM")
+
     def rel(got, want) -> float:
         return max_err(got, want) / (float(want.float().abs().max()) + 1e-30)
 
+    def check(label, got, want, name):
+        (y, st), (y_ref, st_ref) = got, want
+        torch.cuda.synchronize()
+        err_y, err_s = rel(y, y_ref), rel(st, st_ref)
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        log(f"[kernels] ssd {label}: y rel={err_y:.3e} (tol "
+            f"{5 * TOL[name]:g}), state rel={err_s:.3e} (tol 1e-4), "
+            f"finite={finite}")
+        if not (err_y < 5 * TOL[name] and err_s < 1e-4 and finite):
+            raise AssertionError(f"ssd {label}: y rel {err_y}, state rel "
+                                 f"{err_s}, finite {finite}")
+        return max_err(y, y_ref)
+
+    def bound_of(B, S, Hc, P, x, dt, A, Bm, Cm, st):
+        # the work of the kernel's chunks (Q = 64), lower triangle of each
+        # chunk's Q x Q products only; each input read and output written
+        # once
+        Q = 64
+        tri = Q * (Q + 1) // 2
+        flops = B * Hc * -(-S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
+        nbytes = (2 * x.element_size() * x.numel() + dt.element_size()
+                  * dt.numel() + 4 * A.numel() + Bm.element_size()
+                  * (Bm.numel() + Cm.numel()) + 2 * 4 * st.numel())
+        return bound(flops, nbytes, PEAK_BF16_FLOPS)
+
     rec, worst = None, 0.0
-    # (label, batch, S, heads, x/B/C dtype, dt dtype, plain chunk, state0,
-    #  timed): the serving shape as the model passes it (chunk 256), with
-    # the zero state of a first prefill and a random one; all fp32; a
-    # ragged S (not a multiple of the kernel's 64); a long S
-    for label, B, S, Hc, dtype, dt_dtype, chunk, with_state, timed in (
-            ("serving", 8, 512, H, torch.bfloat16, torch.float32, 256,
+    # (label, batch, S, heads, P, x/B/C dtype, dt dtype, plain chunk,
+    #  state0, timed): the serving shape as the model passes it (chunk
+    # 256), with the zero state of a first prefill and a random one; dt in
+    # bf16; all fp32; a ragged S (not a multiple of the kernel's 64); S =
+    # 513, one position in the last chunk; P = 8, half of a warp's 16 state
+    # rows; a long S in fp32; a batch-1 8192-token prompt at full width
+    for label, B, S, Hc, P, dtype, dt_dtype, chunk, with_state, timed in (
+            ("serving", 8, 512, H, 64, torch.bfloat16, torch.float32, 256,
              False, False),
-            ("serving", 8, 512, H, torch.bfloat16, torch.float32, 256,
+            ("serving", 8, 512, H, 64, torch.bfloat16, torch.float32, 256,
              True, True),
-            ("fp32", 2, 512, H, torch.float32, torch.float32, 128, True,
+            ("dt-bf16", 2, 512, H, 64, torch.bfloat16, torch.bfloat16, 256,
+             True, False),
+            ("fp32", 2, 512, H, 64, torch.float32, torch.float32, 128, True,
              False),
-            ("ragged", 2, 200, 8, torch.bfloat16, torch.float32, 40, True,
+            ("ragged", 2, 200, 8, 64, torch.bfloat16, torch.float32, 40,
+             True, False),
+            ("s513", 2, 513, H, 64, torch.bfloat16, torch.float32, 171,
+             True, False),
+            ("p8", 2, 512, H, 8, torch.bfloat16, torch.float32, 256, True,
              False),
-            ("long", 1, 8192, 4, torch.float32, torch.float32, 256, True,
-             False)):
+            ("long", 1, 8192, 4, 64, torch.float32, torch.float32, 256,
+             True, False),
+            ("long-b1", 1, 8192, H, 64, torch.bfloat16, torch.float32, 256,
+             True, True)):
         x = randn(B, S, Hc, P, dtype=dtype)
         dt = F.softplus(randn(B, S, Hc)).to(dt_dtype)
         A = -torch.exp(randn(Hc))
         Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
         state0 = randn(B, Hc, P, N) if with_state else None
-        y, st = ssd_cuda(x, dt, A, Bm, Cm, state0=state0)
-        y_ref, st_ref = ssd_plain(x, dt, A, Bm, Cm, chunk=chunk,
-                                  state0=state0)
-        torch.cuda.synchronize()
         name = str(dtype).split(".")[1]
-        err_y, err_s = rel(y, y_ref), rel(st, st_ref)
-        finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
-        log(f"[kernels] ssd {label} x={name} dt={str(dt_dtype)[6:]} B={B} "
-            f"S={S} H={Hc} P={P} N={N} state0={'random' if with_state else 'zero'}"
-            f": y rel={err_y:.3e} (tol {5 * TOL[name]:g}), state "
-            f"rel={err_s:.3e} (tol 1e-4), finite={finite}")
-        if not (err_y < 5 * TOL[name] and err_s < 1e-4 and finite):
-            raise AssertionError(f"ssd {label}: y rel {err_y}, state rel "
-                                 f"{err_s}, finite {finite}")
-        worst = max(worst, max_err(y, y_ref))
-        if timed:
-            launches = ssd_k.launches
-            ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, state0=state0))
-            plain_ms = timer.ms(lambda: ssd_plain(
-                x, dt, A, Bm, Cm, chunk=chunk, state0=state0), iters=10)
-            ssd_k.launches = launches     # timing launches are not the path's
-            # the work of the kernel's chunks (Q = 64), lower triangle of
-            # each chunk's Q x Q products only
-            Q = 64
-            tri = Q * (Q + 1) // 2
-            flops = B * Hc * (S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
-            nbytes = (2 * 2 * x.numel() + 4 * dt.numel() + 4 * A.numel()
-                      + 2 * (Bm.numel() + Cm.numel()) + 2 * 4 * st.numel())
-            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        out = ssd_cuda(x, dt, A, Bm, Cm, state0=state0)
+        desc = (f"{label} x={name} dt={str(dt_dtype)[6:]} B={B} S={S} "
+                f"H={Hc} P={P} N={N} state0="
+                f"{'random' if with_state else 'zero'}")
+        worst = max(worst, check(desc, out, ssd_plain(
+            x, dt, A, Bm, Cm, chunk=chunk, state0=state0), name))
+        if not timed:
+            continue
+        launches = ssd_k.launches
+        ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, state0=state0))
+        plain_ms = timer.ms(lambda: ssd_plain(
+            x, dt, A, Bm, Cm, chunk=chunk, state0=state0), iters=10)
+        b_ms, b_by = bound_of(B, S, Hc, P, x, dt, A, Bm, Cm, out[1])
+        log(f"[kernels] ssd {label} bf16 B={B} S={S} H={Hc}: {ms:.4f} ms "
+            f"(plain {plain_ms:.4f} ms, no library call computes SSD, bound "
+            f"{b_ms:.4f} ms by {b_by}, {plan_line(B, Hc, P)})")
+        if label == "serving":
             rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
-            log(f"[kernels] ssd serving bf16: {ms:.4f} ms (plain "
-                f"{plain_ms:.4f} ms, no library call computes SSD, bound "
-                f"{b_ms:.4f} ms by {b_by})")
+        ssd_k.launches = launches     # timing launches are not the path's
+
+    # in place, as the model calls it: state0 and state_out one layer's
+    # slice of a stacked cache, at the serving shape
+    x = randn(8, 512, H, 64, dtype=torch.bfloat16)
+    dt, A = F.softplus(randn(8, 512, H)), -torch.exp(randn(H))
+    Bm = randn(8, 512, N, dtype=torch.bfloat16)
+    Cm = randn(8, 512, N, dtype=torch.bfloat16)
+    cache = randn(3, 8, H, 64, N)
+    before = cache.clone()
+    want = ssd_plain(x, dt, A, Bm, Cm, chunk=256, state0=before[1])
+    got = ssd_cuda(x, dt, A, Bm, Cm, state0=cache[1], state_out=cache[1])
+    worst = max(worst, check("in place in a stacked cache, serving shape",
+                             got, want, "bfloat16"))
+    if got[1].data_ptr() != cache[1].data_ptr() \
+            or not torch.equal(cache[0], before[0]) \
+            or not torch.equal(cache[2], before[2]):
+        raise AssertionError("ssd in place: wrote outside its layer's slice "
+                             "or returned another tensor")
     rec["max_abs_err"] = worst
     return rec
 
 
-def profile_decode(torch, arch: str, ours: tuple = (),
-                   steps: int = 4) -> None:
-    """Wall time and device kernel time of decode steps at the serving
-    shape (batch 8, 512-token prompts, full depth), and the share of that
-    device time spent in the port's kernels whose names contain one of
-    ``ours``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _serving_model(torch, arch: str):
+    """Full-depth model of ``arch`` on the card with seeded random weights,
+    configured as ``serve_loop`` runs it for 512-token prompts."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
     cfg = dataclasses.replace(get_config(arch), q_chunk=256, kv_chunk=256,
@@ -363,6 +415,51 @@ def profile_decode(torch, arch: str, ours: tuple = (),
     params = init_params(model.param_decls(),
                          torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
+    return cfg, model, params
+
+
+def _profile_report(prof, what: str, wall: float, steps: int,
+                    ours: tuple) -> None:
+    """Device kernel time of a profiled window: per step, its busy share of
+    the wall time, the largest kernels, and the share of kernels whose names
+    contain one of ``ours``."""
+    from torch.autograd import DeviceType
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    if not by_name:
+        log(f"[profile] {what}: no device events traced; busy share not "
+            "measured")
+        return
+    busy = sum(by_name.values()) / 1e6
+    log(f"[profile] {what}, {steps} step(s) under the profiler: "
+        f"{wall / steps * 1e3:.3f} ms/step wall, "
+        f"{busy / steps * 1e3:.3f} ms/step of device kernels in "
+        f"{n_kernels / steps:.0f} launches/step, busy share "
+        f"{busy / wall:.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[profile]   {us / steps / 1e3:.4f} ms/step "
+            f"({us / 1e6 / busy:.3f})  {name[:90]}")
+    if ours:
+        mine = sum(us for name, us in by_name.items()
+                   if any(frag in name for frag in ours)) / 1e6
+        log(f"[profile] {what}: kernels named {list(ours)} take "
+            f"{mine / steps * 1e3:.4f} ms/step, a share of "
+            f"{mine / busy:.3f} of the device time")
+
+
+def profile_decode(torch, arch: str, ours: tuple = (),
+                   steps: int = 4) -> None:
+    """Wall time and device kernel time of decode steps at the serving
+    shape (batch 8, 512-token prompts, full depth), and the share of that
+    device time spent in the port's kernels whose names contain one of
+    ``ours``."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, model, params = _serving_model(torch, arch)
     tok = torch.randint(0, cfg.vocab, (8, 512), device="cuda")
     with torch.inference_mode():
         cache = model.init_cache(8, 544, device="cuda")
@@ -379,31 +476,29 @@ def profile_decode(torch, arch: str, ours: tuple = (),
                 logits, cache = model.decode_step(params, tok, cache)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-    busy = sum(by_name.values()) / 1e6
-    if not by_name:
-        log(f"[profile] {arch} decode: no device events traced; busy share "
-            "not measured")
-        return
-    log(f"[profile] {arch} decode at batch 8, after 514 tokens, {steps} steps "
-        f"under the profiler: {wall / steps * 1e3:.3f} ms/step wall, "
-        f"{busy / steps * 1e3:.3f} ms/step of device kernels in "
-        f"{n_kernels / steps:.0f} launches/step, busy share "
-        f"{busy / wall:.3f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"[profile]   {us / steps / 1e3:.4f} ms/step  {name[:90]}")
-    if ours:
-        mine = sum(us for name, us in by_name.items()
-                   if any(frag in name for frag in ours)) / 1e6
-        log(f"[profile] {arch} decode: kernels named {list(ours)} take "
-            f"{mine / steps * 1e3:.4f} ms/step, a share of "
-            f"{mine / busy:.3f} of the device time")
+    _profile_report(prof, f"{arch} decode at batch 8, after 514 tokens",
+                    wall, steps, ours)
+
+
+def profile_prefill(torch, arch: str, ours: tuple = ()) -> None:
+    """Wall time and device kernel time of one prefill at the serving shape
+    (batch 8, 512-token prompts, full depth, an empty cache), after a
+    warm-up prefill, with the share of the kernels named in ``ours``."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, model, params = _serving_model(torch, arch)
+    tok = torch.randint(0, cfg.vocab, (8, 512), device="cuda")
+    with torch.inference_mode():
+        model.prefill(params, tok, model.init_cache(8, 544, device="cuda"))
+        cache = model.init_cache(8, 544, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.prefill(params, tok, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _profile_report(prof, f"{arch} prefill at batch 8 x 512 tokens", wall,
+                    1, ours)
 
 
 def model_check(torch, arch: str) -> None:
@@ -510,6 +605,7 @@ def main() -> int:
     profile_decode(torch, "tinyllama-1.1b", ours=("split_kernel",
                                                    "combine_kernel"))
     profile_decode(torch, "mamba2-370m")
+    profile_prefill(torch, "mamba2-370m", ours=("ssd",))
     for arch in ("tinyllama-1.1b", "mamba2-370m"):
         model_check(torch, arch)
 

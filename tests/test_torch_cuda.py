@@ -184,7 +184,10 @@ def _rel(got, want) -> float:
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (1, 32, 2, 8, 16, 16), (2, 64, 4, 16, 32, 32), (1, 128, 8, 64, 128, 64),
     (2, 64, 4, 16, 32, 64), (2, 100, 3, 8, 16, 50),    # ragged: 100 % 64
-    (8, 512, 32, 64, 128, 256)])                       # the serving shape
+    (8, 512, 32, 64, 128, 256),                        # the serving shape
+    (2, 200, 4, 8, 128, 100),          # P = 8: half of a warp's 16 rows
+    (2, 513, 32, 64, 128, 171),        # one position in the last chunk
+    (1, 8192, 32, 64, 128, 256)])      # a long prompt at batch 1
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_cuda_matches_plain(dtype, dt_dtype, B, S, H, P, N, chunk,
                                 with_state):
@@ -229,6 +232,51 @@ def test_ssd_cuda_updates_a_stacked_state_in_place():
     assert _rel(y, y_ref) < 5 * TOL["bfloat16"] and _rel(st, st_ref) < 1e-4
     assert torch.equal(cache[0], before[0]) and torch.equal(cache[2],
                                                             before[2])
+
+
+def _ssd_serving_inputs(gen, B=8, S=512, H=32, P=64, N=128):
+    x = randn(gen, B, S, H, P, dtype=torch.bfloat16)
+    dt = torch.nn.functional.softplus(randn(gen, B, S, H,
+                                            dtype=torch.float32))
+    A = -torch.exp(randn(gen, H, dtype=torch.float32))
+    Bm = randn(gen, B, S, N, dtype=torch.bfloat16)
+    Cm = randn(gen, B, S, N, dtype=torch.bfloat16)
+    return x, dt, A, Bm, Cm
+
+
+def test_ssd_cuda_in_place_at_the_serving_shape():
+    """As the model calls it: state0 and state_out the same layer slice of a
+    stacked fp32 cache, at mamba2-370m's prefill shape."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, dt, A, Bm, Cm = _ssd_serving_inputs(gen)
+    cache = randn(gen, 3, 8, 32, 64, 128, dtype=torch.float32)
+    before = cache.clone()
+    y_ref, st_ref = ssd_plain(x, dt, A, Bm, Cm, chunk=256, state0=before[1])
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=256, state0=cache[1],
+                state_out=cache[1])
+    torch.cuda.synchronize()
+    assert st.data_ptr() == cache[1].data_ptr()
+    assert _rel(y, y_ref) < 5 * TOL["bfloat16"] and _rel(st, st_ref) < 1e-4
+    assert torch.equal(cache[0], before[0]) and torch.equal(cache[2],
+                                                            before[2])
+
+
+def test_ssd_cuda_takes_unaligned_views():
+    """x, B and C as views whose rows do not start on 16 bytes (the bf16
+    kernel's copy size): the launcher copies them, the result is the plain
+    scan's."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    B, S, H, P, N = 2, 100, 3, 16, 32
+    x = randn(gen, B, S, H, P + 1, dtype=torch.bfloat16)[..., 1:]
+    dt = torch.nn.functional.softplus(randn(gen, B, S, H,
+                                            dtype=torch.float32))
+    A = -torch.exp(randn(gen, H, dtype=torch.float32))
+    Bm = randn(gen, B, S, N + 4, dtype=torch.bfloat16)[..., 4:]
+    Cm = randn(gen, B, S, N + 4, dtype=torch.bfloat16)[..., 4:]
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=50)
+    y_ref, st_ref = ssd_plain(x, dt, A, Bm, Cm, chunk=50)
+    torch.cuda.synchronize()
+    assert _rel(y, y_ref) < 5 * TOL["bfloat16"] and _rel(st, st_ref) < 1e-4
 
 
 def test_ssd_cuda_long_context_is_finite():

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, and neither
+``chip_smoke.py`` nor the scripts in ``tools/``, imports JAX or anything of
+the JAX package ``repro``."""
 
 import pathlib
 import re
@@ -17,7 +18,8 @@ FORBIDDEN = re.compile(
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def test_no_jax_or_repro_import_lines():

@@ -9,6 +9,9 @@ magnitude, 5x the dtype's (2e-5 fp32, 2e-2 bf16), since the two scan in
 chunks and sum in different orders.
 """
 
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro.kernels.ssd import ssd as jax_ssd
 from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_plain
 from repro_torch.models.param import params_from_numpy
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -125,6 +129,70 @@ def test_ssd_cuda_refuses_cpu_tensors():
 
 
 def test_serving_shape_fits_shared_memory():
-    """mamba2-370m's heads (P=64, N=128) fit one block's shared memory."""
-    assert ssd_kernel.smem_bytes(64, 128) <= ssd_kernel._MAX_SMEM
-    assert ssd_kernel.smem_bytes(128, 256) > ssd_kernel._MAX_SMEM
+    """mamba2-370m's heads (P=64, N=128) fit the bf16 kernel's design: one
+    block of four 16-row slices per (b, h), two blocks an SM by shared
+    memory, so the serving batch's 8 x 32 blocks fill 132 SMs in one wave.
+    The fp32 kernel fits one block's shared memory there, and not at
+    P=128, N=256."""
+    geo = ssd_kernel.plan(8, 32, 64, 128, torch.bfloat16)
+    assert (geo.kernel, geo.warps, geo.rows) == ("bf16", 4, 64)
+    assert geo.smem_bytes == 99328 <= ssd_kernel._MAX_SMEM
+    assert geo.blocks_per_sm == 2 and geo.grid == (256, 1)
+    assert geo.grid[0] * geo.grid[1] <= 132 * geo.blocks_per_sm
+    f32 = ssd_kernel.plan(8, 32, 64, 128, torch.float32)
+    assert f32.smem_bytes <= ssd_kernel._MAX_SMEM and f32.grid == (256, 1)
+    with pytest.raises(ValueError, match="shared"):
+        ssd_kernel.plan(1, 1, 128, 256, torch.float32)
+
+
+@pytest.mark.parametrize("P,N,warps,rows,grid", [
+    (8, 16, 1, 16, (256, 1)),       # P = 8: half of one warp's 16 rows
+    (16, 32, 1, 16, (256, 1)),
+    (48, 64, 2, 32, (256, 2)),
+    (64, 128, 4, 64, (256, 1)),
+    (128, 128, 4, 64, (256, 2)),    # past 64 rows, more blocks per (b, h)
+])
+def test_plan_slices_the_state_rows(P, N, warps, rows, grid):
+    """The bf16 launch at the serving batch (B*H = 8*32): 16 state rows a
+    warp, up to 4 warps a block, the rest of P over more blocks."""
+    geo = ssd_kernel.plan(8, 32, P, N, torch.bfloat16)
+    assert (geo.warps, geo.rows, geo.grid) == (warps, rows, grid)
+    assert geo.smem_bytes <= ssd_kernel._MAX_SMEM and geo.blocks_per_sm >= 2
+
+
+@pytest.mark.parametrize("P,warps,smem", [
+    (16, 1, 87040), (32, 2, 91136), (64, 4, 99328)])
+def test_plan_shared_memory_by_warps(P, warps, smem):
+    """At N=128 every block stages the chunk's whole B and C whatever its
+    warps, so the shared memory grows only with the rows of x and y a block
+    owns; one, two or four warps all keep two blocks an SM."""
+    geo = ssd_kernel.plan(8, 32, P, 128, torch.bfloat16)
+    assert (geo.warps, geo.smem_bytes, geo.blocks_per_sm) == (warps, smem, 2)
+
+
+def test_phase_ablation_finds_step_one():
+    """tools/ssd_phases.py times copies of ssd.cu with parts of step 1 cut
+    out; its anchors must each match the source once, and the cuts must
+    remove C B^T's products (no-CB) or all of step 1 (no-M)."""
+    spec = importlib.util.spec_from_file_location(
+        "ssd_phases", ROOT / "tools" / "ssd_phases.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "ssd.cu").read_text()
+    no_cb = tool._cut(src, tool._ACC, tool._EPILOGUE)
+    no_m = tool._cut(src, tool._ACC, tool._STEP2)
+    assert src.count("mma_16816(acc[k]") == 2
+    assert "mma_16816(acc[k]" not in no_cb and "__expf(ci - cj0)" in no_cb
+    assert "mma_16816(acc[k]" not in no_m and "__expf(ci - cj0)" not in no_m
+    assert no_m.count("mma_16816(") == src.count("mma_16816(") - 2
+
+
+@pytest.mark.parametrize("P,N,dtype,match", [
+    (64, 256, torch.bfloat16, "N in"),    # N/2 fp32 values a lane
+    (64, 48, torch.bfloat16, "N in"),
+    (12, 128, torch.bfloat16, "P % 8"),   # 16-byte copies of x
+    (64, 128, torch.float16, "dtype"),
+])
+def test_plan_rejects(P, N, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        ssd_kernel.plan(2, 3, P, N, dtype)
