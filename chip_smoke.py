@@ -7,34 +7,46 @@ Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` (flash_attention,
-   decode_attention, ssd) for ``sm_90a`` into ``build/repro_torch/`` (one
-   process per source, in parallel);
+   flash_attention_bwd, decode_attention, ssd) for ``sm_90a`` into
+   ``build/repro_torch/`` (one process per source, in parallel);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the serving paths' shapes and at the edges of their designs (decode:
+   at the main paths' shapes and at the edges of their designs (decode:
    lengths on the key-split boundaries, G = 1 and 16, D = 128, a batch-1
    8192-key cache, the stale tail, a CUDA-graph replay; flash: ragged S,
-   D = 128, G = 1, a 2048-token prompt; ssd: zero and random state0, dt in
-   bf16, fp32, ragged S, S = 513, P = 8, an in-place update of a stacked
-   cache, a batch-1 8192-token prompt), to bf16 2e-2 and fp32 2e-5
-   absolute (the JAX package's kernel tolerances; 5x those relative for
-   ssd's output and 1e-4 relative for its final state; TF32 off), with
-   CUDA-event times of the kernel, the plain version and, where one exists,
-   one PyTorch library call as a yardstick, and the least time the card
-   could take (``bound_ms``);
-4. main paths, each at full width and depth on seeded random weights, batch
-   8, 512-token prompts, 32 new tokens: ``serve_loop("tinyllama-1.1b")``
-   (flash and decode attention) and ``serve_loop("mamba2-370m")`` (ssd at
-   prefill; decode is the plain recurrence), each once to warm up (the
-   first call of each shape pays one-time library and module-loading
-   costs) and once counted, its kernels' launch counts set to 0 just before
-   and read just after: they must show every layer of the counted run went
-   through them;
-5. profile: ``torch.profiler`` over a few decode steps of each model and
-   over one mamba2 prefill, for the device's busy share and the kernels
-   that take its time (at prefill, the ssd kernel's share);
+   D = 128, G = 1, a 2048-token prompt; flash backward: the training shape,
+   ragged S, G = 1, D = 128, a 2048-token sequence, fp32; ssd: zero and
+   random state0, dt in bf16, fp32, ragged S, S = 513, P = 8, an in-place
+   update of a stacked cache, a batch-1 8192-token prompt), to bf16 2e-2
+   and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
+   relative for ssd's output and 1e-4 relative for its final state; the
+   backward's dq, dk, dv within 1e-2 of their norm in bf16 and 1e-4 in
+   fp32, and planted faults shown to fail that rule; TF32 off), with
+   CUDA-event times of the kernel, the plain version and, where one
+   exists, one PyTorch library call as a yardstick, and the least time the
+   card could take (``bound_ms``);
+4. main paths, each at full width and depth on seeded random weights:
+   ``serve_loop("tinyllama-1.1b")`` (flash and decode attention) and
+   ``serve_loop("mamba2-370m")`` (ssd at prefill; decode is the plain
+   recurrence), batch 8, 512-token prompts, 32 new tokens; and
+   ``train_loop("tinyllama-1.1b")`` (flash forward and backward), batch 8,
+   512 tokens, on the synthetic pipeline. Each is called once to warm up
+   (the first call of each shape pays one-time library and module-loading
+   costs) and once counted, its kernels' launch counts set to 0 just
+   before and read just after: they must show every layer of the counted
+   run went through them;
+5. profile: ``torch.profiler`` over a few decode steps of each model, one
+   mamba2 prefill and one tinyllama train step, for the device's busy
+   share and the kernels that take its time (at prefill, the ssd kernel's
+   share; in training, the flash forward's and backward's);
 6. model check: a depth-2, full-width model of each arch on the card
    against the same model on the CPU's plain path (relative error < 0.06,
-   equal argmax).
+   equal argmax); a depth-2 tinyllama bf16 train step on the card against
+   the CPU (attention weights at std 1/sqrt(fan-in) for this check only:
+   loss 1e-2 relative, each gradient within 3e-2 of its norm, each layer's
+   backward-kernel gradients against the plain backward on the same
+   captured tensors within 1e-2 of their norm); a crash after step 4 and a
+   resume from the checkpoint saved there, reproducing the uninterrupted
+   losses (rtol 2e-2).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -53,6 +65,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -404,6 +417,102 @@ def check_ssd(torch, timer, gen) -> dict:
     return rec
 
 
+BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def check_flash_bwd(torch, timer, gen) -> dict:
+    """The flash backward kernel against autograd through the plain version:
+    dq, dk and dv each within ``BWD_TOL`` of their norm (||got - want|| /
+    ||want||, 1e-2 in bf16, 1e-4 in fp32) at the training shape, causal and
+    full; ragged S; G = 1; D = 128; a 2048-token sequence; fp32. A rule on
+    the largest magnitude would not do: under the causal mask the first
+    keys' dk and dv are ~100x the typical key's, so it would pass a kernel
+    that is 10% wrong on most keys. At the training shape the check is
+    shown to see such faults: the kernel's own result, with dv or dk scaled
+    by 0.9 past key 128, dv zeroed on the last 12% of keys or dq scaled by
+    0.9 on the last 12% of rows, must each fail the rule
+    (``tools/flash_bwd_tolerance.py`` gives the kernel's rounding ~0.3% and
+    these faults 1.9-4.3% on the CPU). The training shape and the long
+    sequence are timed, backward alone: the kernel, the plain version and,
+    as the yardstick, SDPA's backward (``torch.autograd.grad`` through SDPA
+    with ``enable_gqa``, its forward outside the timed call)."""
+    from flash_bwd_tolerance import grad_err, planted_faults
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda)
+    F = torch.nn.functional
+    rec, worst = None, 0.0
+    # (label, B, S, H, Hk, D, dtype, causal, timed)
+    for label, B, S, H, Hk, D, dtype, causal, timed in (
+            ("training", 8, 512, 32, 4, 64, torch.bfloat16, True, True),
+            ("training", 8, 512, 32, 4, 64, torch.bfloat16, False, False),
+            ("ragged", 2, 100, 32, 4, 64, torch.bfloat16, True, False),
+            ("g1", 2, 256, 8, 8, 64, torch.bfloat16, True, False),
+            ("d128", 2, 256, 32, 4, 128, torch.bfloat16, True, False),
+            ("long", 1, 2048, 32, 4, 64, torch.bfloat16, True, True),
+            ("fp32", 2, 256, 32, 4, 64, torch.float32, True, False)):
+        q, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, S, Hk, D, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        o = flash_attention_cuda(q, k, v, causal=causal)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+        want = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[1]
+        tol = BWD_TOL[name]
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, wa = grad_err(g, w), w.float().abs()
+            log(f"[kernels] flash_attention_bwd {label} {name} "
+                f"causal={causal} B={B} S={S} H={H} Hk={Hk} D={D} {grad}: "
+                f"||err||/||want|| {err:.3e} (tol {tol:g}), max_abs_err "
+                f"{max_err(g, w):.3e}, |want| median {wa.median():.3e} "
+                f"max {wa.max():.3e}")
+            if not err <= tol:
+                raise AssertionError(f"flash_attention_bwd {label} {name} "
+                                     f"causal={causal} {grad}: "
+                                     f"||err||/||want|| {err} > {tol}")
+            if dtype is torch.bfloat16:
+                worst = max(worst, max_err(g, w))
+        if label == "training" and causal:
+            for fault, (i, bad) in planted_faults(got, S).items():
+                err = grad_err(bad, want[i])
+                log(f"[kernels] flash_attention_bwd planted fault, "
+                    f"{fault}: ||err||/||want|| {err:.3e} (must exceed "
+                    f"{tol:g})")
+                if not err > tol:
+                    raise AssertionError(f"the backward's check passes a "
+                                         f"planted fault: {fault}")
+        if not timed:
+            continue
+        ms = timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do))
+        plain_ms = timer.ms(
+            lambda: flash_attention_bwd_plain(q, k, v, do), iters=10)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        try:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+            lib_ms = timer.ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+        except TypeError:       # a torch without enable_gqa
+            lib_ms = None
+        # five causal products (S, dP, dV, dK, dQ) of 2 * B * H * S^2 / 2 * D
+        # each; q, o, do, dq and k, v, dk, dv moved once
+        flops = 5 * 2 * B * H * S * S * D / 2
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"[kernels] flash_attention_bwd {label} bf16 causal B={B} S={S}: "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa backward {lib_ms} "
+            f"ms, bound {b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        if label == "training":
+            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+    rec["max_abs_err"] = worst
+    return rec
+
+
 def _serving_model(torch, arch: str):
     """Full-depth model of ``arch`` on the card with seeded random weights,
     configured as ``serve_loop`` runs it for 512-token prompts."""
@@ -419,10 +528,11 @@ def _serving_model(torch, arch: str):
 
 
 def _profile_report(prof, what: str, wall: float, steps: int,
-                    ours: tuple) -> None:
+                    ours: dict[str, tuple], top: int = 6) -> None:
     """Device kernel time of a profiled window: per step, its busy share of
-    the wall time, the largest kernels, and the share of kernels whose names
-    contain one of ``ours``."""
+    the wall time, the ``top`` largest kernels, and for each group of
+    ``ours`` the share of the kernels whose names contain one of its
+    fragments."""
     from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     n_kernels = 0
@@ -441,18 +551,18 @@ def _profile_report(prof, what: str, wall: float, steps: int,
         f"{busy / steps * 1e3:.3f} ms/step of device kernels in "
         f"{n_kernels / steps:.0f} launches/step, busy share "
         f"{busy / wall:.3f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {us / steps / 1e3:.4f} ms/step "
             f"({us / 1e6 / busy:.3f})  {name[:90]}")
-    if ours:
-        mine = sum(us for name, us in by_name.items()
-                   if any(frag in name for frag in ours)) / 1e6
-        log(f"[profile] {what}: kernels named {list(ours)} take "
-            f"{mine / steps * 1e3:.4f} ms/step, a share of "
-            f"{mine / busy:.3f} of the device time")
+    for label, frags in ours.items():
+        mine = [us for name, us in by_name.items()
+                if any(frag in name for frag in frags)]
+        log(f"[profile] {what}: {label} (kernels named {list(frags)}) take "
+            f"{sum(mine) / 1e3 / steps:.4f} ms/step, a share of "
+            f"{sum(mine) / 1e6 / busy:.3f} of the device time")
 
 
-def profile_decode(torch, arch: str, ours: tuple = (),
+def profile_decode(torch, arch: str, ours: dict | None = None,
                    steps: int = 4) -> None:
     """Wall time and device kernel time of decode steps at the serving
     shape (batch 8, 512-token prompts, full depth), and the share of that
@@ -477,10 +587,10 @@ def profile_decode(torch, arch: str, ours: tuple = (),
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     _profile_report(prof, f"{arch} decode at batch 8, after 514 tokens",
-                    wall, steps, ours)
+                    wall, steps, ours or {})
 
 
-def profile_prefill(torch, arch: str, ours: tuple = ()) -> None:
+def profile_prefill(torch, arch: str, ours: dict) -> None:
     """Wall time and device kernel time of one prefill at the serving shape
     (batch 8, 512-token prompts, full depth, an empty cache), after a
     warm-up prefill, with the share of the kernels named in ``ours``."""
@@ -530,6 +640,206 @@ def model_check(torch, arch: str) -> None:
         raise AssertionError("model check: CUDA and CPU logits disagree")
 
 
+def _train_model():
+    """Full tinyllama-1.1b, configured as ``train_loop`` runs it for
+    512-token sequences."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(dataclasses.replace(
+        get_config("tinyllama-1.1b"), q_chunk=256, kv_chunk=256))
+
+
+FLASH_FWD = ("flash_bf16_kernel",)
+FLASH_BWD = ("bwd_dq_bf16", "bwd_dkdv_bf16")
+
+
+def profile_train(torch) -> None:
+    """One train step of full-depth tinyllama (batch 8 x 512 tokens, remat,
+    AdamW) under the profiler, after a warm step: busy share, the largest
+    kernels, the flash forward's and backward's shares, the GEMMs' and the
+    elementwise ops'; then the AdamW update alone under CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.param import tree_items, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.runtime import build_train_step, init_train_state
+    model = _train_model()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = init_train_state(model, opt, seed=0, device="cuda")
+    step = build_train_step(model, opt)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (8, 513),
+                                     device="cuda", dtype=torch.int32)}
+    state, _ = step(state, batch)                             # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_report(prof, "tinyllama-1.1b train step at batch 8 x 512 "
+                    "tokens", wall, 1, {
+                        "flash forward": FLASH_FWD,
+                        "flash backward": FLASH_BWD,
+                        "GEMMs": ("nvjet", "gemm", "cutlass", "xmma"),
+                        "elementwise, reductions and copies": (
+                            "elementwise", "reduce", "Memcpy", "copy")},
+                    top=12)
+    # the optimizer alone, with CUDA events (it writes into the state)
+    grads = tree_map(torch.zeros_like, state.params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    adamw_update(state.params, grads, state.opt, opt)
+    end.record()
+    torch.cuda.synchronize()
+    log(f"[profile] tinyllama-1.1b AdamW update alone (eager, per leaf, "
+        f"{len(tree_items(grads))} stacked leaves): "
+        f"{start.elapsed_time(end):.2f} ms")
+
+
+def _loss_and_grads(model, params, toks, dev: str):
+    """The loss and every leaf's gradient (fp32, on the host) of ``params``
+    copied to ``dev``."""
+    from repro_torch.models.param import tree_items, tree_map
+    leaves = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(),
+                      params)
+    value = model.loss_fn(leaves, {"tokens": toks.to(dev)})
+    value.backward()
+    return float(value.detach()), {"/".join(p): t.grad.float().cpu()
+                                   for p, t in tree_items(leaves)}
+
+
+TRAIN_GRAD_TOL = 3e-2
+
+
+def train_check(torch) -> None:
+    """Depth-2, full-width tinyllama in bf16: the loss and every leaf's
+    gradient of one train step on the card (the flash kernels) against the
+    CPU (the plain path), same weights and batch (2 x 256 tokens), remat off
+    (the launch counts of ``train_loop`` cover remat). Held: the loss within
+    1e-2 relative; each leaf within ``TRAIN_GRAD_TOL`` (3e-2) of the CPU's,
+    ||card - cpu|| / ||cpu||; and each layer's attention gradient as the
+    backward kernel computed it inside the step (dq, dk, dv, with q, k, v
+    and dO captured by hooks) against ``flash_attention_bwd_plain`` on the
+    card on the same tensors, within the kernel check's ``BWD_TOL``.
+
+    For this check only, the attention weights are drawn at std
+    1/sqrt(fan-in): the reference's initializer draws them 8x (wq, wk, wv)
+    and 5.7x (wo) larger (ROADMAP C), which leaves the bf16 gradients so
+    ill-conditioned that two correct computations differ by ~30% of a leaf.
+    At the true fan-in, ``tools/flash_bwd_tolerance.py`` finds two correct
+    CPU computations (blockwise against exact softmax, bf16 against fp32)
+    1.3-1.4% apart at most, and a backward with dv 10% low past a quarter of
+    the keys 6.1% off on wv."""
+    import math
+    import repro_torch.models.attention as attention
+    from repro_torch.data import DataConfig, SyntheticLM
+    from flash_bwd_tolerance import grad_err
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+    from repro_torch.models import build_model, init_params
+    seq = 256
+    model = build_model(dataclasses.replace(
+        get_config("tinyllama-1.1b"), n_layers=2, remat=False,
+        q_chunk=seq // 2, kv_chunk=seq // 2))
+    params = init_params(model.param_decls(),
+                         torch.Generator().manual_seed(0), "cpu")
+    cfg, attn = model.cfg, params["layers"]["attn"]
+    for n in ("wq", "wk", "wv"):            # (L, M, H, D): fan-in M
+        attn[n] = (attn[n].float() * math.sqrt(attn[n].shape[-2]
+                                               / cfg.d_model)).bfloat16()
+    attn["wo"] = (attn["wo"].float() / math.sqrt(      # (L, H, D, M)
+        attn["wo"].shape[-3])).bfloat16()
+    toks = torch.as_tensor(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
+
+    kernels_core, seen = attention._prefill_core, []
+
+    def capturing_core(q, k, v, cfg):
+        out = kernels_core(q, k, v, cfg)
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
+        for name, t in (("dq", q), ("dk", k), ("dv", v), ("do", out)):
+            t.register_hook(lambda g, name=name: rec.update({name: g}))
+        seen.append(rec)
+        return out
+    attention._prefill_core = capturing_core
+    try:
+        loss, grads = _loss_and_grads(model, params, toks, "cuda")
+    finally:
+        attention._prefill_core = kernels_core
+    ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu")
+
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    errs = {k: grad_err(grads[k], w) for k, w in ref_grads.items()}
+    top = sorted(errs, key=lambda k: -errs[k])[:4]
+    attn_errs = []
+    for rec in seen:
+        want = flash_attention_bwd_plain(rec["q"], rec["k"], rec["v"],
+                                         rec["do"])
+        attn_errs.append([grad_err(rec[n], w)
+                          for n, w in zip(("dq", "dk", "dv"), want)])
+    log(f"[model] depth-2 tinyllama-1.1b bf16 train step (attention weights "
+        f"at std 1/sqrt(fan-in)), cuda vs cpu: loss {loss:.6f} vs "
+        f"{ref_loss:.6f} (rel {rel:.2e}, tol 1e-2); worst ||diff||/||g|| "
+        f"{', '.join(f'{k} {errs[k]:.2e}' for k in top)} (tol "
+        f"{TRAIN_GRAD_TOL:g}); the backward kernel in the step against the "
+        f"plain version, per layer (dq, dk, dv): "
+        f"{[[f'{e:.2e}' for e in l] for l in attn_errs]} (tol "
+        f"{BWD_TOL['bfloat16']:g})")
+    if len(seen) != cfg.n_layers or not all(
+            len(rec) == 7 for rec in seen):
+        raise AssertionError(f"train check: captured {len(seen)} attention "
+                             f"calls, want {cfg.n_layers} with gradients")
+    if not (rel < 1e-2 and max(errs.values()) <= TRAIN_GRAD_TOL
+            and max(map(max, attn_errs)) <= BWD_TOL["bfloat16"]):
+        raise AssertionError("bf16 train check: CUDA and CPU disagree")
+
+
+def resume_check(torch) -> None:
+    """Depth-2, full-width tinyllama through ``train_loop`` on the card:
+    six steps uninterrupted; six again with a checkpoint every 2 steps and a
+    simulated crash after step 4; then a resume, which must start at step 4
+    and reproduce the uninterrupted losses (rtol 2e-2, as
+    tests/test_runtime.py holds the reference). Checkpoints (2.2 GB each)
+    go to build/, which the run deletes after."""
+    import shutil
+    from repro_torch.launch import train as train_mod
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    full_depth = train_mod.get_config
+
+    def depth2(arch, *, reduced=False):
+        return dataclasses.replace(full_depth(arch, reduced=reduced),
+                                   n_layers=2)
+    kw = dict(steps=6, batch=4, seq=256, seed=3, log_every=0, device="cuda")
+    train_mod.get_config = depth2
+    try:
+        t0 = time.perf_counter()
+        full = train_mod.train_loop("tinyllama-1.1b", **kw)
+        try:
+            train_mod.train_loop("tinyllama-1.1b", ckpt_dir=str(ckpt),
+                                 ckpt_every=2, simulate_failure=4, **kw)
+        except RuntimeError as exc:
+            if "simulated" not in str(exc):
+                raise
+        else:
+            raise AssertionError("train_loop did not simulate its failure")
+        resumed = train_mod.train_loop("tinyllama-1.1b", ckpt_dir=str(ckpt),
+                                       ckpt_every=2, resume=True, **kw)
+        seconds = time.perf_counter() - t0
+    finally:
+        train_mod.get_config = full_depth
+        shutil.rmtree(ckpt, ignore_errors=True)
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(resumed["losses"], full["losses"][4:]))
+    log(f"[model] depth-2 tinyllama-1.1b crash after step 4 and resume: "
+        f"start_step {resumed['start_step']}, losses {resumed['losses']} vs "
+        f"uninterrupted {full['losses'][4:]} (max rel {worst:.2e}, tol "
+        f"2e-2); {seconds:.1f} s with checkpoints")
+    if resumed["start_step"] != 4 or len(resumed["losses"]) != 2 \
+            or not worst < 2e-2:
+        raise AssertionError("resume did not reproduce the trajectory")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -538,8 +848,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as decode_k
     from repro_torch.kernels.flash_attention import kernel as flash_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd_k
     from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import param_count
 
     log(f"[card] {card_line()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -564,9 +877,10 @@ def main() -> int:
     flash = check_flash(torch, timer, gen)
     decode = check_decode(torch, timer, gen)
     ssd = check_ssd(torch, timer, gen)
+    flash_bwd = check_flash_bwd(torch, timer, gen)
 
-    counters = {"flash_attention": flash_k, "decode_attention": decode_k,
-                "ssd": ssd_k}
+    counters = {"flash_attention": flash_k, "flash_attention_bwd": flash_bwd_k,
+                "decode_attention": decode_k, "ssd": ssd_k}
 
     def serve_counted(arch: str, layers: int, vocab: int) -> dict:
         serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
@@ -602,12 +916,46 @@ def main() -> int:
     n_flash, n_decode, n_ssd = (dense["flash_attention"],
                                 dense["decode_attention"], ssm["ssd"])
 
-    profile_decode(torch, "tinyllama-1.1b", ours=("split_kernel",
-                                                   "combine_kernel"))
+    # training: batch 8 x 512 tokens, full width and depth, remat on
+    train = dict(batch=8, seq=512, seed=0, log_every=0, device="cuda")
+    out = train_loop("tinyllama-1.1b", steps=2, **train)
+    log(f"[train] tinyllama-1.1b first call (cold), 2 steps: "
+        f"{out['wall_s'] / 2 * 1e3:.1f} ms/step, losses {out['losses']}")
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    steps = 4
+    out = train_loop("tinyllama-1.1b", steps=steps, **train)
+    counts = {name: k.launches for name, k in counters.items()}
+    n_params = param_count(_train_model().param_decls())
+    share = 6 * n_params * out["tokens_per_s"] / PEAK_BF16_FLOPS
+    log(f"[train] tinyllama-1.1b batch=8 seq=512 ({n_params / 1e9:.3f} B "
+        f"params, 22 layers, remat) {steps} steps: "
+        f"{out['wall_s'] / steps * 1e3:.1f} ms/step, "
+        f"{out['tokens_per_s']:.0f} tokens/s; losses {out['losses']}; "
+        f"launches {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; derived: "
+        f"6 * N * tokens/s / 989 TFLOP/s = {share:.3f}")
+    want = {"flash_attention": steps * 44, "flash_attention_bwd": steps * 22,
+            "decode_attention": 0, "ssd": 0}
+    if counts != want:
+        raise AssertionError(f"training launches {counts}: want {want} "
+                             "(44 forward a step: 22 and 22 recomputed "
+                             "under remat; 22 backward)")
+    if len(out["losses"]) != steps or not all(
+            l == l and abs(l) < float("inf") for l in out["losses"]):
+        raise AssertionError(f"training losses {out['losses']}")
+    n_flash_bwd = counts["flash_attention_bwd"]
+
+    profile_decode(torch, "tinyllama-1.1b", ours={
+        "decode_attention": ("split_kernel", "combine_kernel")})
     profile_decode(torch, "mamba2-370m")
-    profile_prefill(torch, "mamba2-370m", ours=("ssd",))
+    profile_prefill(torch, "mamba2-370m", ours={"ssd": ("ssd",)})
+    profile_train(torch)
     for arch in ("tinyllama-1.1b", "mamba2-370m"):
         model_check(torch, arch)
+    train_check(torch)
+    resume_check(torch)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -621,6 +969,12 @@ def main() -> int:
         dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:75",
              launches=n_ssd, **ssd),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="none: the gradient of "
+                      "src/repro/kernels/flash_attention/kernel.py:93, "
+                      "taken by autodiff (XLA) in the JAX package",
+             launches=n_flash_bwd, **flash_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

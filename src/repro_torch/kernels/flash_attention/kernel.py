@@ -38,9 +38,14 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
+def aligned_rows(t: torch.Tensor) -> bool:
+    """Rows contiguous and 16-byte aligned, as the kernels read them."""
+    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) \
-            or t.data_ptr() % 16:
+    if not aligned_rows(t):
         raise ValueError(f"{name}: rows must be contiguous and 16-byte "
                          f"aligned, got strides {t.stride()}")
 

@@ -6,6 +6,11 @@ raises); a CPU tensor goes to the plain version. ``chunk`` keeps the
 reference's signature and its ``ValueError`` on a length it does not
 divide; the plain version scans in chunks of that length, the CUDA kernel in
 its own (the result differs only by fp32 rounding).
+
+The CUDA kernel has no backward (nor has the reference's Pallas kernel):
+under grad, with an input that requires it, a CUDA call raises instead of
+returning a result detached from its inputs. The CPU path stays
+differentiable.
 """
 
 from __future__ import annotations
@@ -35,6 +40,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if S % min(chunk, S):
         raise ValueError(f"S {S} % chunk {chunk}")
     if x.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, dt, A, Bm, Cm, state0)):
+            raise NotImplementedError(
+                "ssd has no CUDA backward kernel yet: training mamba2 on the "
+                "card is ROADMAP item A.14")
         return ssd_cuda(x, dt, A, Bm, Cm, state0=state0, state_out=state_out)
     if x.device.type != "cpu":
         raise ValueError(f"no ssd for device {x.device}")

@@ -19,19 +19,10 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import _build
+from repro_torch.launch import resolve_device
 from repro_torch.models import build_model, init_params
 
 __all__ = ["main", "serve_loop"]
-
-
-def _resolve_device(device: str | torch.device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("serve_loop: CUDA is not available; pass "
-                           "device='cpu' to run the plain path on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"serve_loop runs on cuda or cpu, not {device}")
-    return device
 
 
 def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
@@ -44,7 +35,7 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
     Returns ``prefill_s``, ``decode_s``, ``decode_tok_per_s`` and ``tokens``
     (batch, gen_tokens).
     """
-    device = _resolve_device(device)
+    device = resolve_device(device, "serve_loop")
     cfg = get_config(arch, reduced=reduced)
     max_len = prompt_len + gen_tokens
     cfg = dataclasses.replace(cfg, q_chunk=max(prompt_len // 2, 16),

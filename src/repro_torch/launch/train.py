@@ -1,0 +1,138 @@
+"""Training driver: ``python -m repro_torch.launch.train --arch <id> ...``
+
+Port of ``repro/launch/train.py::train_loop``: the synthetic data pipeline
+with background prefetch, the train step (loss, gradients through the
+hand-written attention kernels on the card, AdamW), checkpoints and
+restart. It runs on the card (``device="cuda"``, full width and depth)
+unless the caller asks for the CPU, where it takes the kernels' plain
+versions; without CUDA and without ``device="cpu"`` it raises. mamba2 trains
+on the CPU only: its scan kernel has no backward yet (ROADMAP A.14).
+
+Fault tolerance: ``--simulate-failure K`` raises after step K; rerunning
+the same command with ``--resume`` resumes from the last complete
+checkpoint and reproduces the loss trajectory (the data pipeline is keyed
+by step). The DFlow-orchestrated mode of the reference is ROADMAP A.13.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, list_archs
+from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.kernels import _build
+from repro_torch.launch import resolve_device
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import build_train_step, init_train_state
+
+__all__ = ["main", "train_loop"]
+
+
+def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
+               reduced: bool = False, ckpt_dir: str | None = None,
+               ckpt_every: int = 0, resume: bool = False,
+               simulate_failure: int | None = None, seed: int = 0,
+               log_every: int = 1, microbatches: int | None = None,
+               device: str | torch.device = "cuda") -> dict:
+    """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens.
+
+    Returns ``losses`` (one a step run), ``wall_s``, ``tokens_per_s``,
+    ``final_loss`` and ``start_step`` (nonzero after a resume)."""
+    device = resolve_device(device, "train_loop")
+    cfg = get_config(arch, reduced=reduced)
+    cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
+                              kv_chunk=max(seq // 2, 16),
+                              microbatches=microbatches or 1)
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
+                          total_steps=steps)
+    on_card = device.type == "cuda"
+    if on_card:
+        _build.build()               # set-up, outside the timed loop
+    step_fn = build_train_step(model, opt_cfg)
+    state = init_train_state(model, opt_cfg, seed=seed, device=device)
+
+    mgr = None
+    start_step = 0
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+        if resume and mgr.latest() is not None:
+            state, start_step = mgr.restore(state)
+            print(f"[train] resumed from step {start_step}")
+
+    def clock() -> float:
+        if on_card:
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    pipe = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=seed),
+                         start_step=start_step)
+    losses = []
+    t0 = clock()
+    try:
+        for i in range(start_step, steps):
+            step_idx, np_batch = pipe.next()
+            if step_idx != i:
+                raise RuntimeError(f"pipeline gave step {step_idx} at {i}")
+            batch_dev = {k: torch.as_tensor(v).to(device)
+                         for k, v in np_batch.items()}
+            state, metrics = step_fn(state, batch_dev)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            if log_every and i % log_every == 0:
+                print(f"[train] step {i:4d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
+            if mgr and ckpt_every and (i + 1) % ckpt_every == 0:
+                mgr.save(i + 1, state)
+            if simulate_failure is not None and i + 1 == simulate_failure:
+                raise RuntimeError(
+                    f"simulated node failure at step {i + 1}")
+    finally:
+        pipe.close()
+        if mgr:
+            mgr.wait()
+    wall = clock() - t0
+    tokens = (steps - start_step) * batch * seq
+    return {"losses": losses, "wall_s": wall,
+            "tokens_per_s": tokens / max(wall, 1e-9),
+            "final_loss": losses[-1] if losses else float("nan"),
+            "start_step": start_step}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced (CPU-test) width of the arch")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--simulate-failure", type=int, default=None)
+    ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    out = train_loop(args.arch, steps=args.steps, batch=args.batch,
+                     seq=args.seq, reduced=args.reduced,
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                     resume=args.resume,
+                     simulate_failure=args.simulate_failure,
+                     microbatches=args.microbatches, seed=args.seed,
+                     device=args.device)
+    print(f"[train] done: final_loss={out['final_loss']:.4f} "
+          f"tokens/s={out['tokens_per_s']:.0f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

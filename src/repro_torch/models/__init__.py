@@ -1,5 +1,5 @@
-"""Model zoo of the port: the decoder LM (dense and ssm families) and its
-layers."""
+"""Model zoo of the port: the decoder LM (dense and ssm families, with the
+training loss ``LM.loss_fn``) and its layers."""
 
 from .config import ModelConfig
 from .lm import LM, Cache

@@ -1,9 +1,10 @@
-"""Shared layer primitives: RMS norm, SiLU, softplus and rotary embeddings.
+"""Shared layer primitives: RMS norm, SiLU, softplus, rotary embeddings and
+the cross-entropy loss.
 
 Same conventions as the JAX package's ``models/common.py``: compute in the
-activation dtype, normalise and rotate in fp32. The rest of that module
-(layer norm, gelu, squared ReLU, M-RoPE, cross entropy) comes with the
-slices that use it.
+activation dtype, normalise, rotate and take the loss in fp32. The rest of
+that module (layer norm, gelu, squared ReLU, M-RoPE) comes with the slices
+that use it.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["matmul", "rms_norm", "silu", "softplus", "ACTIVATIONS",
-           "rope_table", "apply_rope"]
+           "rope_table", "apply_rope", "cross_entropy_loss"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -71,3 +72,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level cross entropy in fp32. logits: (..., V); labels:
+    (...) int; with ``mask`` (...), sum(nll * mask) / max(sum(mask), 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -11,12 +11,16 @@ layer axis; a Python loop over that axis takes the place of ``lax.scan``.
 
 Entry points, as in the reference:
 
+* ``loss_fn(params, batch)``            -> next-token cross entropy (train);
 * ``forward(params, tokens)``           -> (logits (B, S, V), aux);
 * ``prefill(params, tokens, cache)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache)`` -> (logits (B, 1, V), cache).
 
 The cache is written in place (see ``attention.py`` and ``ssm.py``); the
 returned cache holds the same buffers (with the advanced length for KV).
+Under grad with ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``, policy
+"full"); the "dots" and "names" policies raise.
 Other families raise ``NotImplementedError`` naming the ROADMAP item that
 brings them.
 """
@@ -26,15 +30,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import KVCache, attention, attention_decls, init_cache
-from .common import matmul, rms_norm
+from .common import cross_entropy_loss, matmul, rms_norm
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .param import ArrayDecl, normal_init, ones_init, tree_map
 from .ssm import SSMCache, init_ssm_cache, mamba_block, ssm_decls
 
-__all__ = ["LM", "Cache"]
+__all__ = ["LM", "Cache", "AUX_COEF"]
+
+AUX_COEF = 0.01
 
 _PENDING_FAMILIES = {"moe": "A.8", "hybrid": "A.10", "encdec": "A.11",
                      "vlm": "A.7"}
@@ -115,12 +122,36 @@ class LM:
     def forward(self, params, tokens: torch.Tensor):
         """tokens: (B, S) -> logits (B, S, V); also returns the aux loss
         (0 for both families)."""
+        cfg = self.cfg
         x = self._embed(params, tokens)
-        layer = self._ssm_layer if self.cfg.family == "ssm" else self._layer
-        for i in range(self.cfg.n_layers):
-            lp = tree_map(lambda a: a[i], params["layers"])
-            x, _ = layer(lp, x)
+        layer = self._ssm_layer if cfg.family == "ssm" else self._layer
+
+        def body(lp, x):
+            return layer(lp, x)[0]
+
+        run = body
+        if cfg.remat and torch.is_grad_enabled():
+            if cfg.remat_policy in ("dots", "names"):
+                raise NotImplementedError(
+                    f"remat_policy {cfg.remat_policy!r}: ROADMAP item A.3")
+            def run(lp, x):
+                return checkpoint(body, lp, x, use_reentrant=False,
+                                  preserve_rng_state=False)
+        # one unbind per stacked leaf: its gradient is one stack, where a
+        # slice per layer would add a full-size zero-padded gradient each
+        unbound = tree_map(lambda a: a.unbind(0), params["layers"])
+        for i in range(cfg.n_layers):
+            x = run(tree_map(lambda a: a[i], unbound), x)
         return self._head(params, x), 0.0
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """batch: {'tokens': (B, S+1), optional 'mask' (B, S)} -> scalar fp32
+        next-token cross entropy (plus ``AUX_COEF`` times the aux loss, 0
+        for both families)."""
+        tokens = batch["tokens"]
+        logits, aux = self.forward(params, tokens[:, :-1])
+        ce = cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
+        return ce + AUX_COEF * aux
 
     # ------------------------------------------------------------------
     # serving

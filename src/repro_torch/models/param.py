@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["ArrayDecl", "init_params", "params_from_numpy", "normal_init",
-           "ones_init", "zeros_init", "tree_map", "param_count"]
+           "ones_init", "zeros_init", "tree_map", "tree_map_with_path",
+           "tree_items", "param_count"]
 
 Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
                        torch.Tensor]
@@ -74,18 +75,43 @@ class ArrayDecl:
         return math.prod(self.shape)
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
-    """Apply ``fn`` to every leaf of a nested dict, keeping its keys."""
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_map_with_path(fn: Callable[[tuple, Any], Any], tree,
+                       prefix: tuple = ()):
+    """Apply ``fn(path, leaf)`` to every leaf of a tree of dicts and
+    NamedTuples, keeping its structure. A path holds the dict keys and the
+    field names from the root down."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, v, prefix + (name,))
+                            for name, v in zip(tree._fields, tree)))
+    return fn(prefix, tree)
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """Apply ``fn`` to every leaf of a tree of dicts and NamedTuples."""
+    return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def tree_items(tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(path, leaf) pairs in the order ``jax.tree.flatten`` walks the same
+    tree: dict keys sorted, NamedTuple fields in order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], prefix + (k,))]
+    if _is_namedtuple(tree):
+        return [item for name, v in zip(tree._fields, tree)
+                for item in tree_items(v, prefix + (name,))]
+    return [(prefix, tree)]
 
 
 def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        # sorted keys: the order jax.tree.flatten walks a dict in
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
+    return [leaf for _, leaf in tree_items(tree)]
 
 
 def param_count(decls) -> int:

@@ -9,7 +9,10 @@ Kernel tolerances are tests/test_kernels.py's (2e-5 absolute in fp32 with
 TF32 off, 2e-2 in bf16; for ssd, relative to y's largest magnitude, 5x those,
 and 1e-4 relative for its final state, tests/test_models.py's bound between
 chunk lengths); the model is held to tests/test_archs.py's bound (rel < 0.06
-of the largest logit, equal argmax).
+of the largest logit, equal argmax). The flash backward kernel is held to
+autograd through its plain version: ||got - want|| <= 1e-2 ||want|| in
+bf16 (P and dS enter the products rounded to bf16, as the forward rounds P;
+~0.3% by tools/flash_bwd_tolerance.py), 1e-4 ||want|| in fp32.
 """
 
 import dataclasses
@@ -19,15 +22,21 @@ import torch
 
 import repro_torch.kernels.decode_attention.kernel as decode_kernel
 import repro_torch.kernels.flash_attention.kernel as flash_kernel
+import repro_torch.kernels.flash_attention.kernel_bwd as flash_bwd_kernel
 import repro_torch.kernels.ssd.kernel as ssd_kernel
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.ssd import ssd, ssd_plain
 from repro_torch.launch.serve import serve_loop
+from repro_torch.launch.train import train_loop
 from repro_torch.models import build_model, init_params
+from repro_torch.models.attention import attention
 from repro_torch.models.param import tree_map
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -367,3 +376,153 @@ def test_serve_loop_mamba2_goes_through_the_ssd_kernel():
     # one launch per layer, at prefill only: decode is the plain recurrence
     assert ssd_kernel.launches == get_config("mamba2-370m",
                                              reduced=True).n_layers
+
+
+def _bwd_close(got, want, dtype) -> bool:
+    """||got - want|| / ||want|| within 1e-2 (bf16) or 1e-4 (fp32), the
+    rule of chip_smoke.py: a bound on the largest magnitude would pass a
+    causal dk or dv that is wrong on most keys, whose values are ~100x
+    smaller than the first keys'."""
+    got, want = got.double(), want.double()
+    err = float((got - want).norm() / want.norm())
+    return err <= (1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hk,D", [
+    (8, 512, 32, 4, 64),                  # the training shape
+    (2, 100, 32, 4, 64),                  # ragged S: partial tiles
+    (2, 256, 8, 8, 128),                  # G = 1, D = 128
+    (1, 48, 6, 2, 16),                    # G = 3 (rows of a tile split
+    (1, 40, 6, 3, 32)])                   # positions), small D
+def test_flash_bwd_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = randn(gen, B, S, H, D, dtype=tdt)
+    k = randn(gen, B, S, Hk, D, dtype=tdt)
+    v = randn(gen, B, S, Hk, D, dtype=tdt)
+    do = randn(gen, B, S, H, D, dtype=tdt)
+    o = flash_attention_cuda(q, k, v, causal=causal)
+    before = flash_bwd_kernel.launches
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_bwd_kernel.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == tdt
+        assert _bwd_close(g, w, dtype)
+
+
+def test_flash_bwd_cuda_is_deterministic():
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, do = (randn(gen, 2, 256, 32, 64, dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (randn(gen, 2, 256, 4, 64, dtype=torch.bfloat16)
+            for _ in range(2))
+    o = flash_attention_cuda(q, k, v)
+    a = flash_attention_bwd_cuda(q, k, v, o, do)
+    b = flash_attention_bwd_cuda(q, k, v, o, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_bwd_cuda_rejects_what_it_does_not_take():
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def call(B=1, S=64, H=4, Hk=2, D=64, dtype=torch.bfloat16, **over):
+        t = {"q": randn(gen, B, S, H, D, dtype=dtype),
+             "k": randn(gen, B, S, Hk, D, dtype=dtype),
+             "v": randn(gen, B, S, Hk, D, dtype=dtype),
+             "o": randn(gen, B, S, H, D, dtype=dtype),
+             "do": randn(gen, B, S, H, D, dtype=dtype)}
+        t.update(over)
+        return flash_attention_bwd_cuda(t["q"], t["k"], t["v"], t["o"],
+                                        t["do"])
+    for kwargs in ({"D": 48}, {"H": 34, "Hk": 2}, {"dtype": torch.float16},
+                   {"o": randn(gen, 1, 64, 4, 32, dtype=torch.bfloat16)},
+                   {"do": randn(gen, 1, 64, 4, 64,
+                                dtype=torch.float32)},
+                   {"k": randn(gen, 1, 64, 4, 128,
+                               dtype=torch.bfloat16)[..., ::2]},
+                   {"do": torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)}):
+        with pytest.raises(ValueError):
+            call(**kwargs)
+
+
+def test_flash_attention_grad_goes_through_the_backward_kernel():
+    """flash_attention under grad on the card: the Function's gradient
+    (the backward kernel) against autograd through the plain version; a
+    non-contiguous dO is taken as it comes."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = randn(gen, 2, 128, 8, 64, dtype=torch.bfloat16).requires_grad_()
+    k = randn(gen, 2, 128, 2, 64, dtype=torch.bfloat16).requires_grad_()
+    v = randn(gen, 2, 128, 2, 64, dtype=torch.bfloat16).requires_grad_()
+    do = randn(gen, 2, 128, 64, 8, dtype=torch.bfloat16).transpose(2, 3)
+    before = (flash_kernel.launches, flash_bwd_kernel.launches)
+    out = flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_kernel.launches, flash_bwd_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, do, causal=True)
+    for g, w in zip(got, want):
+        assert _bwd_close(g, w, "bfloat16")
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_bwd_kernel.launches == before[1] + 1
+
+
+def test_attention_grads_reach_wq_wk_wv_on_the_card():
+    """The attention sublayer of the reduced model (no cache): gradients of
+    wq, wk, wv and wo on the card, through the kernels, against the CPU
+    plain path on the same weights."""
+    model, params = _reduced_model()
+    lp = tree_map(lambda a: a[0].clone(), params["layers"])
+    x = torch.randn(2, 32, model.cfg.d_model,
+                    generator=torch.Generator().manual_seed(6)
+                    ).to(torch.bfloat16)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        w = {n: lp["attn"][n].to(dev, copy=True).requires_grad_()
+             for n in ("wq", "wk", "wv", "wo")}
+        y, _ = attention(w, x.to(dev), model.cfg)
+        (y.float().square().sum()).backward()
+        grads[dev] = {n: t.grad.float().cpu() for n, t in w.items()}
+    for n in ("wq", "wk", "wv", "wo"):
+        want, got = grads["cpu"][n], grads["cuda"][n]
+        assert float(got.abs().max()) > 0
+        assert float((got - want).abs().max()) <= 2 ** -5 * \
+            float(want.abs().max())
+
+
+def test_ssd_under_grad_on_the_card_raises():
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = randn(gen, 1, 64, 2, 16, dtype=torch.bfloat16).requires_grad_()
+    dt = torch.nn.functional.softplus(randn(gen, 1, 64, 2,
+                                            dtype=torch.float32))
+    A = -torch.exp(randn(gen, 2, dtype=torch.float32))
+    Bm = randn(gen, 1, 64, 16, dtype=torch.bfloat16)
+    Cm = randn(gen, 1, 64, 16, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        ssd(x, dt, A, Bm, Cm, chunk=64)
+    with torch.no_grad():
+        y, _ = ssd(x, dt, A, Bm, Cm, chunk=64)
+    assert y.shape == x.shape
+
+
+def test_train_loop_cuda_goes_through_the_kernels():
+    """Reduced tinyllama trained on the card: each step runs the flash
+    forward twice a layer (remat recomputes it) and the backward once."""
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    out = train_loop("tinyllama-1.1b", steps=3, batch=2, seq=32,
+                     reduced=True, log_every=0)
+    n_layers = get_config("tinyllama-1.1b", reduced=True).n_layers
+    assert len(out["losses"]) == 3
+    assert all(torch.isfinite(torch.tensor(out["losses"])))
+    assert flash_kernel.launches == 3 * 2 * n_layers
+    assert flash_bwd_kernel.launches == 3 * n_layers
+
+
+def test_train_loop_mamba2_on_the_card_raises():
+    with pytest.raises(NotImplementedError, match="A.14"):
+        train_loop("mamba2-370m", steps=1, batch=2, seq=32, reduced=True,
+                   log_every=0)
