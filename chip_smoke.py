@@ -137,12 +137,23 @@ def sdpa_ms(torch, timer, q, k, v, causal: bool):
         return None
 
 
+LSE_TOL = 1e-4
+
+
 def check_flash(torch, timer, gen) -> dict:
     """The flash kernel against its plain version at the prefill shape (bf16
     causal and full, fp32), a ragged S, D = 128, G = 1 and a long B = 1
-    prompt; the serving shape and the long prompt are timed."""
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    prompt; the serving shape and the long prompt are timed. At each shape
+    the rows' log-sum-exp that the kernel writes when asked (the training
+    forward) is held to ``flash_attention_lse_plain`` within ``LSE_TOL``
+    (1e-4 absolute, fp32: the kernel sums 2^x from ex2.approx, ~2 ulp each,
+    with an online rescaling, where the plain version takes an exact fp32
+    logsumexp; |lse| stays under ~10 here), and the output with lse asked
+    for must equal the one without. The serving shape is timed with lse
+    and without."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_lse_plain,
+        flash_attention_plain)
     rec, worst = None, 0.0
     # (label, B, S, H, Hk, D, dtype, causal, timed)
     for label, B, S, H, Hk, D, dtype, causal, timed in (
@@ -158,22 +169,33 @@ def check_flash(torch, timer, gen) -> dict:
         k = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
         got = flash_attention_cuda(q, k, v, causal=causal)
+        with_lse, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                             return_lse=True)
         want = flash_attention_plain(q, k, v, causal=causal)
+        want_lse = flash_attention_lse_plain(q, k, causal=causal)
         torch.cuda.synchronize()
-        err = max_err(got, want)
+        err, lse_err = max_err(got, want), max_err(lse, want_lse)
         name = str(dtype).split(".")[1]
         log(f"[kernels] flash_attention {label} {name} causal={causal} "
             f"B={B} S={S} H={H} Hk={Hk} D={D}: max_abs_err={err:.3e} "
-            f"(tol {TOL[name]:g})")
+            f"(tol {TOL[name]:g}); lse max_abs_err={lse_err:.3e} (tol "
+            f"{LSE_TOL:g}, |lse| max {float(want_lse.abs().max()):.3f})")
         if not err < TOL[name]:
             raise AssertionError(f"flash_attention {label} {name} "
                                  f"causal={causal}: max_abs_err {err} >= "
                                  f"{TOL[name]}")
+        if not (lse_err < LSE_TOL and torch.equal(with_lse, got)):
+            raise AssertionError(f"flash_attention {label} {name} "
+                                 f"causal={causal}: lse max_abs_err "
+                                 f"{lse_err} (tol {LSE_TOL}), or the output "
+                                 f"changed when lse was asked for")
         if dtype is torch.bfloat16:
             worst = max(worst, err)
         if not timed:
             continue
         ms = timer.ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+        lse_ms = timer.ms(lambda: flash_attention_cuda(
+            q, k, v, causal=True, return_lse=True))
         plain_ms = timer.ms(
             lambda: flash_attention_plain(q, k, v, causal=True), iters=10)
         lib_ms = sdpa_ms(torch, timer, q, k, v, causal=True)
@@ -181,8 +203,8 @@ def check_flash(torch, timer, gen) -> dict:
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         log(f"[kernels] flash_attention {label} bf16 causal B={B} S={S}: "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
-            f"bound {b_ms:.4f} ms by {b_by})")
+            f"{ms:.4f} ms, with lse {lse_ms:.4f} ms (plain {plain_ms:.4f} "
+            f"ms, sdpa {lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         if label == "serving":
             rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bound_by": b_by}
@@ -418,6 +440,31 @@ def check_ssd(torch, timer, gen) -> dict:
 
 
 BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# the names of the flash kernels' launches (bf16), as the profiler shows them
+FLASH_FWD = ("flash_bf16_kernel",)
+FLASH_BWD = ("bwd_dq_bf16", "bwd_dkdv_bf16", "bwd_reduce")
+
+
+def kernel_ms(torch, timer, fn, names, iters: int = 20) -> dict:
+    """Mean device ms a call of ``fn`` spends in the kernels whose names
+    contain each of ``names`` (``torch.profiler``), the L2 flushed before
+    each call as ``Timer`` does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    us[n] += e.time_range.elapsed_us()
+    return {n: t / iters / 1e3 for n, t in us.items()}
 
 
 def check_flash_bwd(torch, timer, gen) -> dict:
@@ -440,6 +487,8 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel_bwd import (auto_split,
+                                                                split_plan)
     F = torch.nn.functional
     rec, worst = None, 0.0
     # (label, B, S, H, Hk, D, dtype, causal, timed)
@@ -455,8 +504,9 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(B, S, Hk, D, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
-        o = flash_attention_cuda(q, k, v, causal=causal)
-        got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                      return_lse=True)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
         want = flash_attention_bwd_plain(q, k, v, do, causal=causal)
         torch.cuda.synchronize()
         name = str(dtype).split(".")[1]
@@ -475,6 +525,16 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             if dtype is torch.bfloat16:
                 worst = max(worst, max_err(g, w))
         if label == "training" and causal:
+            # the rows unsplit: one range a key tile, the partials summed
+            # from one term, within the same rule
+            one = flash_attention_bwd_cuda(q, k, v, o, do, lse, n_split=1)
+            errs = [grad_err(g, w) for g, w in zip(one, want)]
+            log(f"[kernels] flash_attention_bwd {label} n_split=1: "
+                f"||err||/||want|| dq, dk, dv "
+                f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g})")
+            if not max(errs) <= tol:
+                raise AssertionError(f"flash_attention_bwd n_split=1: "
+                                     f"||err||/||want|| {errs} > {tol}")
             for fault, (i, bad) in planted_faults(got, S).items():
                 err = grad_err(bad, want[i])
                 log(f"[kernels] flash_attention_bwd planted fault, "
@@ -485,7 +545,9 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                                          f"planted fault: {fault}")
         if not timed:
             continue
-        ms = timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do))
+        ms = timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
+        passes = kernel_ms(torch, timer, lambda: flash_attention_bwd_cuda(
+            q, k, v, o, do, lse), FLASH_BWD)
         plain_ms = timer.ms(
             lambda: flash_attention_bwd_plain(q, k, v, do), iters=10)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -498,14 +560,27 @@ def check_flash_bwd(torch, timer, gen) -> dict:
         except TypeError:       # a torch without enable_gqa
             lib_ms = None
         # five causal products (S, dP, dV, dK, dQ) of 2 * B * H * S^2 / 2 * D
-        # each; q, o, do, dq and k, v, dk, dv moved once
+        # each; q, o, do, dq and k, v, dk, dv moved once (lse, 4 bytes a
+        # row, read once)
         flops = 5 * 2 * B * H * S * S * D / 2
-        nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        # this design also writes and reads back fp32 partial dk, dv: one
+        # (64, D) slice of each a block of its dk/dv pass
+        n_split = auto_split(B, Hk, S, S, H // Hk, True,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+        ranges = split_plan(S, S, H // Hk, True, n_split)[1]
+        part_bytes = 2 * 2 * B * Hk * ranges * 64 * D * 4
+        bp_ms, bp_by = bound(flops, nbytes + part_bytes, PEAK_BF16_FLOPS)
         log(f"[kernels] flash_attention_bwd {label} bf16 causal B={B} S={S}: "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa backward {lib_ms} "
-            f"ms, bound {b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"{ms:.4f} ms (passes, profiled: "
+            f"{', '.join(f'{n} {t:.4f}' for n, t in passes.items())} ms; "
+            f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; n_split {n_split}, {B * Hk * ranges} "
+            f"dk/dv blocks, whose fp32 partials add {part_bytes / 1e6:.1f} "
+            f"MB: bound with them {bp_ms:.4f} ms by {bp_by})")
         if label == "training":
             rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bound_by": b_by}
@@ -647,10 +722,6 @@ def _train_model():
     from repro_torch.models import build_model
     return build_model(dataclasses.replace(
         get_config("tinyllama-1.1b"), q_chunk=256, kv_chunk=256))
-
-
-FLASH_FWD = ("flash_bf16_kernel",)
-FLASH_BWD = ("bwd_dq_bf16", "bwd_dkdv_bf16")
 
 
 def profile_train(torch) -> None:
@@ -863,7 +934,8 @@ def main() -> int:
     log(f"[build] {sorted(report)} in {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -12,6 +12,10 @@
 // Layout. q, o: (B, Sq, H, D); k, v: (B, Skv, Hk, D), read through their
 // batch / sequence / head strides (innermost stride 1), so the model's
 // tensors go in without a transposed copy. Heads fold as h = hk * G + g.
+// When the caller passes an lse pointer (the training forward), each row's
+// fp32 log-sum-exp of the scaled scores, (m c + log2 l) / log2(e), goes
+// there at the epilogue in the backward's folded layout (B, Hk, Sq * G),
+// row pos * G + g: one store per row; serving passes none.
 //
 // What bounds it on this card: at the prefill shape (B=8, S=512, H=32,
 // Hk=4, D=64, bf16, causal) it must move 37.7 MB (q, k, v, o once), 11.3 us
@@ -46,9 +50,10 @@
 //     tiles that cross the diagonal (or Skv) are masked. Blocks start with
 //     the longest rows (the last positions), so the short ones fill the
 //     last wave.
-// The tensor maps are built on the host with cuTensorMapEncodeTiled (from
-// cudaGetDriverEntryPoint: no link against libcuda) and passed as
-// __grid_constant__ parameters.
+// The wgmma helpers and the swizzled tile geometry are in wgmma.cuh,
+// shared with the backward. The tensor maps are built on the host with
+// cuTensorMapEncodeTiled (from cudaGetDriverEntryPoint: no link against
+// libcuda) and passed as __grid_constant__ parameters.
 //
 // fp32 design (not on a serving path): scalar fp32 FMA, one thread per query
 // row (no TF32: the fp32 tolerance is 2e-5), 16 query positions x G heads a
@@ -59,12 +64,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
+
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // finite, as in the reference
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, s, h;  // element strides of batch, sequence, head
@@ -79,6 +89,7 @@ struct Params {
   Strides qs, ks, vs, os;
   int causal;
   float scale;
+  float* lse;                      // (B, Hk, Sq * G) fp32, or nullptr
 };
 
 // Number of KV tiles this block visits: up to the causal diagonal of its
@@ -172,6 +183,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = o + b * os.b + qpos * os.s + h * os.h;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = acc[d] / denom;
+    if (p.lse != nullptr)
+      p.lse[(static_cast<long long>(blockIdx.y) * Sq + qpos) * G + g] =
+          m + logf(denom);
   }
 }
 
@@ -189,36 +203,27 @@ constexpr int kStages = 2;         // K/V tiles in flight
 constexpr int kConsumers = 128;    // threads of the consumer warpgroup
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 
-// Shared-memory tiling of one head size. A tile is cut into panels of
-// kPanelCols columns (rows of kSw bytes, the swizzle span); a panel of R
-// rows is R * kSw bytes and starts on a 1024-byte boundary.
+// Shared-memory tiles of one head size (wgmma.cuh: panels of kPanelCols
+// columns, kSw-byte rows, each panel 1024-byte aligned).
 template <int D>
-struct Tile {
-  static constexpr int kSw = D * 2 < 128 ? D * 2 : 128;
-  static constexpr int kPanelCols = kSw / 2;
-  static constexpr int kPanels = D / kPanelCols;
-  static constexpr int kStepsPerPanel = kPanelCols / 16;  // k16 steps
-  static constexpr int kQPanel = kBM * kSw;
-  static constexpr int kKVPanel = kBN * kSw;
-  static constexpr int kQBytes = kPanels * kQPanel;
-  static constexpr int kKVBytes = kPanels * kKVPanel;     // K or V of a stage
+struct Tile : Swizzle<D> {
+  using Sw = Swizzle<D>;
+  static constexpr int kQPanel = kBM * Sw::kSw;
+  static constexpr int kKVPanel = kBN * Sw::kSw;
+  static constexpr int kQBytes = Sw::kPanels * kQPanel;
+  static constexpr int kKVBytes = Sw::kPanels * kKVPanel;  // K or V a stage
   static constexpr int kStageBytes = 2 * kKVBytes;
   static constexpr int kBarriers = 8 * (1 + 2 * kStages);
   static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes
                                + kBarriers;               // 1024: alignment
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
-  static constexpr uint64_t kLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
 };
 
 struct TmaParams {
   int Sq, Skv, Hk, G, P, causal;
   Strides os;
   float scale_log2;                // 1/sqrt(D) * log2(e)
+  float* lse;                      // (B, Hk, Sq * G) fp32, or nullptr
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -258,178 +263,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
-         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
-         | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulators across
-// the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// 2^x on the special-function unit (flush-to-zero: 2^-126 and below is 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (64 x 64, fp32) = A (64 x 16, smem) * B (16 x 64, smem) + (accumulate
-// ? d : 0), A and B K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N, fp32) += A (64 x 16, registers) * B (16 x N, smem, MN-major:
-// the descriptor's transpose reads V stored (keys, D) as B = V).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Accumulator layout of wgmma m64nN (per warpgroup, fp32): warp w of the
@@ -619,6 +452,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * tq) =
           pack_bf16(acc[4 * j + 2 * i] / l[i], acc[4 * j + 2 * i + 1] / l[i]);
+    // lse of the scaled scores, natural units: (m c + log2 l) / log2(e), at
+    // folded row qpos * G + g of this (b, hk)
+    if (p.lse != nullptr && tq == 0)
+      p.lse[(static_cast<long long>(blockIdx.x) * p.Sq + qpos[i]) * p.G
+            + head[i] - hk * p.G] =
+          fmaf(m[i], p.scale_log2, log2f(l[i])) * kLn2;
   }
 }
 
@@ -694,7 +533,7 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
       T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const TmaParams tp{p.Sq, p.Skv, p.Hk, p.G, P, p.causal, p.os,
-                     p.scale * kLog2e};
+                     p.scale * kLog2e, p.lse};
   const dim3 grid(B * p.Hk, (p.Sq + P - 1) / P);
   flash_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(tm_q, tm_k,
                                                              tm_v, o, tp);
@@ -730,11 +569,16 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 // the batch, sequence and head dims of q, k, v, o (innermost stride 1); the
 // caller guarantees H % Hk == 0, H / Hk <= 16, D in {16, 32, 64, 128},
 // 16-byte aligned rows and strides that are multiples of 8 elements (the
-// TMA unit's 16 bytes). Returns cudaGetLastError() after the launch (0 when
-// it was accepted), or cudaErrorInvalidValue when a tensor map is refused.
+// TMA unit's 16 bytes). lse, when not null, receives each row's fp32
+// log-sum-exp of the scaled scores (natural units) in the backward's
+// folded-row layout (B, Hk, Sq * G), row pos * G + g; serving passes null
+// and nothing is written. Returns cudaGetLastError() after the launch (0
+// when it was accepted), or cudaErrorInvalidValue when a tensor map is
+// refused.
 #define FLASH_ENTRY(NAME, T)                                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,   \
-                      int B, int Sq, int Skv, int H, int Hk, int D,           \
+                      float* lse, int B, int Sq, int Skv, int H, int Hk,      \
+                      int D,                                                   \
                       long long qsb, long long qss, long long qsh,            \
                       long long ksb, long long kss, long long ksh,            \
                       long long vsb, long long vss, long long vsh,            \
@@ -743,7 +587,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
     const Params p{Sq, Skv, Hk, H / Hk,                                        \
                    Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},             \
                    Strides{vsb, vss, vsh}, Strides{osb, oss, osh},             \
-                   causal, 1.0f / sqrtf(static_cast<float>(D))};               \
+                   causal, 1.0f / sqrtf(static_cast<float>(D)), lse};          \
     return launch(static_cast<const T*>(q), static_cast<const T*>(k),          \
                   static_cast<const T*>(v), static_cast<T*>(o), B, H, D, p,    \
                   static_cast<cudaStream_t>(stream));                          \

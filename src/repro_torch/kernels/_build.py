@@ -3,8 +3,9 @@
 Each ``src/repro_torch/csrc/<name>.cu`` compiles, with ``nvcc`` alone, into a
 shared library with a plain C interface, ``build/repro_torch/<name>-<hash>.so``
 at the repository root (``.gitignore`` lists ``build/``). The hash covers the
-source and the flags, so an edited source builds anew and an unchanged one
-is loaded as it is. Sources build at first use, one ``nvcc`` process per
+source, every header in ``csrc/`` (``*.cuh``, which the sources include)
+and the flags, so an edited source or header builds anew and an unchanged
+one is loaded as it is. Sources build at first use, one ``nvcc`` process per
 source, all started together. Nothing here runs at import time.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
@@ -45,10 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, dict]:

@@ -6,7 +6,10 @@ reads it through strides; the source's head note says how it is tiled and
 what bounds it. In bf16 the kernel reads q, k and v with the TMA unit
 through tensor maps built for each call, which need 16-byte aligned bases
 and strides that are multiples of 16 bytes (8 elements); fp32 runs a
-scalar kernel with the same checks.
+scalar kernel with the same checks. Asked for it (``return_lse``), the
+kernel also writes each row's fp32 log-sum-exp in the backward's
+folded-row layout (B, Hk, Sq * G), which the training forward saves for
+``flash_attention_bwd_cuda``; serving asks for none and none is allocated.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ _MAX_GROUP = 16
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.library("flash_attention"), _ENTRY[dtype])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int,
                                                      ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -51,9 +54,11 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True, return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Skv, Hk, D) on one CUDA device, bf16 or
-    fp32 -> (B, Sq, H, D) in q's dtype."""
+    fp32 -> (B, Sq, H, D) in q's dtype; with ``return_lse``, also the rows'
+    fp32 log-sum-exp of the scaled, masked scores, (B, Hk, Sq * H / Hk),
+    row ``pos * G + g`` for query head ``hk * G + g``."""
     global launches
     B, Sq, H, D = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
@@ -74,11 +79,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hk, Sq * (H // Hk)), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _entry(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, Hk, D,
+            None if lse is None else lse.data_ptr(), B, Sq, Skv, H, Hk, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -86,4 +93,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), stream)
     _build.check(code, "flash_attention")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -38,18 +38,21 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o = flash_attention_cuda(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, o)
+        # the rows' log-sum-exp, 4 bytes a query row, saved for the backward
+        # (under remat the recomputed forward writes it again)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         if not aligned_rows(do):
             # autograd may hand over a strided or offset view
             do = do.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do,
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, lse,
                                               causal=ctx.causal)
         return dq, dk, dv, None
 

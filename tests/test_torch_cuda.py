@@ -12,7 +12,10 @@ chunk lengths); the model is held to tests/test_archs.py's bound (rel < 0.06
 of the largest logit, equal argmax). The flash backward kernel is held to
 autograd through its plain version: ||got - want|| <= 1e-2 ||want|| in
 bf16 (P and dS enter the products rounded to bf16, as the forward rounds P;
-~0.3% by tools/flash_bwd_tolerance.py), 1e-4 ||want|| in fp32.
+~0.3% by tools/flash_bwd_tolerance.py), 1e-4 ||want|| in fp32. The rows'
+log-sum-exp that the flash forward writes for it is held to its plain
+version within 1e-4 absolute (fp32: ex2.approx, ~2 ulp a term, and the
+online rescaling, against an exact logsumexp; |lse| < 10 here).
 """
 
 import dataclasses
@@ -31,7 +34,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_cuda,
+                                                 flash_attention_lse_plain,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention.kernel_bwd import split_plan
 from repro_torch.kernels.ssd import ssd, ssd_plain
 from repro_torch.launch.serve import serve_loop
 from repro_torch.launch.train import train_loop
@@ -40,6 +45,7 @@ from repro_torch.models.attention import attention
 from repro_torch.models.param import tree_map
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LSE_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +83,47 @@ def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     torch.cuda.synchronize()
     assert flash_kernel.launches == before + 1
     assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hk,D", [
+    (1, 32, 2, 2, 16), (2, 64, 4, 2, 32), (2, 100, 32, 4, 64),
+    (8, 512, 32, 4, 64), (2, 256, 32, 4, 128), (2, 256, 8, 8, 64),
+    (2, 200, 64, 4, 64), (1, 48, 6, 2, 16), (1, 2048, 32, 4, 64)])
+def test_flash_cuda_lse_matches_plain(dtype, causal, B, S, H, Hk, D):
+    """The rows' log-sum-exp the forward writes when asked, in the folded
+    (B, Hk, Sq * G) layout, against its plain version; the output is the
+    same as without it."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = randn(gen, B, S, H, D, dtype=tdt)
+    k = randn(gen, B, S, Hk, D, dtype=tdt)
+    v = randn(gen, B, S, Hk, D, dtype=tdt)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    want = flash_attention_lse_plain(q, k, causal=causal)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert float((lse - want).abs().max()) < LSE_TOL
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal))
+
+
+def test_flash_serving_call_allocates_no_lse():
+    """Without grad (serving) the forward asks for no lse: the call
+    allocates its output and nothing more."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = randn(gen, 2, 256, 32, 64, dtype=torch.bfloat16)
+    k = randn(gen, 2, 256, 4, 64, dtype=torch.bfloat16)
+    v = randn(gen, 2, 256, 4, 64, dtype=torch.bfloat16)
+    flash_attention(q, k, v)                      # build and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base == \
+        out.numel() * out.element_size()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -403,9 +450,9 @@ def test_flash_bwd_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     k = randn(gen, B, S, Hk, D, dtype=tdt)
     v = randn(gen, B, S, Hk, D, dtype=tdt)
     do = randn(gen, B, S, H, D, dtype=tdt)
-    o = flash_attention_cuda(q, k, v, causal=causal)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
     before = flash_bwd_kernel.launches
-    got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
     want = flash_attention_bwd_plain(q, k, v, do, causal=causal)
     torch.cuda.synchronize()
     assert flash_bwd_kernel.launches == before + 1
@@ -414,39 +461,77 @@ def test_flash_bwd_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
         assert _bwd_close(g, w, dtype)
 
 
-def test_flash_bwd_cuda_is_deterministic():
+@pytest.mark.parametrize("n_split", [None, 1, 4])
+def test_flash_bwd_cuda_is_deterministic(n_split):
+    """Two calls give the same bits, with the rows split over ranges whose
+    fp32 partials are summed in a fixed order too."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, do = (randn(gen, 2, 256, 32, 64, dtype=torch.bfloat16)
              for _ in range(2))
     k, v = (randn(gen, 2, 256, 4, 64, dtype=torch.bfloat16)
             for _ in range(2))
-    o = flash_attention_cuda(q, k, v)
-    a = flash_attention_bwd_cuda(q, k, v, o, do)
-    b = flash_attention_bwd_cuda(q, k, v, o, do)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    a = flash_attention_bwd_cuda(q, k, v, o, do, lse, n_split=n_split)
+    b = flash_attention_bwd_cuda(q, k, v, o, do, lse, n_split=n_split)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hk,D,n_split", [
+    (8, 512, 32, 4, 64, 4), (2, 100, 32, 4, 64, 3), (2, 256, 8, 8, 128, 2),
+    (1, 48, 6, 2, 16, 2), (1, 2048, 32, 4, 64, 8)])
+def test_flash_bwd_cuda_row_split_matches_one_range(dtype, causal, B, S, H,
+                                                    Hk, D, n_split):
+    """The dk/dv pass with its rows split over ranges (fp32 partials summed
+    by the reduce pass) against n_split = 1 (one range a key tile) and the
+    plain gradient, within the rule; dq does not depend on the split."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, do = (randn(gen, B, S, H, D, dtype=tdt) for _ in range(2))
+    k, v = (randn(gen, B, S, Hk, D, dtype=tdt) for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert split_plan(S, S, H // Hk, causal, n_split)[1] > \
+        split_plan(S, S, H // Hk, causal, 1)[1]
+    one = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                   n_split=1)
+    split = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                     n_split=n_split)
+    want = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], split[0])
+    for a, b, w in zip(one, split, want):
+        assert _bwd_close(b, a, dtype) and _bwd_close(b, w, dtype)
 
 
 def test_flash_bwd_cuda_rejects_what_it_does_not_take():
     gen = torch.Generator(device="cuda").manual_seed(4)
 
-    def call(B=1, S=64, H=4, Hk=2, D=64, dtype=torch.bfloat16, **over):
+    def call(B=1, S=64, H=4, Hk=2, D=64, dtype=torch.bfloat16, n_split=None,
+             **over):
         t = {"q": randn(gen, B, S, H, D, dtype=dtype),
              "k": randn(gen, B, S, Hk, D, dtype=dtype),
              "v": randn(gen, B, S, Hk, D, dtype=dtype),
              "o": randn(gen, B, S, H, D, dtype=dtype),
-             "do": randn(gen, B, S, H, D, dtype=dtype)}
+             "do": randn(gen, B, S, H, D, dtype=dtype),
+             "lse": randn(gen, B, Hk, S * H // Hk, dtype=torch.float32)}
         t.update(over)
         return flash_attention_bwd_cuda(t["q"], t["k"], t["v"], t["o"],
-                                        t["do"])
+                                        t["do"], t["lse"], n_split=n_split)
     for kwargs in ({"D": 48}, {"H": 34, "Hk": 2}, {"dtype": torch.float16},
                    {"o": randn(gen, 1, 64, 4, 32, dtype=torch.bfloat16)},
                    {"do": randn(gen, 1, 64, 4, 64,
                                 dtype=torch.float32)},
                    {"k": randn(gen, 1, 64, 4, 128,
                                dtype=torch.bfloat16)[..., ::2]},
-                   {"do": torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)}):
+                   {"do": torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)},
+                   {"lse": randn(gen, 1, 2, 64, dtype=torch.float32)},
+                   {"lse": randn(gen, 1, 2, 128, dtype=torch.bfloat16)},
+                   {"lse": torch.zeros(1, 2, 128)}):
         with pytest.raises(ValueError):
             call(**kwargs)
+    with pytest.raises(ValueError, match="n_split"):
+        call(n_split=0)
 
 
 def test_flash_attention_grad_goes_through_the_backward_kernel():

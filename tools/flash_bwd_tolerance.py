@@ -9,10 +9,11 @@
 train check holds each leaf's gradient to 3e-2 of its norm. This script
 gives the numbers those limits rest on:
 
-- kernel: the bf16 kernel's rounding, emulated in fp64 (P and dS enter the
-  products rounded to bf16, delta = rowsum(dO o) reads the forward's bf16
-  output, dq/dk/dv are rounded to bf16), against the exact gradient rounded
-  to bf16, at the training shape cut to batch 2 (B=2, S=512, H=32, Hk=4,
+- kernel: the bf16 kernel's rounding, emulated in fp64 (P = exp(s - lse)
+  from the forward's lse, which is fp32; P and dS enter the products
+  rounded to bf16; delta = rowsum(dO o) reads the forward's bf16 output;
+  dq, and dk/dv after the fp32 partial sums of the row ranges are added,
+  are rounded to bf16 once), against the exact gradient rounded to bf16, at the training shape cut to batch 2 (B=2, S=512, H=32, Hk=4,
   D=64, causal, standard normal inputs); and the error of planted faults
   (dv or dk scaled by 0.9 past key 128, dv zeroed or dq scaled by 0.9 on
   the last 12% of positions);
@@ -51,10 +52,13 @@ def _bf16(t):
 
 def backward(q, k, v, do, *, causal=True, kernel_rounding=False):
     """dq, dk, dv of causal GQA attention in fp64, model layout: q, do
-    (B, S, H, D); k, v (B, S, Hk, D). With ``kernel_rounding``, P, dS and
-    the forward's output round to bf16 where the bf16 kernels round them.
-    Both results are rounded to bf16 at the end, as the kernel's and the
-    plain version's outputs are."""
+    (B, S, H, D); k, v (B, S, Hk, D). With ``kernel_rounding``, P comes
+    from the rows' log-sum-exp rounded to fp32 (the forward's lse), and P,
+    dS and the forward's output round to bf16 where the bf16 kernels round
+    them. Both results are rounded to bf16 at the end, as the kernel's and
+    the plain version's outputs are (the kernel accumulates in fp32 and sums
+    its fp32 partials before that one rounding: ~1e-6 of the norm, far
+    under bf16's)."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     qh, doh = (t.double().transpose(1, 2) for t in (q, do))      # B H S D
@@ -64,7 +68,11 @@ def backward(q, k, v, do, *, causal=True, kernel_rounding=False):
     if causal:
         keep = torch.ones(S, S, dtype=torch.bool).tril()
         s = s.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(s, -1)
+    if kernel_rounding:
+        lse = torch.logsumexp(s, -1, keepdim=True).float().double()
+        p = torch.exp(s - lse)
+    else:
+        p = torch.softmax(s, -1)
     o = p @ vh
     if kernel_rounding:
         o = _bf16(o)
