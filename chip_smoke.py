@@ -7,7 +7,7 @@ Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` (flash_attention,
-   flash_attention_bwd, decode_attention, ssd) for ``sm_90a`` into
+   flash_attention_bwd, decode_attention, ssd, ssd_bwd) for ``sm_90a`` into
    ``build/repro_torch/`` (one process per source, in parallel);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at the edges of their designs (decode:
@@ -16,37 +16,44 @@ Phases, each fatal on failure:
    D = 128, G = 1, a 2048-token prompt; flash backward: the training shape,
    ragged S, G = 1, D = 128, a 2048-token sequence, fp32; ssd: zero and
    random state0, dt in bf16, fp32, ragged S, S = 513, P = 8, an in-place
-   update of a stacked cache, a batch-1 8192-token prompt), to bf16 2e-2
-   and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
-   relative for ssd's output and 1e-4 relative for its final state; the
-   backward's dq, dk, dv within 1e-2 of their norm in bf16 and 1e-4 in
-   fp32, and planted faults shown to fail that rule; TF32 off), with
-   CUDA-event times of the kernel, the plain version and, where one
-   exists, one PyTorch library call as a yardstick, and the least time the
-   card could take (``bound_ms``);
+   update of a stacked cache, a batch-1 8192-token prompt; ssd backward:
+   the training shape in bf16 and fp32, random state0 with a final-state
+   cotangent, a ragged S, P = 8, a 2048-token sequence), to bf16 2e-2 and
+   fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
+   relative for ssd's output and 1e-4 relative for its final state and the
+   chunk states it writes for the backward; each gradient of the two
+   backward kernels within 1e-2 of its norm in bf16 and 1e-4 in fp32, and
+   planted faults shown to fail that rule; TF32 off), with CUDA-event
+   times of the kernel, the plain version and, where one exists, one
+   PyTorch library call as a yardstick, and the least time the card could
+   take (``bound_ms``);
 4. main paths, each at full width and depth on seeded random weights:
    ``serve_loop("tinyllama-1.1b")`` (flash and decode attention) and
    ``serve_loop("mamba2-370m")`` (ssd at prefill; decode is the plain
    recurrence), batch 8, 512-token prompts, 32 new tokens; and
    ``train_loop("tinyllama-1.1b")`` (flash forward and backward), batch 8,
-   512 tokens, on the synthetic pipeline. Each is called once to warm up
+   512 tokens, and ``train_loop("mamba2-370m")`` (ssd forward and
+   backward), the same shape, on the synthetic pipeline. Each is called
+   once to warm up
    (the first call of each shape pays one-time library and module-loading
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
    run went through them;
 5. profile: ``torch.profiler`` over a few decode steps of each model, one
-   mamba2 prefill and one tinyllama train step, for the device's busy
+   mamba2 prefill and one train step of each model, for the device's busy
    share and the kernels that take its time (at prefill, the ssd kernel's
-   share; in training, the flash forward's and backward's);
+   share; in training, the flash or ssd forward's and backward's);
 6. model check: a depth-2, full-width model of each arch on the card
    against the same model on the CPU's plain path (relative error < 0.06,
    equal argmax); a depth-2 tinyllama bf16 train step on the card against
    the CPU (attention weights at std 1/sqrt(fan-in) for this check only:
    loss 1e-2 relative, each gradient within 3e-2 of its norm, each layer's
    backward-kernel gradients against the plain backward on the same
-   captured tensors within 1e-2 of their norm); a crash after step 4 and a
-   resume from the checkpoint saved there, reproducing the uninterrupted
-   losses (rtol 2e-2).
+   captured tensors within 1e-2 of their norm); the same step of a
+   depth-2 mamba2 (each gradient within 3e-2 of its norm); for each arch a
+   crash after step 4 and a resume from the checkpoint saved there,
+   reproducing the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit
+   for bit).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -588,6 +595,143 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     return rec
 
 
+# the names of the ssd kernels' launches (bf16), as the profiler shows them
+SSD_FWD = ("ssd_bf16_kernel",)
+SSD_BWD = ("ssd_bwd_tc_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dstate0")
+
+
+def check_ssd_bwd(torch, timer, gen) -> dict:
+    """The SSD backward kernel against autograd through the plain scan
+    (``ssd_bwd_plain``, fp32, at the model's chunk): each of dx, ddt, dA,
+    dB, dC and dstate0 within ``BWD_TOL`` of its norm (1e-2 in bf16, 1e-4
+    in fp32), and the chunk states the forward writes for it within 1e-4
+    of the plain scan's, at the training shape (bf16, and fp32), a random
+    state0 with a final-state cotangent, a ragged S, P = 8 (the scalar
+    kernel in bf16: the tensor-core one is built for mamba2's P = 64,
+    N = 128) and a 2048-token sequence. At the training shape two calls must give the
+    same bits, and
+    three planted faults, each made by the kernel on altered inputs
+    (``tools/ssd_bwd_tolerance.py``: the chunk states read as zeros, half
+    the heads, each chunk alone), must each fail the rule. The training
+    shape and the long sequence are timed: the kernel (and each of its two
+    launches, profiled), the forward with its chunk states against
+    without, and the plain version."""
+    from ssd_bwd_tolerance import chunk_states, grad_err, planted_faults
+    from repro_torch.kernels.ssd import (ssd_bwd_cuda, ssd_bwd_plain,
+                                         ssd_cuda)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd.kernel_bwd import tensor_cores
+    F = torch.nn.functional
+    rec, worst = None, 0.0
+    lib = _build.library("ssd_bwd")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    # (label, B, S, H, P, N, x/B/C/dy dtype, plain chunk, state0 and a
+    #  final-state cotangent, timed)
+    for label, B, S, H, P, N, dtype, chunk, with_state, timed in (
+            ("training", 8, 512, 32, 64, 128, torch.bfloat16, 256, False,
+             True),
+            ("training", 8, 512, 32, 64, 128, torch.float32, 256, False,
+             False),
+            ("state", 2, 512, 32, 64, 128, torch.bfloat16, 256, True, False),
+            ("ragged", 2, 200, 4, 64, 128, torch.bfloat16, 100, True, False),
+            ("p8", 2, 512, 32, 8, 128, torch.bfloat16, 256, True, False),
+            ("small", 2, 100, 3, 8, 16, torch.float32, 50, True, False),
+            ("long", 1, 2048, 32, 64, 128, torch.bfloat16, 256, False,
+             True)):
+        x, dy = randn(B, S, H, P, dtype=dtype), randn(B, S, H, P, dtype=dtype)
+        dt, A = F.softplus(randn(B, S, H)), -torch.exp(randn(H))
+        Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
+        s0 = randn(B, H, P, N) if with_state else None
+        ds = randn(B, H, P, N) if with_state else None
+        name = str(dtype).split(".")[1]
+        tol = BWD_TOL[name]
+        _, _, states = ssd_cuda(x, dt, A, Bm, Cm, state0=s0,
+                                return_states=True)
+        got = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dstate=ds,
+                           want_dstate0=with_state)
+        want = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, state0=s0, dstate=ds,
+                             chunk=chunk)
+        torch.cuda.synchronize()
+        st_want = chunk_states(x, dt, A, Bm, Cm, s0)      # fp64
+        st_err = grad_err(states[:, :, 1:], st_want[:, :, 1:])
+        errs = {g: grad_err(a, b) for g, a, b in zip(SSD_GRADS, got, want)
+                if b is not None}
+        finite = all(bool(torch.isfinite(a).all()) for a in got
+                     if a is not None)
+        kind = "tensor cores" if tensor_cores(dtype, P, N) else "scalar"
+        log(f"[kernels] ssd_bwd {label} {name} B={B} S={S} H={H} P={P} "
+            f"N={N} state0={'random' if with_state else 'zero'} ({kind}): "
+            f"||err||/||want|| "
+            f"{', '.join(f'{g} {e:.3e}' for g, e in errs.items())} (tol "
+            f"{tol:g}); chunk states {st_err:.3e} (tol 1e-4); "
+            f"finite={finite}")
+        if not (max(errs.values()) <= tol and st_err <= 1e-4 and finite):
+            raise AssertionError(f"ssd_bwd {label} {name}: {errs}, chunk "
+                                 f"states {st_err}, finite {finite}")
+        if dtype is torch.bfloat16:
+            worst = max(worst, *(max_err(a, b) for a, b in zip(got, want)
+                                 if b is not None))
+        if label == "training" and dtype is torch.bfloat16:
+            again = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
+            if not all(torch.equal(a, b) for a, b in zip(got[:5], again)):
+                raise AssertionError("ssd_bwd: two calls differ")
+            for fault, (k, bad) in planted_faults(
+                    ssd_bwd_cuda, x, dt, A, Bm, Cm, dy, states).items():
+                err = grad_err(bad, want[k])
+                log(f"[kernels] ssd_bwd planted fault, {fault}: "
+                    f"||err||/||want|| {err:.3e} (must exceed {tol:g})")
+                if not err > tol:
+                    raise AssertionError(f"the ssd backward's check passes "
+                                         f"a planted fault: {fault}")
+            log("[kernels] ssd_bwd: two calls give the same bits")
+        if not timed:
+            continue
+        ms = timer.ms(lambda: ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states))
+        passes = {n: t for n, t in kernel_ms(
+            torch, timer, lambda: ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states),
+            SSD_BWD).items() if t}        # the launches this shape made
+        fwd_ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm))
+        fwd_st_ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm,
+                                              return_states=True))
+        plain_ms = timer.ms(lambda: ssd_bwd_plain(
+            x, dt, A, Bm, Cm, dy, chunk=chunk), iters=10)
+        # the products per (b, h, chunk): C B^T, dy x^T (Q Q N, Q Q P),
+        # dxdt (Q Q P + Q N P), dC and dB (Q Q N + Q P N each), g (Q P N),
+        # the five Q x Q ones over the 10 of 16 16 x 16 blocks on or below
+        # the diagonal, as the tensor-core kernel runs them (L is 0 above);
+        # x, dy, dx, dt, ddt, A, dA, B, C, dB, dC moved once
+        Q, nc = 64, -(-S // 64)
+        flops = 2 * B * H * nc * (Q * Q * (3 * N + 2 * P) * 10 // 16
+                                  + 4 * Q * P * N)
+        nbytes = (3 * x.element_size() * x.numel() + 2 * 4 * dt.numel()
+                  + 2 * 4 * H + 4 * Bm.element_size() * Bm.numel())
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        # this design also reads the stored chunk states and writes and
+        # reads back the per-head fp32 partials of dB and dC
+        extra = 4 * states.numel() + 2 * 2 * 4 * B * H * S * N
+        bx_ms, bx_by = bound(flops, nbytes + extra, PEAK_BF16_FLOPS)
+        log(f"[kernels] ssd_bwd {label} bf16 B={B} S={S} H={H}: {ms:.4f} ms "
+            f"(launches, profiled: "
+            f"{', '.join(f'{n} {t:.4f}' for n, t in passes.items())} ms; "
+            f"plain {plain_ms:.4f} ms, no library call computes it, bound "
+            f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; with the chunk states and the "
+            f"partials, {extra / 1e6:.1f} MB more: {bx_ms:.4f} ms by "
+            f"{bx_by}; {B * H} blocks, "
+            f"{lib.ssd_bwd_tc_smem_bytes(P, N)} B shared memory each); "
+            f"the forward {fwd_ms:.4f} ms, with its chunk states "
+            f"{fwd_st_ms:.4f} ms")
+        if label == "training":
+            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+    rec["max_abs_err"] = worst
+    return rec
+
+
 def _serving_model(torch, arch: str):
     """Full-depth model of ``arch`` on the card with seeded random weights,
     configured as ``serve_loop`` runs it for 512-token prompts."""
@@ -715,25 +859,25 @@ def model_check(torch, arch: str) -> None:
         raise AssertionError("model check: CUDA and CPU logits disagree")
 
 
-def _train_model():
-    """Full tinyllama-1.1b, configured as ``train_loop`` runs it for
-    512-token sequences."""
+def _train_model(arch: str):
+    """Full ``arch``, configured as ``train_loop`` runs it for 512-token
+    sequences."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     return build_model(dataclasses.replace(
-        get_config("tinyllama-1.1b"), q_chunk=256, kv_chunk=256))
+        get_config(arch), q_chunk=256, kv_chunk=256))
 
 
-def profile_train(torch) -> None:
-    """One train step of full-depth tinyllama (batch 8 x 512 tokens, remat,
+def profile_train(torch, arch: str, ours: dict) -> None:
+    """One train step of full-depth ``arch`` (batch 8 x 512 tokens, remat,
     AdamW) under the profiler, after a warm step: busy share, the largest
-    kernels, the flash forward's and backward's shares, the GEMMs' and the
-    elementwise ops'; then the AdamW update alone under CUDA events."""
+    kernels, the shares of ``ours`` (the port's kernels), the GEMMs' and
+    the elementwise ops'; then the AdamW update alone under CUDA events."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.param import tree_items, tree_map
     from repro_torch.optim import AdamWConfig, adamw_update
     from repro_torch.runtime import build_train_step, init_train_state
-    model = _train_model()
+    model = _train_model(arch)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     state = init_train_state(model, opt, seed=0, device="cuda")
     step = build_train_step(model, opt)
@@ -747,10 +891,8 @@ def profile_train(torch) -> None:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _profile_report(prof, "tinyllama-1.1b train step at batch 8 x 512 "
-                    "tokens", wall, 1, {
-                        "flash forward": FLASH_FWD,
-                        "flash backward": FLASH_BWD,
+    _profile_report(prof, f"{arch} train step at batch 8 x 512 tokens", wall,
+                    1, {**ours,
                         "GEMMs": ("nvjet", "gemm", "cutlass", "xmma"),
                         "elementwise, reductions and copies": (
                             "elementwise", "reduce", "Memcpy", "copy")},
@@ -762,7 +904,7 @@ def profile_train(torch) -> None:
     adamw_update(state.params, grads, state.opt, opt)
     end.record()
     torch.cuda.synchronize()
-    log(f"[profile] tinyllama-1.1b AdamW update alone (eager, per leaf, "
+    log(f"[profile] {arch} AdamW update alone (eager, per leaf, "
         f"{len(tree_items(grads))} stacked leaves): "
         f"{start.elapsed_time(end):.2f} ms")
 
@@ -865,13 +1007,53 @@ def train_check(torch) -> None:
         raise AssertionError("bf16 train check: CUDA and CPU disagree")
 
 
-def resume_check(torch) -> None:
-    """Depth-2, full-width tinyllama through ``train_loop`` on the card:
-    six steps uninterrupted; six again with a checkpoint every 2 steps and a
+def train_check_ssm(torch) -> None:
+    """Depth-2, full-width mamba2 in bf16: the loss and every leaf's
+    gradient of one train step on the card (the ssd kernels, forward and
+    backward) against the CPU (the plain scan under autograd), same weights
+    and batch (2 x 256 tokens), remat off. Held: the loss within 1e-2
+    relative; each leaf within ``TRAIN_GRAD_TOL`` (3e-2) of the CPU's,
+    ||card - cpu|| / ||cpu||."""
+    from flash_bwd_tolerance import grad_err
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd import kernel_bwd as ssd_bwd_k
+    from repro_torch.models import build_model, init_params
+    seq = 256
+    model = build_model(dataclasses.replace(
+        get_config("mamba2-370m"), n_layers=2, remat=False,
+        q_chunk=seq // 2, kv_chunk=seq // 2))
+    params = init_params(model.param_decls(),
+                         torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(SyntheticLM(DataConfig(
+        vocab=model.cfg.vocab, seq_len=seq,
+        global_batch=2)).batch_at(0)["tokens"])
+    before = ssd_bwd_k.launches
+    loss, grads = _loss_and_grads(model, params, toks, "cuda")
+    calls = ssd_bwd_k.launches - before
+    ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu")
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    errs = {k: grad_err(grads[k], w) for k, w in ref_grads.items()}
+    top = sorted(errs, key=lambda k: -errs[k])[:4]
+    log(f"[model] depth-2 mamba2-370m bf16 train step, cuda vs cpu: loss "
+        f"{loss:.6f} vs {ref_loss:.6f} (rel {rel:.2e}, tol 1e-2); worst "
+        f"||diff||/||g|| {', '.join(f'{k} {errs[k]:.2e}' for k in top)} "
+        f"(tol {TRAIN_GRAD_TOL:g}); {calls} ssd backward calls")
+    if calls != 2 or not (rel < 1e-2
+                          and max(errs.values()) <= TRAIN_GRAD_TOL):
+        raise AssertionError("mamba2 bf16 train check: CUDA and CPU "
+                             "disagree")
+
+
+def resume_check(torch, arch: str, exact: bool = False) -> None:
+    """Depth-2, full-width ``arch`` through ``train_loop`` on the card: six
+    steps uninterrupted; six again with a checkpoint every 2 steps and a
     simulated crash after step 4; then a resume, which must start at step 4
     and reproduce the uninterrupted losses (rtol 2e-2, as
-    tests/test_runtime.py holds the reference). Checkpoints (2.2 GB each)
-    go to build/, which the run deletes after."""
+    tests/test_runtime.py holds the reference; with ``exact``, bit for bit:
+    no kernel of the path sums in an order that changes from run to run).
+    Checkpoints (2.2 GB each for tinyllama) go to build/, which the run
+    deletes after."""
     import shutil
     from repro_torch.launch import train as train_mod
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
@@ -885,16 +1067,16 @@ def resume_check(torch) -> None:
     train_mod.get_config = depth2
     try:
         t0 = time.perf_counter()
-        full = train_mod.train_loop("tinyllama-1.1b", **kw)
+        full = train_mod.train_loop(arch, **kw)
         try:
-            train_mod.train_loop("tinyllama-1.1b", ckpt_dir=str(ckpt),
+            train_mod.train_loop(arch, ckpt_dir=str(ckpt),
                                  ckpt_every=2, simulate_failure=4, **kw)
         except RuntimeError as exc:
             if "simulated" not in str(exc):
                 raise
         else:
             raise AssertionError("train_loop did not simulate its failure")
-        resumed = train_mod.train_loop("tinyllama-1.1b", ckpt_dir=str(ckpt),
+        resumed = train_mod.train_loop(arch, ckpt_dir=str(ckpt),
                                        ckpt_every=2, resume=True, **kw)
         seconds = time.perf_counter() - t0
     finally:
@@ -902,12 +1084,14 @@ def resume_check(torch) -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
     worst = max(abs(a - b) / abs(b) for a, b in
                 zip(resumed["losses"], full["losses"][4:]))
-    log(f"[model] depth-2 tinyllama-1.1b crash after step 4 and resume: "
+    same = resumed["losses"] == full["losses"][4:]
+    log(f"[model] depth-2 {arch} crash after step 4 and resume: "
         f"start_step {resumed['start_step']}, losses {resumed['losses']} vs "
         f"uninterrupted {full['losses'][4:]} (max rel {worst:.2e}, tol "
-        f"2e-2); {seconds:.1f} s with checkpoints")
+        f"{'0: bit for bit' if exact else '2e-2'}; identical={same}); "
+        f"{seconds:.1f} s with checkpoints")
     if resumed["start_step"] != 4 or len(resumed["losses"]) != 2 \
-            or not worst < 2e-2:
+            or not worst < 2e-2 or (exact and not same):
         raise AssertionError("resume did not reproduce the trajectory")
 
 
@@ -921,6 +1105,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as flash_k
     from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd_k
     from repro_torch.kernels.ssd import kernel as ssd_k
+    from repro_torch.kernels.ssd import kernel_bwd as ssd_bwd_k
     from repro_torch.launch.serve import serve_loop
     from repro_torch.launch.train import train_loop
     from repro_torch.models import param_count
@@ -950,9 +1135,11 @@ def main() -> int:
     decode = check_decode(torch, timer, gen)
     ssd = check_ssd(torch, timer, gen)
     flash_bwd = check_flash_bwd(torch, timer, gen)
+    ssd_bwd = check_ssd_bwd(torch, timer, gen)
 
     counters = {"flash_attention": flash_k, "flash_attention_bwd": flash_bwd_k,
-                "decode_attention": decode_k, "ssd": ssd_k}
+                "decode_attention": decode_k, "ssd": ssd_k,
+                "ssd_bwd": ssd_bwd_k}
 
     def serve_counted(arch: str, layers: int, vocab: int) -> dict:
         serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
@@ -989,45 +1176,60 @@ def main() -> int:
                                 dense["decode_attention"], ssm["ssd"])
 
     # training: batch 8 x 512 tokens, full width and depth, remat on
-    train = dict(batch=8, seq=512, seed=0, log_every=0, device="cuda")
-    out = train_loop("tinyllama-1.1b", steps=2, **train)
-    log(f"[train] tinyllama-1.1b first call (cold), 2 steps: "
-        f"{out['wall_s'] / 2 * 1e3:.1f} ms/step, losses {out['losses']}")
-    torch.cuda.reset_peak_memory_stats()
-    for k in counters.values():
-        k.launches = 0
-    steps = 4
-    out = train_loop("tinyllama-1.1b", steps=steps, **train)
-    counts = {name: k.launches for name, k in counters.items()}
-    n_params = param_count(_train_model().param_decls())
-    share = 6 * n_params * out["tokens_per_s"] / PEAK_BF16_FLOPS
-    log(f"[train] tinyllama-1.1b batch=8 seq=512 ({n_params / 1e9:.3f} B "
-        f"params, 22 layers, remat) {steps} steps: "
-        f"{out['wall_s'] / steps * 1e3:.1f} ms/step, "
-        f"{out['tokens_per_s']:.0f} tokens/s; losses {out['losses']}; "
-        f"launches {counts}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; derived: "
-        f"6 * N * tokens/s / 989 TFLOP/s = {share:.3f}")
-    want = {"flash_attention": steps * 44, "flash_attention_bwd": steps * 22,
-            "decode_attention": 0, "ssd": 0}
-    if counts != want:
-        raise AssertionError(f"training launches {counts}: want {want} "
-                             "(44 forward a step: 22 and 22 recomputed "
-                             "under remat; 22 backward)")
-    if len(out["losses"]) != steps or not all(
-            l == l and abs(l) < float("inf") for l in out["losses"]):
-        raise AssertionError(f"training losses {out['losses']}")
-    n_flash_bwd = counts["flash_attention_bwd"]
+    def train_counted(arch: str, layers: int, kernels: tuple) -> dict:
+        train = dict(batch=8, seq=512, seed=0, log_every=0, device="cuda")
+        out = train_loop(arch, steps=2, **train)
+        log(f"[train] {arch} first call (cold), 2 steps: "
+            f"{out['wall_s'] / 2 * 1e3:.1f} ms/step, losses {out['losses']}")
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        steps = 4
+        out = train_loop(arch, steps=steps, **train)
+        counts = {name: k.launches for name, k in counters.items()}
+        n_params = param_count(_train_model(arch).param_decls())
+        share = 6 * n_params * out["tokens_per_s"] / PEAK_BF16_FLOPS
+        log(f"[train] {arch} batch=8 seq=512 ({n_params / 1e9:.3f} B "
+            f"params, {layers} layers, remat) {steps} steps: "
+            f"{out['wall_s'] / steps * 1e3:.1f} ms/step, "
+            f"{out['tokens_per_s']:.0f} tokens/s; losses {out['losses']}; "
+            f"launches {counts}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; derived: "
+            f"6 * N * tokens/s / 989 TFLOP/s = {share:.3f}")
+        # the forward kernel twice a layer a step (remat recomputes it), its
+        # backward once
+        fwd, bwd = kernels
+        want = dict.fromkeys(counters, 0)
+        want.update({fwd: steps * 2 * layers, bwd: steps * layers})
+        if counts != want:
+            raise AssertionError(f"{arch} training launches {counts}: want "
+                                 f"{want} ({2 * layers} forward a step: "
+                                 f"{layers} and {layers} recomputed under "
+                                 f"remat; {layers} backward)")
+        if len(out["losses"]) != steps or not all(
+                l == l and abs(l) < float("inf") for l in out["losses"]):
+            raise AssertionError(f"{arch} training losses {out['losses']}")
+        return counts
+
+    n_flash_bwd = train_counted("tinyllama-1.1b", 22, (
+        "flash_attention", "flash_attention_bwd"))["flash_attention_bwd"]
+    n_ssd_bwd = train_counted("mamba2-370m", 48, ("ssd", "ssd_bwd"))[
+        "ssd_bwd"]
 
     profile_decode(torch, "tinyllama-1.1b", ours={
         "decode_attention": ("split_kernel", "combine_kernel")})
     profile_decode(torch, "mamba2-370m")
     profile_prefill(torch, "mamba2-370m", ours={"ssd": ("ssd",)})
-    profile_train(torch)
+    profile_train(torch, "tinyllama-1.1b", {"flash forward": FLASH_FWD,
+                                            "flash backward": FLASH_BWD})
+    profile_train(torch, "mamba2-370m", {"ssd forward": SSD_FWD,
+                                         "ssd backward": SSD_BWD})
     for arch in ("tinyllama-1.1b", "mamba2-370m"):
         model_check(torch, arch)
     train_check(torch)
-    resume_check(torch)
+    train_check_ssm(torch)
+    resume_check(torch, "tinyllama-1.1b")
+    resume_check(torch, "mamba2-370m", exact=True)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1047,6 +1249,13 @@ def main() -> int:
                       "src/repro/kernels/flash_attention/kernel.py:93, "
                       "taken by autodiff (XLA) in the JAX package",
              launches=n_flash_bwd, **flash_bwd),
+        dict(name="ssd_bwd", route="cuda",
+             source="src/repro_torch/csrc/ssd_bwd.cu",
+             replaces="none: the gradient of "
+                      "src/repro/kernels/ssd/kernel.py:75, taken by autodiff "
+                      "(XLA) of repro/models/ssm.py::ssd_chunked in the JAX "
+                      "package",
+             launches=n_ssd_bwd, **ssd_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,11 @@
 // two blocks an SM remain and the waves multiply: slower on the H100 at
 // both the serving shape and a batch-1 8192-token prompt (PERF.md).
 //
+// Under grad (training) the caller may ask for the state entering each
+// chunk, fp32 (B, H, nc, P, N): csrc/ssd_bwd.cu reads it. Each warp writes
+// its own rows from its registers before the chunk's update (the fp32
+// kernel from shared memory); serving passes null and writes none.
+//
 // fp32 design (ssd_f32_kernel, not on the serving path): scalar IEEE FMA,
 // one block of 256 threads per (b, h), the state in shared memory
 // transposed to (N, P), each product in 4x4 register tiles; 133 KB of
@@ -77,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -129,7 +136,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const float* __restrict__ Bm,
                const float* __restrict__ Cm, const float* state0,
-               float* __restrict__ y, float* final_state, const Params p) {
+               float* __restrict__ y, float* final_state,
+               float* __restrict__ chunk_states, const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int P = p.P, N = p.N, PP = P + 4;
   const int P4 = P / 4, N4 = N / 4;
@@ -160,6 +168,12 @@ ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   for (int s0 = 0; s0 < p.S; s0 += kQ) {
     const int nq = min(kQ, p.S - s0);
     __syncthreads();  // the previous chunk's operands are consumed
+    if (chunk_states) {
+      const long long nc = (p.S + kQ - 1) / kQ;
+      float* dst = chunk_states + (blockIdx.x * nc + s0 / kQ) * P * N;
+      for (int e = tid; e < P * N; e += kThreads)
+        dst[e] = st[(e % N) * PP + e / N];
+    }
 
     // 0. dt and the prefix sum of dt * A (warp 0, two positions a lane);
     //    padded positions have dt = 0, so cum stays flat past the tail.
@@ -328,74 +342,13 @@ __host__ __device__ constexpr int bf16_smem_bytes(int N, int warps) {
          + 2 * kQ * (kSlice * warps + kPad) * 2; // x (y staging) x 2 stages
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes, or 16 zero bytes when !live (src is then not read)
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(smem_dst)), "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 out.
-// Fragments (PTX ISA, mma.m16n8k16), gr = lane / 4, tq = lane % 4:
-//   A {(gr, 2tq..+1), (gr+8, 2tq..+1), (gr, 2tq+8..+9), (gr+8, 2tq+8..+9)}
-//   B {(2tq..+1, gr), (2tq+8..+9, gr)}    C {(gr, 2tq..+1), (gr+8, 2tq..+1)}
-// The C fragments of two neighbouring 8-column tiles are, element for
-// element, the A fragment of their 16 columns: the state's accumulators
-// feed the next product with no shuffle.
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-// (v0, v1) as bf16 pairs hi + lo, with hi + lo = v to about 2^-17.
-__device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
-                                      uint32_t& lo) {
-  hi = pack(v0, v1);
-  const float2 h = unpack2(hi);
-  lo = pack(v0 - h.x, v1 - h.y);
-}
-
 template <int N, int W>
 __global__ void __launch_bounds__(W * 32, 2)
 ssd_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ dt,
                 const float* __restrict__ A, const bf16* __restrict__ Bm,
                 const bf16* __restrict__ Cm, const float* state0,
-                bf16* __restrict__ y, float* final_state, const Params p) {
+                bf16* __restrict__ y, float* final_state,
+                float* __restrict__ chunk_states, const Params p) {
   constexpr int kRowBC = N + kPad;   // row stride of B and C
   constexpr int kNT = N / 8;         // 8-column tiles of a state row
   constexpr int kKS = N / 16;        // 16-deep steps over the state's N
@@ -523,6 +476,20 @@ ssd_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ dt,
     if (c + 1 < nc) load_chunk(c + 1, stage ^ 1);
     float dn0 = 0.f, dn1 = 0.f;   // next chunk's dt, scanned at the end
     if (warp == 0 && c + 1 < nc) load_dt(c + 1, dn0, dn1);
+
+    if (chunk_states) {   // the state entering chunk c, before step 4
+      float* dst = chunk_states
+                   + (static_cast<long long>(blockIdx.x) * nc + c) * P * N;
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = pw + gr + 8 * half;
+          if (row < P)
+            *reinterpret_cast<float2*>(dst + row * N + 8 * t + 2 * tq) =
+                make_float2(st[t][2 * half], st[t][2 * half + 1]);
+        }
+    }
 
     const float* dtv = sc + stage * 4 * kQ;
     const float* cum = dtv + kQ;
@@ -721,8 +688,8 @@ int set_smem(K kernel, size_t smem) {
 template <int N, int W>
 int launch_bf16(const void* x, const void* dt, const float* A, const void* Bm,
                 const void* Cm, const float* state0, void* y,
-                float* final_state, int batch, const Params& p,
-                cudaStream_t stream) {
+                float* final_state, float* chunk_states, int batch,
+                const Params& p, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes(N, W);
   const int err = set_smem(ssd_bf16_kernel<N, W>, smem);
   if (err) return err;
@@ -730,14 +697,16 @@ int launch_bf16(const void* x, const void* dt, const float* A, const void* Bm,
   ssd_bf16_kernel<N, W><<<grid, 32 * W, smem, stream>>>(
       static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
       static_cast<const bf16*>(Cm), state0, static_cast<bf16*>(y),
-      final_state, p);
+      final_state, chunk_states, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry points. Pointers are device pointers; state0 may be null (a zero
-// state) and may equal final_state. Strides are in elements; x, y, B, C and
+// state) and may equal final_state; chunk_states, the fp32 (B, H, nc, P, N)
+// states entering each of the nc chunks (contiguous), may be null (none
+// written). Strides are in elements; x, y, B, C and
 // both states have innermost stride 1. Return cudaGetLastError() after the
 // launch (or the error of setting the kernel's shared memory).
 //
@@ -747,7 +716,8 @@ int launch_bf16(const void* x, const void* dt, const float* A, const void* Bm,
 // and of y's rows.
 extern "C" int ssd_bf16(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* state0,
-                        void* y, void* final_state, int batch, int S, int H,
+                        void* y, void* final_state, void* chunk_states,
+                        int batch, int S, int H,
                         int P, int N, int dt_bf16, int warps, long long xsb,
                         long long xss, long long xsh, long long dsb,
                         long long dss, long long dsh, long long bsb,
@@ -762,12 +732,14 @@ extern "C" int ssd_bf16(const void* x, const void* dt, const void* A,
   const auto* a = static_cast<const float*>(A);
   const auto* s0 = static_cast<const float*>(state0);
   auto* fs = static_cast<float*>(final_state);
+  auto* cst = static_cast<float*>(chunk_states);
   auto s = static_cast<cudaStream_t>(stream);
   // one instance per (N, warps): the state's registers and the loops'
   // trip counts are fixed at compile time
-#define SSD_BF16_CASE(NN, WW)                                      \
-  if (N == NN && warps == WW)                                      \
-    return launch_bf16<NN, WW>(x, dt, a, Bm, Cm, s0, y, fs, batch, p, s);
+#define SSD_BF16_CASE(NN, WW)                                             \
+  if (N == NN && warps == WW)                                             \
+    return launch_bf16<NN, WW>(x, dt, a, Bm, Cm, s0, y, fs, cst, batch, p, \
+                               s);
 #define SSD_BF16_CASES(NN) \
   SSD_BF16_CASE(NN, 1) SSD_BF16_CASE(NN, 2) SSD_BF16_CASE(NN, 4)
   SSD_BF16_CASES(16)
@@ -783,7 +755,8 @@ extern "C" int ssd_bf16(const void* x, const void* dt, const void* A,
 // and shared memory (ssd_f32_smem_bytes) within the card's 227 KB a block.
 extern "C" int ssd_f32(const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, const void* state0,
-                       void* y, void* final_state, int batch, int S, int H,
+                       void* y, void* final_state, void* chunk_states,
+                       int batch, int S, int H,
                        int P, int N, long long xsb, long long xss,
                        long long xsh, long long dsb, long long dss,
                        long long dsh, long long bsb, long long bss,
@@ -803,7 +776,8 @@ extern "C" int ssd_f32(const void* x, const void* dt, const void* A,
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<const float*>(state0),
-      static_cast<float*>(y), static_cast<float*>(final_state), p);
+      static_cast<float*>(y), static_cast<float*>(final_state),
+      static_cast<float*>(chunk_states), p);
   return static_cast<int>(cudaGetLastError());
 }
 

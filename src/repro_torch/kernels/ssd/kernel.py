@@ -8,7 +8,9 @@ strides; the source's head note says how it is tiled and what bounds it.
 bf16 (x, B, C; dt bf16 or fp32) runs on the tensor cores: each warp owns 16
 rows of the state, a block up to four warps of one (b, h). fp32 runs a
 scalar IEEE kernel, one block per (b, h). :func:`plan` gives either launch's
-geometry without a card.
+geometry without a card. Under grad the forward may also write the fp32
+state entering each chunk (``return_states``), which the backward kernel
+(``kernel_bwd.py``) reads.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ __all__ = ["ssd_cuda", "plan", "Plan"]
 # Kernel launches since the count was last set to 0 (read by chip_smoke.py).
 launches = 0
 
-_CHUNK = 64                      # the kernel's own chunk (kQ in ssd.cu)
+CHUNK = 64                       # the kernel's own chunk (kQ in ssd.cu)
 _SLICE = 16                      # state rows a warp owns (kSlice)
 _PAD = 8                         # bf16 row padding (kPad)
 _BF16_N = (16, 32, 64, 128)      # state sizes the bf16 kernel is built for
@@ -51,14 +53,14 @@ class Plan:
 
 def _bf16_smem(N: int, warps: int) -> int:
     """ssd.cu's bf16_smem_bytes."""
-    Q = _CHUNK
+    Q = CHUNK
     return (2 * 4 * Q * 4 + 2 * 2 * Q * (N + _PAD) * 2 + Q * (Q + _PAD) * 2
             + 2 * Q * (_SLICE * warps + _PAD) * 2)
 
 
 def _f32_smem(P: int, N: int) -> int:
     """ssd.cu's f32_smem_floats, in bytes."""
-    Q = _CHUNK
+    Q = CHUNK
     return 4 * (Q * P + Q * N + N * (Q + 4) + N * (P + 4) + Q * Q + 3 * Q)
 
 
@@ -96,7 +98,7 @@ def _entry(name: str):
     fn = getattr(_build.library("ssd"), name)
     if fn.argtypes is None:
         n_int = 7 if name == "ssd_bf16" else 5
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_int
                        + [ctypes.c_longlong] * 19 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -122,14 +124,18 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *,
              state0: torch.Tensor | None = None,
-             state_out: torch.Tensor | None = None):
+             state_out: torch.Tensor | None = None,
+             return_states: bool = False):
     """x: (B, S, H, P); dt: (B, S, H); A: (H,) fp32; Bm, Cm: (B, S, N);
     state0: (B, H, P, N) fp32 or None (zeros), all on one CUDA device.
     x, Bm and Cm are bf16 with dt fp32 or bf16, or all fp32.
 
     Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32).
     The final state is written into ``state_out`` when given (it may be
-    ``state0`` itself: an in-place update), else into a new tensor."""
+    ``state0`` itself: an in-place update), else into a new tensor. With
+    ``return_states`` a third output holds the fp32 state entering each of
+    the kernel's chunks of ``CHUNK`` positions, (B, H, ceil(S / CHUNK), P,
+    N), as the backward kernel reads it; without it none is allocated."""
     global launches
     Bb, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -169,6 +175,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                 device=dev)
     _check_state("state_out", state_out, (Bb, H, P, N), dev)
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=dev)
+    states = torch.empty((Bb, H, -(-S // CHUNK), P, N), dtype=torch.float32,
+                         device=dev) if return_states else None
     s_in = state0 if state0 is not None else state_out   # strides only
     ints = (Bb, S, H, P, N) + ((int(dt.dtype == torch.bfloat16), geo.warps)
                                if bf16 else ())
@@ -177,7 +185,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         code = _entry("ssd_bf16" if bf16 else "ssd_f32")(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), state0.data_ptr() if state0 is not None else None,
-            y.data_ptr(), state_out.data_ptr(), *ints,
+            y.data_ptr(), state_out.data_ptr(),
+            states.data_ptr() if states is not None else None, *ints,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
@@ -187,4 +196,4 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             stream)
     _build.check(code, "ssd")
     launches += 1
-    return y, state_out
+    return (y, state_out, states) if return_states else (y, state_out)

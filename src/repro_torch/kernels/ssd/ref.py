@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the SSD kernel: the chunked scan itself.
+"""Plain PyTorch versions of the SSD kernel and of its gradient: the chunked
+scan itself, and autograd through it.
 
 This is the port's one copy of the JAX package's
 ``repro/models/ssm.py::ssd_chunked`` (the Pallas kernel's oracle there).
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["segsum", "ssd_chunked"]
+__all__ = ["segsum", "ssd_chunked", "ssd_bwd_plain"]
 
 
 def segsum(logd: torch.Tensor) -> torch.Tensor:
@@ -64,3 +65,30 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * total[..., None, None] + chunk_state
         ys.append((y_intra + y_inter).to(x.dtype))
     return torch.cat(ys, dim=1), state
+
+
+def ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                  state0: torch.Tensor | None = None,
+                  dstate: torch.Tensor | None = None, chunk: int = 64):
+    """The gradient of ``ssd_chunked`` by autograd in fp32, in the layout of
+    the backward kernel: dy (B, S, H, P) is the cotangent of y, ``dstate``
+    (B, H, P, N) that of the final state (None: zeros). Returns (dx, ddt,
+    dA, dB, dC, dstate0) in the inputs' dtypes; dstate0 is None when
+    ``state0`` is."""
+    with torch.enable_grad():
+        xf, dtf, Af, Bf, Cf = (t.detach().float().requires_grad_()
+                               for t in (x, dt, A, Bm, Cm))
+        leaves = [xf, dtf, Af, Bf, Cf]
+        s0 = None
+        if state0 is not None:
+            s0 = state0.detach().float().requires_grad_()
+            leaves.append(s0)
+        y, final = ssd_chunked(xf, dtf, Af, Bf, Cf, chunk, s0)
+        outs, cots = [y], [dy.float()]
+        if dstate is not None:
+            outs.append(final)
+            cots.append(dstate.float())
+        grads = torch.autograd.grad(outs, leaves, cots)
+    out = [g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bm, Cm))]
+    return (*out, grads[5] if state0 is not None else None)

@@ -2,11 +2,11 @@
 
 Port of ``repro/launch/train.py::train_loop``: the synthetic data pipeline
 with background prefetch, the train step (loss, gradients through the
-hand-written attention kernels on the card, AdamW), checkpoints and
-restart. It runs on the card (``device="cuda"``, full width and depth)
+hand-written kernels on the card: flash attention for tinyllama, the SSD
+scan for mamba2, each forward with its backward kernel; AdamW), checkpoints
+and restart. It runs on the card (``device="cuda"``, full width and depth)
 unless the caller asks for the CPU, where it takes the kernels' plain
-versions; without CUDA and without ``device="cpu"`` it raises. mamba2 trains
-on the CPU only: its scan kernel has no backward yet (ROADMAP A.14).
+versions; without CUDA and without ``device="cpu"`` it raises.
 
 Fault tolerance: ``--simulate-failure K`` raises after step K; rerunning
 the same command with ``--resume`` resumes from the last complete

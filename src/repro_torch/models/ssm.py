@@ -5,7 +5,8 @@ chunk the dual quadratic (attention-like) form is used, and an fp32
 (heads, head_dim, state) recurrent state is carried across chunks:
 
 * prefill and the uncached forward run the scan through
-  ``repro_torch.kernels.ssd``: the hand-written CUDA kernel on CUDA tensors,
+  ``repro_torch.kernels.ssd``: the hand-written CUDA kernel on CUDA tensors
+  (under grad, in training, with the CUDA backward kernel as its gradient),
   the plain chunked scan (``ssd_chunked``, kept in ``kernels/ssd/ref.py``)
   on CPU tensors;
 * decode is the O(1) recurrence ``h <- h*exp(dt*A) + dt*x(x)B;  y = h.C``

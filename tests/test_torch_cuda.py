@@ -15,10 +15,17 @@ bf16 (P and dS enter the products rounded to bf16, as the forward rounds P;
 ~0.3% by tools/flash_bwd_tolerance.py), 1e-4 ||want|| in fp32. The rows'
 log-sum-exp that the flash forward writes for it is held to its plain
 version within 1e-4 absolute (fp32: ex2.approx, ~2 ulp a term, and the
-online rescaling, against an exact logsumexp; |lse| < 10 here).
+online rescaling, against an exact logsumexp; |lse| < 10 here). The SSD
+backward kernel is held to autograd through the plain scan by the same
+norm rule, each of dx, ddt, dA, dB, dC and dstate0 (its tensor-core walk
+stages some operands in bf16: ~0.3% of the norm by
+tools/ssd_bwd_tolerance.py; its scalar walk ~1e-4), and the chunk states
+the forward writes for it to the plain scan's within 1e-4 of their norm.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
@@ -27,6 +34,7 @@ import repro_torch.kernels.decode_attention.kernel as decode_kernel
 import repro_torch.kernels.flash_attention.kernel as flash_kernel
 import repro_torch.kernels.flash_attention.kernel_bwd as flash_bwd_kernel
 import repro_torch.kernels.ssd.kernel as ssd_kernel
+import repro_torch.kernels.ssd.kernel_bwd as ssd_bwd_kernel
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
@@ -37,12 +45,13 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_lse_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention.kernel_bwd import split_plan
-from repro_torch.kernels.ssd import ssd, ssd_plain
+from repro_torch.kernels.ssd import (ssd, ssd_bwd_cuda, ssd_bwd_plain,
+                                     ssd_cuda, ssd_plain)
 from repro_torch.launch.serve import serve_loop
 from repro_torch.launch.train import train_loop
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import attention
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_items, tree_map
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-4
@@ -580,6 +589,10 @@ def test_attention_grads_reach_wq_wk_wv_on_the_card():
 
 
 def test_ssd_under_grad_on_the_card_raises():
+    """Under grad the in-place update of the final state (``state_out``)
+    raises: the backward reads the state it would overwrite. Without
+    ``state_out`` the call goes through the backward kernel's Function,
+    and outside grad through the bare kernel."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     x = randn(gen, 1, 64, 2, 16, dtype=torch.bfloat16).requires_grad_()
     dt = torch.nn.functional.softplus(randn(gen, 1, 64, 2,
@@ -587,11 +600,14 @@ def test_ssd_under_grad_on_the_card_raises():
     A = -torch.exp(randn(gen, 2, dtype=torch.float32))
     Bm = randn(gen, 1, 64, 16, dtype=torch.bfloat16)
     Cm = randn(gen, 1, 64, 16, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        ssd(x, dt, A, Bm, Cm, chunk=64)
+    s0 = randn(gen, 1, 2, 16, 16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="state_out"):
+        ssd(x, dt, A, Bm, Cm, chunk=64, state0=s0, state_out=s0)
+    y, _ = ssd(x, dt, A, Bm, Cm, chunk=64, state0=s0)
+    assert y.grad_fn is not None
     with torch.no_grad():
-        y, _ = ssd(x, dt, A, Bm, Cm, chunk=64)
-    assert y.shape == x.shape
+        y, st = ssd(x, dt, A, Bm, Cm, chunk=64, state0=s0, state_out=s0)
+    assert y.shape == x.shape and st.data_ptr() == s0.data_ptr()
 
 
 def test_train_loop_cuda_goes_through_the_kernels():
@@ -607,7 +623,188 @@ def test_train_loop_cuda_goes_through_the_kernels():
     assert flash_bwd_kernel.launches == 3 * n_layers
 
 
-def test_train_loop_mamba2_on_the_card_raises():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        train_loop("mamba2-370m", steps=1, batch=2, seq=32, reduced=True,
-                   log_every=0)
+def test_train_loop_mamba2_goes_through_the_ssd_kernels():
+    """Reduced mamba2 trained on the card: each step runs the ssd forward
+    twice a layer (remat recomputes it) and its backward once, and no
+    attention kernel."""
+    ssd_kernel.launches = ssd_bwd_kernel.launches = 0
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    out = train_loop("mamba2-370m", steps=3, batch=2, seq=64,
+                     reduced=True, log_every=0)
+    n_layers = get_config("mamba2-370m", reduced=True).n_layers
+    assert len(out["losses"]) == 3
+    assert all(torch.isfinite(torch.tensor(out["losses"])))
+    assert ssd_kernel.launches == 3 * 2 * n_layers
+    assert ssd_bwd_kernel.launches == 3 * n_layers
+    assert flash_kernel.launches == flash_bwd_kernel.launches == 0
+
+
+# ------------------------------------------------------- the SSD backward
+def _ssd_tool():
+    spec = importlib.util.spec_from_file_location(
+        "ssd_bwd_tolerance", Path(__file__).resolve().parents[1] / "tools"
+        / "ssd_bwd_tolerance.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _ssd_bwd_inputs(gen, B, S, H, P, N, dtype, with_state):
+    x, dy = (randn(gen, B, S, H, P, dtype=dtype) for _ in range(2))
+    dt = torch.nn.functional.softplus(randn(gen, B, S, H,
+                                            dtype=torch.float32))
+    A = -torch.exp(randn(gen, H, dtype=torch.float32))
+    Bm, Cm = (randn(gen, B, S, N, dtype=dtype) for _ in range(2))
+    s0, ds = ((randn(gen, B, H, P, N, dtype=torch.float32)
+               for _ in range(2)) if with_state else (None, None))
+    return x, dt, A, Bm, Cm, dy, s0, ds
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 64, 2, 8, 16, 64), (2, 100, 3, 8, 16, 50),     # ragged: 100 % 64
+    (2, 200, 4, 64, 128, 100),
+    (8, 512, 32, 64, 128, 256),                         # the training shape
+    (1, 2048, 32, 64, 128, 256), (2, 513, 4, 16, 32, 171),
+    (2, 256, 4, 8, 128, 128),          # bf16 on the scalar kernel: P = 8
+    (2, 128, 3, 16, 128, 64), (2, 128, 3, 32, 16, 64)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_bwd_cuda_matches_plain(dtype, B, S, H, P, N, chunk,
+                                    with_state):
+    tdt = getattr(torch, dtype)
+    tool = _ssd_tool()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x, dt, A, Bm, Cm, dy, s0, ds = _ssd_bwd_inputs(gen, B, S, H, P, N, tdt,
+                                                   with_state)
+    _, _, states = ssd_cuda(x, dt, A, Bm, Cm, state0=s0, return_states=True)
+    before = ssd_bwd_kernel.launches
+    got = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states, dstate=ds,
+                       want_dstate0=with_state)
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, state0=s0, dstate=ds,
+                         chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_bwd_kernel.launches == before + 1
+    for g, w, like in zip(got, want, (tdt, torch.float32, torch.float32,
+                                      tdt, tdt, torch.float32)):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.shape == w.shape and g.dtype == like
+            assert _bwd_close(g, w, dtype)
+    if S > 64:                       # the states after the first chunk
+        assert tool.grad_err(states[:, :, 1:], tool.chunk_states(
+            x, dt, A, Bm, Cm, s0)[:, :, 1:]) <= 1e-4
+
+
+def test_ssd_bwd_cuda_is_deterministic_and_fails_planted_faults():
+    """Two calls give the same bits (per-head partials summed in a fixed
+    order, no atomics); and each planted fault of
+    tools/ssd_bwd_tolerance.py, made by the kernel on altered inputs,
+    fails the rule at the training shape."""
+    tool = _ssd_tool()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, dt, A, Bm, Cm, dy, _, _ = _ssd_bwd_inputs(gen, 8, 512, 32, 64, 128,
+                                                 torch.bfloat16, False)
+    _, _, states = ssd_cuda(x, dt, A, Bm, Cm, return_states=True)
+    a = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
+    b = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
+    assert all(torch.equal(u, v) for u, v in zip(a[:5], b[:5]))
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=256)
+    faults = tool.planted_faults(ssd_bwd_cuda, x, dt, A, Bm, Cm, dy, states)
+    assert len(faults) == 3
+    for name, (k, bad) in faults.items():
+        assert not _bwd_close(bad, want[k], "bfloat16"), name
+
+
+def test_ssd_bwd_scalar_and_tensor_core_kernels_agree(monkeypatch):
+    """At the training shape in bf16 the scalar kernel (fp32 FMA, what fp32
+    and the other sizes take) and the tensor-core one each meet the rule
+    against the plain gradient and against each other."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x, dt, A, Bm, Cm, dy, _, _ = _ssd_bwd_inputs(gen, 8, 512, 32, 64, 128,
+                                                 torch.bfloat16, False)
+    _, _, states = ssd_cuda(x, dt, A, Bm, Cm, return_states=True)
+    assert ssd_bwd_kernel.tensor_cores(torch.bfloat16, 64, 128)
+    tc = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
+    monkeypatch.setattr(ssd_bwd_kernel, "tensor_cores", lambda *a: False)
+    scalar = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=256)
+    for a, b, w in zip(tc[:5], scalar[:5], want[:5]):
+        assert _bwd_close(a, w, "bfloat16") and _bwd_close(b, w, "bfloat16")
+        assert _bwd_close(a, b, "bfloat16")
+
+
+def test_ssd_forward_writes_chunk_states_only_when_asked():
+    """The chunk states are the plain scan's; serving allocates none and
+    its y and final state equal the training forward's."""
+    tool = _ssd_tool()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, dt, A, Bm, Cm, _, s0, _ = _ssd_bwd_inputs(gen, 2, 300, 4, 64, 128,
+                                                 torch.bfloat16, True)
+    y, st = ssd_cuda(x, dt, A, Bm, Cm, state0=s0)
+    y2, st2, states = ssd_cuda(x, dt, A, Bm, Cm, state0=s0,
+                               return_states=True)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert states.shape == (2, 4, 5, 64, 128)
+    assert torch.equal(states[:, :, 0], s0)
+    assert tool.grad_err(states, tool.chunk_states(x, dt, A, Bm, Cm,
+                                                   s0)) <= 1e-4
+
+
+def test_ssd_grad_goes_through_the_backward_kernel():
+    """ssd under grad on the card: the Function's gradients (the backward
+    kernel) of x, dt, A, B, C and state0 against the plain gradient, for a
+    loss on y and the final state; a strided dy is taken as it comes."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, dt, A, Bm, Cm, _, s0, ds = _ssd_bwd_inputs(gen, 2, 128, 4, 16, 32,
+                                                  torch.bfloat16, True)
+    leaves = [t.requires_grad_() for t in (x, dt, A, Bm, Cm, s0)]
+    dy = randn(gen, 2, 128, 16, 4, dtype=torch.bfloat16).transpose(2, 3)
+    before = (ssd_kernel.launches, ssd_bwd_kernel.launches)
+    y, final = ssd(*leaves[:5], chunk=64, state0=s0)
+    got = torch.autograd.grad((y, final), leaves, (dy, ds))
+    assert (ssd_kernel.launches, ssd_bwd_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = ssd_bwd_plain(*leaves[:5], dy, state0=s0, dstate=ds, chunk=64)
+    for g, w in zip(got, want):
+        assert _bwd_close(g, w, "bfloat16")
+
+
+def test_ssd_bwd_cuda_rejects_what_it_does_not_take():
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x, dt, A, Bm, Cm, dy, _, _ = _ssd_bwd_inputs(gen, 1, 64, 2, 8, 16,
+                                                 torch.bfloat16, False)
+    states = torch.zeros(1, 2, 1, 8, 16, device="cuda")
+    for bad in ({"dy": dy.float()}, {"A": A.bfloat16()},
+                {"states": states[..., :8]}, {"states": states.bfloat16()},
+                {"dy": randn(gen, 1, 64, 2, 16, dtype=torch.bfloat16)
+                 [..., ::2]},
+                {"x": randn(gen, 1, 64, 2, 6, dtype=torch.bfloat16),
+                 "dy": randn(gen, 1, 64, 2, 6, dtype=torch.bfloat16)}):
+        t = {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "dy": dy,
+             "states": states}
+        t.update(bad)
+        with pytest.raises(ValueError):
+            ssd_bwd_cuda(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"],
+                         t["dy"], t["states"])
+
+
+def test_mamba2_grads_on_the_card_match_cpu():
+    """The reduced mamba2's loss and every leaf's gradient on the card
+    (the ssd kernels) against the CPU (the plain scan), same weights and
+    batch: loss 1e-2 relative, each leaf within 3e-2 of its norm (bf16,
+    chip_smoke.py's rule for the depth-2 model)."""
+    model, params = _reduced_model("mamba2-370m")
+    toks = torch.randint(0, model.cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(),
+                          params)
+        loss = model.loss_fn(leaves, {"tokens": toks.to(dev)})
+        loss.backward()
+        out[dev] = (float(loss), {"/".join(k): t.grad.double().cpu()
+                                  for k, t in tree_items(leaves)})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    for k, w in g_cpu.items():
+        assert float((g_gpu[k] - w).norm()) <= 3e-2 * float(w.norm()), k

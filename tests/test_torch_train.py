@@ -76,10 +76,10 @@ def port_by_path(tree) -> dict:
     return {"/".join(path): leaf for path, leaf in tree_items(tree)}
 
 
-def jax_models(seed=0):
-    jmodel = jax_build_model(jax_get_config(ARCH, reduced=True))
+def jax_models(seed=0, arch=ARCH):
+    jmodel = jax_build_model(jax_get_config(arch, reduced=True))
     params = jax_init_params(jmodel.param_decls(), jax.random.key(seed))
-    return jmodel, params, build_model(get_config(ARCH, reduced=True))
+    return jmodel, params, build_model(get_config(arch, reduced=True))
 
 
 def tokens(seed, batch=2, seq=32) -> np.ndarray:
@@ -241,10 +241,8 @@ def test_adamw_state_dtype():
 
 
 # ---------------------------------------------------- loss and gradients
-@pytest.fixture(scope="module")
-def jax_loss_and_grads():
-    """JAX's loss and gradients op by op (about 20 s), once."""
-    jmodel, params, model = jax_models(0)
+def _jax_loss_and_grads(arch):
+    jmodel, params, model = jax_models(0, arch)
     toks = tokens(0)
     with jax.disable_jit():
         loss, grads = jax.value_and_grad(jmodel.loss_fn)(
@@ -252,16 +250,33 @@ def jax_loss_and_grads():
     return params, toks, model, loss, grads
 
 
-def test_loss_and_grads_match_jax(jax_loss_and_grads):
-    params, toks, model, jloss, jgrads = jax_loss_and_grads
-    loss, grads = port_grads(model, to_torch(params), toks)
+@pytest.fixture(scope="module")
+def jax_loss_and_grads():
+    """JAX's loss and gradients op by op (about 20 s), once."""
+    return _jax_loss_and_grads(ARCH)
+
+
+@pytest.fixture(scope="module")
+def jax_mamba2_loss_and_grads():
+    """The same for the reduced mamba2 (the SSM's scan under autodiff)."""
+    return _jax_loss_and_grads("mamba2-370m")
+
+
+@pytest.mark.parametrize("fixture", ["jax_loss_and_grads",
+                                     "jax_mamba2_loss_and_grads"])
+def test_loss_and_grads_match_jax(fixture, request):
+    params, toks, model, jloss, jgrads = request.getfixturevalue(fixture)
+    tparams = to_torch(params)
+    loss, grads = port_grads(model, tparams, toks)
     assert float(loss) == pytest.approx(float(jloss), rel=1e-3)
     tg = port_by_path(grads)
     jg = by_path(jgrads)
     assert set(tg) == set(jg)
     for k, want in jg.items():
         got, want = f32(tg[k]), f32(want)
-        assert tg[k].dtype == torch.bfloat16
+        # bf16 weights (mamba2 keeps dt_bias, A_log and D in fp32)
+        assert tg[k].dtype == port_by_path(tparams)[k].dtype
+        assert tg[k].dtype == torch.bfloat16 or "mamba" in k
         assert np.abs(got - want).max() <= 2 ** -5 * np.abs(want).max(), k
 
 

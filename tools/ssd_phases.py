@@ -80,7 +80,7 @@ def build() -> dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}.cu:\n{out}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        lib.ssd_bf16.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        lib.ssd_bf16.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                                  + [ctypes.c_longlong] * 19
                                  + [ctypes.c_void_p])
         lib.ssd_bf16.restype = ctypes.c_int
@@ -98,7 +98,7 @@ def run(torch, lib, warps, x, dt, A, Bm, Cm, state0):
     code = lib.ssd_bf16(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), state0.data_ptr(), y.data_ptr(), st.data_ptr(),
-        Bb, S, H, P, N, 0, warps, *x.stride()[:3], *dt.stride(),
+        None, Bb, S, H, P, N, 0, warps, *x.stride()[:3], *dt.stride(),
         *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
         *state0.stride()[:3], *st.stride()[:3],
         torch.cuda.current_stream().cuda_stream)
