@@ -18,8 +18,11 @@ Phases, each fatal on failure:
    random state0, dt in bf16, fp32, ragged S, S = 513, P = 8, an in-place
    update of a stacked cache, a batch-1 8192-token prompt; ssd backward:
    the training shape in bf16 and fp32, random state0 with a final-state
-   cotangent, a ragged S, P = 8, a 2048-token sequence), to bf16 2e-2 and
-   fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
+   cotangent, a ragged S, P = 8, a 2048-token sequence; and the 15 B archs'
+   heads at D = 128, G = 12 (starcoder2) and G = 6 (nemotron, qwen3): flash
+   forward and decode at their serving shapes, the backward at 2 x 256
+   tokens with planted faults on the G = 12 blocks' edges), to bf16 2e-2
+   and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
    backward kernels within 1e-2 of its norm in bf16 and 1e-4 in fp32, and
@@ -28,9 +31,11 @@ Phases, each fatal on failure:
    PyTorch library call as a yardstick, and the least time the card could
    take (``bound_ms``);
 4. main paths, each at full width and depth on seeded random weights:
-   ``serve_loop("tinyllama-1.1b")`` (flash and decode attention) and
+   ``serve_loop("tinyllama-1.1b")`` (flash and decode attention),
    ``serve_loop("mamba2-370m")`` (ssd at prefill; decode is the plain
-   recurrence), batch 8, 512-token prompts, 32 new tokens; and
+   recurrence) and ``serve_loop`` of starcoder2-15b, nemotron-4-15b and
+   qwen3-14b (flash and decode attention; ~30 GB of weights each, one on
+   the card at a time), batch 8, 512-token prompts, 32 new tokens; and
    ``train_loop("tinyllama-1.1b")`` (flash forward and backward), batch 8,
    512 tokens, and ``train_loop("mamba2-370m")`` (ssd forward and
    backward), the same shape, on the synthetic pipeline. Each is called
@@ -39,21 +44,23 @@ Phases, each fatal on failure:
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
    run went through them;
-5. profile: ``torch.profiler`` over a few decode steps of each model, one
-   mamba2 prefill and one train step of each model, for the device's busy
-   share and the kernels that take its time (at prefill, the ssd kernel's
-   share; in training, the flash or ssd forward's and backward's);
-6. model check: a depth-2, full-width model of each arch on the card
-   against the same model on the CPU's plain path (relative error < 0.06,
-   equal argmax); a depth-2 tinyllama bf16 train step on the card against
-   the CPU (attention weights at std 1/sqrt(fan-in) for this check only:
-   loss 1e-2 relative, each gradient within 3e-2 of its norm, each layer's
-   backward-kernel gradients against the plain backward on the same
-   captured tensors within 1e-2 of their norm); the same step of a
-   depth-2 mamba2 (each gradient within 3e-2 of its norm); for each arch a
-   crash after step 4 and a resume from the checkpoint saved there,
-   reproducing the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit
-   for bit).
+5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2
+   and starcoder2-15b (beside the bytes a step must read), one mamba2
+   prefill and one train step of each trained model, for the device's
+   busy share and the kernels that take its time (at prefill, the ssd
+   kernel's share; in training, the flash or ssd forward's and backward's);
+6. model check (attention weights at std 1/sqrt(fan-in), where the
+   reference's draw saturates the softmax: ``model_check``): a depth-2,
+   full-width model of each of the five archs on the card against the
+   same model on the CPU's plain path (relative error < 0.06, equal
+   argmax); a depth-2 bf16 train step of tinyllama and the three 15 B
+   archs on the card against the CPU (loss 1e-2 relative,
+   each gradient within 3e-2 of its norm, each layer's backward-kernel
+   gradients against the plain backward on the same captured tensors
+   within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
+   gradient within 3e-2 of its norm); for tinyllama and mamba2 a crash
+   after step 4 and a resume from the checkpoint saved there, reproducing
+   the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit for bit).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -171,7 +178,13 @@ def check_flash(torch, timer, gen) -> dict:
             ("ragged", 2, 100, 32, 4, 64, torch.bfloat16, False, False),
             ("d128", 2, 256, 32, 4, 128, torch.bfloat16, True, False),
             ("g1", 2, 256, 8, 8, 64, torch.bfloat16, True, False),
-            ("long", 1, 2048, 32, 4, 64, torch.bfloat16, True, True)):
+            ("long", 1, 2048, 32, 4, 64, torch.bfloat16, True, True),
+            # the 15 B archs' prefill at D = 128: starcoder2's G = 12 (5
+            # positions a block, rows 60-63 dead), nemotron's and qwen3's
+            # G = 6 (10 positions); a ragged S at G = 12
+            ("g12", 8, 512, 48, 4, 128, torch.bfloat16, True, True),
+            ("g6", 8, 512, 48, 8, 128, torch.bfloat16, True, True),
+            ("ragged-g12", 2, 100, 48, 4, 128, torch.bfloat16, True, False)):
         q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
         k = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
@@ -209,7 +222,8 @@ def check_flash(torch, timer, gen) -> dict:
         flops = 4 * B * H * S * S * D / 2
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        log(f"[kernels] flash_attention {label} bf16 causal B={B} S={S}: "
+        log(f"[kernels] flash_attention {label} bf16 causal B={B} S={S} "
+            f"H={H} Hk={Hk} D={D}: "
             f"{ms:.4f} ms, with lse {lse_ms:.4f} ms (plain {plain_ms:.4f} "
             f"ms, sdpa {lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         if label == "serving":
@@ -241,7 +255,11 @@ def check_decode(torch, timer, gen) -> dict:
             ("g16", 2, L, 64, 4, D, torch.bfloat16, (1, split + 1, L), None),
             ("d128", 2, L, 32, 4, 128, torch.bfloat16, (1, split + 1, L),
              None),
-            ("long", 1, 8192, H, Hk, D, torch.bfloat16, (8000,), 8000)):
+            ("long", 1, 8192, H, Hk, D, torch.bfloat16, (8000,), 8000),
+            # the 15 B archs' decode: G = 12 (starcoder2, 12 of the 16 MMA
+            # rows at work) and G = 6 (nemotron, qwen3), D = 128
+            ("g12", B, L, 48, 4, 128, torch.bfloat16, edges, timed_len),
+            ("g6", B, L, 48, 8, 128, torch.bfloat16, edges, timed_len)):
         name = str(dtype).split(".")[1]
         # one layer's view of a stacked cache, as the model passes it
         cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
@@ -275,8 +293,9 @@ def check_decode(torch, timer, gen) -> dict:
             flops = 4 * Bc * Hc * n * Dc
             nbytes = 2 * (2 * Bc * Hkc * n * Dc + 2 * q.numel())
             b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-            log(f"[kernels] decode_attention {label} bf16 B={Bc} "
-                f"length={n}: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+            log(f"[kernels] decode_attention {label} bf16 B={Bc} H={Hc} "
+                f"Hk={Hkc} D={Dc} length={n}: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, sdpa "
                 f"{lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
             if label == "serving":
                 rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -447,15 +466,23 @@ def check_ssd(torch, timer, gen) -> dict:
 
 
 BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# the names of cuBLAS's GEMM kernels, as the profiler shows them
+GEMMS = ("nvjet", "gemm", "cutlass", "xmma")
 # the names of the flash kernels' launches (bf16), as the profiler shows them
 FLASH_FWD = ("flash_bf16_kernel",)
 FLASH_BWD = ("bwd_dq_bf16", "bwd_dkdv_bf16", "bwd_reduce")
 
 
+def profiled(passes: dict) -> str:
+    return ", ".join(f"{n} {t:.4f} ms" for n, t in passes.items()) \
+        or "not traced"
+
+
 def kernel_ms(torch, timer, fn, names, iters: int = 20) -> dict:
     """Mean device ms a call of ``fn`` spends in the kernels whose names
     contain each of ``names`` (``torch.profiler``), the L2 flushed before
-    each call as ``Timer`` does."""
+    each call as ``Timer`` does; empty when the profiler traced none of
+    them (it has missed a window's device events on this card)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -471,7 +498,38 @@ def kernel_ms(torch, timer, fn, names, iters: int = 20) -> dict:
             for n in names:
                 if n in e.name:
                     us[n] += e.time_range.elapsed_us()
+    if not any(us.values()):
+        return {}
     return {n: t / iters / 1e3 for n, t in us.items()}
+
+
+def block_edge_faults(grads, G: int) -> dict:
+    """Faults where a group of G heads meets the forward's 64-row blocks:
+    the forward folds P = 64 // G positions x G heads into a block's rows
+    (G = 12: 5 positions, rows 60-63 dead), so a fault of its row mapping
+    lands on a block's last position. dq and dv x 0.9 at every P-th
+    position (the last of each block's), and dq x 0.9 on the last 4 folded
+    rows of each of the backward's 64-row tiles."""
+    dq, dk, dv = grads
+    P = 64 // G
+    S, H, D = dq.shape[1], dq.shape[2], dq.shape[3]
+
+    def scaled(g, index):
+        bad = g.clone()
+        bad[:, index] *= 0.9
+        return bad
+    last = slice(P - 1, None, P)
+    folded = dq.reshape(dq.shape[0], S, H // G, G, D).permute(
+        0, 2, 1, 3, 4).reshape(dq.shape[0], H // G, S * G, D).clone()
+    for r in range(60, S * G, 64):
+        folded[:, :, r:r + 4] *= 0.9
+    tile_end = folded.reshape(dq.shape[0], H // G, S, G, D).permute(
+        0, 2, 1, 3, 4).reshape(dq.shape)
+    return {f"dq x 0.9 at each {P}-position block's last position":
+            (0, scaled(dq, last)),
+            f"dv x 0.9 at every {P}th key": (2, scaled(dv, last)),
+            "dq x 0.9 on folded rows 60-63 of each 64-row tile":
+            (0, tile_end)}
 
 
 def check_flash_bwd(torch, timer, gen) -> dict:
@@ -506,7 +564,11 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             ("g1", 2, 256, 8, 8, 64, torch.bfloat16, True, False),
             ("d128", 2, 256, 32, 4, 128, torch.bfloat16, True, False),
             ("long", 1, 2048, 32, 4, 64, torch.bfloat16, True, True),
-            ("fp32", 2, 256, 32, 4, 64, torch.float32, True, False)):
+            ("fp32", 2, 256, 32, 4, 64, torch.float32, True, False),
+            # the 15 B archs' heads at the train check's length: G = 12
+            # (starcoder2) and G = 6 (qwen3, nemotron), D = 128
+            ("g12", 2, 256, 48, 4, 128, torch.bfloat16, True, True),
+            ("g6", 2, 256, 48, 8, 128, torch.bfloat16, True, True)):
         q, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(B, S, Hk, D, generator=gen, device="cuda")
@@ -531,7 +593,7 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                                      f"||err||/||want|| {err} > {tol}")
             if dtype is torch.bfloat16:
                 worst = max(worst, max_err(g, w))
-        if label == "training" and causal:
+        if label in ("training", "g12") and causal:
             # the rows unsplit: one range a key tile, the partials summed
             # from one term, within the same rule
             one = flash_attention_bwd_cuda(q, k, v, o, do, lse, n_split=1)
@@ -542,7 +604,10 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             if not max(errs) <= tol:
                 raise AssertionError(f"flash_attention_bwd n_split=1: "
                                      f"||err||/||want|| {errs} > {tol}")
-            for fault, (i, bad) in planted_faults(got, S).items():
+            faults = planted_faults(got, S)
+            if label == "g12":
+                faults.update(block_edge_faults(got, H // Hk))
+            for fault, (i, bad) in faults.items():
                 err = grad_err(bad, want[i])
                 log(f"[kernels] flash_attention_bwd planted fault, "
                     f"{fault}: ||err||/||want|| {err:.3e} (must exceed "
@@ -580,9 +645,9 @@ def check_flash_bwd(torch, timer, gen) -> dict:
         ranges = split_plan(S, S, H // Hk, True, n_split)[1]
         part_bytes = 2 * 2 * B * Hk * ranges * 64 * D * 4
         bp_ms, bp_by = bound(flops, nbytes + part_bytes, PEAK_BF16_FLOPS)
-        log(f"[kernels] flash_attention_bwd {label} bf16 causal B={B} S={S}: "
-            f"{ms:.4f} ms (passes, profiled: "
-            f"{', '.join(f'{n} {t:.4f}' for n, t in passes.items())} ms; "
+        log(f"[kernels] flash_attention_bwd {label} bf16 causal B={B} S={S} "
+            f"H={H} Hk={Hk} D={D}: {ms:.4f} ms (passes, profiled: "
+            f"{profiled(passes)}; "
             f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound "
             f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB; n_split {n_split}, {B * Hk * ranges} "
@@ -716,7 +781,7 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
         bx_ms, bx_by = bound(flops, nbytes + extra, PEAK_BF16_FLOPS)
         log(f"[kernels] ssd_bwd {label} bf16 B={B} S={S} H={H}: {ms:.4f} ms "
             f"(launches, profiled: "
-            f"{', '.join(f'{n} {t:.4f}' for n, t in passes.items())} ms; "
+            f"{profiled(passes)}; "
             f"plain {plain_ms:.4f} ms, no library call computes it, bound "
             f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB; with the chunk states and the "
@@ -788,6 +853,7 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
     device time spent in the port's kernels whose names contain one of
     ``ours``."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.param import tree_items
     cfg, model, params = _serving_model(torch, arch)
     tok = torch.randint(0, cfg.vocab, (8, 512), device="cuda")
     with torch.inference_mode():
@@ -806,7 +872,21 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     _profile_report(prof, f"{arch} decode at batch 8, after 514 tokens",
-                    wall, steps, ours or {})
+                    wall, steps, {**(ours or {}), "GEMMs": GEMMS})
+    # a step reads every weight but the embedding's (8 rows of it), and the
+    # cache: the K/V rows up to its length, or the whole SSM state
+    nbytes = sum(t.numel() * t.element_size()
+                 for path, t in tree_items(params)
+                 if path != ("embed",) or cfg.tie_embeddings)
+    if cache.kv is not None:
+        k = cache.kv.k                      # (layers, B, max_len, Hk, D)
+        nbytes += 2 * k.numel() * k.element_size() * int(
+            cache.kv.length) // k.shape[2]
+    else:
+        nbytes += sum(t.numel() * t.element_size() for t in cache.ssm)
+    log(f"[profile] {arch} decode: a step reads {nbytes / 1e9:.2f} GB "
+        f"(weights but the embedding, the cache), bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s")
 
 
 def profile_prefill(torch, arch: str, ours: dict) -> None:
@@ -831,16 +911,34 @@ def profile_prefill(torch, arch: str, ours: dict) -> None:
 
 
 def model_check(torch, arch: str) -> None:
-    """Depth-2, full-width model: CUDA (kernels) vs CPU (plain path)."""
+    """Depth-2, full-width model: CUDA (kernels) vs CPU (plain path), same
+    weights, prefill(64) + decode(1), rel < 0.06 and equal argmax.
+
+    The attention weights are drawn at std 1/sqrt(fan-in), as the train
+    check draws them. At the reference's draw (ROADMAP C) layer 0's scores
+    have a std of ~180 (tinyllama) to ~440 (starcoder2): the softmax is
+    one-hot, and the CPU's plain path, which rounds q / sqrt(D) to bf16
+    first as the JAX model does, parts from the kernels' fp32 scaling (the
+    Pallas kernels' and their ``ref.py``'s) by 46-51% of the output on
+    starcoder2 and nemotron with no fault in either
+    (``tools/attention_conditioning.py``); at the fan-in std they agree to
+    0.4-0.5%."""
+    from attention_conditioning import fan_in_std
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
     from repro_torch.models.param import tree_map
     cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               q_chunk=32, kv_chunk=32, max_cache_len=72)
     model = build_model(cfg)
-    params_cpu = init_params(model.param_decls(),
-                             torch.Generator().manual_seed(0), "cpu")
-    params_gpu = tree_map(lambda a: a.to("cuda"), params_cpu)
+    # drawn on the card and copied: the CPU's generator takes minutes for a
+    # 15 B arch's vocab-wide embedding and head
+    params_gpu = init_params(model.param_decls(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    if cfg.attends:
+        layers = params_gpu["layers"]
+        layers["attn"] = fan_in_std(layers["attn"], cfg.d_model)
+    params_cpu = tree_map(lambda a: a.cpu(), params_gpu)
     toks = torch.randint(0, cfg.vocab, (2, 65),
                          generator=torch.Generator().manual_seed(1))
     out = {}
@@ -853,10 +951,13 @@ def model_check(torch, arch: str) -> None:
     ref, got = out["cpu"], out["cuda"]
     rel = float((got - ref).abs().max() / (ref.abs().max() + 1e-9))
     same = bool((got.argmax(-1) == ref.argmax(-1)).all())
-    log(f"[model] depth-2 {arch} prefill(64)+decode(1), cuda vs cpu: "
+    drawn = " (attention weights at std 1/sqrt(fan-in))" if cfg.attends \
+        else ""
+    log(f"[model] depth-2 {arch} prefill(64)+decode(1){drawn}, cuda vs cpu: "
         f"rel={rel:.4f} (< 0.06) argmax_equal={same}")
     if not (rel < 0.06 and same):
-        raise AssertionError("model check: CUDA and CPU logits disagree")
+        raise AssertionError(f"model check {arch}: CUDA and CPU logits "
+                             f"disagree")
 
 
 def _train_model(arch: str):
@@ -892,8 +993,7 @@ def profile_train(torch, arch: str, ours: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _profile_report(prof, f"{arch} train step at batch 8 x 512 tokens", wall,
-                    1, {**ours,
-                        "GEMMs": ("nvjet", "gemm", "cutlass", "xmma"),
+                    1, {**ours, "GEMMs": GEMMS,
                         "elementwise, reductions and copies": (
                             "elementwise", "reduce", "Memcpy", "copy")},
                     top=12)
@@ -924,8 +1024,8 @@ def _loss_and_grads(model, params, toks, dev: str):
 TRAIN_GRAD_TOL = 3e-2
 
 
-def train_check(torch) -> None:
-    """Depth-2, full-width tinyllama in bf16: the loss and every leaf's
+def train_check(torch, arch: str) -> None:
+    """Depth-2, full-width ``arch`` (dense) in bf16: the loss and every leaf's
     gradient of one train step on the card (the flash kernels) against the
     CPU (the plain path), same weights and batch (2 x 256 tokens), remat off
     (the launch counts of ``train_loop`` cover remat). Held: the loss within
@@ -936,32 +1036,37 @@ def train_check(torch) -> None:
     card on the same tensors, within the kernel check's ``BWD_TOL``.
 
     For this check only, the attention weights are drawn at std
-    1/sqrt(fan-in): the reference's initializer draws them 8x (wq, wk, wv)
-    and 5.7x (wo) larger (ROADMAP C), which leaves the bf16 gradients so
-    ill-conditioned that two correct computations differ by ~30% of a leaf.
+    1/sqrt(fan-in): the reference's initializer takes the head count as
+    the fan-in of wq, wk and wv and D as wo's, so it draws them
+    sqrt(d_model / heads) and sqrt(heads) times larger (wq: tinyllama 8x,
+    starcoder2 11.3x, qwen3 10.3x at its 48 lowered heads; wk and wv by
+    the KV heads: 22.6x, 39.2x, 25.3x; wo: 5.7x, 6.9x, 6.9x; ROADMAP C),
+    which leaves the bf16 gradients so ill-conditioned that two correct
+    computations differ by ~30% of a leaf.
     At the true fan-in, ``tools/flash_bwd_tolerance.py`` finds two correct
     CPU computations (blockwise against exact softmax, bf16 against fp32)
     1.3-1.4% apart at most, and a backward with dv 10% low past a quarter of
     the keys 6.1% off on wv."""
-    import math
     import repro_torch.models.attention as attention
+    from attention_conditioning import fan_in_std
     from repro_torch.data import DataConfig, SyntheticLM
     from flash_bwd_tolerance import grad_err
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
     from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_map
     seq = 256
     model = build_model(dataclasses.replace(
-        get_config("tinyllama-1.1b"), n_layers=2, remat=False,
+        get_config(arch), n_layers=2, remat=False,
         q_chunk=seq // 2, kv_chunk=seq // 2))
-    params = init_params(model.param_decls(),
-                         torch.Generator().manual_seed(0), "cpu")
-    cfg, attn = model.cfg, params["layers"]["attn"]
-    for n in ("wq", "wk", "wv"):            # (L, M, H, D): fan-in M
-        attn[n] = (attn[n].float() * math.sqrt(attn[n].shape[-2]
-                                               / cfg.d_model)).bfloat16()
-    attn["wo"] = (attn["wo"].float() / math.sqrt(      # (L, H, D, M)
-        attn["wo"].shape[-3])).bfloat16()
+    # drawn on the card and copied to the CPU, as model_check does
+    params = tree_map(lambda a: a.cpu(), init_params(
+        model.param_decls(), torch.Generator(device="cuda").manual_seed(0),
+        "cuda"))
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    params["layers"]["attn"] = fan_in_std(params["layers"]["attn"],
+                                          cfg.d_model)
     toks = torch.as_tensor(SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
 
@@ -975,11 +1080,13 @@ def train_check(torch) -> None:
         seen.append(rec)
         return out
     attention._prefill_core = capturing_core
+    t0 = time.perf_counter()
     try:
         loss, grads = _loss_and_grads(model, params, toks, "cuda")
     finally:
         attention._prefill_core = kernels_core
     ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu")
+    seconds = time.perf_counter() - t0
 
     rel = abs(loss - ref_loss) / abs(ref_loss)
     errs = {k: grad_err(grads[k], w) for k, w in ref_grads.items()}
@@ -990,8 +1097,9 @@ def train_check(torch) -> None:
                                          rec["do"])
         attn_errs.append([grad_err(rec[n], w)
                           for n, w in zip(("dq", "dk", "dv"), want)])
-    log(f"[model] depth-2 tinyllama-1.1b bf16 train step (attention weights "
-        f"at std 1/sqrt(fan-in)), cuda vs cpu: loss {loss:.6f} vs "
+    log(f"[model] depth-2 {arch} bf16 train step (attention weights "
+        f"at std 1/sqrt(fan-in); {seconds:.1f} s), cuda vs cpu: loss "
+        f"{loss:.6f} vs "
         f"{ref_loss:.6f} (rel {rel:.2e}, tol 1e-2); worst ||diff||/||g|| "
         f"{', '.join(f'{k} {errs[k]:.2e}' for k in top)} (tol "
         f"{TRAIN_GRAD_TOL:g}); the backward kernel in the step against the "
@@ -1004,7 +1112,8 @@ def train_check(torch) -> None:
                              f"calls, want {cfg.n_layers} with gradients")
     if not (rel < 1e-2 and max(errs.values()) <= TRAIN_GRAD_TOL
             and max(map(max, attn_errs)) <= BWD_TOL["bfloat16"]):
-        raise AssertionError("bf16 train check: CUDA and CPU disagree")
+        raise AssertionError(f"bf16 train check {arch}: CUDA and CPU "
+                             f"disagree")
 
 
 def train_check_ssm(torch) -> None:
@@ -1108,7 +1217,8 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel_bwd as ssd_bwd_k
     from repro_torch.launch.serve import serve_loop
     from repro_torch.launch.train import train_loop
-    from repro_torch.models import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, param_count
 
     log(f"[card] {card_line()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1148,21 +1258,30 @@ def main() -> int:
         log(f"[serve] {arch} first call (cold): prefill "
             f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
             f"{out['decode_tok_per_s']:.1f} tok/s")
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.empty_cache()
         for k in counters.values():
             k.launches = 0
         out = serve_loop(arch, **serve)
         counts = {name: k.launches for name, k in counters.items()}
-        tokens = out["tokens"]
-        log(f"[serve] {arch} batch=8 prompt=512 gen=32 ({layers} layers): "
-            f"prefill {out['prefill_s']:.4f} s, decode "
-            f"{out['decode_s']:.4f} s, {out['decode_tok_per_s']:.1f} tok/s; "
-            f"launches {counts}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        tokens, logits = out["tokens"], out["logits"]
+        n_params = param_count(build_model(get_config(arch)).param_decls())
+        share = 2 * n_params * 8 * 512 / out["prefill_s"] / PEAK_BF16_FLOPS
+        log(f"[serve] {arch} batch=8 prompt=512 gen=32 ({layers} layers, "
+            f"{n_params / 1e9:.3f} B params): prefill "
+            f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
+            f"{out['decode_tok_per_s']:.1f} tok/s; launches {counts}; peak "
+            f"memory from the prefill on {out['peak_bytes'] / 2**30:.2f} "
+            f"GiB; derived: 2 * N * prompt tokens / prefill s / 989 "
+            f"TFLOP/s = {share:.3f}")
         if tokens.shape != (8, 32) or tokens.min() < 0 \
                 or tokens.max() >= vocab:
             raise AssertionError(f"{arch}: tokens {tokens.shape} out of "
                                  f"[0, {vocab})")
+        if logits.shape != (8, vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: last logits {tuple(logits.shape)}"
+                                 f" not finite or not (8, {vocab})")
+        torch.cuda.empty_cache()
         return counts
 
     dense = serve_counted("tinyllama-1.1b", 22, 32000)
@@ -1174,6 +1293,17 @@ def main() -> int:
         raise AssertionError(f"mamba2 launches {ssm}: want ssd 48")
     n_flash, n_decode, n_ssd = (dense["flash_attention"],
                                 dense["decode_attention"], ssm["ssd"])
+    # the 15 B archs, full width and depth, one on the card at a time (~30
+    # GB of weights each): the flash kernel once a layer at the prefill,
+    # the decode kernel once a layer in each of the 31 decode steps
+    for arch, layers, vocab in (("starcoder2-15b", 40, 49152),
+                                ("nemotron-4-15b", 32, 256000),
+                                ("qwen3-14b", 40, 151936)):
+        counts = serve_counted(arch, layers, vocab)
+        want = dict.fromkeys(counters, 0)
+        want.update(flash_attention=layers, decode_attention=layers * 31)
+        if counts != want:
+            raise AssertionError(f"{arch} launches {counts}: want {want}")
 
     # training: batch 8 x 512 tokens, full width and depth, remat on
     def train_counted(arch: str, layers: int, kernels: tuple) -> dict:
@@ -1216,17 +1346,24 @@ def main() -> int:
     n_ssd_bwd = train_counted("mamba2-370m", 48, ("ssd", "ssd_bwd"))[
         "ssd_bwd"]
 
-    profile_decode(torch, "tinyllama-1.1b", ours={
-        "decode_attention": ("split_kernel", "combine_kernel")})
+    decode_kernels = {"decode_attention": ("split_kernel", "combine_kernel")}
+    profile_decode(torch, "tinyllama-1.1b", ours=decode_kernels)
     profile_decode(torch, "mamba2-370m")
+    profile_decode(torch, "starcoder2-15b", ours=decode_kernels)
+    torch.cuda.empty_cache()          # its ~30 GB of weights, released
     profile_prefill(torch, "mamba2-370m", ours={"ssd": ("ssd",)})
     profile_train(torch, "tinyllama-1.1b", {"flash forward": FLASH_FWD,
                                             "flash backward": FLASH_BWD})
     profile_train(torch, "mamba2-370m", {"ssd forward": SSD_FWD,
                                          "ssd backward": SSD_BWD})
-    for arch in ("tinyllama-1.1b", "mamba2-370m"):
+    for arch in ("tinyllama-1.1b", "mamba2-370m", "starcoder2-15b",
+                 "nemotron-4-15b", "qwen3-14b"):
         model_check(torch, arch)
-    train_check(torch)
+        torch.cuda.empty_cache()      # the model's card memory, released
+    for arch in ("tinyllama-1.1b", "starcoder2-15b", "nemotron-4-15b",
+                 "qwen3-14b"):
+        train_check(torch, arch)
+        torch.cuda.empty_cache()
     train_check_ssm(torch)
     resume_check(torch, "tinyllama-1.1b")
     resume_check(torch, "mamba2-370m", exact=True)

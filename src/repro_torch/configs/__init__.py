@@ -17,13 +17,13 @@ __all__ = ["ARCHS", "get_config", "list_archs"]
 ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "mamba2-370m": "mamba2_370m",
+    "starcoder2-15b": "starcoder2_15b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "qwen3-14b": "qwen3_14b",
 }
 
 # archs of the JAX package not ported yet -> the ROADMAP item that brings them
 PENDING = {
-    "starcoder2-15b": "A.1 (gelu activation)",
-    "qwen3-14b": "A.2 (qk_norm and pad_heads_to in attention)",
-    "nemotron-4-15b": "A.1 (squared-ReLU activation)",
     "kimi-k2-1t-a32b": "A.8 (MoE)",
     "qwen3-moe-235b-a22b": "A.8 (MoE)",
     "qwen2-vl-72b": "A.7 (VLM, M-RoPE)",

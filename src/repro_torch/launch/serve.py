@@ -5,7 +5,9 @@ prompts, then a greedy decode loop, on random weights made from the seed.
 It runs on the card (``device="cuda"``, full width and depth) unless the
 caller asks for the CPU, where it takes the kernels' plain versions; without
 CUDA and without ``device="cpu"`` it raises. The archs are those of
-``repro_torch.configs`` (tinyllama-1.1b, mamba2-370m).
+``repro_torch.configs``: tinyllama-1.1b, mamba2-370m, starcoder2-15b,
+nemotron-4-15b and qwen3-14b. Each of the last three holds ~30 GB of bf16
+weights, so one card serves one of them at a time.
 """
 
 from __future__ import annotations
@@ -32,8 +34,11 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``gen_tokens`` tokens greedily (the first from the prefill's logits).
 
-    Returns ``prefill_s``, ``decode_s``, ``decode_tok_per_s`` and ``tokens``
-    (batch, gen_tokens).
+    Returns ``prefill_s``, ``decode_s``, ``decode_tok_per_s``, ``tokens``
+    (batch, gen_tokens), ``logits`` (the last step's, (batch, vocab) fp32
+    on the host) and ``peak_bytes``: on the card, the most memory allocated
+    from the prefill to the last token (weights, cache and activations; the
+    peak statistic is reset before the prefill), else None.
     """
     device = resolve_device(device, "serve_loop")
     cfg = get_config(arch, reduced=reduced)
@@ -60,6 +65,8 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
 
     with torch.inference_mode():
         cache = model.init_cache(batch, max_len=max_len, device=device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = clock()
         logits, cache = model.prefill(params, prompts, cache)
         tok = logits[:, -1].argmax(dim=-1)[:, None]
@@ -71,12 +78,15 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
             tok = logits[:, -1].argmax(dim=-1)[:, None]
             generated.append(tok)
         t_decode = clock() - t0
+        peak = torch.cuda.max_memory_allocated(device) if on_card else None
         out_tokens = torch.cat(generated, dim=1).cpu().numpy()
     return {
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_per_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),
         "tokens": out_tokens,
+        "logits": logits[:, -1].float().cpu(),
+        "peak_bytes": peak,
     }
 
 

@@ -2,11 +2,17 @@
 
 Port of ``repro/launch/train.py::train_loop``: the synthetic data pipeline
 with background prefetch, the train step (loss, gradients through the
-hand-written kernels on the card: flash attention for tinyllama, the SSD
-scan for mamba2, each forward with its backward kernel; AdamW), checkpoints
-and restart. It runs on the card (``device="cuda"``, full width and depth)
-unless the caller asks for the CPU, where it takes the kernels' plain
-versions; without CUDA and without ``device="cpu"`` it raises.
+hand-written kernels on the card: flash attention for the dense archs, the
+SSD scan for mamba2, each forward with its backward kernel; AdamW),
+checkpoints and restart. It runs on the card (``device="cuda"``, full width
+and depth) unless the caller asks for the CPU, where it takes the kernels'
+plain versions; without CUDA and without ``device="cpu"`` it raises.
+
+On one card it trains what fits: the parameters, their gradients and
+AdamW's two fp32 moments take ~12 bytes a parameter, ~190 GB for a 15 B
+arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so those train at full
+depth only across devices (ROADMAP A.12) and a full-depth run of one on a
+single card raises ``ValueError``; a cut depth of them trains.
 
 Fault tolerance: ``--simulate-failure K`` raises after step K; rerunning
 the same command with ``--resume`` resumes from the last complete
@@ -28,10 +34,20 @@ from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.kernels import _build
 from repro_torch.launch import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.param import tree_items
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import build_train_step, init_train_state
 
 __all__ = ["main", "train_loop"]
+
+
+def _state_bytes(model, opt_cfg: AdamWConfig) -> int:
+    """Bytes of a training state: each parameter, its gradient (both in the
+    parameter's dtype) and AdamW's two moments."""
+    moment = torch.empty((), dtype=opt_cfg.state_dtype).element_size()
+    return sum(d.size * (2 * torch.empty((), dtype=d.dtype).element_size()
+                         + 2 * moment)
+               for _, d in tree_items(model.param_decls()))
 
 
 def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
@@ -54,6 +70,14 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
                           total_steps=steps)
     on_card = device.type == "cuda"
     if on_card:
+        need = _state_bytes(model, opt_cfg)
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise ValueError(
+                f"{cfg.name} at {cfg.n_layers} layers: its training state "
+                f"takes {need / 1e9:.0f} GB, more than the card's "
+                f"{have / 1e9:.0f} GB; training it needs several devices "
+                f"(ROADMAP item A.12), or a cut depth")
         _build.build()               # set-up, outside the timed loop
     step_fn = build_train_step(model, opt_cfg)
     state = init_train_state(model, opt_cfg, seed=seed, device=device)
@@ -108,7 +132,10 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--arch", required=True, choices=list_archs(),
+                    help="the 15 B archs (starcoder2-15b, nemotron-4-15b, "
+                         "qwen3-14b) do not fit one card's memory at full "
+                         "depth and raise there (ROADMAP A.12)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -32,9 +32,9 @@ import torch
 
 from ..kernels.decode_attention import decode_attention as decode_kernel
 from ..kernels.flash_attention import flash_attention
-from .common import apply_rope, matmul, rope_table
+from .common import apply_rope, matmul, rms_norm, rope_table
 from .config import ModelConfig
-from .param import ArrayDecl
+from .param import ArrayDecl, ones_init
 
 __all__ = ["attention_decls", "attention", "blockwise_attention",
            "decode_attention", "KVCache", "init_cache"]
@@ -49,10 +49,6 @@ class KVCache(NamedTuple):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm: ROADMAP item A.2")
-    if cfg.pad_heads_to:
-        raise NotImplementedError("pad_heads_to: ROADMAP item A.2")
     if cfg.use_mrope:
         raise NotImplementedError("M-RoPE: ROADMAP item A.7")
 
@@ -63,12 +59,18 @@ def attention_decls(cfg: ModelConfig, layers: int | None = None) -> dict:
     H, Hk, D, M = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     lead = (layers,) if layers else ()
     lax_ = ("layers",) if layers else ()
-    return {
+    decls = {
         "wq": ArrayDecl(lead + (M, H, D), lax_ + ("embed", "heads", "head_dim")),
         "wk": ArrayDecl(lead + (M, Hk, D), lax_ + ("embed", "kv_heads", "head_dim")),
         "wv": ArrayDecl(lead + (M, Hk, D), lax_ + ("embed", "kv_heads", "head_dim")),
         "wo": ArrayDecl(lead + (H, D, M), lax_ + ("heads", "head_dim", "embed")),
     }
+    if cfg.qk_norm:
+        decls["q_norm"] = ArrayDecl(lead + (D,), lax_ + (None,),
+                                    init=ones_init)
+        decls["k_norm"] = ArrayDecl(lead + (D,), lax_ + (None,),
+                                    init=ones_init)
+    return decls
 
 
 # ----------------------------------------------------------------------
@@ -177,9 +179,10 @@ def _decode_core(q, cache: KVCache) -> torch.Tensor:
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               cache: KVCache | None = None):
-    """Causal self-attention sublayer: projections + rope + core + output
-    projection. (The reference's cross-attention, explicit positions and
-    M-RoPE serve families the port has not taken over yet.)
+    """Causal self-attention sublayer: projections (+ qk-norm) + rope + core
+    (+ the padded heads' mask) + output projection. (The reference's
+    cross-attention, explicit positions and M-RoPE serve families the port
+    has not taken over yet.)
 
     x: (B, S, M).  Modes:
       * cache is None        -> full-sequence (training / uncached prefill);
@@ -197,6 +200,9 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     q = matmul(x, params["wq"].reshape(M, H * D)).view(B, S, H, D)
     k = matmul(x, params["wk"].reshape(M, Hk * D)).view(B, S, Hk, D)
     v = matmul(x, params["wv"].reshape(M, Hk * D)).view(B, S, Hk, D)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
 
     positions = torch.arange(S, device=x.device)
     if cache is not None:
@@ -219,5 +225,10 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         out = _prefill_core(q, k, v, cfg)
 
+    if cfg.pad_heads_to:
+        # the padded heads ran through the core like the others; zeroing
+        # their output makes the layer exact to the table's head count
+        mask = (torch.arange(H, device=out.device) < cfg.n_heads)
+        out = out * mask.to(out.dtype)[None, None, :, None]
     y = matmul(out.reshape(B, S, H * D), params["wo"].reshape(H * D, M))
     return y, new_cache

@@ -3,16 +3,17 @@ the cross-entropy loss.
 
 Same conventions as the JAX package's ``models/common.py``: compute in the
 activation dtype, normalise, rotate and take the loss in fp32. The rest of
-that module (layer norm, gelu, squared ReLU, M-RoPE) comes with the slices
-that use it.
+that module (layer norm, M-RoPE) comes with the slices that use it.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["matmul", "rms_norm", "silu", "softplus", "ACTIVATIONS",
-           "rope_table", "apply_rope", "cross_entropy_loss"]
+__all__ = ["matmul", "rms_norm", "silu", "gelu", "squared_relu", "softplus",
+           "ACTIVATIONS", "rope_table", "apply_rope", "cross_entropy_loss"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -36,13 +37,34 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a constant to the
+    array's dtype before it multiplies (torch would keep it in fp32)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    # the reference's jax.nn.gelu(approximate=True), op for op in x's dtype
+    # with its constants in that dtype; F.gelu(approximate="tanh") rounds
+    # once and differs from it by a bf16 ulp
+    c = _in_dtype(math.sqrt(2 / math.pi), x.dtype)
+    a = _in_dtype(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * x ** 3))))
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    """Primer / Nemotron-4 activation: relu(x)**2."""
+    r = torch.relu(x)
+    return r * r
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     # as the reference computes it, logaddexp(x, 0); F.softplus switches to
     # x itself above its threshold (20) and rounds differently there
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-ACTIVATIONS = {"silu": silu}
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "squared_relu": squared_relu}
 
 
 def rope_table(positions: torch.Tensor, head_dim: int,

@@ -1,4 +1,5 @@
-"""Feed-forward sublayer: gated (SwiGLU) and plain MLPs.
+"""Feed-forward sublayer: gated (SwiGLU) and plain (gelu, squared-ReLU)
+MLPs.
 
 Port of ``repro/models/ffn.py``. The matrix products stay plain
 ``torch.matmul`` (through ``common.matmul``), as the JAX package leaves them
@@ -32,9 +33,9 @@ def mlp_decls(cfg: ModelConfig, layers: int | None = None,
 
 
 def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.activation not in ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation {cfg.activation!r}: ROADMAP item A.1")
+    """Gated ``act(x W_gate) * (x W_up)`` or plain ``act(x W_up)``, then
+    ``W_down``. An activation name outside ``ACTIVATIONS`` raises
+    ``KeyError``, as the reference's lookup does."""
     act = ACTIVATIONS[cfg.activation]
     up = matmul(x, params["w_up"])
     if cfg.glu:

@@ -1,9 +1,11 @@
 """Decoder-only LM, families ``dense`` and ``ssm``: port of
 ``repro/models/lm.py``.
 
-* ``dense`` (tinyllama): token embedding, a stack of layers (RMSNorm -> GQA
-  attention with RoPE -> residual -> RMSNorm -> SwiGLU MLP -> residual),
-  final RMSNorm, vocab head.
+* ``dense`` (tinyllama, starcoder2, nemotron, qwen3): token embedding, a
+  stack of layers (RMSNorm -> GQA attention with RoPE, qwen3's with
+  qk-norm and zero-masked padded heads -> residual -> RMSNorm -> MLP,
+  SwiGLU or plain gelu / squared ReLU -> residual), final RMSNorm, vocab
+  head.
 * ``ssm`` (mamba2): the same frame with layers ``x + mamba(RMSNorm(x))``.
 
 Parameters are the nested dict the schema declares, with a leading stacked

@@ -33,8 +33,9 @@ def _fan_in_init(fan_axis: int = -2) -> Initializer:
     def init(gen, shape, dtype):
         fan_in = shape[fan_axis] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-        return (torch.randn(shape, generator=gen, device=gen.device)
-                * scale).to(dtype)
+        # scaled in place: a 15 B model's largest leaf is 24 GB in fp32
+        return torch.randn(shape, generator=gen,
+                           device=gen.device).mul_(scale).to(dtype)
     return init
 
 
@@ -48,8 +49,8 @@ def ones_init(gen, shape, dtype):
 
 def normal_init(stddev: float = 0.02) -> Initializer:
     def init(gen, shape, dtype):
-        return (torch.randn(shape, generator=gen, device=gen.device)
-                * stddev).to(dtype)
+        return torch.randn(shape, generator=gen,
+                           device=gen.device).mul_(stddev).to(dtype)
     return init
 
 

@@ -51,6 +51,32 @@ def test_silu_matches_jax(dtype):
     assert rel_err(jc.silu(x), got) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["gelu", "squared_relu"])
+def test_plain_mlp_activations_match_jax(name, dtype):
+    """gelu (tanh form) and squared ReLU, the plain MLPs' activations. In
+    bf16 the port rounds op for op where JAX does (gelu's constants in bf16
+    too), so the results are equal bit for bit: ``F.gelu(approximate=
+    "tanh")``, which rounds once, misses by a bf16 ulp on ~1/3 of these
+    inputs, and this test would catch it. In fp32 the only difference is
+    libm's tanh: 1e-6 of the largest magnitude."""
+    jd, td = DTYPES[dtype]
+    x = jnp.asarray(np.random.default_rng(4).standard_normal((8, 512)) * 4,
+                    jd)
+    got = getattr(tc, name)(to_torch(x))
+    want = getattr(jc, name)(x)
+    assert got.dtype == td
+    if dtype == "bfloat16":
+        assert np.array_equal(np.asarray(want.astype(jnp.float32)),
+                              got.float().numpy())
+    else:
+        assert rel_err(want, got) <= TOL[dtype]
+
+
+def test_activations_registry_matches_jax():
+    assert set(tc.ACTIVATIONS) == set(jc.ACTIVATIONS)
+
+
 @pytest.mark.parametrize("theta", [1e4, 1e6])
 def test_rope_table_matches_jax(theta):
     pos = np.arange(0, 544, 7).reshape(2, -1)

@@ -79,7 +79,10 @@ def randn(gen, *shape, dtype):
     (2, 256, 32, 4, 128),                 # D = 128: two swizzle panels
     (2, 256, 8, 8, 64),                   # G = 1: 128 positions a block
     (2, 200, 64, 4, 64),                  # G = 16: 8 positions a block
-    (1, 2048, 32, 4, 64)])                # a long prompt
+    (1, 2048, 32, 4, 64),                 # a long prompt
+    (8, 512, 48, 4, 128),                 # starcoder2: G = 12, 5 positions
+    (8, 512, 48, 8, 128),                 # nemotron, qwen3: G = 6, 10
+    (2, 100, 48, 4, 128)])                # G = 12, ragged S
 def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -99,7 +102,8 @@ def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
 @pytest.mark.parametrize("B,S,H,Hk,D", [
     (1, 32, 2, 2, 16), (2, 64, 4, 2, 32), (2, 100, 32, 4, 64),
     (8, 512, 32, 4, 64), (2, 256, 32, 4, 128), (2, 256, 8, 8, 64),
-    (2, 200, 64, 4, 64), (1, 48, 6, 2, 16), (1, 2048, 32, 4, 64)])
+    (2, 200, 64, 4, 64), (1, 48, 6, 2, 16), (1, 2048, 32, 4, 64),
+    (8, 512, 48, 4, 128), (8, 512, 48, 8, 128), (2, 100, 48, 4, 128)])
 def test_flash_cuda_lse_matches_plain(dtype, causal, B, S, H, Hk, D):
     """The rows' log-sum-exp the forward writes when asked, in the folded
     (B, Hk, Sq * G) layout, against its plain version; the output is the
@@ -152,13 +156,18 @@ def test_flash_cuda_reads_strided_views(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("length", [1, 63, 64, 65, 300, 544])
-def test_decode_cuda_matches_plain(dtype, length):
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 300, 527, 528, 544])
+@pytest.mark.parametrize("H,Hk,D", [(32, 4, 64),     # tinyllama
+                                    (48, 4, 128),    # starcoder2: G = 12
+                                    (48, 8, 128)])   # nemotron, qwen3: G = 6
+def test_decode_cuda_matches_plain(dtype, length, H, Hk, D):
     """Lengths 63, 64, 65 sit on the first boundary of the kernel's 64-key
-    splits; 544 fills the cache (9 splits, the last one half full)."""
+    splits, 527 and 528 inside the last full one (528: the mean cache
+    length of the serving path); 544 fills the cache (9 splits, the last
+    one half full)."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    B, L, H, Hk, D = 8, 544, 32, 4, 64
+    B, L = 8, 544
     cache_k = randn(gen, 2, B, L, Hk, D, dtype=tdt)   # a stacked cache
     cache_v = randn(gen, 2, B, L, Hk, D, dtype=tdt)
     q = randn(gen, B, 1, H, D, dtype=tdt)
@@ -423,6 +432,34 @@ def test_mamba2_depth2_full_width_cuda_matches_cpu():
     assert bool((got.argmax(-1) == ref.argmax(-1)).all())
 
 
+def test_qwen3_depth2_full_width_cuda_matches_cpu():
+    """Two layers of qwen3-14b at full width (d_model 5120, 48 lowered heads
+    of which 40 are real, over 8 KV heads; qk-norm; vocab 151936):
+    prefill(64) through the flash kernel + decode(1) through the decode
+    kernel on the card against the plain path on the CPU, same weights
+    (drawn on the card, copied to the CPU)."""
+    cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=2,
+                              q_chunk=32, kv_chunk=32)
+    model = build_model(cfg)
+    params_gpu = init_params(model.param_decls(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    params_cpu = tree_map(lambda a: a.cpu(), params_gpu)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    flash_kernel.launches = decode_kernel.launches = 0
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        cache = model.init_cache(2, 72, device=dev)
+        _, cache = model.prefill(params, toks[:, :64].to(dev), cache)
+        logits, _ = model.decode_step(params, toks[:, 64:].to(dev), cache)
+        out[dev] = logits[:, 0].float().cpu()
+    assert (flash_kernel.launches, decode_kernel.launches) == (2, 2)
+    ref, got = out["cpu"], out["cuda"]
+    assert float((got - ref).abs().max() / ref.abs().max()) < 0.06
+    assert bool((got.argmax(-1) == ref.argmax(-1)).all())
+
+
 def test_serve_loop_mamba2_goes_through_the_ssd_kernel():
     ssd_kernel.launches = 0
     out = serve_loop("mamba2-370m", batch=2, prompt_len=32, gen_tokens=5,
@@ -451,7 +488,10 @@ def _bwd_close(got, want, dtype) -> bool:
     (2, 100, 32, 4, 64),                  # ragged S: partial tiles
     (2, 256, 8, 8, 128),                  # G = 1, D = 128
     (1, 48, 6, 2, 16),                    # G = 3 (rows of a tile split
-    (1, 40, 6, 3, 32)])                   # positions), small D
+    (1, 40, 6, 3, 32),                    # positions), small D
+    (2, 256, 48, 4, 128),                 # starcoder2: G = 12, D = 128
+    (2, 256, 48, 8, 128),                 # nemotron, qwen3: G = 6
+    (2, 100, 48, 4, 128)])                # G = 12, ragged S
 def test_flash_bwd_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(2)

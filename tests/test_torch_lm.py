@@ -1,6 +1,10 @@
-"""The port's LM and serving loop against the JAX package's, for each family
-the port runs (reduced tinyllama-1.1b, dense; reduced mamba2-370m, ssm), with
-the JAX weights carried across.
+"""The port's LM and serving loop against the JAX package's, for each arch
+the port runs, reduced (dense: tinyllama-1.1b, starcoder2-15b with gelu and
+nemotron-4-15b with squared ReLU in a plain MLP, qwen3-14b with qk-norm;
+ssm: mamba2-370m), with the JAX weights carried across. ``reduced()``
+resets ``pad_heads_to``, so qwen3's zero-masked padded heads run in a
+variant that sets it again (``qwen3-14b/pad6``: 6 lowered heads over 2 KV
+heads, 4 of them real).
 
 Two references, and why:
 
@@ -37,7 +41,9 @@ from repro_torch.models import LM, build_model, params_from_numpy
 
 TIGHT = 2.0 ** -6
 ARCH = "tinyllama-1.1b"
-ARCHS = ["tinyllama-1.1b", "mamba2-370m"]
+ARCHS = ["tinyllama-1.1b", "mamba2-370m", "starcoder2-15b", "nemotron-4-15b",
+         "qwen3-14b"]
+VARIANTS = ARCHS + ["qwen3-14b/pad6"]
 
 
 def f32(a) -> np.ndarray:
@@ -55,13 +61,21 @@ def same_argmax(ref, got) -> bool:
     return bool((f32(ref).argmax(-1) == f32(got).argmax(-1)).all())
 
 
+def configs(variant):
+    """The reduced configs of ``arch`` or ``arch/padN`` (JAX's, the
+    port's), the latter with ``pad_heads_to=N``."""
+    arch, _, pad = variant.partition("/pad")
+    return tuple(dataclasses.replace(get(arch, reduced=True),
+                                     pad_heads_to=int(pad) if pad else None)
+                 for get in (jax_get_config, get_config))
+
+
 def models(seed, arch=ARCH):
-    jcfg = jax_get_config(arch, reduced=True)
+    jcfg, tcfg = configs(arch)
     jmodel = jax_build_model(jcfg)
     params_j = jax_init_params(jmodel.param_decls(), jax.random.key(seed))
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), "cpu")
-    return jmodel, params_j, build_model(get_config(arch, reduced=True)), \
-        params_t
+    return jmodel, params_j, build_model(tcfg), params_t
 
 
 def jax_serving(jmodel, params, toks, S, *, eager):
@@ -90,7 +104,7 @@ def port_serving(model, params, toks, S):
     return pre, dec
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", VARIANTS)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_forward_matches_jax(seed, arch):
     jmodel, params_j, model, params_t = models(seed, arch)
@@ -105,7 +119,7 @@ def test_forward_matches_jax(seed, arch):
     assert rel_err(jitted, got) <= rel_err(jitted, eager) + TIGHT
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", VARIANTS)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_prefill_decode_match_jax(seed, arch):
     jmodel, params_j, model, params_t = models(seed, arch)
@@ -119,7 +133,7 @@ def test_prefill_decode_match_jax(seed, arch):
         assert rel_err(ref_j, got) <= rel_err(ref_j, ref_e) + TIGHT
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", VARIANTS)
 def test_prefill_decode_match_forward(arch):
     """prefill(S) + decode(1) ≍ forward(S + 1), in the port alone, on the
     weights and tokens tests/test_archs.py holds the JAX package to. The
@@ -161,6 +175,8 @@ def test_serve_loop_matches_jax(monkeypatch, arch):
                            reduced=True)
     assert out["tokens"].shape == (batch, gen) and len(steps) == gen
     assert out["prefill_s"] > 0 and out["decode_tok_per_s"] > 0
+    assert torch.equal(out["logits"], steps[-1])
+    assert out["peak_bytes"] is None          # measured on the card only
 
     # the JAX side of the same loop: launch/serve.py's config and prompts
     cfg = dataclasses.replace(jmodel.cfg, q_chunk=16, kv_chunk=16,

@@ -17,11 +17,16 @@ from repro_torch.models import build_model, init_params, params_from_numpy
 from repro_torch.models.param import param_count
 
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-ARCHS = ["tinyllama-1.1b", "mamba2-370m"]
+NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b"]
+ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # parameter counts of the full configs (analysis/flops.py's figures):
-# tinyllama ~1.1 B; mamba2-370m ~367 M
+# tinyllama ~1.1 B; mamba2-370m ~367 M; the 15 B archs with an untied head,
+# qwen3's lowered at 48 heads (15.19 B; 14.77 B at its 40)
 FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
-               "mamba2-370m": (3.4e8, 3.9e8)}
+               "mamba2-370m": (3.4e8, 3.9e8),
+               "starcoder2-15b": (1.55e10, 1.65e10),
+               "nemotron-4-15b": (1.55e10, 1.60e10),
+               "qwen3-14b": (1.50e10, 1.55e10)}
 
 
 def _paths(tree, prefix=()):
@@ -108,7 +113,7 @@ def test_init_params_is_seeded():
 
 
 def test_configs_registry():
-    assert list_archs() == ["tinyllama-1.1b", "mamba2-370m"]
+    assert list_archs() == ARCHS
     cfg = get_config("tinyllama-1.1b")
     ref = jax_get_config("tinyllama-1.1b")
     for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
@@ -161,3 +166,28 @@ def test_mamba2_init_params_distributions():
     conv = params[("layers", "mamba", "conv_x")]
     assert conv.dtype == torch.bfloat16
     assert abs(conv.float().std().item() - 0.1) < 0.01
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("reduced", [True, False])
+def test_config_matches_jax_field_by_field(reduced, arch):
+    cfg = get_config(arch, reduced=reduced)
+    ref = jax_get_config(arch, reduced=reduced)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert cfg.n_heads_eff == ref.n_heads_eff
+
+
+def test_qwen3_schema_has_qk_norm_and_padded_heads():
+    """qwen3-14b: q_norm and k_norm (L, D) leaves, ones at init; wq and wo
+    lowered at 48 heads (40 real) over 8 KV heads."""
+    cfg = get_config("qwen3-14b")
+    attn = build_model(cfg).param_decls()["layers"]["attn"]
+    assert attn["q_norm"].shape == attn["k_norm"].shape == (40, 128)
+    assert attn["wq"].shape == (40, 5120, 48, 128)
+    assert attn["wo"].shape == (40, 48, 128, 5120)
+    assert attn["wk"].shape == (40, 5120, 8, 128)
+    small = dataclasses.replace(cfg.reduced(), pad_heads_to=6)
+    params = init_params(build_model(small).param_decls(),
+                         torch.Generator().manual_seed(0), "cpu")
+    assert bool((params["layers"]["attn"]["q_norm"] == 1).all())
+    assert params["layers"]["attn"]["wq"].shape[-2] == 6

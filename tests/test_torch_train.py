@@ -76,10 +76,15 @@ def port_by_path(tree) -> dict:
     return {"/".join(path): leaf for path, leaf in tree_items(tree)}
 
 
-def jax_models(seed=0, arch=ARCH):
-    jmodel = jax_build_model(jax_get_config(arch, reduced=True))
+def jax_models(seed=0, arch=ARCH, pad=None):
+    """JAX's reduced model and weights, and the port's model; ``pad`` sets
+    ``pad_heads_to`` on both, which ``reduced()`` resets."""
+    jcfg, tcfg = (dataclasses.replace(get(arch, reduced=True),
+                                      pad_heads_to=pad)
+                  for get in (jax_get_config, get_config))
+    jmodel = jax_build_model(jcfg)
     params = jax_init_params(jmodel.param_decls(), jax.random.key(seed))
-    return jmodel, params, build_model(get_config(arch, reduced=True))
+    return jmodel, params, build_model(tcfg)
 
 
 def tokens(seed, batch=2, seq=32) -> np.ndarray:
@@ -241,8 +246,8 @@ def test_adamw_state_dtype():
 
 
 # ---------------------------------------------------- loss and gradients
-def _jax_loss_and_grads(arch):
-    jmodel, params, model = jax_models(0, arch)
+def _jax_loss_and_grads(arch, pad=None):
+    jmodel, params, model = jax_models(0, arch, pad)
     toks = tokens(0)
     with jax.disable_jit():
         loss, grads = jax.value_and_grad(jmodel.loss_fn)(
@@ -262,8 +267,24 @@ def jax_mamba2_loss_and_grads():
     return _jax_loss_and_grads("mamba2-370m")
 
 
+@pytest.fixture(scope="module")
+def jax_starcoder2_loss_and_grads():
+    """The same for the reduced starcoder2 (gelu in a plain MLP)."""
+    return _jax_loss_and_grads("starcoder2-15b")
+
+
+@pytest.fixture(scope="module")
+def jax_qwen3_loss_and_grads():
+    """The same for the reduced qwen3 (qk-norm), its heads padded from 4 to
+    6 as the full config pads 40 to 48: the masked heads' wq and wo
+    columns get zero gradients on both sides."""
+    return _jax_loss_and_grads("qwen3-14b", pad=6)
+
+
 @pytest.mark.parametrize("fixture", ["jax_loss_and_grads",
-                                     "jax_mamba2_loss_and_grads"])
+                                     "jax_mamba2_loss_and_grads",
+                                     "jax_starcoder2_loss_and_grads",
+                                     "jax_qwen3_loss_and_grads"])
 def test_loss_and_grads_match_jax(fixture, request):
     params, toks, model, jloss, jgrads = request.getfixturevalue(fixture)
     tparams = to_torch(params)
@@ -278,6 +299,11 @@ def test_loss_and_grads_match_jax(fixture, request):
         assert tg[k].dtype == port_by_path(tparams)[k].dtype
         assert tg[k].dtype == torch.bfloat16 or "mamba" in k
         assert np.abs(got - want).max() <= 2 ** -5 * np.abs(want).max(), k
+    if model.cfg.pad_heads_to:      # the masked heads learn nothing
+        n = model.cfg.n_heads
+        assert not bool(tg["layers/attn/wq"][..., n:, :].any())
+        assert not bool(tg["layers/attn/wo"][:, n:].any())
+        assert bool(tg["layers/attn/wq"][..., :n, :].any())
 
 
 def test_train_step_is_adamw_on_the_port_gradients(jax_loss_and_grads):
@@ -546,3 +572,39 @@ def test_ssd_on_the_cpu_stays_differentiable():
     y, _ = ssd(x, dt, A, Bm, Cm, chunk=16)
     y.square().sum().backward()
     assert x.grad is not None and float(x.grad.abs().max()) > 0
+
+
+def test_full_depth_15b_training_on_one_card_raises(monkeypatch):
+    """A 15 B arch's training state (~190 GB) does not fit one 80 GB card:
+    train_loop raises before it builds anything; a cut depth passes the
+    check (it stops here at the build, which needs nvcc)."""
+    from repro_torch.launch import train as train_mod
+
+    class Props:
+        total_memory = 80 * 2 ** 30
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    built = []
+    monkeypatch.setattr(train_mod._build, "build",
+                        lambda: built.append(1) or {})
+    monkeypatch.setattr(train_mod, "init_train_state",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            RuntimeError("stop")))
+    with pytest.raises(ValueError, match="A.12"):
+        train_loop("starcoder2-15b", steps=1, device="cuda")
+    assert not built
+    full = train_mod.get_config
+    monkeypatch.setattr(train_mod, "get_config", lambda arch, reduced=False:
+                        dataclasses.replace(full(arch), n_layers=2))
+    with pytest.raises(RuntimeError, match="stop"):
+        train_loop("starcoder2-15b", steps=1, device="cuda")
+    assert built
+
+
+def test_unknown_activation_raises_key_error():
+    from repro_torch.models.ffn import mlp
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True),
+                              activation="swish")
+    with pytest.raises(KeyError, match="swish"):
+        mlp({}, torch.zeros(1, 2, cfg.d_model), cfg)
