@@ -60,7 +60,17 @@ Phases, each fatal on failure:
    within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
    gradient within 3e-2 of its norm); for tinyllama and mamba2 a crash
    after step 4 and a resume from the checkpoint saved there, reproducing
-   the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit for bit).
+   the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit for bit);
+7. orchestrate (``orchestrate_check``): tinyllama's train step under the
+   port's DFlow engine (``runtime/orchestrator.py::run_training``). At
+   depth 2 and full width, with a checkpoint every 2 steps, its losses and
+   checkpoints against ``train_loop``'s (rtol 2e-2), also with a save that
+   waits for the next step before it snapshots; at full depth and width
+   (batch 8 x 512, remat, 6 steps) ``train_loop`` and the DAG under
+   "dataflow" and "controlflow": ms a step, 44 flash forward and 22
+   backward launches a step in the DAG's threads (set to 0 before each
+   run, read after), the engine's per-function times, and each peak
+   within 1.05x of ``train_loop``'s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -69,7 +79,9 @@ around it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -1154,6 +1166,22 @@ def train_check_ssm(torch) -> None:
                              "disagree")
 
 
+@contextlib.contextmanager
+def depth2(train_mod):
+    """``train_mod``'s configs (``launch/train.py``) cut to two layers, at
+    full width, while the context lasts."""
+    full_depth = train_mod.get_config
+
+    def cut(arch, *, reduced=False):
+        return dataclasses.replace(full_depth(arch, reduced=reduced),
+                                   n_layers=2)
+    train_mod.get_config = cut
+    try:
+        yield
+    finally:
+        train_mod.get_config = full_depth
+
+
 def resume_check(torch, arch: str, exact: bool = False) -> None:
     """Depth-2, full-width ``arch`` through ``train_loop`` on the card: six
     steps uninterrupted; six again with a checkpoint every 2 steps and a
@@ -1167,29 +1195,23 @@ def resume_check(torch, arch: str, exact: bool = False) -> None:
     from repro_torch.launch import train as train_mod
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    full_depth = train_mod.get_config
-
-    def depth2(arch, *, reduced=False):
-        return dataclasses.replace(full_depth(arch, reduced=reduced),
-                                   n_layers=2)
     kw = dict(steps=6, batch=4, seq=256, seed=3, log_every=0, device="cuda")
-    train_mod.get_config = depth2
     try:
-        t0 = time.perf_counter()
-        full = train_mod.train_loop(arch, **kw)
-        try:
-            train_mod.train_loop(arch, ckpt_dir=str(ckpt),
-                                 ckpt_every=2, simulate_failure=4, **kw)
-        except RuntimeError as exc:
-            if "simulated" not in str(exc):
-                raise
-        else:
-            raise AssertionError("train_loop did not simulate its failure")
-        resumed = train_mod.train_loop(arch, ckpt_dir=str(ckpt),
-                                       ckpt_every=2, resume=True, **kw)
-        seconds = time.perf_counter() - t0
+        with depth2(train_mod):
+            t0 = time.perf_counter()
+            full = train_mod.train_loop(arch, **kw)
+            try:
+                train_mod.train_loop(arch, ckpt_dir=str(ckpt),
+                                     ckpt_every=2, simulate_failure=4, **kw)
+            except RuntimeError as exc:
+                if "simulated" not in str(exc):
+                    raise
+            else:
+                raise AssertionError("train_loop did not simulate its failure")
+            resumed = train_mod.train_loop(arch, ckpt_dir=str(ckpt),
+                                           ckpt_every=2, resume=True, **kw)
+            seconds = time.perf_counter() - t0
     finally:
-        train_mod.get_config = full_depth
         shutil.rmtree(ckpt, ignore_errors=True)
     worst = max(abs(a - b) / abs(b) for a, b in
                 zip(resumed["losses"], full["losses"][4:]))
@@ -1204,17 +1226,220 @@ def resume_check(torch, arch: str, exact: bool = False) -> None:
         raise AssertionError("resume did not reproduce the trajectory")
 
 
+# ----------------------------------------------------------- orchestration
+ORCH_ARCH = "tinyllama-1.1b"
+
+
+def run_orchestrated(torch, train_mod, pattern: str, kw: dict, *,
+                     ckpt_dir=None, save_late: bool = False) -> dict:
+    """``train_loop``'s job (``kw``) under the port's DFlow engine:
+    ``run_training`` composed with ``setup_training``'s step and state, the
+    synthetic source's ``batch_at(i)`` moved to the card and
+    ``CheckpointManager.save`` (every 2 steps when ``ckpt_dir`` is set).
+    With ``save_late`` each save first waits (up to 2 s) for the next step
+    to finish, which only a missing in-place rule would let happen. Returns
+    the losses, the host wall time of ``run_training`` between two
+    ``cuda.synchronize``, the engine's per-function completion times and
+    each save's host ms (the final state is not kept)."""
+    import threading
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime.orchestrator import (OrchestratorConfig,
+                                                  run_training)
+    s = train_mod.setup_training(ORCH_ARCH, device="cuda", **kw)
+    source = SyntheticLM(s.data)
+    steps = kw["steps"]
+    finished = [threading.Event() for _ in range(steps + 1)]
+    calls, save_ms, waited = [], [], []
+
+    def fetch(i):
+        return {k: torch.as_tensor(v).to(s.device)
+                for k, v in source.batch_at(i).items()}
+
+    def train(state, batch):
+        i = len(calls)
+        calls.append(i)
+        out = s.step_fn(state, batch)
+        finished[i].set()
+        return out
+
+    mgr = save = None
+    if ckpt_dir is not None:
+        mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+
+        def save(i, state):
+            if save_late:
+                waited.append(finished[i + 1].wait(2.0))
+            t0 = time.perf_counter()
+            mgr.save(i + 1, state)        # returns once it holds its copy
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+    cfg = OrchestratorConfig(n_steps=steps, ckpt_every=2 if mgr else 0,
+                             pattern=pattern)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = run_training(cfg, init_state=s.state, fetch=fetch, train=train,
+                       save=save)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if mgr is not None:
+        mgr.wait()
+    losses = [float(rep.outputs[f"metrics.{i}"]["loss"])
+              for i in range(steps)]
+    return {"losses": losses, "wall_s": wall,
+            "per_function": rep.per_function, "save_ms": save_ms,
+            "waited": waited}
+
+
+def _ckpt_leaves(directory: Path, step: int) -> dict:
+    """Every leaf of a saved checkpoint as fp64 (bf16 from its bits)."""
+    import numpy as np
+    d = directory / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    out = {}
+    for key, meta in manifest["leaves"].items():
+        a = np.load(d / f"{key}.npy")
+        if meta["dtype"] == "bfloat16":
+            a = (a.astype(np.uint32) << 16).view(np.float32)
+        out[key] = a.astype(np.float64)
+    return out
+
+
+def _ckpts_agree(got: Path, want: Path, steps) -> tuple[float, bool]:
+    """The largest leaf difference relative to that leaf's largest
+    magnitude over ``steps``, and whether every leaf is bit for bit."""
+    import numpy as np
+    worst, same = 0.0, True
+    for step in steps:
+        a, b = _ckpt_leaves(got, step), _ckpt_leaves(want, step)
+        if set(a) != set(b):
+            raise AssertionError(f"checkpoint {step}: leaves differ")
+        for k in b:
+            scale = max(float(np.abs(b[k]).max()), 1e-30)
+            worst = max(worst, float(np.abs(a[k] - b[k]).max()) / scale)
+            same = same and bool(np.array_equal(a[k], b[k]))
+    return worst, same
+
+
+def orchestrate_check(torch, counters: dict) -> None:
+    """The port's train step under its DFlow engine (``runtime/
+    orchestrator.py``), on the card.
+
+    Depth 2, full width (batch 4 x 256, 4 steps, a checkpoint every 2):
+    ``run_training`` under "dataflow" against ``train_loop``, losses and
+    every leaf of the checkpoints at steps 2 and 4 within 2e-2 (the
+    tinyllama resume rule; leaves relative to their largest magnitude),
+    then again with a save that waits for the next step before it
+    snapshots. Full depth and width (batch 8 x 512, remat, 6 steps):
+    ``train_loop``, then ``run_training`` under "dataflow" and
+    "controlflow": ms a step, the flash kernels' launches a step (44 and
+    22, so the kernels ran in the DAG's threads), the engine's per-function
+    completion times, and the peak memory, each orchestrated peak within
+    1.05x of ``train_loop``'s."""
+    import shutil
+    from repro_torch.launch import train as train_mod
+    root = ROOT / "build" / "chip_smoke_orchestrate"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=4, batch=4, seq=256, seed=3)
+    try:
+        with depth2(train_mod):
+            loop = train_mod.train_loop(ORCH_ARCH, ckpt_dir=str(root / "loop"),
+                                        ckpt_every=2, log_every=0,
+                                        device="cuda", **kw)
+            for label, late in (("dataflow", False),
+                                ("dataflow, each save waiting for the next "
+                                 "step", True)):
+                out = run_orchestrated(torch, train_mod, "dataflow", kw,
+                                       ckpt_dir=root / "dag", save_late=late)
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(out["losses"], loop["losses"]))
+                worst, same = _ckpts_agree(root / "dag", root / "loop",
+                                           (2, 4))
+                log(f"[orchestrate] depth-2 {ORCH_ARCH} run_training "
+                    f"({label}), 4 steps: losses {out['losses']} vs "
+                    f"train_loop {loop['losses']} (max rel {rel:.2e}, tol "
+                    f"2e-2; identical={out['losses'] == loop['losses']}); "
+                    f"checkpoints 2, 4: worst leaf {worst:.2e} of its "
+                    f"largest magnitude (tol 2e-2; bit for bit={same}); "
+                    f"each save's snapshot on the critical path "
+                    f"{[round(ms, 1) for ms in out['save_ms']]} ms"
+                    + (f"; the next step ran during the wait: "
+                       f"{out['waited']}" if late else ""))
+                if not (rel < 2e-2 and worst < 2e-2) or any(out["waited"]):
+                    raise AssertionError(f"orchestrated depth-2 run "
+                                         f"({label}) disagrees with "
+                                         f"train_loop")
+                shutil.rmtree(root / "dag")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    kw = dict(steps=6, batch=8, seq=512, seed=0)
+    layers, steps = 22, kw["steps"]
+    runs = {}
+    for how in ("train_loop", "dataflow", "controlflow"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        if how == "train_loop":
+            out = train_mod.train_loop(ORCH_ARCH, log_every=0,
+                                       device="cuda", **kw)
+        else:
+            out = run_orchestrated(torch, train_mod, how, kw)
+        peak = torch.cuda.max_memory_allocated()
+        counts = {name: k.launches for name, k in counters.items()}
+        runs[how] = (out, peak)
+        done = ""
+        if "per_function" in out:
+            done = "; completed at (ms from the start) " + ", ".join(
+                f"{f} {t * 1e3:.1f}" for f, t in sorted(
+                    out["per_function"].items(), key=lambda kv: kv[1]))
+        log(f"[orchestrate] {ORCH_ARCH} {how}, batch=8 seq=512, {layers} "
+            f"layers, remat, {steps} steps: "
+            f"{out['wall_s'] / steps * 1e3:.1f} ms/step; flash forward "
+            f"{counts['flash_attention'] / steps:g} and backward "
+            f"{counts['flash_attention_bwd'] / steps:g} launches a step; "
+            f"peak {peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB "
+            f"allocated before); losses {out['losses']}{done}")
+        want = dict.fromkeys(counters, 0)
+        want.update(flash_attention=steps * 2 * layers,
+                    flash_attention_bwd=steps * layers)
+        if counts != want:
+            raise AssertionError(f"{how}: launches {counts}, want {want}")
+        if len(out["losses"]) != steps or not all(
+                l == l and abs(l) < float("inf") for l in out["losses"]):
+            raise AssertionError(f"{how}: losses {out['losses']}")
+    loop, loop_peak = runs["train_loop"]
+    for how in ("dataflow", "controlflow"):
+        out, peak = runs[how]
+        same = out["losses"] == loop["losses"]
+        log(f"[orchestrate] {how}: peak / train_loop's "
+            f"{peak / loop_peak:.4f} (tol 1.05); losses identical to "
+            f"train_loop's: {same}")
+        if peak > 1.05 * loop_peak:
+            raise AssertionError(f"{how} peaks at {peak / 2**30:.2f} GiB, "
+                                 f"over 1.05x train_loop's")
+
+
+def kernel_counters() -> dict:
+    """Each kernel's launcher module, whose ``launches`` counts its
+    launches."""
+    from repro_torch.kernels.decode_attention import kernel as decode_k
+    from repro_torch.kernels.flash_attention import kernel as flash_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd_k
+    from repro_torch.kernels.ssd import kernel as ssd_k
+    from repro_torch.kernels.ssd import kernel_bwd as ssd_bwd_k
+    return {"flash_attention": flash_k, "flash_attention_bwd": flash_bwd_k,
+            "decode_attention": decode_k, "ssd": ssd_k, "ssd_bwd": ssd_bwd_k}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import kernel as decode_k
-    from repro_torch.kernels.flash_attention import kernel as flash_k
-    from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd_k
-    from repro_torch.kernels.ssd import kernel as ssd_k
-    from repro_torch.kernels.ssd import kernel_bwd as ssd_bwd_k
     from repro_torch.launch.serve import serve_loop
     from repro_torch.launch.train import train_loop
     from repro_torch.configs import get_config
@@ -1247,9 +1472,7 @@ def main() -> int:
     flash_bwd = check_flash_bwd(torch, timer, gen)
     ssd_bwd = check_ssd_bwd(torch, timer, gen)
 
-    counters = {"flash_attention": flash_k, "flash_attention_bwd": flash_bwd_k,
-                "decode_attention": decode_k, "ssd": ssd_k,
-                "ssd_bwd": ssd_bwd_k}
+    counters = kernel_counters()
 
     def serve_counted(arch: str, layers: int, vocab: int) -> dict:
         serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
@@ -1367,6 +1590,7 @@ def main() -> int:
     train_check_ssm(torch)
     resume_check(torch, "tinyllama-1.1b")
     resume_check(torch, "mamba2-370m", exact=True)
+    orchestrate_check(torch, counters)
 
     kernels = [
         dict(name="flash_attention", route="cuda",

@@ -17,7 +17,16 @@ single card raises ``ValueError``; a cut depth of them trains.
 Fault tolerance: ``--simulate-failure K`` raises after step K; rerunning
 the same command with ``--resume`` resumes from the last complete
 checkpoint and reproduces the loss trajectory (the data pipeline is keyed
-by step). The DFlow-orchestrated mode of the reference is ROADMAP A.13.
+by step).
+
+The same job runs under the DFlow engine through
+:func:`repro_torch.runtime.orchestrator.run_training` (the reference's
+entry point is ``repro.runtime.orchestrator.run_training``; its
+``train_loop`` has no orchestrated mode). :func:`setup_training` gives both
+one set-up: compose ``run_training`` with its ``step_fn``, its ``state``,
+``SyntheticLM(setup.data).batch_at(i)`` moved to ``setup.device`` as the
+fetch and ``CheckpointManager.save`` as the save, and the run takes
+``train_loop``'s steps on ``train_loop``'s data.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -36,9 +46,10 @@ from repro_torch.launch import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.param import tree_items
 from repro_torch.optim import AdamWConfig
-from repro_torch.runtime import build_train_step, init_train_state
+from repro_torch.runtime import (TrainState, build_train_step,
+                                 init_train_state)
 
-__all__ = ["main", "train_loop"]
+__all__ = ["TrainSetup", "main", "setup_training", "train_loop"]
 
 
 def _state_bytes(model, opt_cfg: AdamWConfig) -> int:
@@ -48,6 +59,51 @@ def _state_bytes(model, opt_cfg: AdamWConfig) -> int:
     return sum(d.size * (2 * torch.empty((), dtype=d.dtype).element_size()
                          + 2 * moment)
                for _, d in tree_items(model.param_decls()))
+
+
+class TrainSetup(NamedTuple):
+    """One training job, as :func:`train_loop` sets it up."""
+    model: Any
+    opt_cfg: AdamWConfig
+    step_fn: Callable
+    state: TrainState
+    data: DataConfig
+    device: torch.device
+
+
+def setup_training(arch: str, *, steps: int, batch: int, seq: int,
+                   reduced: bool = False, seed: int = 0,
+                   microbatches: int | None = None,
+                   device: str | torch.device = "cuda") -> TrainSetup:
+    """The model of ``arch`` for ``seq``-token sequences, AdamW scheduled
+    over ``steps`` steps, the train step, the seeded initial state on
+    ``device`` and the data config of ``batch`` x ``seq`` tokens. On the
+    card it first refuses a state larger than the card and builds the
+    kernels, so no kernel builds inside a step."""
+    device = resolve_device(device, "train_loop")
+    cfg = get_config(arch, reduced=reduced)
+    cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
+                              kv_chunk=max(seq // 2, 16),
+                              microbatches=microbatches or 1)
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
+                          total_steps=steps)
+    if device.type == "cuda":
+        need = _state_bytes(model, opt_cfg)
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise ValueError(
+                f"{cfg.name} at {cfg.n_layers} layers: its training state "
+                f"takes {need / 1e9:.0f} GB, more than the card's "
+                f"{have / 1e9:.0f} GB; training it needs several devices "
+                f"(ROADMAP item A.12), or a cut depth")
+        _build.build()               # set-up, outside the timed loop
+    return TrainSetup(
+        model, opt_cfg, build_train_step(model, opt_cfg),
+        init_train_state(model, opt_cfg, seed=seed, device=device),
+        DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                   seed=seed),
+        device)
 
 
 def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
@@ -60,27 +116,11 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
 
     Returns ``losses`` (one a step run), ``wall_s``, ``tokens_per_s``,
     ``final_loss`` and ``start_step`` (nonzero after a resume)."""
-    device = resolve_device(device, "train_loop")
-    cfg = get_config(arch, reduced=reduced)
-    cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
-                              kv_chunk=max(seq // 2, 16),
-                              microbatches=microbatches or 1)
-    model = build_model(cfg)
-    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
-                          total_steps=steps)
+    setup = setup_training(arch, steps=steps, batch=batch, seq=seq,
+                           reduced=reduced, seed=seed,
+                           microbatches=microbatches, device=device)
+    device, step_fn, state = setup.device, setup.step_fn, setup.state
     on_card = device.type == "cuda"
-    if on_card:
-        need = _state_bytes(model, opt_cfg)
-        have = torch.cuda.get_device_properties(device).total_memory
-        if need > have:
-            raise ValueError(
-                f"{cfg.name} at {cfg.n_layers} layers: its training state "
-                f"takes {need / 1e9:.0f} GB, more than the card's "
-                f"{have / 1e9:.0f} GB; training it needs several devices "
-                f"(ROADMAP item A.12), or a cut depth")
-        _build.build()               # set-up, outside the timed loop
-    step_fn = build_train_step(model, opt_cfg)
-    state = init_train_state(model, opt_cfg, seed=seed, device=device)
 
     mgr = None
     start_step = 0
@@ -95,9 +135,7 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    pipe = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
-                                    global_batch=batch, seed=seed),
-                         start_step=start_step)
+    pipe = make_pipeline(setup.data, start_step=start_step)
     losses = []
     t0 = clock()
     try:

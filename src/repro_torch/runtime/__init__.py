@@ -1,5 +1,6 @@
-"""Runtime of the port: the single-device train step (``repro/runtime``;
-the DFlow orchestrator is ROADMAP A.13, meshes A.12)."""
+"""Runtime of the port: the single-device train step (``repro/runtime``)
+and the DFlow-orchestrated training DAG (``orchestrator.run_training``,
+imported from its module as in the reference); meshes are ROADMAP A.12."""
 
 from .train_lib import TrainState, build_train_step, init_train_state
 

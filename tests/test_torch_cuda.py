@@ -679,6 +679,70 @@ def test_train_loop_mamba2_goes_through_the_ssd_kernels():
     assert flash_kernel.launches == flash_bwd_kernel.launches == 0
 
 
+# ------------------------------------------------- under the DFlow engine
+def test_a_put_of_a_cuda_tensor_digests_to_none_without_a_sync():
+    """DStore's Put digests its value; a CUDA tensor is opaque (None), and
+    neither the digest nor a Put and a remote Get waits for the card: a
+    kernel queued before them is still running after them."""
+    from repro_torch.core import DStore, content_digest
+    t = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    torch.cuda._sleep(1_000_000_000)            # ~0.5 s of the card's time
+    assert content_digest(t) is None
+    assert content_digest({"w": t, "step": 3}) is None
+    ds = DStore(["n0", "n1"])
+    ds.put("n0", "k", t)
+    assert ds.get("n1", "k") is t
+    assert not stream.query()                   # nothing synchronized
+    torch.cuda.synchronize()
+
+
+def test_run_training_on_the_card_takes_train_loops_steps(tmp_path,
+                                                          monkeypatch):
+    """Depth-2, full-width tinyllama under the port's DFlow engine: the
+    flash kernels run in the DAG's threads (twice a layer forward under
+    remat, once backward), and the losses and the checkpoint at step 2 are
+    ``train_loop``'s (the resume rule, 2e-2)."""
+    import numpy as np
+    import repro_torch.launch.train as train_mod
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime.orchestrator import (OrchestratorConfig,
+                                                  run_training)
+    full_depth = train_mod.get_config
+    monkeypatch.setattr(train_mod, "get_config", lambda arch, reduced=False:
+                        dataclasses.replace(full_depth(arch), n_layers=2))
+    kw = dict(steps=3, batch=2, seq=256, seed=3)
+    loop = train_loop("tinyllama-1.1b", ckpt_dir=str(tmp_path / "loop"),
+                      ckpt_every=2, log_every=0, **kw)
+    s = train_mod.setup_training("tinyllama-1.1b", **kw)
+    source = SyntheticLM(s.data)
+    mgr = CheckpointManager(tmp_path / "dag", keep=2)
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    rep = run_training(
+        OrchestratorConfig(n_steps=3, ckpt_every=2, pattern="dataflow"),
+        init_state=s.state, train=s.step_fn,
+        fetch=lambda i: {k: torch.as_tensor(v).cuda()
+                         for k, v in source.batch_at(i).items()},
+        save=lambda i, state: mgr.save(i + 1, state))
+    mgr.wait()
+    assert flash_kernel.launches == 3 * 2 * 2
+    assert flash_bwd_kernel.launches == 3 * 2
+    losses = [float(rep.outputs[f"metrics.{i}"]["loss"]) for i in range(3)]
+    np.testing.assert_allclose(losses, loop["losses"], rtol=2e-2)
+    got, want = (tmp_path / d / "step_00000002" for d in ("dag", "loop"))
+    names = sorted(p.name for p in want.glob("*.npy"))
+    assert names and names == sorted(p.name for p in got.glob("*.npy"))
+    for name in names:
+        a, b = np.load(got / name), np.load(want / name)
+        if b.dtype == np.uint16:                # bf16 bits
+            a, b = ((x.astype(np.uint32) << 16).view(np.float32)
+                    for x in (a, b))
+        scale = max(float(np.abs(b).max()), 1e-30)
+        assert float(np.abs(a - b).max()) <= 2e-2 * scale, name
+
+
 # ------------------------------------------------------- the SSD backward
 def _ssd_tool():
     spec = importlib.util.spec_from_file_location(
