@@ -21,7 +21,9 @@ Phases, each fatal on failure:
    cotangent, a ragged S, P = 8, a 2048-token sequence; and the 15 B archs'
    heads at D = 128, G = 12 (starcoder2) and G = 6 (nemotron, qwen3): flash
    forward and decode at their serving shapes, the backward at 2 x 256
-   tokens with planted faults on the G = 12 blocks' edges), to bf16 2e-2
+   tokens with planted faults on the G = 12 blocks' edges; qwen3-moe's
+   heads, G = 16 at D = 128: flash at its serving shape and a ragged S,
+   decode at its serving shape, G x D at the kernel's limit), to bf16 2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
@@ -35,7 +37,9 @@ Phases, each fatal on failure:
    ``serve_loop("mamba2-370m")`` (ssd at prefill; decode is the plain
    recurrence) and ``serve_loop`` of starcoder2-15b, nemotron-4-15b and
    qwen3-14b (flash and decode attention; ~30 GB of weights each, one on
-   the card at a time), batch 8, 512-token prompts, 32 new tokens; and
+   the card at a time) and of qwen3-moe-235b-a22b at full width cut to 12
+   of its 94 layers (62 GB; its MoE layers in plain torch, flash and decode
+   at G = 16), batch 8, 512-token prompts, 32 new tokens; and
    ``train_loop("tinyllama-1.1b")`` (flash forward and backward), batch 8,
    512 tokens, and ``train_loop("mamba2-370m")`` (ssd forward and
    backward), the same shape, on the synthetic pipeline. Each is called
@@ -44,17 +48,24 @@ Phases, each fatal on failure:
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
    run went through them;
-5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2
-   and starcoder2-15b (beside the bytes a step must read), one mamba2
+5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
+   starcoder2-15b and the 12-layer qwen3-moe (beside the bytes a step must
+   read; qwen3-moe's device time also split into routing, dispatch, expert
+   products, combine and attention), one mamba2
    prefill and one train step of each trained model, for the device's
    busy share and the kernels that take its time (at prefill, the ssd
    kernel's share; in training, the flash or ssd forward's and backward's);
 6. model check (attention weights at std 1/sqrt(fan-in), where the
    reference's draw saturates the softmax: ``model_check``): a depth-2,
-   full-width model of each of the five archs on the card against the
+   full-width model of each of the six archs on the card against the
    same model on the CPU's plain path (relative error < 0.06, equal
-   argmax); a depth-2 bf16 train step of tinyllama and the three 15 B
-   archs on the card against the CPU (loss 1e-2 relative,
+   argmax; for qwen3-moe also the (token, k) routing choices that differ,
+   per layer, and the card's logits again with the CPU's routing fed to its
+   MoE layers); one full-width qwen3-moe MoE layer at a decode step's and a
+   prefill's shape in each dispatch mode captured in a CUDA graph and
+   replayed after its input changes on the device, bit for bit an eager
+   call, with its device ms (``moe_graph_check``); a depth-2 bf16 train step of tinyllama and the
+   three 15 B archs on the card against the CPU (loss 1e-2 relative,
    each gradient within 3e-2 of its norm, each layer's backward-kernel
    gradients against the plain backward on the same captured tensors
    within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
@@ -196,7 +207,12 @@ def check_flash(torch, timer, gen) -> dict:
             # G = 6 (10 positions); a ragged S at G = 12
             ("g12", 8, 512, 48, 4, 128, torch.bfloat16, True, True),
             ("g6", 8, 512, 48, 8, 128, torch.bfloat16, True, True),
-            ("ragged-g12", 2, 100, 48, 4, 128, torch.bfloat16, True, False)):
+            ("ragged-g12", 2, 100, 48, 4, 128, torch.bfloat16, True, False),
+            # qwen3-moe's prefill: G = 16 at D = 128, 4 positions a block,
+            # and a ragged S at that group
+            ("g16-d128", 8, 512, 64, 4, 128, torch.bfloat16, True, True),
+            ("ragged-g16-d128", 2, 100, 64, 4, 128, torch.bfloat16, True,
+             False)):
         q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
         k = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
@@ -271,7 +287,11 @@ def check_decode(torch, timer, gen) -> dict:
             # the 15 B archs' decode: G = 12 (starcoder2, 12 of the 16 MMA
             # rows at work) and G = 6 (nemotron, qwen3), D = 128
             ("g12", B, L, 48, 4, 128, torch.bfloat16, edges, timed_len),
-            ("g6", B, L, 48, 8, 128, torch.bfloat16, edges, timed_len)):
+            ("g6", B, L, 48, 8, 128, torch.bfloat16, edges, timed_len),
+            # qwen3-moe's decode: G = 16 at D = 128, G x D = 2048, the
+            # kernel's limit
+            ("g16-d128", B, L, 64, 4, 128, torch.bfloat16, edges,
+             timed_len)):
         name = str(dtype).split(".")[1]
         # one layer's view of a stacked cache, as the model passes it
         cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
@@ -810,12 +830,13 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
 
 
 def _serving_model(torch, arch: str):
-    """Full-depth model of ``arch`` on the card with seeded random weights,
-    configured as ``serve_loop`` runs it for 512-token prompts."""
-    from repro_torch.configs import get_config
+    """Model of ``arch`` on the card with seeded random weights, at the
+    depth ``launch/serve.py``'s ``get_config`` gives (``cut_depth`` cuts
+    it), configured as ``serve_loop`` runs it for 512-token prompts."""
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import build_model, init_params
-    cfg = dataclasses.replace(get_config(arch), q_chunk=256, kv_chunk=256,
-                              max_cache_len=544)
+    cfg = dataclasses.replace(serve_mod.get_config(arch), q_chunk=256,
+                              kv_chunk=256, max_cache_len=544)
     model = build_model(cfg)
     params = init_params(model.param_decls(),
                          torch.Generator(device="cuda").manual_seed(0),
@@ -824,16 +845,18 @@ def _serving_model(torch, arch: str):
 
 
 def _profile_report(prof, what: str, wall: float, steps: int,
-                    ours: dict[str, tuple], top: int = 6) -> None:
+                    ours: dict[str, tuple], top: int = 6,
+                    ranges: tuple = ()) -> None:
     """Device kernel time of a profiled window: per step, its busy share of
     the wall time, the ``top`` largest kernels, and for each group of
     ``ours`` the share of the kernels whose names contain one of its
-    fragments."""
+    fragments. The device-side spans of the ``record_function`` ranges
+    named in ``ranges`` are not kernels and are left out."""
     from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     n_kernels = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
@@ -858,12 +881,86 @@ def _profile_report(prof, what: str, wall: float, steps: int,
             f"{sum(mine) / 1e6 / busy:.3f} of the device time")
 
 
+# The MoE decode step's phases: label -> (module, function), each call of
+# which the split profile wraps in a ``record_function`` range
+MOE_PHASES = {
+    "routing (router, softmax, top-k sort, gates, aux)":
+        ("repro_torch.models.moe", "_route"),
+    "dispatch (rank in expert, slots, rows into (E, C, M))":
+        ("repro_torch.models.moe", "_dispatch"),
+    "expert products": ("repro_torch.models.moe", "_experts"),
+    "combine": ("repro_torch.models.moe", "_combine"),
+    "attention (projections, norms, rope, decode kernel)":
+        ("repro_torch.models.lm", "attention"),
+}
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` while the context lasts;
+    callers that look the name up on ``owner`` (a module's own functions
+    calling each other do) see the replacement."""
+    original = getattr(owner, name)
+    setattr(owner, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+@contextlib.contextmanager
+def phase_ranges(torch, phases: dict):
+    """Each function of ``phases`` wrapped, while the context lasts, in a
+    ``record_function`` range named by its label."""
+    import importlib
+
+    def in_range(label):
+        def wrap(fn):
+            def wrapped(*args, **kw):
+                with torch.profiler.record_function(label):
+                    return fn(*args, **kw)
+            return wrapped
+        return wrap
+    with contextlib.ExitStack() as stack:
+        for label, (module, name) in phases.items():
+            stack.enter_context(patched(importlib.import_module(module),
+                                        name, in_range(label)))
+        yield
+
+
+def _phase_split(prof, phases: dict, steps: int, bound_ms: float) -> None:
+    """Per step, the device time of the kernels launched inside each phase's
+    ranges (host-side ranges, their kernels summed) and the span of the
+    ranges on the device."""
+    from torch.autograd import DeviceType
+    kernel_us = dict.fromkeys(phases, 0.0)
+    span_us = dict.fromkeys(phases, 0.0)
+    for e in prof.events():
+        if e.name not in phases:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            span_us[e.name] += e.time_range.elapsed_us()
+        else:
+            us = getattr(e, "device_time_total", None)
+            kernel_us[e.name] += e.cuda_time_total if us is None else us
+    total = sum(kernel_us.values())
+    for label in phases:
+        ms = kernel_us[label] / steps / 1e3
+        log(f"[profile]   {label}: kernels {ms:.4f} ms/step "
+            f"({kernel_us[label] / max(total, 1e-9):.3f} of the phases' "
+            f"{total / steps / 1e3:.4f} ms), device span "
+            f"{span_us[label] / steps / 1e3:.4f} ms/step")
+    log(f"[profile]   the phases' kernels against the step's bytes bound "
+        f"{bound_ms:.3f} ms: {total / steps / 1e3 / bound_ms:.3f}x")
+
+
 def profile_decode(torch, arch: str, ours: dict | None = None,
-                   steps: int = 4) -> None:
+                   steps: int = 4, phases: dict | None = None) -> None:
     """Wall time and device kernel time of decode steps at the serving
-    shape (batch 8, 512-token prompts, full depth), and the share of that
-    device time spent in the port's kernels whose names contain one of
-    ``ours``."""
+    shape (batch 8, 512-token prompts, the depth ``_serving_model`` gives),
+    and the share of that device time spent in the port's kernels whose names
+    contain one of ``ours``; with ``phases``, the device time split by the
+    model's phases (``phase_ranges``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.param import tree_items
     cfg, model, params = _serving_model(torch, arch)
@@ -875,16 +972,18 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
             tok = logits[:, -1].argmax(-1)[:, None]
             logits, cache = model.decode_step(params, tok, cache)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with phase_ranges(torch, phases or {}), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 tok = logits[:, -1].argmax(-1)[:, None]
                 logits, cache = model.decode_step(params, tok, cache)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _profile_report(prof, f"{arch} decode at batch 8, after 514 tokens",
-                    wall, steps, {**(ours or {}), "GEMMs": GEMMS})
+    _profile_report(prof, f"{arch} decode at batch 8, after 514 tokens, "
+                    f"{cfg.n_layers} layers", wall, steps, {**(ours or {}), "GEMMs": GEMMS},
+                    ranges=tuple(phases or ()))
     # a step reads every weight but the embedding's (8 rows of it), and the
     # cache: the K/V rows up to its length, or the whole SSM state
     nbytes = sum(t.numel() * t.element_size()
@@ -899,11 +998,14 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
     log(f"[profile] {arch} decode: a step reads {nbytes / 1e9:.2f} GB "
         f"(weights but the embedding, the cache), bound "
         f"{nbytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s")
+    if phases:
+        log(f"[profile] {arch} decode, device time by phase:")
+        _phase_split(prof, phases, steps, nbytes / PEAK_BYTES * 1e3)
 
 
 def profile_prefill(torch, arch: str, ours: dict) -> None:
     """Wall time and device kernel time of one prefill at the serving shape
-    (batch 8, 512-token prompts, full depth, an empty cache), after a
+    (batch 8, 512-token prompts, an empty cache), after a
     warm-up prefill, with the share of the kernels named in ``ours``."""
     from torch.profiler import ProfilerActivity, profile
     cfg, model, params = _serving_model(torch, arch)
@@ -922,6 +1024,38 @@ def profile_prefill(torch, arch: str, ours: dict) -> None:
                     1, ours)
 
 
+def record_routes(routes: dict):
+    """Context: each MoE layer's routing, its top-k experts (T, k) and
+    gates (T, k) on the host, appended to ``routes[device type]``."""
+    import importlib
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+
+    def wrap(route):
+        def recording(router, x, cfg):
+            topi, gates, aux = route(router, x, cfg)
+            routes[x.device.type].append((topi.cpu(), gates.cpu()))
+            return topi, gates, aux
+        return recording
+    return patched(moe_mod, "_route", wrap)
+
+
+def routed_as(recorded: list):
+    """Context: the MoE layers' calls, in order, take their top-k experts
+    and gates from ``recorded`` (``record_routes``' list of one device)
+    in place of their own; the router and its aux loss still run."""
+    import importlib
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    calls = iter(recorded)
+
+    def wrap(route):
+        def forced(router, x, cfg):
+            aux = route(router, x, cfg)[2]
+            topi, gates = next(calls)
+            return topi.to(x.device), gates.to(x.device), aux
+        return forced
+    return patched(moe_mod, "_route", wrap)
+
+
 def model_check(torch, arch: str) -> None:
     """Depth-2, full-width model: CUDA (kernels) vs CPU (plain path), same
     weights, prefill(64) + decode(1), rel < 0.06 and equal argmax.
@@ -934,7 +1068,11 @@ def model_check(torch, arch: str) -> None:
     Pallas kernels' and their ``ref.py``'s) by 46-51% of the output on
     starcoder2 and nemotron with no fault in either
     (``tools/attention_conditioning.py``); at the fan-in std they agree to
-    0.4-0.5%."""
+    0.4-0.5%. For an MoE arch it also prints, per layer, how many (token, k)
+    routing choices differ between the two devices: the attention output
+    differs between the kernels and the plain path by rounding, so a token
+    near a tie between experts may route differently with no fault in
+    either."""
     from attention_conditioning import fan_in_std
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
@@ -953,20 +1091,48 @@ def model_check(torch, arch: str) -> None:
     params_cpu = tree_map(lambda a: a.cpu(), params_gpu)
     toks = torch.randint(0, cfg.vocab, (2, 65),
                          generator=torch.Generator().manual_seed(1))
-    out = {}
-    with torch.inference_mode():
-        for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
-            cache = model.init_cache(2, cfg.max_cache_len, device=dev)
-            _, cache = model.prefill(params, toks[:, :64].to(dev), cache)
-            logits, _ = model.decode_step(params, toks[:, 64:].to(dev), cache)
-            out[dev] = logits[:, 0].float().cpu()
-    ref, got = out["cpu"], out["cuda"]
-    rel = float((got - ref).abs().max() / (ref.abs().max() + 1e-9))
-    same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+
+    def logits_on(dev: str, params):
+        cache = model.init_cache(2, cfg.max_cache_len, device=dev)
+        _, cache = model.prefill(params, toks[:, :64].to(dev), cache)
+        logits, _ = model.decode_step(params, toks[:, 64:].to(dev), cache)
+        return logits[:, 0].float().cpu()
+
+    def against_cpu(got) -> tuple[float, bool]:
+        return (float((got - ref).abs().max() / (ref.abs().max() + 1e-9)),
+                bool((got.argmax(-1) == ref.argmax(-1)).all()))
+
+    routes = {"cpu": [], "cuda": []}         # each MoE call's topi, gates
+    with torch.inference_mode(), record_routes(routes):
+        ref = logits_on("cpu", params_cpu)
+        got = logits_on("cuda", params_gpu)
+    rel, same = against_cpu(got)
     drawn = " (attention weights at std 1/sqrt(fan-in))" if cfg.attends \
         else ""
     log(f"[model] depth-2 {arch} prefill(64)+decode(1){drawn}, cuda vs cpu: "
         f"rel={rel:.4f} (< 0.06) argmax_equal={same}")
+    if cfg.family == "moe":
+        # the layers' calls in order: prefill's, then decode's
+        L, k = cfg.n_layers, cfg.top_k
+        differ = []
+        for (a, _), (b, _) in zip(routes["cpu"], routes["cuda"]):
+            shared = (a[:, :, None] == b[:, None, :]).any(-1).sum()
+            differ.append(f"{a.numel() - int(shared)} of {a.numel()}")
+        log(f"[model] depth-2 {arch} routing, cuda vs cpu: (token, k) "
+            f"choices that differ, per layer: prefill {differ[:L]}, decode "
+            f"{differ[L:]} (top-{k} of {cfg.n_experts})")
+        if len(differ) != 2 * L:
+            raise AssertionError(f"model check {arch}: {len(differ)} MoE "
+                                 f"calls recorded, want {2 * L}")
+        # the same card run with every MoE call routed as the CPU routed it
+        # (its experts and gates): what is left of rel is the rest of the
+        # model's rounding, attention's included
+        with torch.inference_mode(), routed_as(routes["cpu"]):
+            rel_routed, same_routed = against_cpu(logits_on("cuda",
+                                                            params_gpu))
+        log(f"[model] depth-2 {arch} with the CPU's routing fed to the "
+            f"card's MoE layers, cuda vs cpu: rel={rel_routed:.4f} "
+            f"argmax_equal={same_routed} (own routing: rel={rel:.4f})")
     if not (rel < 0.06 and same):
         raise AssertionError(f"model check {arch}: CUDA and CPU logits "
                              f"disagree")
@@ -1166,20 +1332,15 @@ def train_check_ssm(torch) -> None:
                              "disagree")
 
 
-@contextlib.contextmanager
-def depth2(train_mod):
-    """``train_mod``'s configs (``launch/train.py``) cut to two layers, at
-    full width, while the context lasts."""
-    full_depth = train_mod.get_config
-
-    def cut(arch, *, reduced=False):
-        return dataclasses.replace(full_depth(arch, reduced=reduced),
-                                   n_layers=2)
-    train_mod.get_config = cut
-    try:
-        yield
-    finally:
-        train_mod.get_config = full_depth
+def cut_depth(launch_mod, layers: int = 2):
+    """Context: the configs a launch module reads (``launch/train.py``,
+    ``launch/serve.py``) cut to ``layers`` layers, at full width."""
+    def wrap(full_depth):
+        def cut(arch, *, reduced=False):
+            return dataclasses.replace(full_depth(arch, reduced=reduced),
+                                       n_layers=layers)
+        return cut
+    return patched(launch_mod, "get_config", wrap)
 
 
 def resume_check(torch, arch: str, exact: bool = False) -> None:
@@ -1197,7 +1358,7 @@ def resume_check(torch, arch: str, exact: bool = False) -> None:
     shutil.rmtree(ckpt, ignore_errors=True)
     kw = dict(steps=6, batch=4, seq=256, seed=3, log_every=0, device="cuda")
     try:
-        with depth2(train_mod):
+        with cut_depth(train_mod):
             t0 = time.perf_counter()
             full = train_mod.train_loop(arch, **kw)
             try:
@@ -1341,7 +1502,7 @@ def orchestrate_check(torch, counters: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
     kw = dict(steps=4, batch=4, seq=256, seed=3)
     try:
-        with depth2(train_mod):
+        with cut_depth(train_mod):
             loop = train_mod.train_loop(ORCH_ARCH, ckpt_dir=str(root / "loop"),
                                         ckpt_every=2, log_every=0,
                                         device="cuda", **kw)
@@ -1422,6 +1583,181 @@ def orchestrate_check(torch, counters: dict) -> None:
                                  f"over 1.05x train_loop's")
 
 
+# ------------------------------------------------------------------- MoE
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 12
+
+
+def moe_prefill_flops(cfg, batch: int, prompt: int) -> tuple[float, float]:
+    """An MoE model's active parameters a token (attention, router,
+    ``top_k / n_experts`` of the expert weights, head; the embedding is a
+    lookup) and the FLOPs of a prefill of ``batch`` x ``prompt`` tokens
+    with capacity padding: every token's projections and router, the
+    expert products over all E x C slots whether filled or not, the head
+    on each prompt's last token."""
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.param import tree_items
+    expert = per_token = head = 0
+    for path, d in tree_items(build_model(cfg).param_decls()):
+        if path[-2:] in (("moe", "w_up"), ("moe", "w_gate"),
+                         ("moe", "w_down")):
+            expert += d.size
+        elif path == ("head",):
+            head += d.size
+        elif path != ("embed",):
+            per_token += d.size
+    active = per_token + expert * cfg.top_k / cfg.n_experts + head
+    tokens = batch * prompt
+    C = _capacity(tokens, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    padded = 2 * tokens * per_token + 2 * C * expert + 2 * batch * head
+    return active, padded
+
+
+def moe_graph_check(torch, timer) -> None:
+    """One full-width MoE layer of qwen3-moe-235b-a22b (128 experts of
+    4096 x 1536, top-8; 4.8 GB of weights) at a decode step's shape (batch
+    8, one token; C = 4) and a prefill's (batch 8 x 512 tokens; C = 320),
+    in each dispatch mode, captured in a CUDA graph and replayed after its
+    input changes on the device: equal to an eager call bit for bit. Also
+    the replay's CUDA-event ms (the layer's device time, no host gaps) and
+    the host ms of an eager call and of a replay (median of 20, each ended
+    by a synchronize)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, moe, moe_decls
+    from repro_torch.models.moe import _capacity
+    cfg = get_config(MOE_ARCH)
+    params = init_params(moe_decls(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def host_ms(fn) -> float:
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    with torch.inference_mode():
+        for S in (1, 512):
+            x = torch.randn(8, S, cfg.d_model, generator=gen,
+                            device="cuda").bfloat16()
+            C = _capacity(8 * S, cfg.top_k, cfg.n_experts,
+                          cfg.capacity_factor)
+            for mode in ("scatter", "gather"):
+                mcfg = dataclasses.replace(cfg, moe_dispatch=mode)
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):                 # warm
+                    moe(params, x, mcfg)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    y, aux = moe(params, x, mcfg)
+                for _ in range(2):
+                    x.copy_(torch.randn(x.shape, generator=gen,
+                                        device="cuda"))
+                    graph.replay()
+                    want, want_aux = moe(params, x, mcfg)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(y, want)
+                            and torch.equal(aux, want_aux)):
+                        raise AssertionError(
+                            f"MoE layer ({mode}, batch 8 x {S}) replayed "
+                            f"from a CUDA graph differs from an eager call")
+                device_ms = timer.ms(graph.replay, iters=20)
+                eager_ms = host_ms(lambda: moe(params, x, mcfg))
+                replay_ms = host_ms(graph.replay)
+                log(f"[moe] {MOE_ARCH} MoE layer ({mode}), batch 8 x {S} "
+                    f"tokens (C = {C}), in a CUDA graph replayed after its "
+                    f"input changed on the device twice: equal to eager "
+                    f"calls bit for bit; device ms a replay {device_ms:.4f}"
+                    f"; host ms a call (median of 20): eager "
+                    f"{eager_ms:.3f}, replay {replay_ms:.3f}")
+                del graph, y, aux, want, want_aux
+            del x
+            torch.cuda.empty_cache()
+
+
+def serve_counted(torch, counters: dict, arch: str, layers: int,
+                  vocab: int) -> dict:
+    """``serve_loop(arch)`` at batch 8, 512-token prompts, 32 new tokens:
+    a first (cold) call, then a counted one, its kernels' launch counts set
+    to 0 just before and returned; its tokens in range and its last logits
+    finite. The depth is what ``launch/serve.py``'s ``get_config`` gives
+    (``cut_depth`` cuts it)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model, param_count
+    serve_loop = serve_mod.serve_loop
+    serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
+                 device="cuda")
+    out = serve_loop(arch, **serve)
+    log(f"[serve] {arch} first call (cold): prefill "
+        f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
+        f"{out['decode_tok_per_s']:.1f} tok/s")
+    torch.cuda.empty_cache()
+    for k in counters.values():
+        k.launches = 0
+    out = serve_loop(arch, **serve)
+    counts = {name: k.launches for name, k in counters.items()}
+    tokens, logits = out["tokens"], out["logits"]
+    cfg = serve_mod.get_config(arch)          # the depth it served
+    n_params = param_count(build_model(cfg).param_decls())
+    prefill_s = out["prefill_s"]
+    rate = prefill_s * PEAK_BF16_FLOPS
+    if cfg.family == "moe":
+        active, padded = moe_prefill_flops(cfg, batch=8, prompt=512)
+        derived = (
+            f"derived: 2 * N_active * prompt tokens / prefill s / 989 "
+            f"TFLOP/s = {2 * active * 8 * 512 / rate:.3f}"
+            f" (N_active {active / 1e9:.3f} B: attention, router, "
+            f"top_k / n_experts of the expert weights, head); "
+            f"capacity-padded prefill FLOPs (projections of every "
+            f"token, the expert products over all E x C slots, the head "
+            f"on each prompt's last token) {padded / 1e12:.2f} T / "
+            f"prefill s / 989 TFLOP/s = {padded / rate:.3f}")
+    else:
+        derived = (f"derived: 2 * N * prompt tokens / prefill s / 989 "
+                   f"TFLOP/s = {2 * n_params * 8 * 512 / rate:.3f}")
+    log(f"[serve] {arch} batch=8 prompt=512 gen=32 ({layers} layers, "
+        f"{n_params / 1e9:.3f} B params): prefill "
+        f"{prefill_s:.4f} s, decode {out['decode_s']:.4f} s, "
+        f"{out['decode_tok_per_s']:.1f} tok/s; launches {counts}; peak "
+        f"memory from the prefill on {out['peak_bytes'] / 2**30:.2f} "
+        f"GiB; {derived}")
+    if tokens.shape != (8, 32) or tokens.min() < 0 \
+            or tokens.max() >= vocab:
+        raise AssertionError(f"{arch}: tokens {tokens.shape} out of "
+                             f"[0, {vocab})")
+    if logits.shape != (8, vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: last logits {tuple(logits.shape)}"
+                             f" not finite or not (8, {vocab})")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_serve_check(torch, counters: dict) -> None:
+    """qwen3-moe-235b-a22b at full width cut to ``MOE_LAYERS`` of its 94
+    layers (62 GB of weights; its full depth, 470 GB, raises in
+    ``serve_loop``) through ``serve_counted``: G = 16 at D = 128 in both
+    attention kernels, the MoE layers in plain torch; exactly one flash
+    launch a layer and one decode launch a layer a decode step, no other
+    kernel."""
+    from repro_torch.launch import serve as serve_mod
+    with cut_depth(serve_mod, MOE_LAYERS):
+        counts = serve_counted(torch, counters, MOE_ARCH, MOE_LAYERS,
+                               151936)
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=MOE_LAYERS,
+                decode_attention=MOE_LAYERS * 31)
+    if counts != want:
+        raise AssertionError(f"{MOE_ARCH} launches {counts}: want {want}")
+
+
 def kernel_counters() -> dict:
     """Each kernel's launcher module, whose ``launches`` counts its
     launches."""
@@ -1440,10 +1776,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.train import train_loop
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model, param_count
+    from repro_torch.models import param_count
 
     log(f"[card] {card_line()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1474,44 +1809,11 @@ def main() -> int:
 
     counters = kernel_counters()
 
-    def serve_counted(arch: str, layers: int, vocab: int) -> dict:
-        serve = dict(batch=8, prompt_len=512, gen_tokens=32, seed=0,
-                     device="cuda")
-        out = serve_loop(arch, **serve)
-        log(f"[serve] {arch} first call (cold): prefill "
-            f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
-            f"{out['decode_tok_per_s']:.1f} tok/s")
-        torch.cuda.empty_cache()
-        for k in counters.values():
-            k.launches = 0
-        out = serve_loop(arch, **serve)
-        counts = {name: k.launches for name, k in counters.items()}
-        tokens, logits = out["tokens"], out["logits"]
-        n_params = param_count(build_model(get_config(arch)).param_decls())
-        share = 2 * n_params * 8 * 512 / out["prefill_s"] / PEAK_BF16_FLOPS
-        log(f"[serve] {arch} batch=8 prompt=512 gen=32 ({layers} layers, "
-            f"{n_params / 1e9:.3f} B params): prefill "
-            f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
-            f"{out['decode_tok_per_s']:.1f} tok/s; launches {counts}; peak "
-            f"memory from the prefill on {out['peak_bytes'] / 2**30:.2f} "
-            f"GiB; derived: 2 * N * prompt tokens / prefill s / 989 "
-            f"TFLOP/s = {share:.3f}")
-        if tokens.shape != (8, 32) or tokens.min() < 0 \
-                or tokens.max() >= vocab:
-            raise AssertionError(f"{arch}: tokens {tokens.shape} out of "
-                                 f"[0, {vocab})")
-        if logits.shape != (8, vocab) or not bool(
-                torch.isfinite(logits).all()):
-            raise AssertionError(f"{arch}: last logits {tuple(logits.shape)}"
-                                 f" not finite or not (8, {vocab})")
-        torch.cuda.empty_cache()
-        return counts
-
-    dense = serve_counted("tinyllama-1.1b", 22, 32000)
+    dense = serve_counted(torch, counters, "tinyllama-1.1b", 22, 32000)
     if dense["flash_attention"] != 22 or dense["decode_attention"] != 22 * 31:
         raise AssertionError(f"tinyllama launches {dense}: want flash 22, "
                              f"decode {22 * 31}")
-    ssm = serve_counted("mamba2-370m", 48, 50280)
+    ssm = serve_counted(torch, counters, "mamba2-370m", 48, 50280)
     if ssm["ssd"] != 48:
         raise AssertionError(f"mamba2 launches {ssm}: want ssd 48")
     n_flash, n_decode, n_ssd = (dense["flash_attention"],
@@ -1522,11 +1824,12 @@ def main() -> int:
     for arch, layers, vocab in (("starcoder2-15b", 40, 49152),
                                 ("nemotron-4-15b", 32, 256000),
                                 ("qwen3-14b", 40, 151936)):
-        counts = serve_counted(arch, layers, vocab)
+        counts = serve_counted(torch, counters, arch, layers, vocab)
         want = dict.fromkeys(counters, 0)
         want.update(flash_attention=layers, decode_attention=layers * 31)
         if counts != want:
             raise AssertionError(f"{arch} launches {counts}: want {want}")
+    moe_serve_check(torch, counters)
 
     # training: batch 8 x 512 tokens, full width and depth, remat on
     def train_counted(arch: str, layers: int, kernels: tuple) -> dict:
@@ -1574,15 +1877,21 @@ def main() -> int:
     profile_decode(torch, "mamba2-370m")
     profile_decode(torch, "starcoder2-15b", ours=decode_kernels)
     torch.cuda.empty_cache()          # its ~30 GB of weights, released
+    with cut_depth(serve_mod, MOE_LAYERS):
+        profile_decode(torch, MOE_ARCH, ours=decode_kernels,
+                       phases=MOE_PHASES)
+    torch.cuda.empty_cache()          # its 62 GB of weights, released
     profile_prefill(torch, "mamba2-370m", ours={"ssd": ("ssd",)})
     profile_train(torch, "tinyllama-1.1b", {"flash forward": FLASH_FWD,
                                             "flash backward": FLASH_BWD})
     profile_train(torch, "mamba2-370m", {"ssd forward": SSD_FWD,
                                          "ssd backward": SSD_BWD})
     for arch in ("tinyllama-1.1b", "mamba2-370m", "starcoder2-15b",
-                 "nemotron-4-15b", "qwen3-14b"):
+                 "nemotron-4-15b", "qwen3-14b", MOE_ARCH):
         model_check(torch, arch)
         torch.cuda.empty_cache()      # the model's card memory, released
+    moe_graph_check(torch, timer)
+    torch.cuda.empty_cache()
     for arch in ("tinyllama-1.1b", "starcoder2-15b", "nemotron-4-15b",
                  "qwen3-14b"):
         train_check(torch, arch)

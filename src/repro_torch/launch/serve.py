@@ -6,8 +6,12 @@ It runs on the card (``device="cuda"``, full width and depth) unless the
 caller asks for the CPU, where it takes the kernels' plain versions; without
 CUDA and without ``device="cpu"`` it raises. The archs are those of
 ``repro_torch.configs``: tinyllama-1.1b, mamba2-370m, starcoder2-15b,
-nemotron-4-15b and qwen3-14b. Each of the last three holds ~30 GB of bf16
-weights, so one card serves one of them at a time.
+nemotron-4-15b, qwen3-14b and qwen3-moe-235b-a22b. Each of the three 15 B
+archs holds ~30 GB of bf16 weights, so one card serves one of them at a
+time; qwen3-moe-235b-a22b holds 470 GB at its 94 layers, so on one card it
+serves only at a cut depth (12 layers: 62 GB), and a model whose weights
+exceed the card's memory raises ``ValueError`` before anything is
+allocated.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import _build
 from repro_torch.launch import resolve_device
 from repro_torch.models import build_model, init_params
+from repro_torch.models.param import tree_items
 
 __all__ = ["main", "serve_loop"]
 
@@ -47,6 +52,16 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
                               kv_chunk=max(prompt_len // 2, 16),
                               max_cache_len=max_len)
     model = build_model(cfg)
+    if device.type == "cuda":
+        need = sum(d.size * torch.empty((), dtype=d.dtype).element_size()
+                   for _, d in tree_items(model.param_decls()))
+        have = torch.cuda.get_device_properties(device).total_memory
+        if need > have:
+            raise ValueError(
+                f"{cfg.name} at {cfg.n_layers} layers: its weights take "
+                f"{need / 1e9:.0f} GB, more than the card's "
+                f"{have / 1e9:.0f} GB; serving it needs several devices "
+                f"(ROADMAP item A.12), or a cut depth")
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(model.param_decls(), gen, device)
     rng = np.random.default_rng(seed)

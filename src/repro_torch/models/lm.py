@@ -1,4 +1,4 @@
-"""Decoder-only LM, families ``dense`` and ``ssm``: port of
+"""Decoder-only LM, families ``dense``, ``moe`` and ``ssm``: port of
 ``repro/models/lm.py``.
 
 * ``dense`` (tinyllama, starcoder2, nemotron, qwen3): token embedding, a
@@ -6,6 +6,9 @@
   qk-norm and zero-masked padded heads -> residual -> RMSNorm -> MLP,
   SwiGLU or plain gelu / squared ReLU -> residual), final RMSNorm, vocab
   head.
+* ``moe`` (qwen3-moe): the dense frame with the MLP replaced by the
+  mixture of experts of ``moe.py``; ``forward`` also returns the sum of
+  the layers' load-balance aux losses.
 * ``ssm`` (mamba2): the same frame with layers ``x + mamba(RMSNorm(x))``.
 
 Parameters are the nested dict the schema declares, with a leading stacked
@@ -13,7 +16,8 @@ layer axis; a Python loop over that axis takes the place of ``lax.scan``.
 
 Entry points, as in the reference:
 
-* ``loss_fn(params, batch)``            -> next-token cross entropy (train);
+* ``loss_fn(params, batch)``            -> next-token cross entropy plus
+  ``AUX_COEF`` times the aux loss (train);
 * ``forward(params, tokens)``           -> (logits (B, S, V), aux);
 * ``prefill(params, tokens, cache)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache)`` -> (logits (B, 1, V), cache).
@@ -38,6 +42,7 @@ from .attention import KVCache, attention, attention_decls, init_cache
 from .common import cross_entropy_loss, matmul, rms_norm
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
+from .moe import moe, moe_decls
 from .param import ArrayDecl, normal_init, ones_init, tree_map
 from .ssm import SSMCache, init_ssm_cache, mamba_block, ssm_decls
 
@@ -45,16 +50,15 @@ __all__ = ["LM", "Cache", "AUX_COEF"]
 
 AUX_COEF = 0.01
 
-_PENDING_FAMILIES = {"moe": "A.8", "hybrid": "A.10", "encdec": "A.11",
-                     "vlm": "A.7"}
+_PENDING_FAMILIES = {"hybrid": "A.10", "encdec": "A.11", "vlm": "A.7"}
 
 
 class Cache(NamedTuple):
     """Stacked per-layer serving cache; each family fills its member.
 
-    kv (family dense): kv.k / kv.v are (n_layers, B, max_len, kv_heads,
-    head_dim); kv.length is one () int32 for the batch (the reference
-    broadcasts it per layer). ssm (family ssm): every member of the
+    kv (families dense and moe): kv.k / kv.v are (n_layers, B, max_len,
+    kv_heads, head_dim); kv.length is one () int32 for the batch (the
+    reference broadcasts it per layer). ssm (family ssm): every member of the
     SSMCache has a leading n_layers axis."""
     kv: KVCache | None = None
     ssm: SSMCache | None = None
@@ -66,7 +70,7 @@ class LM:
             raise NotImplementedError(
                 f"family {cfg.family!r}: ROADMAP item "
                 f"{_PENDING_FAMILIES[cfg.family]}")
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise ValueError(cfg.family)
         self.cfg = cfg
 
@@ -85,8 +89,11 @@ class LM:
                 "attn": attention_decls(cfg, layers=L),
                 "ln2": ArrayDecl((L, cfg.d_model), ("layers", "embed"),
                                  init=ones_init),
-                "mlp": mlp_decls(cfg, layers=L),
             }
+            if cfg.family == "moe":
+                layers["moe"] = moe_decls(cfg, layers=L)
+            else:
+                layers["mlp"] = mlp_decls(cfg, layers=L)
         decls = {
             "embed": ArrayDecl((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                                init=normal_init(0.02)),
@@ -101,16 +108,21 @@ class LM:
 
     # ------------------------------------------------------------------
     def _layer(self, lp: dict, x: torch.Tensor, *, cache=None):
+        """-> (x, aux, new_kv); aux is 0.0 for an MLP layer."""
         h, new_kv = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
                               cache=cache)
         x = x + h
-        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg)
-        return x, new_kv
+        if "moe" in lp:
+            y, aux = moe(lp["moe"], rms_norm(x, lp["ln2"]), self.cfg)
+        else:
+            y, aux = mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg), 0.0
+        return x + y, aux, new_kv
 
     def _ssm_layer(self, lp: dict, x: torch.Tensor, *, cache=None):
+        """-> (x, aux 0.0, new_ssm)."""
         h, new_ssm = mamba_block(lp["mamba"], rms_norm(x, lp["ln1"]),
                                  self.cfg, cache=cache)
-        return x + h, new_ssm
+        return x + h, 0.0, new_ssm
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(torch.bfloat16)
@@ -122,14 +134,14 @@ class LM:
         return matmul(x, head.to(x.dtype))
 
     def forward(self, params, tokens: torch.Tensor):
-        """tokens: (B, S) -> logits (B, S, V); also returns the aux loss
-        (0 for both families)."""
+        """tokens: (B, S) -> logits (B, S, V); also returns the aux loss,
+        summed over the layers (0.0 without MoE layers)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         layer = self._ssm_layer if cfg.family == "ssm" else self._layer
 
         def body(lp, x):
-            return layer(lp, x)[0]
+            return layer(lp, x)[:2]
 
         run = body
         if cfg.remat and torch.is_grad_enabled():
@@ -142,14 +154,16 @@ class LM:
         # one unbind per stacked leaf: its gradient is one stack, where a
         # slice per layer would add a full-size zero-padded gradient each
         unbound = tree_map(lambda a: a.unbind(0), params["layers"])
+        aux = 0.0
         for i in range(cfg.n_layers):
-            x = run(tree_map(lambda a: a[i], unbound), x)
-        return self._head(params, x), 0.0
+            x, layer_aux = run(tree_map(lambda a: a[i], unbound), x)
+            aux = aux + layer_aux
+        return self._head(params, x), aux
 
     def loss_fn(self, params, batch) -> torch.Tensor:
         """batch: {'tokens': (B, S+1), optional 'mask' (B, S)} -> scalar fp32
-        next-token cross entropy (plus ``AUX_COEF`` times the aux loss, 0
-        for both families)."""
+        next-token cross entropy plus ``AUX_COEF`` times the aux loss (0
+        without MoE layers)."""
         tokens = batch["tokens"]
         logits, aux = self.forward(params, tokens[:, :-1])
         ce = cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
@@ -174,14 +188,14 @@ class LM:
         if self.cfg.family == "ssm":
             for i in range(self.cfg.n_layers):
                 lp = tree_map(lambda a: a[i], params["layers"])
-                x, _ = self._ssm_layer(
+                x, _, _ = self._ssm_layer(
                     lp, x, cache=SSMCache(*(a[i] for a in cache.ssm)))
             return self._head(params, x[:, -1:]), cache
         kv = cache.kv
         new_len = kv.length
         for i in range(self.cfg.n_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
-            x, new_kv = self._layer(
+            x, _, new_kv = self._layer(
                 lp, x, cache=KVCache(kv.k[i], kv.v[i], kv.length))
             new_len = new_kv.length
         logits = self._head(params, x[:, -1:])

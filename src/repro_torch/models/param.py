@@ -29,13 +29,32 @@ Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
                        torch.Tensor]
 
 
+# A leaf is drawn in slices of its leading axis of at most this many
+# elements (at least one row), each cast straight into the result, so the
+# fp32 temporary stays near 4 GiB: one piece for any smaller leaf, one layer
+# at a time for qwen3-moe-235b-a22b's (12, 128, 4096, 1536) expert leaves,
+# whose whole fp32 draw (38.7 GB each) a card cannot hold beside the leaves
+# already made.
+_SLICE_ELEMENTS = 1 << 30
+
+
+def _normal(gen, shape, dtype, std: float) -> torch.Tensor:
+    """N(0, std^2) in ``dtype`` on ``gen``'s device; the same draw for the
+    same generator state."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, _SLICE_ELEMENTS // (math.prod(shape) // shape[0]))
+    for i in range(0, shape[0], rows):
+        # scaled in place: the fp32 slice is the largest tensor made here
+        out[i:i + rows] = torch.randn(
+            (min(rows, shape[0] - i),) + tuple(shape[1:]), generator=gen,
+            device=gen.device).mul_(std)
+    return out
+
+
 def _fan_in_init(fan_axis: int = -2) -> Initializer:
     def init(gen, shape, dtype):
         fan_in = shape[fan_axis] if len(shape) >= 2 else shape[-1]
-        scale = 1.0 / math.sqrt(max(fan_in, 1))
-        # scaled in place: a 15 B model's largest leaf is 24 GB in fp32
-        return torch.randn(shape, generator=gen,
-                           device=gen.device).mul_(scale).to(dtype)
+        return _normal(gen, shape, dtype, 1.0 / math.sqrt(max(fan_in, 1)))
     return init
 
 
@@ -49,8 +68,7 @@ def ones_init(gen, shape, dtype):
 
 def normal_init(stddev: float = 0.02) -> Initializer:
     def init(gen, shape, dtype):
-        return torch.randn(shape, generator=gen,
-                           device=gen.device).mul_(stddev).to(dtype)
+        return _normal(gen, shape, dtype, stddev)
     return init
 
 

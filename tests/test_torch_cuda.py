@@ -21,6 +21,10 @@ norm rule, each of dx, ddt, dA, dB, dC and dstate0 (its tensor-core walk
 stages some operands in bf16: ~0.3% of the norm by
 tools/ssd_bwd_tolerance.py; its scalar walk ~1e-4), and the chunk states
 the forward writes for it to the plain scan's within 1e-4 of their norm.
+The MoE layer (plain torch on both devices) is held to the CPU with its
+routing equal, the output within 1e-5 (fp32) or 2^-6 (bf16,
+tests/test_torch_lm.py's rule) of its largest magnitude, and to itself bit
+for bit across two calls and a CUDA-graph replay.
 """
 
 import dataclasses
@@ -51,6 +55,7 @@ from repro_torch.launch.serve import serve_loop
 from repro_torch.launch.train import train_loop
 from repro_torch.models import build_model, init_params
 from repro_torch.models.attention import attention
+from repro_torch.models.moe import _route, moe, moe_decls
 from repro_torch.models.param import tree_items, tree_map
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -82,7 +87,9 @@ def randn(gen, *shape, dtype):
     (1, 2048, 32, 4, 64),                 # a long prompt
     (8, 512, 48, 4, 128),                 # starcoder2: G = 12, 5 positions
     (8, 512, 48, 8, 128),                 # nemotron, qwen3: G = 6, 10
-    (2, 100, 48, 4, 128)])                # G = 12, ragged S
+    (2, 100, 48, 4, 128),                 # G = 12, ragged S
+    (8, 512, 64, 4, 128),                 # qwen3-moe: G = 16, 4 positions
+    (2, 100, 64, 4, 128)])                # G = 16 at D = 128, ragged S
 def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -103,7 +110,8 @@ def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     (1, 32, 2, 2, 16), (2, 64, 4, 2, 32), (2, 100, 32, 4, 64),
     (8, 512, 32, 4, 64), (2, 256, 32, 4, 128), (2, 256, 8, 8, 64),
     (2, 200, 64, 4, 64), (1, 48, 6, 2, 16), (1, 2048, 32, 4, 64),
-    (8, 512, 48, 4, 128), (8, 512, 48, 8, 128), (2, 100, 48, 4, 128)])
+    (8, 512, 48, 4, 128), (8, 512, 48, 8, 128), (2, 100, 48, 4, 128),
+    (8, 512, 64, 4, 128)])
 def test_flash_cuda_lse_matches_plain(dtype, causal, B, S, H, Hk, D):
     """The rows' log-sum-exp the forward writes when asked, in the folded
     (B, Hk, Sq * G) layout, against its plain version; the output is the
@@ -159,7 +167,9 @@ def test_flash_cuda_reads_strided_views(dtype):
 @pytest.mark.parametrize("length", [1, 63, 64, 65, 300, 527, 528, 544])
 @pytest.mark.parametrize("H,Hk,D", [(32, 4, 64),     # tinyllama
                                     (48, 4, 128),    # starcoder2: G = 12
-                                    (48, 8, 128)])   # nemotron, qwen3: G = 6
+                                    (48, 8, 128),    # nemotron, qwen3: G = 6
+                                    (64, 4, 128)])   # qwen3-moe: G = 16,
+# G x D = 2048, the kernel's limit
 def test_decode_cuda_matches_plain(dtype, length, H, Hk, D):
     """Lengths 63, 64, 65 sit on the first boundary of the kernel's 64-key
     splits, 527 and 528 inside the last full one (528: the mean cache
@@ -912,3 +922,98 @@ def test_mamba2_grads_on_the_card_match_cpu():
     assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
     for k, w in g_cpu.items():
         assert float((g_gpu[k] - w).norm()) <= 3e-2 * float(w.norm()), k
+
+
+# ------------------------------------------------------------------- MoE
+def _moe_layer(mode: str, dtype=torch.bfloat16, **kw):
+    """One MoE layer between the reduced and the full qwen3-moe width
+    (d_model 256, 16 experts of width 128, top-4, capacity factor 1.25),
+    weights drawn on the CPU, and its input (2 x 64 tokens)."""
+    cfg = dataclasses.replace(
+        get_config("qwen3-moe-235b-a22b", reduced=True), d_model=256,
+        d_ff=128, n_experts=16, top_k=4, moe_dispatch=mode, **kw)
+    params = init_params(moe_decls(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    x = torch.randn(2, 64, 256, generator=torch.Generator().manual_seed(1))
+    return cfg, params, x.to(dtype)
+
+
+@pytest.mark.parametrize("mode", ["scatter", "gather"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_cuda_matches_cpu(mode, dtype):
+    """The MoE layer on the card against the CPU, same weights and input:
+    the routing (top-k experts) equal, the output within 1e-5 (fp32) or
+    2^-6 (bf16, tests/test_torch_lm.py's rule) of its largest magnitude,
+    aux within 1e-6."""
+    cfg, params, x = _moe_layer(mode, getattr(torch, dtype))
+    gpu = tree_map(lambda a: a.to("cuda"), params)
+    y_cpu, aux_cpu = moe(params, x, cfg)
+    y_gpu, aux_gpu = moe(gpu, x.to("cuda"), cfg)
+    topi_cpu = _route(params["router"], x, cfg)[0]
+    topi_gpu = _route(gpu["router"], x.to("cuda"), cfg)[0]
+    assert torch.equal(topi_gpu.cpu(), topi_cpu)
+    tol = 1e-5 if dtype == "float32" else 2 ** -6
+    err = (y_gpu.float().cpu() - y_cpu.float()).abs().max()
+    assert float(err / y_cpu.float().abs().max()) < tol
+    assert abs(float(aux_gpu) - float(aux_cpu)) < 1e-6
+
+
+@pytest.mark.parametrize("mode", ["scatter", "gather"])
+def test_moe_cuda_gives_the_same_bits_twice(mode):
+    """No atomics on the layer's path: two calls on one input, at a tight
+    capacity (drops) and a loose one, give the same bits."""
+    for cf in (0.3, 8.0):
+        cfg, params, x = _moe_layer(mode, capacity_factor=cf)
+        gpu = tree_map(lambda a: a.to("cuda"), params)
+        a, aux_a = moe(gpu, x.to("cuda"), cfg)
+        b, aux_b = moe(gpu, x.to("cuda"), cfg)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.parametrize("mode", ["scatter", "gather"])
+def test_moe_cuda_graph_replay_follows_its_input(mode):
+    """The layer at a decode step's shape (8 tokens), captured in a CUDA
+    graph: replayed after its input changes on the device, it equals an
+    eager call bit for bit (nothing on its path reads a value on the
+    host)."""
+    cfg, params, _ = _moe_layer(mode)
+    gpu = tree_map(lambda a: a.to("cuda"), params)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = randn(gen, 8, 1, cfg.d_model, dtype=torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):                   # warm, then capture
+        moe(gpu, x, cfg)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, aux = moe(gpu, x, cfg)
+    for seed in (5, 6):
+        x.copy_(randn(torch.Generator(device="cuda").manual_seed(seed), 8, 1,
+                      cfg.d_model, dtype=torch.bfloat16))
+        graph.replay()
+        want, want_aux = moe(gpu, x, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want) and torch.equal(aux, want_aux)
+
+
+def test_serve_loop_moe_goes_through_the_kernels():
+    flash_kernel.launches = decode_kernel.launches = 0
+    out = serve_loop("qwen3-moe-235b-a22b", batch=2, prompt_len=32,
+                     gen_tokens=5, reduced=True)
+    assert out["tokens"].shape == (2, 5)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 256)).all()
+    n_layers = get_config("qwen3-moe-235b-a22b", reduced=True).n_layers
+    assert flash_kernel.launches == n_layers
+    assert decode_kernel.launches == n_layers * 4
+
+
+def test_serve_loop_refuses_full_depth_moe_before_allocating():
+    """qwen3-moe-235b-a22b at its 94 layers (470 GB of weights) on one
+    card: ValueError naming A.12, and nothing allocated."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="A.12"):
+        serve_loop("qwen3-moe-235b-a22b", batch=1, prompt_len=16,
+                   gen_tokens=2)
+    assert torch.cuda.memory_allocated() == before

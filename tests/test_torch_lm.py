@@ -1,7 +1,8 @@
 """The port's LM and serving loop against the JAX package's, for each arch
 the port runs, reduced (dense: tinyllama-1.1b, starcoder2-15b with gelu and
 nemotron-4-15b with squared ReLU in a plain MLP, qwen3-14b with qk-norm;
-ssm: mamba2-370m), with the JAX weights carried across. ``reduced()``
+moe: qwen3-moe-235b-a22b, 8 experts top-2 with qk-norm; ssm: mamba2-370m),
+with the JAX weights carried across. ``reduced()``
 resets ``pad_heads_to``, so qwen3's zero-masked padded heads run in a
 variant that sets it again (``qwen3-14b/pad6``: 6 lowered heads over 2 KV
 heads, 4 of them real).
@@ -20,7 +21,14 @@ Two references, and why:
   budget above; each test measures that spread itself.
 
 The port's own consistency, prefill(S) + decode(1) against forward(S+1), is
-held to tests/test_archs.py's bound: rel < 0.06 and equal argmax.
+held to tests/test_archs.py's bound: rel < 0.06 and equal argmax (the MoE
+with a capacity factor of 8.0 there, as that test sets it, so that capacity
+cannot couple the token sets).
+
+The JAX MoE layer runs inside a ``shard_map`` over a 1 x 1 mesh, which run
+op by op compiles each primitive alone (~10 s a layer); the autouse
+``one_device_moe`` fixture runs the reference's per-device block without
+that wrapper, which changes no bit (tests/test_torch_moe.py).
 """
 
 import contextlib
@@ -32,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.models.moe as jax_moe_mod
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.models import init_params as jax_init_params
@@ -42,8 +51,14 @@ from repro_torch.models import LM, build_model, params_from_numpy
 TIGHT = 2.0 ** -6
 ARCH = "tinyllama-1.1b"
 ARCHS = ["tinyllama-1.1b", "mamba2-370m", "starcoder2-15b", "nemotron-4-15b",
-         "qwen3-14b"]
+         "qwen3-14b", "qwen3-moe-235b-a22b"]
 VARIANTS = ARCHS + ["qwen3-14b/pad6"]
+
+
+@pytest.fixture(autouse=True)
+def one_device_moe(monkeypatch):
+    monkeypatch.setattr(jax_moe_mod, "shard_map", lambda f, **_: f)
+    monkeypatch.setattr(jax_moe_mod, "model_axis", lambda mesh=None: None)
 
 
 def f32(a) -> np.ndarray:
@@ -111,10 +126,14 @@ def test_forward_matches_jax(seed, arch):
     toks = np.random.default_rng(seed).integers(0, 256, size=(2, 17))
     got, aux = model.forward(params_t, torch.as_tensor(toks))
     assert got.shape == (2, 17, 256) and got.dtype == torch.bfloat16
-    assert aux == 0.0
     with jax.disable_jit():
-        eager, _ = jmodel.forward(params_j, jnp.asarray(toks))
+        eager, eager_aux = jmodel.forward(params_j, jnp.asarray(toks))
     assert rel_err(eager, got) < TIGHT and same_argmax(eager, got)
+    if model.cfg.family == "moe":        # the layers' summed aux losses
+        assert aux.dtype == torch.float32
+        assert abs(float(aux) - float(eager_aux)) < 1e-5
+    else:
+        assert aux == 0.0
     jitted, _ = jmodel.forward(params_j, jnp.asarray(toks))
     assert rel_err(jitted, got) <= rel_err(jitted, eager) + TIGHT
 
@@ -143,6 +162,9 @@ def test_prefill_decode_match_forward(arch):
     more, in JAX as in the port."""
     S = 16
     _, _, model, params_t = models(0, arch)
+    if model.cfg.n_experts:
+        model = build_model(dataclasses.replace(model.cfg,
+                                                capacity_factor=8.0))
     ks = jax.random.split(jax.random.key(2), 4)
     toks = np.array(jax.random.randint(ks[1], (2, S + 1), 0, 256))
     _, dec = port_serving(model, params_t, toks, S)
@@ -207,10 +229,53 @@ def test_serve_loop_without_cuda_raises(monkeypatch, arch):
                          reduced=True)
 
 
-@pytest.mark.parametrize("family,item", [("moe", "A.8"), ("hybrid", "A.10"),
+@pytest.mark.parametrize("family,item", [("hybrid", "A.10"),
                                          ("encdec", "A.11"), ("vlm", "A.7")])
 def test_unported_families_raise(family, item):
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), family=family,
                               n_experts=8, ssm_state=16)
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg)
+
+
+def test_moe_loss_carries_the_aux_term():
+    """loss_fn = cross entropy + AUX_COEF x the layers' summed aux losses
+    (reference lm.py:251-253); each layer's aux is ~1 on a balanced-ish
+    router, so the sum over 4 layers lies near 4."""
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.models.lm import AUX_COEF
+    _, _, model, params_t = models(0, "qwen3-moe-235b-a22b")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 256,
+                                                             (2, 17)))
+    logits, aux = model.forward(params_t, toks[:, :-1])
+    loss = model.loss_fn(params_t, {"tokens": toks})
+    ce = cross_entropy_loss(logits, toks[:, 1:])
+    assert AUX_COEF == 0.01 and 2.0 < float(aux) < 8.0
+    assert float(loss) == float(ce + AUX_COEF * aux)
+
+
+def test_full_depth_moe_serving_on_one_card_raises(monkeypatch):
+    """qwen3-moe-235b-a22b's 94 layers hold 470 GB of bf16 weights: on an
+    80 GiB card serve_loop raises ValueError naming A.12 before it draws a
+    weight; at 12 layers (62 GB) it passes the check (stopped here where it
+    makes the weights' generator)."""
+    class Props:
+        total_memory = 80 * 2 ** 30
+    made = []
+
+    def generator(*args, **kw):
+        made.append(1)
+        raise RuntimeError("stop")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    monkeypatch.setattr(torch, "Generator", generator)
+    with pytest.raises(ValueError, match=r"A\.12.*cut depth"):
+        serve.serve_loop("qwen3-moe-235b-a22b", device="cuda")
+    assert not made
+    full = serve.get_config
+    monkeypatch.setattr(serve, "get_config", lambda arch, reduced=False:
+                        dataclasses.replace(full(arch), n_layers=12))
+    with pytest.raises(RuntimeError, match="stop"):
+        serve.serve_loop("qwen3-moe-235b-a22b", device="cuda")
+    assert made

@@ -17,16 +17,19 @@ from repro_torch.models import build_model, init_params, params_from_numpy
 from repro_torch.models.param import param_count
 
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b"]
+NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b",
+             "qwen3-moe-235b-a22b"]
 ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # parameter counts of the full configs (analysis/flops.py's figures):
 # tinyllama ~1.1 B; mamba2-370m ~367 M; the 15 B archs with an untied head,
-# qwen3's lowered at 48 heads (15.19 B; 14.77 B at its 40)
+# qwen3's lowered at 48 heads (15.19 B; 14.77 B at its 40); qwen3-moe
+# 235.09 B at its 94 layers, 128 experts each
 FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "mamba2-370m": (3.4e8, 3.9e8),
                "starcoder2-15b": (1.55e10, 1.65e10),
                "nemotron-4-15b": (1.55e10, 1.60e10),
-               "qwen3-14b": (1.50e10, 1.55e10)}
+               "qwen3-14b": (1.50e10, 1.55e10),
+               "qwen3-moe-235b-a22b": (2.35e11, 2.36e11)}
 
 
 def _paths(tree, prefix=()):
@@ -102,6 +105,36 @@ def test_init_params_shapes_dtypes_and_distributions():
     assert abs(w_up.std().item() - 1 / np.sqrt(64)) < 0.1 / np.sqrt(64)
 
 
+def test_large_leaves_are_drawn_in_slices(monkeypatch):
+    """A leaf over ``_SLICE_ELEMENTS`` is drawn slice by slice along its
+    leading axis straight into its dtype: no fp32 draw larger than the
+    threshold (or than one row), the same tensor for the same seed, the same
+    distribution. At the real threshold (2^30) qwen3-moe's (12, 128, 4096,
+    1536) expert leaves draw 805 M elements at a time where one draw took
+    9.66 G (38.7 GB of fp32)."""
+    from repro_torch.models import param
+    monkeypatch.setattr(param, "_SLICE_ELEMENTS", 9000)   # 2 rows a slice
+    draws = []
+    randn = torch.randn
+
+    def counting(*args, **kw):
+        out = randn(*args, **kw)
+        draws.append(out.numel())
+        return out
+    monkeypatch.setattr(torch, "randn", counting)
+    decls = {"w": param.ArrayDecl((12, 8, 32, 16), ("layers", None, "embed",
+                                                   None)),
+             "small": param.ArrayDecl((4, 16), ("embed", None))}
+    a = init_params(decls, torch.Generator().manual_seed(5), "cpu")
+    assert max(draws) <= 9000 and len(draws) == 12 // 2 + 1
+    assert a["w"].dtype == torch.bfloat16 and a["w"].shape == (12, 8, 32, 16)
+    b = init_params(decls, torch.Generator().manual_seed(5), "cpu")
+    assert torch.equal(a["w"], b["w"]) and torch.equal(a["small"],
+                                                       b["small"])
+    std = a["w"].float().std().item()          # fan-in 32 (axis -2)
+    assert abs(std - 1 / np.sqrt(32)) < 0.05 / np.sqrt(32)
+
+
 def test_init_params_is_seeded():
     decls = build_model(get_config("tinyllama-1.1b",
                                    reduced=True)).param_decls()
@@ -126,8 +159,8 @@ def test_configs_registry():
         (red_ref.n_layers, red_ref.d_model, red_ref.n_heads,
          red_ref.n_kv_heads, red_ref.head_dim, red_ref.vocab,
          red_ref.q_chunk)
-    with pytest.raises(KeyError, match="ROADMAP item A.8"):
-        get_config("qwen3-moe-235b-a22b")
+    with pytest.raises(KeyError, match="ROADMAP item A.16"):
+        get_config("kimi-k2-1t-a32b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 

@@ -281,10 +281,26 @@ def jax_qwen3_loss_and_grads():
     return _jax_loss_and_grads("qwen3-14b", pad=6)
 
 
+@pytest.fixture(scope="module")
+def jax_qwen3_moe_loss_and_grads():
+    """The same for the reduced qwen3-moe (8 experts, top-2): the loss
+    carries ``AUX_COEF`` times the layers' aux losses, and the fp32 router
+    gets its gradient through the gates and the aux loss. The reference's
+    MoE layer runs without its shard_map wrapper over the 1 x 1 mesh,
+    which changes no bit (tests/test_torch_moe.py) and spares its op-by-op
+    run a compile per primitive."""
+    import repro.models.moe as jax_moe_mod
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_moe_mod, "shard_map", lambda f, **_: f)
+        mp.setattr(jax_moe_mod, "model_axis", lambda mesh=None: None)
+        return _jax_loss_and_grads("qwen3-moe-235b-a22b")
+
+
 @pytest.mark.parametrize("fixture", ["jax_loss_and_grads",
                                      "jax_mamba2_loss_and_grads",
                                      "jax_starcoder2_loss_and_grads",
-                                     "jax_qwen3_loss_and_grads"])
+                                     "jax_qwen3_loss_and_grads",
+                                     "jax_qwen3_moe_loss_and_grads"])
 def test_loss_and_grads_match_jax(fixture, request):
     params, toks, model, jloss, jgrads = request.getfixturevalue(fixture)
     tparams = to_torch(params)
@@ -295,9 +311,11 @@ def test_loss_and_grads_match_jax(fixture, request):
     assert set(tg) == set(jg)
     for k, want in jg.items():
         got, want = f32(tg[k]), f32(want)
-        # bf16 weights (mamba2 keeps dt_bias, A_log and D in fp32)
+        # bf16 weights (mamba2 keeps dt_bias, A_log and D in fp32, the MoE
+        # its router)
         assert tg[k].dtype == port_by_path(tparams)[k].dtype
-        assert tg[k].dtype == torch.bfloat16 or "mamba" in k
+        assert tg[k].dtype == torch.bfloat16 or "mamba" in k \
+            or k.endswith("moe/router")
         assert np.abs(got - want).max() <= 2 ** -5 * np.abs(want).max(), k
     if model.cfg.pad_heads_to:      # the masked heads learn nothing
         n = model.cfg.n_heads
