@@ -21,11 +21,11 @@ ARCHS = {
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen3-14b": "qwen3_14b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 # archs of the JAX package not ported yet -> the ROADMAP item that brings them
 PENDING = {
-    "kimi-k2-1t-a32b": "A.16 (head_dim 112 in the attention kernels)",
     "qwen2-vl-72b": "A.7 (VLM, M-RoPE)",
     "jamba-1.5-large-398b": "A.10 (hybrid)",
     "seamless-m4t-large-v2": "A.11 (encoder-decoder)",

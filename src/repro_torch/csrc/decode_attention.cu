@@ -49,6 +49,15 @@
 //       TF32). Each key row is split over D/4 lanes that dot their 16 bytes
 //       with the G query rows and sum by shuffles; P.V gives each thread two
 //       columns of one or a few heads.
+//   Head sizes: D in {16, 32, 64, 112, 128, 256}, with G * D <= 2048. The
+//   Pallas kernel takes any D (its block spans D whole); the port's D = 112
+//   (kimi-k2-1t-a32b) tiles as follows. bf16: 7 k16 steps of Q.K^T and 14
+//   n8 tiles of P.V, rows of 224 bytes (14 cp.async chunks, padded to 240 in
+//   shared memory, which keeps the fragment loads on distinct banks). fp32:
+//   a key row is 28 chunks of 16 bytes, so 28 lanes work on it inside a
+//   group of 32 whose last 4 lanes add zeros to the shuffle tree (a tree
+//   over 28 lanes would mix in the next row's); P.V has 56 column pairs, so
+//   4 groups of heads take 224 threads and the last 32 have no columns.
 //   combine_kernel: grid (B*Hk, G), the log-sum-exp merge of the
 //     ceil(length / kSplit) live partials:
 //     o = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M). It is a
@@ -109,8 +118,12 @@ split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kVec = 4;                         // elements per 16 bytes
   constexpr int kChunks = D / kVec;               // 16-byte chunks per row
   constexpr int kCpl = kChunks > 32 ? kChunks / 32 : 1;  // chunks per lane
-  constexpr int kLpr = kChunks / kCpl;            // lanes per key row
-  constexpr int kRpw = 32 / kLpr;                 // key rows per warp step
+  constexpr int kLpr = kChunks / kCpl;            // lanes at work on a row
+  // lanes a row takes: kLpr rounded up to a power of two, so the shuffle
+  // tree over them stays inside the row (D = 112: 28 lanes at work in a
+  // group of 32, lanes 28-31 add zeros)
+  constexpr int kLpg = kLpr <= 4 ? 4 : kLpr <= 8 ? 8 : kLpr <= 16 ? 16 : 32;
+  constexpr int kRpw = 32 / kLpg;                 // key rows per warp step
   constexpr int kSteps =                          // warp steps a split
       (kSplit + kWarps * kRpw - 1) / (kWarps * kRpw);
   constexpr int kPairs = D / 2;                   // P.V: column pairs
@@ -119,7 +132,8 @@ split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kGPer = (kGMax + kGroups - 1) / kGroups;  // heads a thread
   constexpr int kPerLane = kSplit / 32;           // softmax: keys a lane
   constexpr int kQPer = (kGMax * D + kThreads - 1) / kThreads;  // q a thread
-  static_assert(kSplit % 32 == 0 && kPairs <= kThreads, "tiling");
+  static_assert(kSplit % 32 == 0 && kPairs <= kThreads
+                && kChunks == kCpl * kLpr && kLpr <= 32, "tiling");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = p.G;
@@ -172,15 +186,15 @@ split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // 1. scores: kLpr lanes per key row, each over kCpl chunks of 16 bytes;
-  //    the row's lanes sum by shuffles, every head at once.
-  const int row_in_step = lane / kLpr, sub = lane % kLpr;
+  //    the row's kLpg lanes sum by shuffles, every head at once.
+  const int row_in_step = lane / kLpg, sub = lane % kLpg;
 #pragma unroll
   for (int it = 0; it < kSteps; ++it) {
     const int r = (it * kWarps + warp) * kRpw + row_in_step;
     float s[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-    if (r < n) {
+    if (r < n && sub < kLpr) {
 #pragma unroll
       for (int c = 0; c < kCpl; ++c) {
         const int col = (sub + c * kLpr) * kVec;
@@ -203,14 +217,14 @@ split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int off = kLpr / 2; off > 0; off >>= 1) {
+    for (int off = kLpg / 2; off > 0; off >>= 1) {
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g)
         if (g < G) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
     }
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g)
-      if (g < G && g % kLpr == sub && r < kSplit)
+      if (g < G && g % kLpg == sub && r < kSplit)
         p_s[g * kSplit + r] = r < n ? s[g] * p.scale : kNegInf;
   }
   __syncthreads();
@@ -250,8 +264,10 @@ split_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // 3. acc(g, d) = sum_j p(g, j) v(j, d): two columns, kGPer heads a thread,
-  //    over all kSplit keys (p and the V rows past n are 0).
+  //    over all kSplit keys (p and the V rows past n are 0). Threads past
+  //    kGroups * kPairs (D = 112: 32 of 256) have no columns.
   const int pair = tid % kPairs, grp = tid / kPairs;
+  if (grp >= kGroups) return;
   float acc[kGPer][2];
 #pragma unroll
   for (int i = 0; i < kGPer; ++i) acc[i][0] = acc[i][1] = 0.f;
@@ -621,7 +637,8 @@ int launch(const T* q, const T* k, const T* v, const int* length, T* o,
 #define DECODE_RUN(DIM)                                                        \
     case DIM:                                                                  \
       return run<T, DIM>(q, k, v, length, o, part_ml, part_acc, B, p, stream);
-    DECODE_RUN(16) DECODE_RUN(32) DECODE_RUN(64) DECODE_RUN(128) DECODE_RUN(256)
+    DECODE_RUN(16) DECODE_RUN(32) DECODE_RUN(64) DECODE_RUN(112)
+    DECODE_RUN(128) DECODE_RUN(256)
 #undef DECODE_RUN
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -636,7 +653,7 @@ extern "C" int decode_attention_keys_per_split() { return kSplit; }
 // C entry points. Pointers are device pointers; `length` points to one
 // int32 on the device; `scratch` holds `scratch_floats` fp32 values. Strides
 // are in elements (innermost stride 1); the caller guarantees H % Hk == 0,
-// D in {16, 32, 64, 128, 256} with (H / Hk) * D <= 2048 and H / Hk <= 16,
+// D in {16, 32, 64, 112, 128, 256} with (H / Hk) * D <= 2048 and H / Hk <= 16,
 // and 16-byte aligned cache rows. o is a contiguous (B, 1, H, D). Returns
 // cudaGetLastError() after the two launches, or cudaErrorInvalidValue for a
 // shape it does not take or a scratch too small.

@@ -55,9 +55,21 @@
 // cuTensorMapEncodeTiled (from cudaGetDriverEntryPoint: no link against
 // libcuda) and passed as __grid_constant__ parameters.
 //
+// Head sizes: D in {16, 32, 64, 112, 128}. The Pallas kernel takes any D
+// (its blocks span D whole); D = 112 (kimi-k2-1t-a32b) is not a whole number
+// of 64-column swizzle panels, so it runs in the D = 128 tile: the tensor
+// maps hold the real D as their inner extent, the TMA box of the second
+// panel (columns 64-127) runs past it and the unit fills columns 112-127
+// with zeros (the barrier still counts the whole box's bytes). Q.K^T takes
+// only the 7 k16 steps that hold data; P.V runs at N = 128, its last 16
+// columns zero, and the epilogue stores 112. The scale stays 1/sqrt(112).
+// Cost: P.V does 128/112 of the products D = 112 needs, and the K/V panels
+// move 128/112 of the bytes into shared memory (device memory reads only
+// the 112 columns).
+//
 // fp32 design (not on a serving path): scalar fp32 FMA, one thread per query
 // row (no TF32: the fp32 tolerance is 2e-5), 16 query positions x G heads a
-// block, K/V tiles of 32 keys staged in shared memory.
+// block, K/V tiles of 32 keys staged in shared memory (D = 112: 28 KB).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -271,7 +283,9 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 // A fragments from registers follow the same rows: for k16 step kk,
 // a = {(gr, 2tq..+1), (gr+8, 2tq..+1), (gr, 2tq+8..+9), (gr+8, 2tq+8..+9)}
 // of columns 16kk.., i.e. the packed accumulators d[8kk .. 8kk+7].
-template <int D>
+// D is the tile's head size, DH <= D the tensors' (columns DH..D-1 of the
+// tiles are the TMA unit's zeros).
+template <int D, int DH = D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -357,12 +371,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_s = kv_s + s * T::kStageBytes;
     const uint32_t v_s = k_s + T::kKVBytes;
 
-    // S = Q K^T: 64 rows x 64 keys, D / 16 steps of k16 (the first one
+    // S = Q K^T: 64 rows x 64 keys, DH / 16 steps of k16 (the first one
     // overwrites the accumulators).
     float sc[kBN / 2];
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DH / 16; ++ks) {
       const int panel = ks / T::kStepsPerPanel;
       const uint32_t col = (ks % T::kStepsPerPanel) * 32;
       wgmma_ss_n64(sc,
@@ -449,7 +463,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (!live[i]) continue;
     bf16* op = o + b * p.os.b + qpos[i] * p.os.s + head[i] * p.os.h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * tq) =
           pack_bf16(acc[4 * j + 2 * i] / l[i], acc[4 * j + 2 * i + 1] / l[i]);
     // lse of the scaled scores, natural units: (m c + log2 l) / log2(e), at
@@ -512,7 +526,7 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DH = D>
 int run_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
              int H, const Params& p, cudaStream_t stream) {
   using T = Tile<D>;
@@ -521,22 +535,22 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
       : T::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   const int P = kBM / p.G;          // query positions a block
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(&tm_q, q, D, H, p.Sq, B, p.qs, T::kPanelCols, p.G, P,
+  if (!make_map(&tm_q, q, DH, H, p.Sq, B, p.qs, T::kPanelCols, p.G, P,
                 swizzle)
-      || !make_map(&tm_k, k, D, p.Hk, p.Skv, B, p.ks, T::kPanelCols, 1, kBN,
+      || !make_map(&tm_k, k, DH, p.Hk, p.Skv, B, p.ks, T::kPanelCols, 1, kBN,
                    swizzle)
-      || !make_map(&tm_v, v, D, p.Hk, p.Skv, B, p.vs, T::kPanelCols, 1, kBN,
+      || !make_map(&tm_v, v, DH, p.Hk, p.Skv, B, p.vs, T::kPanelCols, 1, kBN,
                    swizzle))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<D, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const TmaParams tp{p.Sq, p.Skv, p.Hk, p.G, P, p.causal, p.os,
                      p.scale * kLog2e, p.lse};
   const dim3 grid(B * p.Hk, (p.Sq + P - 1) / P);
-  flash_bf16_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(tm_q, tm_k,
-                                                             tm_v, o, tp);
+  flash_bf16_kernel<D, DH><<<grid, kThreads, T::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, o, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,6 +560,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
     case 16: return run_bf16<16>(q, k, v, o, B, H, p, stream);
     case 32: return run_bf16<32>(q, k, v, o, B, H, p, stream);
     case 64: return run_bf16<64>(q, k, v, o, B, H, p, stream);
+    case 112: return run_bf16<128, 112>(q, k, v, o, B, H, p, stream);
     case 128: return run_bf16<128>(q, k, v, o, B, H, p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -557,6 +572,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
     case 16: run_f32<16>(q, k, v, o, B, p, stream); break;
     case 32: run_f32<32>(q, k, v, o, B, p, stream); break;
     case 64: run_f32<64>(q, k, v, o, B, p, stream); break;
+    case 112: run_f32<112>(q, k, v, o, B, p, stream); break;
     case 128: run_f32<128>(q, k, v, o, B, p, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -567,7 +583,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 
 // C entry points. Pointers are device pointers; strides are in elements for
 // the batch, sequence and head dims of q, k, v, o (innermost stride 1); the
-// caller guarantees H % Hk == 0, H / Hk <= 16, D in {16, 32, 64, 128},
+// caller guarantees H % Hk == 0, H / Hk <= 16, D in {16, 32, 64, 112, 128},
 // 16-byte aligned rows and strides that are multiples of 8 elements (the
 // TMA unit's 16 bytes). lse, when not null, receives each row's fp32
 // log-sum-exp of the scaled scores (natural units) in the backward's

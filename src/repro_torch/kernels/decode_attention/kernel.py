@@ -29,7 +29,7 @@ launches = 0
 
 _ENTRY = {torch.bfloat16: "decode_attention_bf16",
           torch.float32: "decode_attention_f32"}
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _MAX_GROUP = 16
 _MAX_GROUP_X_D = 2048
 

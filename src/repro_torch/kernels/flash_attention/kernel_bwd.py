@@ -21,7 +21,7 @@ import functools
 import torch
 
 from .. import _build
-from .kernel import _HEAD_DIMS, _MAX_GROUP, _check_layout
+from .kernel import _MAX_GROUP, _check_layout
 
 __all__ = ["flash_attention_bwd_cuda", "split_plan", "auto_split"]
 
@@ -31,6 +31,9 @@ launches = 0
 
 _ENTRY = {torch.bfloat16: "flash_attention_bwd_bf16",
           torch.float32: "flash_attention_bwd_f32"}
+# The backward's own head sizes: the forward also takes D = 112, which only
+# kimi-k2-1t-a32b has and which it only serves (no card trains it alone).
+_HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64                        # keys a dk/dv block; rows a range, a unit
 _MAX_ROWS = TILE * 65535         # tiles of 64 rows on the grid's y axis
 BLOCKS_PER_SM = 2                # the dk/dv grid auto_split aims for
@@ -113,8 +116,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if Sq < 1 or Skv < 1:
         raise ValueError(f"empty sequence: Sq {Sq}, Skv {Skv}")
     if D not in _HEAD_DIMS or H // Hk > _MAX_GROUP:
-        raise ValueError(f"head_dim {D} (takes {_HEAD_DIMS}) or group "
-                         f"{H // Hk} (takes <= {_MAX_GROUP}) not supported")
+        raise ValueError(f"head_dim {D} (takes {_HEAD_DIMS}; 112 is "
+                         f"ROADMAP B.6) or group {H // Hk} (takes <= "
+                         f"{_MAX_GROUP}) not supported")
     G = H // Hk
     if max(Sq * G, Skv) > _MAX_ROWS:
         raise ValueError(f"Sq * group {Sq * G} or Skv {Skv} over "

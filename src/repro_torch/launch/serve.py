@@ -6,10 +6,11 @@ It runs on the card (``device="cuda"``, full width and depth) unless the
 caller asks for the CPU, where it takes the kernels' plain versions; without
 CUDA and without ``device="cpu"`` it raises. The archs are those of
 ``repro_torch.configs``: tinyllama-1.1b, mamba2-370m, starcoder2-15b,
-nemotron-4-15b, qwen3-14b and qwen3-moe-235b-a22b. Each of the three 15 B
-archs holds ~30 GB of bf16 weights, so one card serves one of them at a
-time; qwen3-moe-235b-a22b holds 470 GB at its 94 layers, so on one card it
-serves only at a cut depth (12 layers: 62 GB), and a model whose weights
+nemotron-4-15b, qwen3-14b, qwen3-moe-235b-a22b and kimi-k2-1t-a32b. Each
+of the three 15 B archs holds ~30 GB of bf16 weights, so one card serves one
+of them at a time. The two MoE archs serve on one card only at a cut depth:
+qwen3-moe-235b-a22b holds 470 GB at its 94 layers (12 layers: 62 GB),
+kimi-k2-1t-a32b ~2 TB at its 61 (2 layers: 73 GB). A model whose weights
 exceed the card's memory raises ``ValueError`` before anything is
 allocated.
 """

@@ -74,6 +74,14 @@ def attention_decls(cfg: ModelConfig, layers: int | None = None) -> dict:
 
 
 # ----------------------------------------------------------------------
+def _scale(D: int, dtype: torch.dtype) -> torch.Tensor:
+    """1/sqrt(D) in q's dtype: in the reference ``q * scale`` takes the
+    Python float weakly typed, so a bf16 q is multiplied by the scale
+    rounded to bf16 (at D = 112 or 128 it is not exact: 0.25% off at 112),
+    where torch would multiply by the fp32 scale."""
+    return torch.tensor(1.0 / math.sqrt(D), dtype=dtype)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, q_chunk: int, kv_chunk: int,
                         softmax_dtype: torch.dtype = torch.float32
@@ -89,7 +97,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, D = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
     G = H // Hk
-    scale = 1.0 / math.sqrt(D)
+    scale = _scale(D, q.dtype)
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Skv)
     if Sq % q_chunk or Skv % kv_chunk:
@@ -133,8 +141,7 @@ def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
     B, Sq, H, D = q.shape
     L, Hk = cache.k.shape[1], cache.k.shape[2]
     G = H // Hk
-    scale = 1.0 / math.sqrt(D)
-    qr = q.reshape(B, Sq, Hk, G, D) * scale
+    qr = q.reshape(B, Sq, Hk, G, D) * _scale(D, q.dtype)
     s = torch.einsum("bqhgd,bkhd->bqhgk", qr.float(), cache.k.float())
     valid = torch.arange(L, device=q.device) < cache.length
     s = torch.where(valid, s, torch.tensor(NEG_INF, device=q.device))

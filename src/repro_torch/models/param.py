@@ -30,24 +30,38 @@ Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
 
 
 # A leaf is drawn in slices of its leading axis of at most this many
-# elements (at least one row), each cast straight into the result, so the
-# fp32 temporary stays near 4 GiB: one piece for any smaller leaf, one layer
-# at a time for qwen3-moe-235b-a22b's (12, 128, 4096, 1536) expert leaves,
-# whose whole fp32 draw (38.7 GB each) a card cannot hold beside the leaves
-# already made.
+# elements, each cast straight into the result, so the fp32 temporary stays
+# near 4 GiB: one piece for any smaller leaf, one layer at a time for
+# qwen3-moe-235b-a22b's (12, 128, 4096, 1536) expert leaves, whose whole
+# fp32 draw (38.7 GB each) a card cannot hold beside the leaves already
+# made. Where one row of the leading axis is itself larger (kimi-k2-1t-a32b:
+# a layer of its (2, 384, 7168, 2048) expert leaves is 5.6 G elements), each
+# row is drawn the same way along its own leading axis.
 _SLICE_ELEMENTS = 1 << 30
+
+
+def _fill_normal(out: torch.Tensor, gen, std: float) -> None:
+    """``out`` filled with N(0, std^2) draws in slices of its leading axis of
+    at most ``_SLICE_ELEMENTS`` elements (rows larger than that, row by row
+    along their own leading axis)."""
+    row = out[0].numel() if out.dim() > 1 else 1
+    if row > _SLICE_ELEMENTS:
+        for i in range(out.shape[0]):
+            _fill_normal(out[i], gen, std)
+        return
+    rows = max(1, _SLICE_ELEMENTS // row)
+    for i in range(0, out.shape[0], rows):
+        # scaled in place: the fp32 slice is the largest tensor made here
+        out[i:i + rows] = torch.randn(
+            (min(rows, out.shape[0] - i),) + tuple(out.shape[1:]),
+            generator=gen, device=gen.device).mul_(std)
 
 
 def _normal(gen, shape, dtype, std: float) -> torch.Tensor:
     """N(0, std^2) in ``dtype`` on ``gen``'s device; the same draw for the
     same generator state."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
-    rows = max(1, _SLICE_ELEMENTS // (math.prod(shape) // shape[0]))
-    for i in range(0, shape[0], rows):
-        # scaled in place: the fp32 slice is the largest tensor made here
-        out[i:i + rows] = torch.randn(
-            (min(rows, shape[0] - i),) + tuple(shape[1:]), generator=gen,
-            device=gen.device).mul_(std)
+    _fill_normal(out, gen, std)
     return out
 
 

@@ -108,6 +108,26 @@ def test_unported_attention_options_raise(field, item):
         attention({}, x, cfg)
 
 
+@pytest.mark.parametrize("mode", ["no_cache", "prefill", "decode"])
+@pytest.mark.parametrize("head_dim", [112, 128])
+def test_inexact_scale_rounds_as_jax(mode, head_dim):
+    """At D = 112 (kimi-k2) and 128, 1/sqrt(D) is no bf16 number. The
+    reference multiplies a bf16 q by the scale rounded to bf16 (a weakly
+    typed Python float takes the array's dtype), and so must the port: with
+    the fp32 scale its plain path parted from the reference's by 1.7% of
+    this layer's output at D = 112."""
+    jcfg, tcfg = (dataclasses.replace(get("kimi-k2-1t-a32b", reduced=True),
+                                      head_dim=head_dim)
+                  for get in (jax_get_config, get_config))
+    params_j = jax_init_params(jax_attention_decls(jcfg), jax.random.key(0))
+    S = 16
+    x_j = jnp.asarray(np.random.default_rng(0).standard_normal(
+        (2, S + 1, jcfg.d_model)), jnp.bfloat16)
+    ref, got = run_modes(params_j, to_torch(params_j), jcfg, tcfg, mode,
+                         x_j, to_torch({"x": x_j})["x"], S)
+    assert got.shape == ref.shape and rel_err(ref, got) < REL
+
+
 def qwen3_configs(pad):
     """Reduced qwen3-14b (qk-norm; 4 heads over 2 KV heads) on both sides;
     ``pad`` sets ``pad_heads_to``, which ``reduced()`` resets to None."""

@@ -89,7 +89,10 @@ def randn(gen, *shape, dtype):
     (8, 512, 48, 8, 128),                 # nemotron, qwen3: G = 6, 10
     (2, 100, 48, 4, 128),                 # G = 12, ragged S
     (8, 512, 64, 4, 128),                 # qwen3-moe: G = 16, 4 positions
-    (2, 100, 64, 4, 128)])                # G = 16 at D = 128, ragged S
+    (2, 100, 64, 4, 128),                 # G = 16 at D = 128, ragged S
+    (8, 512, 64, 8, 112),                 # kimi-k2: D = 112 in the 128
+    (2, 100, 64, 8, 112),                 # tile, G = 8; and a ragged S
+    (1, 64, 16, 2, 112)])
 def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -111,7 +114,7 @@ def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     (8, 512, 32, 4, 64), (2, 256, 32, 4, 128), (2, 256, 8, 8, 64),
     (2, 200, 64, 4, 64), (1, 48, 6, 2, 16), (1, 2048, 32, 4, 64),
     (8, 512, 48, 4, 128), (8, 512, 48, 8, 128), (2, 100, 48, 4, 128),
-    (8, 512, 64, 4, 128)])
+    (8, 512, 64, 4, 128), (8, 512, 64, 8, 112), (2, 100, 64, 8, 112)])
 def test_flash_cuda_lse_matches_plain(dtype, causal, B, S, H, Hk, D):
     """The rows' log-sum-exp the forward writes when asked, in the folded
     (B, Hk, Sq * G) layout, against its plain version; the output is the
@@ -168,13 +171,14 @@ def test_flash_cuda_reads_strided_views(dtype):
 @pytest.mark.parametrize("H,Hk,D", [(32, 4, 64),     # tinyllama
                                     (48, 4, 128),    # starcoder2: G = 12
                                     (48, 8, 128),    # nemotron, qwen3: G = 6
-                                    (64, 4, 128)])   # qwen3-moe: G = 16,
-# G x D = 2048, the kernel's limit
+                                    (64, 4, 128),    # qwen3-moe: G = 16,
+                                    # G x D = 2048, the kernel's limit
+                                    (64, 8, 112)])   # kimi-k2: G = 8
 def test_decode_cuda_matches_plain(dtype, length, H, Hk, D):
     """Lengths 63, 64, 65 sit on the first boundary of the kernel's 64-key
     splits, 527 and 528 inside the last full one (528: the mean cache
     length of the serving path); 544 fills the cache (9 splits, the last
-    one half full)."""
+    one half full). D = 112 in fp32 takes the 28-lane key rows."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(2)
     B, L = 8, 544
@@ -196,7 +200,9 @@ def test_decode_cuda_matches_plain(dtype, length, H, Hk, D):
                                         (2, 32, 4, 128, 1000),
                                         (2, 4, 4, 64, 544),     # G = 1
                                         (2, 64, 4, 64, 544),    # G = 16
-                                        (1, 8, 1, 256, 200)])   # D = 256
+                                        (1, 8, 1, 256, 200),    # D = 256
+                                        (2, 16, 2, 112, 256),   # D = 112
+                                        (1, 16, 1, 112, 8192)])
 def test_decode_cuda_other_shapes(B, H, Hk, D, L):
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = randn(gen, B, 1, H, D, dtype=torch.bfloat16)
@@ -1016,4 +1022,29 @@ def test_serve_loop_refuses_full_depth_moe_before_allocating():
     with pytest.raises(ValueError, match="A.12"):
         serve_loop("qwen3-moe-235b-a22b", batch=1, prompt_len=16,
                    gen_tokens=2)
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_flash_bwd_cuda_refuses_head_dim_112():
+    """The forward serves D = 112; the backward raises ValueError naming
+    ROADMAP item B.6 and launches nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, o, do = (randn(gen, 1, 64, 16, 112, dtype=torch.bfloat16)
+                for _ in range(3))
+    k, v = (randn(gen, 1, 64, 2, 112, dtype=torch.bfloat16)
+            for _ in range(2))
+    _, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    before = flash_bwd_kernel.launches
+    with pytest.raises(ValueError, match=r"head_dim 112.*B\.6"):
+        flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    assert flash_bwd_kernel.launches == before
+
+
+def test_serve_loop_refuses_full_depth_kimi_before_allocating():
+    """kimi-k2-1t-a32b at its 61 layers (2.09 TB of weights) on one card:
+    ValueError naming A.12, and nothing allocated."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="A.12"):
+        serve_loop("kimi-k2-1t-a32b", batch=1, prompt_len=16, gen_tokens=2)
     assert torch.cuda.memory_allocated() == before

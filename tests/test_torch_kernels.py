@@ -55,6 +55,7 @@ def max_err(ref, got) -> float:
     (2, 64, 4, 2, 32, 32, 32),      # GQA group 2
     (1, 128, 8, 2, 64, 64, 32),     # GQA group 4, rectangular blocks
     (1, 64, 6, 1, 32, 16, 64),      # MQA-ish, bk > bq
+    (1, 64, 16, 2, 112, 32, 32),    # kimi-k2's head_dim 112 at group 8
 ])
 def test_flash_plain_matches_pallas(dtype, causal, B, S, H, Hk, D, bq, bk):
     (qj, qt), (kj, kt), (vj, vt) = inputs(
@@ -72,6 +73,7 @@ def test_flash_plain_matches_pallas(dtype, causal, B, S, H, Hk, D, bq, bk):
     (2, 8, 2, 32, 256, 64),
     (1, 4, 4, 16, 256, 128),        # MHA
     (3, 6, 1, 64, 256, 256),        # MQA, single block
+    (2, 16, 2, 112, 256, 64),       # kimi-k2's head_dim 112 at group 8
 ])
 def test_decode_plain_matches_pallas(dtype, used, B, H, Hk, D, L, bk):
     (qj, qt), (kj, kt), (vj, vt) = inputs(
@@ -141,3 +143,13 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(q[:, :1], k, v,
                               torch.tensor(1, dtype=torch.int32))
+
+
+def test_flash_backward_refuses_head_dim_112():
+    """The forward takes D = 112 (kimi-k2 serves at it); the backward kernel
+    keeps its own head sizes without it. The refusal itself, a ValueError
+    naming ROADMAP B.6 before any launch, needs CUDA tensors:
+    tests/test_torch_cuda.py::test_flash_bwd_cuda_refuses_head_dim_112."""
+    import repro_torch.kernels.flash_attention.kernel_bwd as bwd_kernel
+    assert 112 in flash_kernel._HEAD_DIMS
+    assert bwd_kernel._HEAD_DIMS == (16, 32, 64, 128)

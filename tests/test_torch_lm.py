@@ -1,11 +1,14 @@
 """The port's LM and serving loop against the JAX package's, for each arch
 the port runs, reduced (dense: tinyllama-1.1b, starcoder2-15b with gelu and
 nemotron-4-15b with squared ReLU in a plain MLP, qwen3-14b with qk-norm;
-moe: qwen3-moe-235b-a22b, 8 experts top-2 with qk-norm; ssm: mamba2-370m),
+moe: qwen3-moe-235b-a22b, 8 experts top-2 with qk-norm, and
+kimi-k2-1t-a32b, 8 experts top-2 and a shared expert; ssm: mamba2-370m),
 with the JAX weights carried across. ``reduced()``
 resets ``pad_heads_to``, so qwen3's zero-masked padded heads run in a
 variant that sets it again (``qwen3-14b/pad6``: 6 lowered heads over 2 KV
-heads, 4 of them real).
+heads, 4 of them real), and sets ``head_dim`` to 16, so kimi-k2's own
+head size runs in a variant that sets 112 again on both sides
+(``kimi-k2-1t-a32b/d112``).
 
 Two references, and why:
 
@@ -33,6 +36,7 @@ that wrapper, which changes no bit (tests/test_torch_moe.py).
 
 import contextlib
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -51,8 +55,8 @@ from repro_torch.models import LM, build_model, params_from_numpy
 TIGHT = 2.0 ** -6
 ARCH = "tinyllama-1.1b"
 ARCHS = ["tinyllama-1.1b", "mamba2-370m", "starcoder2-15b", "nemotron-4-15b",
-         "qwen3-14b", "qwen3-moe-235b-a22b"]
-VARIANTS = ARCHS + ["qwen3-14b/pad6"]
+         "qwen3-14b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"]
+VARIANTS = ARCHS + ["qwen3-14b/pad6", "kimi-k2-1t-a32b/d112"]
 
 
 @pytest.fixture(autouse=True)
@@ -77,11 +81,15 @@ def same_argmax(ref, got) -> bool:
 
 
 def configs(variant):
-    """The reduced configs of ``arch`` or ``arch/padN`` (JAX's, the
-    port's), the latter with ``pad_heads_to=N``."""
-    arch, _, pad = variant.partition("/pad")
-    return tuple(dataclasses.replace(get(arch, reduced=True),
-                                     pad_heads_to=int(pad) if pad else None)
+    """The reduced configs of ``arch``, ``arch/padN`` or ``arch/dN`` (JAX's,
+    the port's), the second with ``pad_heads_to=N``, the third with
+    ``head_dim=N``."""
+    arch, _, over = variant.partition("/")
+    kw = {}
+    if over:
+        name, n = re.fullmatch(r"([a-z]+)(\d+)", over).groups()
+        kw = {{"pad": "pad_heads_to", "d": "head_dim"}[name]: int(n)}
+    return tuple(dataclasses.replace(get(arch, reduced=True), **kw)
                  for get in (jax_get_config, get_config))
 
 
@@ -254,11 +262,11 @@ def test_moe_loss_carries_the_aux_term():
     assert float(loss) == float(ce + AUX_COEF * aux)
 
 
-def test_full_depth_moe_serving_on_one_card_raises(monkeypatch):
-    """qwen3-moe-235b-a22b's 94 layers hold 470 GB of bf16 weights: on an
-    80 GiB card serve_loop raises ValueError naming A.12 before it draws a
-    weight; at 12 layers (62 GB) it passes the check (stopped here where it
-    makes the weights' generator)."""
+def refuses_full_depth(monkeypatch, arch: str, layers: int) -> None:
+    """On an 80 GiB card serve_loop of ``arch`` at full depth raises
+    ValueError naming A.12 before it draws a weight; at ``layers`` layers it
+    passes the check (stopped here where it makes the weights'
+    generator)."""
     class Props:
         total_memory = 80 * 2 ** 30
     made = []
@@ -271,11 +279,23 @@ def test_full_depth_moe_serving_on_one_card_raises(monkeypatch):
                         lambda device: Props)
     monkeypatch.setattr(torch, "Generator", generator)
     with pytest.raises(ValueError, match=r"A\.12.*cut depth"):
-        serve.serve_loop("qwen3-moe-235b-a22b", device="cuda")
+        serve.serve_loop(arch, device="cuda")
     assert not made
     full = serve.get_config
     monkeypatch.setattr(serve, "get_config", lambda arch, reduced=False:
-                        dataclasses.replace(full(arch), n_layers=12))
+                        dataclasses.replace(full(arch), n_layers=layers))
     with pytest.raises(RuntimeError, match="stop"):
-        serve.serve_loop("qwen3-moe-235b-a22b", device="cuda")
+        serve.serve_loop(arch, device="cuda")
     assert made
+
+
+def test_full_depth_moe_serving_on_one_card_raises(monkeypatch):
+    """qwen3-moe-235b-a22b's 94 layers hold 470 GB of bf16 weights; 12
+    layers (62 GB) fit."""
+    refuses_full_depth(monkeypatch, "qwen3-moe-235b-a22b", 12)
+
+
+def test_full_depth_kimi_serving_on_one_card_raises(monkeypatch):
+    """kimi-k2-1t-a32b's 61 layers hold 2.09 TB of bf16 weights; 2 layers
+    (73.0 GB) fit."""
+    refuses_full_depth(monkeypatch, "kimi-k2-1t-a32b", 2)

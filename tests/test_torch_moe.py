@@ -353,3 +353,82 @@ def test_port_module_is_the_models_export():
     from repro_torch import models
     assert models.moe is port_moe_mod.moe
     assert models.moe_decls is port_moe_mod.moe_decls
+
+
+# ----------------------------------------------------------------------
+# chip_smoke.py's MoE model check compares the card's routing with the
+# CPU's through ``routes_apart``; its rules, on routings made here by the
+# port's own ``_route``
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _recorded(logits: torch.Tensor, k: int) -> tuple:
+    """(topi, gates, logits) as ``record_routes`` holds one call: the
+    router's input is the identity, so its logits are ``logits``."""
+    T, E = logits.shape
+    cfg = ModelConfig(name="t", family="moe", n_layers=1, d_model=T,
+                      n_heads=1, n_kv_heads=1, head_dim=T, d_ff=8,
+                      vocab=8, n_experts=E, top_k=k)
+    topi, gates, _ = _route(logits, torch.eye(T)[None], cfg)
+    return topi, gates, logits
+
+
+def _near_tie_logits(T=64, E=48, k=4, seed=0):
+    """CPU logits with a near-tie between token 0's k-th and (k+1)-th
+    expert (1e-4 apart), and the card's: the CPU's plus 1e-5 noise, with
+    that pair swapped by 2e-4."""
+    rng = np.random.default_rng(seed)
+    cpu = torch.from_numpy(rng.standard_normal((T, E)).astype(np.float32))
+    order = cpu[0].argsort(descending=True)
+    a, b = order[k - 1], order[k]
+    cpu[0, b] = cpu[0, a] - 1e-4
+    card = cpu + torch.from_numpy(
+        rng.normal(0, 1e-5, (T, E)).astype(np.float32))
+    card[0, b] = cpu[0, a] + 1e-4
+    return cpu, card, k
+
+
+def test_routes_apart_passes_a_near_tie_flipped():
+    smoke = _chip_smoke()
+    cpu, card, k = _near_tie_logits()
+    got = smoke.routes_apart(_recorded(cpu, k), _recorded(card, k))
+    assert got["apart"] == 1 and got["choices"] == cpu.shape[0] * k
+    assert 0 < got["gap"] <= 1.5e-4
+    assert got["excess"] <= 0
+    assert got["gate_err"] < smoke.GATE_TOL
+
+
+def test_routes_apart_fails_a_top_k_off_by_one():
+    """The card's k-th choice replaced by its (k+1)-th ranked expert, as
+    chip_smoke.py's planted fault does: the tokens route apart, each past
+    what the logits' difference accounts for."""
+    smoke = _chip_smoke()
+    cpu, card, k = _near_tie_logits()
+    topi, gates, logits = _recorded(card, k)
+    order = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True,
+                       stable=True)[1]
+    wrong = torch.cat([topi[:, :-1], order[:, k:k + 1]], 1)
+    got = smoke.routes_apart(_recorded(cpu, k), (wrong, gates, logits))
+    # token 0's card already took the CPU's (k+1)-th: there the fault
+    # routes it back to the CPU's choice
+    assert got["apart"] == cpu.shape[0] - 1
+    assert got["apart"] > smoke.APART_MAX * got["choices"]
+    assert got["excess"] > 0
+
+
+def test_routes_apart_fails_gates_not_renormalised():
+    smoke = _chip_smoke()
+    cpu, card, k = _near_tie_logits()
+    topi, gates, logits = _recorded(card, k)
+    probs = torch.softmax(logits, -1).gather(1, topi)
+    got = smoke.routes_apart(_recorded(cpu, k), (topi, probs, logits))
+    assert got["gate_err"] > smoke.GATE_TOL
+    sound = smoke.routes_apart(_recorded(cpu, k), (topi, gates, logits))
+    assert sound["gate_err"] < 1e-4

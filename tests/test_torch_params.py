@@ -18,18 +18,20 @@ from repro_torch.models.param import param_count
 
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b",
-             "qwen3-moe-235b-a22b"]
+             "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"]
 ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # parameter counts of the full configs (analysis/flops.py's figures):
 # tinyllama ~1.1 B; mamba2-370m ~367 M; the 15 B archs with an untied head,
 # qwen3's lowered at 48 heads (15.19 B; 14.77 B at its 40); qwen3-moe
-# 235.09 B at its 94 layers, 128 experts each
+# 235.09 B at its 94 layers, 128 experts each; kimi-k2 1043.85 B at its 61
+# layers, 384 experts and one shared expert each
 FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "mamba2-370m": (3.4e8, 3.9e8),
                "starcoder2-15b": (1.55e10, 1.65e10),
                "nemotron-4-15b": (1.55e10, 1.60e10),
                "qwen3-14b": (1.50e10, 1.55e10),
-               "qwen3-moe-235b-a22b": (2.35e11, 2.36e11)}
+               "qwen3-moe-235b-a22b": (2.35e11, 2.36e11),
+               "kimi-k2-1t-a32b": (1.043e12, 1.044e12)}
 
 
 def _paths(tree, prefix=()):
@@ -135,6 +137,34 @@ def test_large_leaves_are_drawn_in_slices(monkeypatch):
     assert abs(std - 1 / np.sqrt(32)) < 0.05 / np.sqrt(32)
 
 
+def test_rows_over_the_threshold_are_drawn_row_by_row(monkeypatch):
+    """A leaf one row of whose leading axis is itself over
+    ``_SLICE_ELEMENTS`` is drawn row by row, each row in slices of its own
+    leading axis: no fp32 draw over the threshold. At the real threshold
+    kimi-k2-1t-a32b's (2, 384, 7168, 2048) expert leaves draw 73 of a
+    layer's 384 experts (1.07 G elements) at a time where a layer alone is
+    5.6 G (22.5 GB of fp32)."""
+    from repro_torch.models import param
+    monkeypatch.setattr(param, "_SLICE_ELEMENTS", 1200)   # 2 of 8 a slice
+    draws = []
+    randn = torch.randn
+
+    def counting(*args, **kw):
+        out = randn(*args, **kw)
+        draws.append(out.numel())
+        return out
+    monkeypatch.setattr(torch, "randn", counting)
+    decls = {"w": param.ArrayDecl((3, 8, 32, 16), ("layers", None, "embed",
+                                                  None))}
+    a = init_params(decls, torch.Generator().manual_seed(6), "cpu")["w"]
+    assert max(draws) <= 1200 and len(draws) == 3 * (8 // 2)
+    b = init_params(decls, torch.Generator().manual_seed(6), "cpu")["w"]
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert len(set(a[:, :, 0, 0].flatten().tolist())) == 24   # no repeats
+    std = a.float().std().item()               # fan-in 32 (axis -2)
+    assert abs(std - 1 / np.sqrt(32)) < 0.05 / np.sqrt(32)
+
+
 def test_init_params_is_seeded():
     decls = build_model(get_config("tinyllama-1.1b",
                                    reduced=True)).param_decls()
@@ -159,8 +189,8 @@ def test_configs_registry():
         (red_ref.n_layers, red_ref.d_model, red_ref.n_heads,
          red_ref.n_kv_heads, red_ref.head_dim, red_ref.vocab,
          red_ref.q_chunk)
-    with pytest.raises(KeyError, match="ROADMAP item A.16"):
-        get_config("kimi-k2-1t-a32b")
+    with pytest.raises(KeyError, match="ROADMAP item A.11"):
+        get_config("seamless-m4t-large-v2")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
