@@ -23,7 +23,10 @@ Phases, each fatal on failure:
    forward and decode at their serving shapes, the backward at 2 x 256
    tokens with planted faults on the G = 12 blocks' edges; qwen3-moe's
    heads, G = 16 at D = 128: flash at its serving shape and a ragged S,
-   decode at its serving shape, G x D at the kernel's limit; kimi-k2's
+   decode at its serving shape, G x D at the kernel's limit, the backward
+   at its training shape (8 x 512 tokens; timed, with SDPA's backward
+   beside it; the record's "g16" entry) and a ragged S, with planted
+   faults on the G = 16 blocks' edges; kimi-k2's
    heads, G = 8 at D = 112, in bf16 and fp32: flash at its serving shape
    and a ragged S, decode at its serving shape), to bf16 2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
@@ -45,9 +48,14 @@ Phases, each fatal on failure:
    layers (73 GB; 384 experts and a shared expert, flash and decode at
    G = 8, D = 112), batch 8, 512-token prompts, 32 new tokens; and
    ``train_loop("tinyllama-1.1b")`` (flash forward and backward), batch 8,
-   512 tokens, and ``train_loop("mamba2-370m")`` (ssd forward and
-   backward), the same shape, on the synthetic pipeline. Each is called
-   once to warm up
+   512 tokens, ``train_loop("mamba2-370m")`` (ssd forward and
+   backward) and ``train_loop("qwen3-moe-235b-a22b")`` at full width cut
+   to 1 of its 94 layers (44.8 GB of training state; flash forward and
+   backward at G = 16, D = 128; 805 M-element expert leaves under AdamW;
+   ms a step, tokens/s, 6·N_active·tokens/s / 989 TFLOP/s, the peak held
+   within 1.05 x AdamW's derived peak: the state plus 7 fp32 temporaries
+   of the largest leaf), the same shape, remat "full", on the synthetic
+   pipeline. Each is called once to warm up
    (the first call of each shape pays one-time library and module-loading
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
@@ -56,9 +64,11 @@ Phases, each fatal on failure:
    starcoder2-15b, the 12-layer qwen3-moe and the 2-layer kimi-k2 (beside
    the bytes a step must read; the MoE archs' device time also split into
    routing, dispatch, expert products, combine and attention), one mamba2
-   prefill and one train step of each trained model, for the device's
-   busy share and the kernels that take its time (at prefill, the ssd
-   kernel's share; in training, the flash or ssd forward's and backward's);
+   prefill and one train step of each trained model (qwen3-moe at 1
+   layer), for the device's busy share and the kernels that take its time
+   (at prefill, the ssd kernel's share; in training, the flash or ssd
+   forward's and backward's, the GEMMs', the elementwise work's, the
+   expert products' (``aten::bmm``) and AdamW's alone);
 6. model check (attention weights at std 1/sqrt(fan-in), where the
    reference's draw saturates the softmax: ``model_check``): a depth-2,
    full-width model of each of six archs, and kimi-k2 at depth 1 (the
@@ -78,7 +88,13 @@ Phases, each fatal on failure:
    each gradient within 3e-2 of its norm, each layer's backward-kernel
    gradients against the plain backward on the same captured tensors
    within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
-   gradient within 3e-2 of its norm); for tinyllama and mamba2 a crash
+   gradient within 3e-2 of its norm); the same step of a depth-2
+   qwen3-moe (``moe_train_check``: 2 x 256 tokens, the CPU's experts fed
+   to the card's MoE layers, in both dispatch modes, remat off and under
+   "full", "dots" and "names"; its own-routing step printed, not held);
+   one depth-1 qwen3-moe step at 8 x 512 tokens under each remat policy
+   and without remat, with its ms, peak and flash launches
+   (``remat_policy_steps``); for tinyllama and mamba2 a crash
    after step 4 and a resume from the checkpoint saved there, reproducing
    the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit for bit);
 7. orchestrate (``orchestrate_check``): tinyllama's train step under the
@@ -94,7 +110,9 @@ Phases, each fatal on failure:
 
 The run's whole time is printed when every phase has passed. The line
 before the last is the kernels' JSON record (the flash and decode entries
-also hold their D = 112 rows, "d112" in bf16 and "d112_f32"); the last
+also hold their D = 112 rows, "d112" in bf16 and "d112_f32", and the
+flash backward its G = 16 row, "g16", with its launches on the qwen3-moe
+training path); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -615,18 +633,22 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     """The flash backward kernel against autograd through the plain version:
     dq, dk and dv each within ``BWD_TOL`` of their norm (||got - want|| /
     ||want||, 1e-2 in bf16, 1e-4 in fp32) at the training shape, causal and
-    full; ragged S; G = 1; D = 128; a 2048-token sequence; fp32. A rule on
-    the largest magnitude would not do: under the causal mask the first
-    keys' dk and dv are ~100x the typical key's, so it would pass a kernel
-    that is 10% wrong on most keys. At the training shape the check is
-    shown to see such faults: the kernel's own result, with dv or dk scaled
-    by 0.9 past key 128, dv zeroed on the last 12% of keys or dq scaled by
-    0.9 on the last 12% of rows, must each fail the rule
-    (``tools/flash_bwd_tolerance.py`` gives the kernel's rounding ~0.3% and
-    these faults 1.9-4.3% on the CPU). The training shape and the long
-    sequence are timed, backward alone: the kernel, the plain version and,
-    as the yardstick, SDPA's backward (``torch.autograd.grad`` through SDPA
-    with ``enable_gqa``, its forward outside the timed call)."""
+    full; ragged S; G = 1; D = 128; a 2048-token sequence; fp32; the 15 B
+    archs' G = 12 and 6 and qwen3-moe's G = 16 at D = 128 (its training
+    shape, 8 x 512 tokens, and a ragged S), whose numbers go into the
+    record's "g16" entry. A rule on the largest magnitude would not do:
+    under the causal mask the first keys' dk and dv are ~100x the typical
+    key's, so it would pass a kernel that is 10% wrong on most keys. At the
+    training shape, G = 12 and G = 16 the check is shown to see such
+    faults: the kernel's own result, with dv or dk scaled by 0.9 past key
+    128, dv zeroed on the last 12% of keys or dq scaled by 0.9 on the last
+    12% of rows, must each fail the rule (``tools/flash_bwd_tolerance.py``
+    gives the kernel's rounding ~0.3% and these faults 1.9-4.3% on the
+    CPU), and at G = 12 and 16 so must ``block_edge_faults``. The training
+    shape, the long sequence and the G = 12, 6 and 16 shapes are timed,
+    backward alone: the kernel, the plain version and, as the yardstick,
+    SDPA's backward (``torch.autograd.grad`` through SDPA with
+    ``enable_gqa``, its forward outside the timed call)."""
     from flash_bwd_tolerance import grad_err, planted_faults
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
@@ -634,7 +656,7 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     from repro_torch.kernels.flash_attention.kernel_bwd import (auto_split,
                                                                 split_plan)
     F = torch.nn.functional
-    rec, worst = None, 0.0
+    rows, worst, worst_g16 = {}, 0.0, 0.0
     # (label, B, S, H, Hk, D, dtype, causal, timed)
     for label, B, S, H, Hk, D, dtype, causal, timed in (
             ("training", 8, 512, 32, 4, 64, torch.bfloat16, True, True),
@@ -647,7 +669,12 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             # the 15 B archs' heads at the train check's length: G = 12
             # (starcoder2) and G = 6 (qwen3, nemotron), D = 128
             ("g12", 2, 256, 48, 4, 128, torch.bfloat16, True, True),
-            ("g6", 2, 256, 48, 8, 128, torch.bfloat16, True, True)):
+            ("g6", 2, 256, 48, 8, 128, torch.bfloat16, True, True),
+            # qwen3-moe's training shape: G = 16 at D = 128 (4 positions a
+            # forward block, 8192 folded rows a (b, hk)), and a ragged S
+            ("g16", 8, 512, 64, 4, 128, torch.bfloat16, True, True),
+            ("ragged-g16", 2, 100, 64, 4, 128, torch.bfloat16, True,
+             False)):
         q, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(B, S, Hk, D, generator=gen, device="cuda")
@@ -672,7 +699,9 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                                      f"||err||/||want|| {err} > {tol}")
             if dtype is torch.bfloat16:
                 worst = max(worst, max_err(g, w))
-        if label in ("training", "g12") and causal:
+            if "g16" in label:
+                worst_g16 = max(worst_g16, max_err(g, w))
+        if label in ("training", "g12", "g16") and causal:
             # the rows unsplit: one range a key tile, the partials summed
             # from one term, within the same rule
             one = flash_attention_bwd_cuda(q, k, v, o, do, lse, n_split=1)
@@ -684,7 +713,7 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                 raise AssertionError(f"flash_attention_bwd n_split=1: "
                                      f"||err||/||want|| {errs} > {tol}")
             faults = planted_faults(got, S)
-            if label == "g12":
+            if label in ("g12", "g16"):
                 faults.update(block_edge_faults(got, H // Hk))
             for fault, (i, bad) in faults.items():
                 err = grad_err(bad, want[i])
@@ -732,10 +761,12 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             f"{nbytes / 1e6:.1f} MB; n_split {n_split}, {B * Hk * ranges} "
             f"dk/dv blocks, whose fp32 partials add {part_bytes / 1e6:.1f} "
             f"MB: bound with them {bp_ms:.4f} ms by {bp_by})")
-        if label == "training":
-            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
-    rec["max_abs_err"] = worst
+        if label in ("training", "g16"):
+            rows[label] = {"ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+    rec = dict(rows["training"], max_abs_err=worst)
+    rec["g16"] = dict(rows["g16"], max_abs_err=worst_g16)
     return rec
 
 
@@ -1089,7 +1120,8 @@ def record_routes(routes: dict):
         def recording(router, x, cfg):
             topi, gates, aux = route(router, x, cfg)
             routes[x.device.type].append(
-                (topi.cpu(), gates.cpu(), _router_logits(router, x)))
+                (topi.cpu(), gates.detach().cpu(),
+                 _router_logits(router, x).detach()))
             return topi, gates, aux
         return recording
     return patched(moe_mod, "_route", wrap)
@@ -1113,6 +1145,30 @@ def routed_as(recorded: list, own: list):
             return topi.to(x.device), gates.to(x.device), aux
         return forced
     return patched(moe_mod, "_route", wrap)
+
+
+def experts_as(recorded: list):
+    """Context for a train step: each MoE layer takes its top-k experts
+    from ``recorded`` (``record_routes``' list of the CPU's calls, one a
+    layer) in place of its own and forms its gates and aux loss by
+    ``models/moe.py``'s own ``_router_probs`` and ``_gates_and_aux``, so
+    the gradient reaches the router through the gates as it does on the
+    CPU (fed gates would carry none). A layer's call is keyed by its
+    router's address: the forward a remat policy recomputes calls it
+    again, takes the same experts and runs the same ops (the policy's
+    selective checkpoint pairs the recomputed ops with the saved ones in
+    order)."""
+    import importlib
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    calls, fed = iter(recorded), {}
+
+    def forced(router, x, cfg):
+        if router.data_ptr() not in fed:
+            fed[router.data_ptr()] = next(calls)[0]
+        topi = fed[router.data_ptr()].to(x.device)
+        probs = moe_mod._router_probs(router, x)
+        return (topi,) + moe_mod._gates_and_aux(probs, topi, cfg)
+    return patched(moe_mod, "_route", lambda route: forced)
 
 
 def host_memory() -> str:
@@ -1361,19 +1417,32 @@ def model_check(torch, arch: str, depth: int = 2,
 
 
 def _train_model(arch: str):
-    """Full ``arch``, configured as ``train_loop`` runs it for 512-token
-    sequences."""
-    from repro_torch.configs import get_config
+    """``arch`` at the depth ``launch/train.py``'s ``get_config`` gives
+    (``cut_depth`` cuts it), configured as ``train_loop`` runs it for
+    512-token sequences (one microbatch: qwen3-moe's config asks for 4,
+    and ``train_loop`` takes 1 unless told otherwise)."""
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import build_model
     return build_model(dataclasses.replace(
-        get_config(arch), q_chunk=256, kv_chunk=256))
+        train_mod.get_config(arch), q_chunk=256, kv_chunk=256,
+        microbatches=1))
+
+
+def op_device_ms(prof, op: str) -> float:
+    """Device ms of the kernels that the calls of aten op ``op`` (e.g.
+    ``aten::bmm``) launched, over the profiled window."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.key == op) / 1e3
 
 
 def profile_train(torch, arch: str, ours: dict) -> None:
-    """One train step of full-depth ``arch`` (batch 8 x 512 tokens, remat,
-    AdamW) under the profiler, after a warm step: busy share, the largest
-    kernels, the shares of ``ours`` (the port's kernels), the GEMMs' and
-    the elementwise ops'; then the AdamW update alone under CUDA events."""
+    """One train step of ``arch`` (full depth unless ``cut_depth`` cuts
+    it; batch 8 x 512 tokens, remat, AdamW) under the profiler, after a
+    warm step: busy share, the largest kernels, the shares of ``ours`` (the
+    port's kernels), the GEMMs' and the elementwise ops', and the kernels
+    launched by ``aten::bmm`` calls (on the card only the MoE's batched
+    expert products, forward, recomputed and backward); then the AdamW
+    update alone under CUDA events."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.param import tree_items, tree_map
     from repro_torch.optim import AdamWConfig, adamw_update
@@ -1397,6 +1466,11 @@ def profile_train(torch, arch: str, ours: dict) -> None:
                         "elementwise, reductions and copies": (
                             "elementwise", "reduce", "Memcpy", "copy")},
                     top=12)
+    bmm_ms = op_device_ms(prof, "aten::bmm")
+    if bmm_ms:
+        log(f"[profile] {arch} train step: the kernels of aten::bmm (the "
+            f"expert products: forward, recomputed and backward) take "
+            f"{bmm_ms:.4f} ms/step")
     # the optimizer alone, with CUDA events (it writes into the state)
     grads = tree_map(torch.zeros_like, state.params)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1424,6 +1498,45 @@ def _loss_and_grads(model, params, toks, dev: str):
 TRAIN_GRAD_TOL = 3e-2
 
 
+@contextlib.contextmanager
+def captured_attention(seen: list):
+    """Context: each call of the attention core (``_prefill_core``, the
+    flash kernels on the card) appends a dict of its q, k and v and, by
+    hooks, its dq, dk, dv and dO to ``seen``."""
+    import repro_torch.models.attention as attention
+
+    def wrap(core):
+        def capturing_core(q, k, v, cfg):
+            out = core(q, k, v, cfg)
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
+            for name, t in (("dq", q), ("dk", k), ("dv", v), ("do", out)):
+                t.register_hook(lambda g, name=name: rec.update({name: g}))
+            seen.append(rec)
+            return out
+        return capturing_core
+    with patched(attention, "_prefill_core", wrap):
+        yield
+
+
+def attention_grad_errs(seen: list, layers: int) -> list:
+    """Per captured attention call (``captured_attention``), one a layer,
+    the backward kernel's dq, dk and dv inside the step against
+    ``flash_attention_bwd_plain`` on the same tensors, each
+    ||got - want|| / ||want||."""
+    from flash_bwd_tolerance import grad_err
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+    if len(seen) != layers or not all(len(rec) == 7 for rec in seen):
+        raise AssertionError(f"train check: captured {len(seen)} attention "
+                             f"calls, want {layers} with gradients")
+    errs = []
+    for rec in seen:
+        want = flash_attention_bwd_plain(rec["q"], rec["k"], rec["v"],
+                                         rec["do"])
+        errs.append([grad_err(rec[n], w)
+                     for n, w in zip(("dq", "dk", "dv"), want)])
+    return errs
+
+
 def train_check(torch, arch: str) -> None:
     """Depth-2, full-width ``arch`` (dense) in bf16: the loss and every leaf's
     gradient of one train step on the card (the flash kernels) against the
@@ -1447,12 +1560,10 @@ def train_check(torch, arch: str) -> None:
     CPU computations (blockwise against exact softmax, bf16 against fp32)
     1.3-1.4% apart at most, and a backward with dv 10% low past a quarter of
     the keys 6.1% off on wv."""
-    import repro_torch.models.attention as attention
     from attention_conditioning import fan_in_std
     from repro_torch.data import DataConfig, SyntheticLM
     from flash_bwd_tolerance import grad_err
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
     from repro_torch.models import build_model, init_params
     from repro_torch.models.param import tree_map
     seq = 256
@@ -1470,33 +1581,17 @@ def train_check(torch, arch: str) -> None:
     toks = torch.as_tensor(SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
 
-    kernels_core, seen = attention._prefill_core, []
-
-    def capturing_core(q, k, v, cfg):
-        out = kernels_core(q, k, v, cfg)
-        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
-        for name, t in (("dq", q), ("dk", k), ("dv", v), ("do", out)):
-            t.register_hook(lambda g, name=name: rec.update({name: g}))
-        seen.append(rec)
-        return out
-    attention._prefill_core = capturing_core
+    seen = []
     t0 = time.perf_counter()
-    try:
+    with captured_attention(seen):
         loss, grads = _loss_and_grads(model, params, toks, "cuda")
-    finally:
-        attention._prefill_core = kernels_core
     ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu")
     seconds = time.perf_counter() - t0
 
     rel = abs(loss - ref_loss) / abs(ref_loss)
     errs = {k: grad_err(grads[k], w) for k, w in ref_grads.items()}
     top = sorted(errs, key=lambda k: -errs[k])[:4]
-    attn_errs = []
-    for rec in seen:
-        want = flash_attention_bwd_plain(rec["q"], rec["k"], rec["v"],
-                                         rec["do"])
-        attn_errs.append([grad_err(rec[n], w)
-                          for n, w in zip(("dq", "dk", "dv"), want)])
+    attn_errs = attention_grad_errs(seen, cfg.n_layers)
     log(f"[model] depth-2 {arch} bf16 train step (attention weights "
         f"at std 1/sqrt(fan-in); {seconds:.1f} s), cuda vs cpu: loss "
         f"{loss:.6f} vs "
@@ -1506,10 +1601,6 @@ def train_check(torch, arch: str) -> None:
         f"plain version, per layer (dq, dk, dv): "
         f"{[[f'{e:.2e}' for e in l] for l in attn_errs]} (tol "
         f"{BWD_TOL['bfloat16']:g})")
-    if len(seen) != cfg.n_layers or not all(
-            len(rec) == 7 for rec in seen):
-        raise AssertionError(f"train check: captured {len(seen)} attention "
-                             f"calls, want {cfg.n_layers} with gradients")
     if not (rel < 1e-2 and max(errs.values()) <= TRAIN_GRAD_TOL
             and max(map(max, attn_errs)) <= BWD_TOL["bfloat16"]):
         raise AssertionError(f"bf16 train check {arch}: CUDA and CPU "
@@ -1552,6 +1643,197 @@ def train_check_ssm(torch) -> None:
                           and max(errs.values()) <= TRAIN_GRAD_TOL):
         raise AssertionError("mamba2 bf16 train check: CUDA and CPU "
                              "disagree")
+
+
+# qwen3-moe trains at 1 of its 94 layers: 2.488 B parameters a layer plus
+# 1.245 B of embedding and head take 44.8 GB of training state (derived);
+# at 2 layers, 74.7 GB
+MOE_TRAIN_LAYERS = 1
+# the train check against the CPU: 2 layers, 6.22 B parameters (12.4 GB in
+# bf16, derived), whose CPU copy and gradients the host holds
+MOE_CHECK_LAYERS = 2
+POLICIES = ("full", "dots", "names")
+
+
+def leaf_err(got, want) -> float:
+    """||got - want|| / ||want|| in fp32, 2^28 elements at a time (a
+    depth-2 expert leaf in fp32 would take 12.9 GB)."""
+    num = den = 0.0
+    for g, w in zip(got.reshape(-1).split(1 << 28),
+                    want.reshape(-1).split(1 << 28)):
+        w = w.float()
+        num += float((g.float() - w).square().sum())
+        den += float(w.square().sum())
+    return (num / den) ** 0.5
+
+
+def moe_train_check(torch) -> None:
+    """Full-width qwen3-moe-235b-a22b cut to ``MOE_CHECK_LAYERS`` layers,
+    in bf16: one train step's loss and every leaf's gradient on
+    the card (the flash kernels, the MoE in plain torch) against the CPU
+    (the plain path), same weights and batch (2 x 256 tokens), the
+    attention weights at std 1/sqrt(fan-in) as ``train_check`` draws them.
+    The CPU runs once, remat off, "scatter" dispatch, its routing recorded;
+    the gradients are compared on the card, leaf by leaf. The card runs:
+
+    * with its own routing, remat off: loss and gradients printed, not
+      held (a near-tie that routes apart moves a whole expert's gradient:
+      ROADMAP C.2);
+    * with the CPU's experts (``experts_as``), remat off, in each dispatch
+      mode ("scatter" and "gather" compute one function, so both are held
+      to the one CPU run): the loss within 1e-2 relative, each leaf within
+      ``TRAIN_GRAD_TOL`` of its norm and, in "scatter", each layer's
+      flash-backward gradients inside the step against
+      ``flash_attention_bwd_plain`` within ``BWD_TOL``;
+    * with the CPU's experts, "scatter", under each remat policy: the loss
+      equal to the remat-off run's bit for bit (a policy changes what the
+      backward recomputes, not the forward) and each leaf within
+      ``TRAIN_GRAD_TOL`` of the CPU's. The card's gradients are not
+      bit-reproducible (the MoE backward's index writes accumulate with
+      atomics, ``models/moe.py``), so the policies are held to the CPU by
+      the rule, not to each other by their bits."""
+    from attention_conditioning import fan_in_std
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_items, tree_map
+    t_phase = time.perf_counter()
+    seq = 256
+    tag = f"depth-{MOE_CHECK_LAYERS} {MOE_ARCH}"
+    log(f"[model] {tag} train check: {host_memory()} before")
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_CHECK_LAYERS, remat=False,
+                              q_chunk=seq // 2, kv_chunk=seq // 2)
+    params = init_params(build_model(cfg).param_decls(),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    params["layers"]["attn"] = fan_in_std(params["layers"]["attn"],
+                                          cfg.d_model)
+    toks = torch.as_tensor(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
+
+    def step(dev: str, **changes):
+        """The loss and each leaf's gradient (in its dtype, on ``dev``)."""
+        model = build_model(dataclasses.replace(cfg, **changes))
+        leaves = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(),
+                          params if dev == "cuda" else params_cpu)
+        value = model.loss_fn(leaves, {"tokens": toks.to(dev)})
+        value.backward()
+        return float(value.detach()), {"/".join(p): t.grad
+                                       for p, t in tree_items(leaves)}
+
+    params_cpu = tree_map(lambda a: a.cpu(), params)
+    routes = {"cpu": [], "cuda": []}
+    t0 = time.perf_counter()
+    with record_routes(routes):
+        ref_loss, ref = step("cpu")
+    cpu_s = time.perf_counter() - t0
+    log(f"[model] {tag} train step on the CPU: "
+        f"{cpu_s:.1f} s; {host_memory()} with the host's copy and its "
+        f"gradients")
+    ref = {k: g.to("cuda") for k, g in ref.items()}
+    del params_cpu
+    gc.collect()
+
+    def against_cpu(label: str, loss: float, grads: dict) -> tuple:
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        errs = {k: leaf_err(grads[k], w) for k, w in ref.items()}
+        top = sorted(errs, key=lambda k: -errs[k])[:4]
+        log(f"[model] {tag} bf16 train step, {label}, "
+            f"cuda vs cpu: loss {loss:.6f} vs {ref_loss:.6f} (rel "
+            f"{rel:.2e}); worst ||diff||/||g|| "
+            f"{', '.join(f'{k} {errs[k]:.2e}' for k in top)}")
+        return rel, max(errs.values())
+
+    against_cpu("own routing (printed, not held: ROADMAP C.2)",
+                *step("cuda"))
+    failed = []
+    fed_loss = None
+    for mode in ("scatter", "gather"):
+        seen = []
+        with experts_as(routes["cpu"]), captured_attention(seen):
+            loss, grads = step("cuda", moe_dispatch=mode)
+        rel, worst = against_cpu(f"the CPU's experts fed, {mode}, remat "
+                                 f"off", loss, grads)
+        del grads
+        ok = rel < 1e-2 and worst <= TRAIN_GRAD_TOL
+        if mode == "scatter":
+            fed_loss = loss
+            attn = attention_grad_errs(seen, MOE_CHECK_LAYERS)
+            log(f"[model] {tag} the backward kernel in "
+                f"the step against the plain version, per layer (dq, dk, "
+                f"dv): {[[f'{e:.2e}' for e in l] for l in attn]} (tol "
+                f"{BWD_TOL['bfloat16']:g})")
+            ok = ok and max(map(max, attn)) <= BWD_TOL["bfloat16"]
+        failed += [] if ok else [mode]
+    for policy in POLICIES:
+        with experts_as(routes["cpu"]):
+            loss, grads = step("cuda", remat=True, remat_policy=policy)
+        rel, worst = against_cpu(f"the CPU's experts fed, remat "
+                                 f"{policy!r}", loss, grads)
+        del grads
+        log(f"[model] {tag} remat {policy!r}: loss "
+            f"equal to remat off's bit for bit: {loss == fed_loss}")
+        if not (loss == fed_loss and rel < 1e-2
+                and worst <= TRAIN_GRAD_TOL):
+            failed.append(policy)
+    log(f"[model] {tag} train check (held: loss 1e-2, "
+        f"each leaf {TRAIN_GRAD_TOL:g} of its norm, the backward kernel "
+        f"{BWD_TOL['bfloat16']:g}) in {time.perf_counter() - t_phase:.1f} "
+        f"s; failed: {failed or 'none'}")
+    if failed:
+        raise AssertionError(f"{MOE_ARCH} train check: CUDA and CPU "
+                             f"disagree under {failed}")
+
+
+def remat_policy_steps(torch, counters: dict) -> None:
+    """qwen3-moe at full width cut to ``MOE_TRAIN_LAYERS`` layer, one
+    train step (batch 8 x 512 tokens, AdamW) under each remat policy and
+    with remat off, on one state: host ms of the step (after a warm step
+    of its own, ended by reading the loss), peak memory, and the flash
+    kernels' launches: the forward twice a layer under "full" and "names"
+    (recomputed), once under "dots" (its output saved) and without remat;
+    the backward once. The losses must be finite."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import build_train_step, init_train_state
+    t_phase = time.perf_counter()
+    with cut_depth(train_mod, MOE_TRAIN_LAYERS):
+        base = _train_model(MOE_ARCH)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = init_train_state(base, opt, seed=0, device="cuda")
+    batch = {"tokens": torch.randint(0, base.cfg.vocab, (8, 513),
+                                     device="cuda", dtype=torch.int32)}
+    layers = base.cfg.n_layers
+    for remat, policy in ((True, "full"), (True, "dots"), (True, "names"),
+                          (False, "off")):
+        step = build_train_step(build_model(dataclasses.replace(
+            base.cfg, remat=remat, remat_policy=policy)), opt)
+        state, _ = step(state, batch)                            # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {name: k.launches for name, k in counters.items()}
+        fwd = 2 * layers if remat and policy != "dots" else layers
+        log(f"[train] {MOE_ARCH} at {layers} layer, batch 8 x 512, remat "
+            f"{policy}: {ms:.1f} ms a step, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss "
+            f"{loss:.4f}, flash launches forward "
+            f"{counts['flash_attention']} (want {fwd}) backward "
+            f"{counts['flash_attention_bwd']} (want {layers})")
+        if not (loss == loss and abs(loss) < float("inf")
+                and counts["flash_attention"] == fwd
+                and counts["flash_attention_bwd"] == layers):
+            raise AssertionError(f"{MOE_ARCH} remat {policy}: loss {loss}, "
+                                 f"launches {counts}")
+    log(f"[train] {MOE_ARCH} remat policies' steps in "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def cut_depth(launch_mod, layers: int = 2):
@@ -1982,6 +2264,93 @@ def moe_serve_check(torch, counters: dict, arch: str = MOE_ARCH,
         raise AssertionError(f"{arch} launches {counts}: want {want}")
 
 
+# fp32 temporaries of one leaf that ``optim/adamw.py::adamw_update`` holds
+# at once, at its last line: g32, m32, v32, upd, p.float(), lr * upd and
+# their difference
+ADAMW_TEMPORARIES = 7
+# the held peak's margin over the optimizer's derived peak
+PEAK_MARGIN = 1.05
+
+
+def optimizer_peak(model) -> int:
+    """Derived bytes at AdamW's peak: the training state
+    (``launch/train.py::_state_bytes``) plus ``ADAMW_TEMPORARIES`` fp32
+    copies of the largest leaf."""
+    from repro_torch.launch.train import _state_bytes
+    from repro_torch.models.param import tree_items
+    from repro_torch.optim import AdamWConfig
+    largest = max(d.size for _, d in tree_items(model.param_decls()))
+    return _state_bytes(model, AdamWConfig()) + ADAMW_TEMPORARIES * 4 * largest
+
+
+def train_counted(torch, counters: dict, arch: str, layers: int,
+                  kernels: tuple, optimizer_bound: bool = False) -> dict:
+    """``train_loop(arch)`` at batch 8 x 512 tokens, remat on: a first
+    (cold) call of 2 steps, then a counted one of 4, its kernels' launch
+    counts set to 0 just before and returned; the depth is what
+    ``launch/train.py``'s ``get_config`` gives (``cut_depth`` cuts it).
+    Held: the forward kernel twice a layer a step (remat recomputes it),
+    the backward once, no other kernel; finite losses; with
+    ``optimizer_bound`` (an arch whose peak the optimizer sets, not the
+    activations), the peak within ``PEAK_MARGIN`` of ``optimizer_peak``.
+    The peak and the derived peak are printed for every arch."""
+    from repro_torch.launch.train import _state_bytes, train_loop
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    t_arch = time.perf_counter()
+    train = dict(batch=8, seq=512, seed=0, log_every=0, device="cuda")
+    out = train_loop(arch, steps=2, **train)
+    log(f"[train] {arch} first call (cold), 2 steps: "
+        f"{out['wall_s'] / 2 * 1e3:.1f} ms/step, losses {out['losses']}")
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    steps = 4
+    out = train_loop(arch, steps=steps, **train)
+    counts = {name: k.launches for name, k in counters.items()}
+    model = _train_model(arch)
+    n_params = param_count(model.param_decls())
+    rate = out["tokens_per_s"] / PEAK_BF16_FLOPS
+    if model.cfg.family == "moe":
+        active = moe_prefill_flops(model.cfg, batch=8, prompt=512)[0]
+        derived = (f"6 * N_active * tokens/s / 989 TFLOP/s = "
+                   f"{6 * active * rate:.3f} (N_active {active / 1e9:.3f} "
+                   f"B: attention, router, top_k / n_experts of the "
+                   f"experts, head)")
+    else:
+        derived = f"6 * N * tokens/s / 989 TFLOP/s = {6 * n_params * rate:.3f}"
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"[train] {arch} batch=8 seq=512 ({n_params / 1e9:.3f} B "
+        f"params, {layers} layers, remat) {steps} steps: "
+        f"{out['wall_s'] / steps * 1e3:.1f} ms/step, "
+        f"{out['tokens_per_s']:.0f} tokens/s; losses {out['losses']}; "
+        f"launches {counts}; peak memory {peak / 2**30:.2f} GiB of the "
+        f"card's {card / 2**30:.2f} (training state "
+        f"{_state_bytes(model, AdamWConfig()) / 1e9:.1f} GB, AdamW's peak "
+        f"{optimizer_peak(model) / 2**30:.2f} GiB, derived); "
+        f"derived: {derived}; both calls in "
+        f"{time.perf_counter() - t_arch:.1f} s")
+    if optimizer_bound and peak > PEAK_MARGIN * optimizer_peak(model):
+        raise AssertionError(f"{arch}: peak {peak} bytes over "
+                             f"{PEAK_MARGIN} x the optimizer's derived "
+                             f"{optimizer_peak(model)}")
+    # the forward kernel twice a layer a step (remat recomputes it), its
+    # backward once
+    fwd, bwd = kernels
+    want = dict.fromkeys(counters, 0)
+    want.update({fwd: steps * 2 * layers, bwd: steps * layers})
+    if counts != want:
+        raise AssertionError(f"{arch} training launches {counts}: want "
+                             f"{want} ({2 * layers} forward a step: "
+                             f"{layers} and {layers} recomputed under "
+                             f"remat; {layers} backward)")
+    if len(out["losses"]) != steps or not all(
+            l == l and abs(l) < float("inf") for l in out["losses"]):
+        raise AssertionError(f"{arch} training losses {out['losses']}")
+    return counts
+
+
 def kernel_counters() -> dict:
     """Each kernel's launcher module, whose ``launches`` counts its
     launches."""
@@ -2001,8 +2370,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.launch.train import train_loop
-    from repro_torch.models import param_count
+    from repro_torch.launch import train as train_mod
 
     t_start = time.perf_counter()
     log(f"[card] {card_line()}")
@@ -2057,46 +2425,19 @@ def main() -> int:
     moe_serve_check(torch, counters)
     moe_serve_check(torch, counters, KIMI_ARCH, KIMI_LAYERS, 163840)
 
-    # training: batch 8 x 512 tokens, full width and depth, remat on
-    def train_counted(arch: str, layers: int, kernels: tuple) -> dict:
-        train = dict(batch=8, seq=512, seed=0, log_every=0, device="cuda")
-        out = train_loop(arch, steps=2, **train)
-        log(f"[train] {arch} first call (cold), 2 steps: "
-            f"{out['wall_s'] / 2 * 1e3:.1f} ms/step, losses {out['losses']}")
-        torch.cuda.reset_peak_memory_stats()
-        for k in counters.values():
-            k.launches = 0
-        steps = 4
-        out = train_loop(arch, steps=steps, **train)
-        counts = {name: k.launches for name, k in counters.items()}
-        n_params = param_count(_train_model(arch).param_decls())
-        share = 6 * n_params * out["tokens_per_s"] / PEAK_BF16_FLOPS
-        log(f"[train] {arch} batch=8 seq=512 ({n_params / 1e9:.3f} B "
-            f"params, {layers} layers, remat) {steps} steps: "
-            f"{out['wall_s'] / steps * 1e3:.1f} ms/step, "
-            f"{out['tokens_per_s']:.0f} tokens/s; losses {out['losses']}; "
-            f"launches {counts}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; derived: "
-            f"6 * N * tokens/s / 989 TFLOP/s = {share:.3f}")
-        # the forward kernel twice a layer a step (remat recomputes it), its
-        # backward once
-        fwd, bwd = kernels
-        want = dict.fromkeys(counters, 0)
-        want.update({fwd: steps * 2 * layers, bwd: steps * layers})
-        if counts != want:
-            raise AssertionError(f"{arch} training launches {counts}: want "
-                                 f"{want} ({2 * layers} forward a step: "
-                                 f"{layers} and {layers} recomputed under "
-                                 f"remat; {layers} backward)")
-        if len(out["losses"]) != steps or not all(
-                l == l and abs(l) < float("inf") for l in out["losses"]):
-            raise AssertionError(f"{arch} training losses {out['losses']}")
-        return counts
-
-    n_flash_bwd = train_counted("tinyllama-1.1b", 22, (
+    n_flash_bwd = train_counted(torch, counters, "tinyllama-1.1b", 22, (
         "flash_attention", "flash_attention_bwd"))["flash_attention_bwd"]
-    n_ssd_bwd = train_counted("mamba2-370m", 48, ("ssd", "ssd_bwd"))[
-        "ssd_bwd"]
+    n_ssd_bwd = train_counted(torch, counters, "mamba2-370m", 48,
+                              ("ssd", "ssd_bwd"))["ssd_bwd"]
+    # qwen3-moe at full width cut to 1 of its 94 layers (44.8 GB of
+    # training state, derived): flash at G = 16, D = 128
+    torch.cuda.empty_cache()
+    with cut_depth(train_mod, MOE_TRAIN_LAYERS):
+        n_moe_bwd = train_counted(
+            torch, counters, MOE_ARCH, MOE_TRAIN_LAYERS,
+            ("flash_attention", "flash_attention_bwd"),
+            optimizer_bound=True)["flash_attention_bwd"]
+    torch.cuda.empty_cache()
 
     # the split kernels are split_bf16_kernel and split_f32_kernel
     decode_kernels = {"decode_attention": ("split_bf16_kernel",
@@ -2116,6 +2457,13 @@ def main() -> int:
                                             "flash backward": FLASH_BWD})
     profile_train(torch, "mamba2-370m", {"ssd forward": SSD_FWD,
                                          "ssd backward": SSD_BWD})
+    t0 = time.perf_counter()
+    with cut_depth(train_mod, MOE_TRAIN_LAYERS):
+        profile_train(torch, MOE_ARCH, {"flash forward": FLASH_FWD,
+                                        "flash backward": FLASH_BWD})
+    torch.cuda.empty_cache()
+    log(f"[profile] {MOE_ARCH} train step profiled in "
+        f"{time.perf_counter() - t0:.1f} s")
     for arch in ("tinyllama-1.1b", "mamba2-370m", "starcoder2-15b",
                  "nemotron-4-15b", "qwen3-14b", MOE_ARCH):
         model_check(torch, arch)
@@ -2131,10 +2479,16 @@ def main() -> int:
         train_check(torch, arch)
         torch.cuda.empty_cache()
     train_check_ssm(torch)
+    moe_train_check(torch)
+    torch.cuda.empty_cache()
+    remat_policy_steps(torch, counters)
+    torch.cuda.empty_cache()
     resume_check(torch, "tinyllama-1.1b")
     resume_check(torch, "mamba2-370m", exact=True)
     orchestrate_check(torch, counters)
 
+    # the backward's G = 16 row: launched on the qwen3-moe training path
+    flash_bwd["g16"]["launches"] = n_moe_bwd
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/kernels/flash_attention/ops.py::flash_attention``.
 A CUDA tensor goes to the CUDA kernel (or raises): when grad is enabled and
-an input requires it, through an autograd Function whose backward is the
-CUDA backward kernel; otherwise (serving) to the bare kernel. A CPU tensor
-goes to the plain version, which autograd differentiates op by op.
+an input requires it, through the custom op ``flash_attention_fwd``, whose
+gradient is the CUDA backward kernel; otherwise (serving) to the bare
+kernel. A CPU tensor goes to the plain version, which autograd
+differentiates op by op.
 ``block_q`` / ``block_k`` keep the reference's signature and its
 ``ValueError`` on sizes they do not divide; the CUDA kernel picks its own
 tiles.
@@ -33,28 +34,38 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The CUDA forward, and the CUDA backward as its gradient."""
+@torch.library.custom_op("repro_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA forward under grad: the output and the rows' log-sum-exp,
+    4 bytes a query row, which its gradient (the CUDA backward) reads. An
+    op of its own, so that a remat policy sees it (``models/lm.py``'s
+    "dots" saves both; under "full" the recomputed forward writes them
+    again)."""
+    return flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        # the rows' log-sum-exp, 4 bytes a query row, saved for the backward
-        # (under remat the recomputed forward writes it again)
-        o, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                      return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if not aligned_rows(do):
-            # autograd may hand over a strided or offset view
-            do = do.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                              causal=ctx.causal)
-        return dq, dk, dv, None
+def _save_for_backward(ctx, inputs, output):
+    q, k, v, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal = causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    if not aligned_rows(do):
+        # autograd may hand over a strided or offset view
+        do = do.clone(memory_format=torch.contiguous_format)
+    dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                          causal=ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_attention_fwd.register_autograd(_flash_backward,
+                                      setup_context=_save_for_backward)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,7 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return _FlashAttention.apply(q, k, v, causal)
+            return flash_attention_fwd(q, k, v, causal)[0]
         return flash_attention_cuda(q, k, v, causal=causal)
     if q.device.type != "cpu":
         raise ValueError(f"no flash attention for device {q.device}")

@@ -54,10 +54,12 @@ __all__ = ["TrainSetup", "main", "setup_training", "train_loop"]
 
 def _state_bytes(model, opt_cfg: AdamWConfig) -> int:
     """Bytes of a training state: each parameter, its gradient (both in the
-    parameter's dtype) and AdamW's two moments."""
+    parameter's dtype) and AdamW's two moments; with more than one
+    microbatch also the step's fp32 gradient accumulator."""
     moment = torch.empty((), dtype=opt_cfg.state_dtype).element_size()
+    accumulator = 4 if model.cfg.microbatches > 1 else 0
     return sum(d.size * (2 * torch.empty((), dtype=d.dtype).element_size()
-                         + 2 * moment)
+                         + 2 * moment + accumulator)
                for _, d in tree_items(model.param_decls()))
 
 
@@ -92,9 +94,11 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
         need = _state_bytes(model, opt_cfg)
         have = torch.cuda.get_device_properties(device).total_memory
         if need > have:
+            acc = " with the microbatches' fp32 gradient accumulator" \
+                if cfg.microbatches > 1 else ""
             raise ValueError(
-                f"{cfg.name} at {cfg.n_layers} layers: its training state "
-                f"takes {need / 1e9:.0f} GB, more than the card's "
+                f"{cfg.name} at {cfg.n_layers} layers: its training state"
+                f"{acc} takes {need / 1e9:.0f} GB, more than the card's "
                 f"{have / 1e9:.0f} GB; training it needs several devices "
                 f"(ROADMAP item A.12), or a cut depth")
         _build.build()               # set-up, outside the timed loop

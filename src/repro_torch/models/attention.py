@@ -9,8 +9,8 @@ plain versions below on CPU tensors:
 * ``decode_attention``    — one query token against the cache, masked to
   its valid length.
 
-Under grad on the card (training), the flash kernel runs inside an autograd
-Function whose backward is the hand-written backward kernel; on the CPU
+Under grad on the card (training), the flash kernel runs as a custom op
+whose gradient is the hand-written backward kernel; on the CPU
 autograd differentiates the plain path op by op.
 
 GQA stays ungrouped on both paths: Q is viewed as (kv_heads, group) and K/V

@@ -25,18 +25,21 @@ Entry points, as in the reference:
 The cache is written in place (see ``attention.py`` and ``ssm.py``); the
 returned cache holds the same buffers (with the advanced length for KV).
 Under grad with ``cfg.remat``, each layer runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``, policy
-"full"); the "dots" and "names" policies raise.
-Other families raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) with the
+reference's three policies: "full" saves only the layer's input; "dots"
+and "names" run torch's selective checkpointing (:func:`_save_dots`,
+:func:`_save_names`). Other families raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import KVCache, attention, attention_decls, init_cache
 from .common import cross_entropy_loss, matmul, rms_norm
@@ -51,6 +54,56 @@ __all__ = ["LM", "Cache", "AUX_COEF"]
 AUX_COEF = 0.01
 
 _PENDING_FAMILIES = {"hybrid": "A.10", "encdec": "A.11", "vlm": "A.7"}
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` under ``name``, the counterpart of
+    ``jax.ad_checkpoint.checkpoint_name``: an op of its own that a remat
+    policy sees, with ``name`` among its arguments. A custom op may not
+    return its input, so the mark is a copy; the model marks a tensor only
+    where a policy reads the mark (the "names" policy)."""
+    return x.clone()
+
+
+checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+
+_aten = torch.ops.aten
+# the matrix products as the dispatcher sees them: ``torch.matmul``'s
+# decompositions (``common.matmul``'s ``@`` and the plain attention's
+# einsums reach mm and bmm), addmm, and the flash kernel's forward
+# (``kernels/flash_attention/ops.py``, registered when ``.attention``
+# imports it)
+_DOTS = frozenset((_aten.mm, _aten.bmm, _aten.addmm, _aten.mv, _aten.dot,
+                   torch.ops.repro_torch.flash_attention_fwd))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.checkpoint_dots``: save every matrix
+    product's result, recompute the rest.
+
+    The flash kernel's forward counts as a product, and its output and
+    log-sum-exp are saved: in the reference the attention is
+    ``blockwise_attention``, whose score and P.V einsums are dots that XLA
+    saves under this policy, so its backward recomputes no attention; the
+    kernel's (o, lse) is the smallest state from which the flash backward
+    runs without recomputing it (the plain path saves its einsums as the
+    reference does)."""
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_names(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.save_only_these_names("moe_out")``: save
+    the MoE sublayer's output, marked by :func:`checkpoint_name`, and
+    recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE \
+        if op.overloadpacket is torch.ops.repro_torch.checkpoint_name \
+        and args[1] == "moe_out" else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"dots": _save_dots, "names": _save_names}
 
 
 class Cache(NamedTuple):
@@ -107,13 +160,17 @@ class LM:
         return decls
 
     # ------------------------------------------------------------------
-    def _layer(self, lp: dict, x: torch.Tensor, *, cache=None):
-        """-> (x, aux, new_kv); aux is 0.0 for an MLP layer."""
+    def _layer(self, lp: dict, x: torch.Tensor, *, cache=None,
+               mark: bool = False):
+        """-> (x, aux, new_kv); aux is 0.0 for an MLP layer. ``mark`` names
+        the MoE output "moe_out" for the "names" policy."""
         h, new_kv = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
                               cache=cache)
         x = x + h
         if "moe" in lp:
             y, aux = moe(lp["moe"], rms_norm(x, lp["ln2"]), self.cfg)
+            if mark:
+                y = checkpoint_name(y, "moe_out")
         else:
             y, aux = mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg), 0.0
         return x + y, aux, new_kv
@@ -138,19 +195,25 @@ class LM:
         summed over the layers (0.0 without MoE layers)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        layer = self._ssm_layer if cfg.family == "ssm" else self._layer
+        remat = cfg.remat and torch.is_grad_enabled()
+        policy = _POLICIES.get(cfg.remat_policy) if remat else None
+        layer = self._ssm_layer if cfg.family == "ssm" else \
+            functools.partial(self._layer, mark=policy is _save_names)
 
         def body(lp, x):
             return layer(lp, x)[:2]
 
         run = body
-        if cfg.remat and torch.is_grad_enabled():
-            if cfg.remat_policy in ("dots", "names"):
-                raise NotImplementedError(
-                    f"remat_policy {cfg.remat_policy!r}: ROADMAP item A.3")
+        if remat:
+            # any other policy name is "full", as in the reference
+            context_fn = functools.partial(
+                create_selective_checkpoint_contexts, policy) if policy \
+                else torch.utils.checkpoint.noop_context_fn
+
             def run(lp, x):
                 return checkpoint(body, lp, x, use_reentrant=False,
-                                  preserve_rng_state=False)
+                                  preserve_rng_state=False,
+                                  context_fn=context_fn)
         # one unbind per stacked leaf: its gradient is one stack, where a
         # slice per layer would add a full-size zero-padded gradient each
         unbound = tree_map(lambda a: a.unbind(0), params["layers"])

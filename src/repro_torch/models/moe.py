@@ -23,8 +23,12 @@ is ROADMAP item A.12). What the layer computes is the reference's:
 Nothing on the path reads a value on the host (no boolean-mask indexing,
 ``nonzero`` or ``.item()``): every shape follows from the input's, so a
 call can be captured in a CUDA graph. Both combines sum each token's k
-contributions in a fixed order, with no atomics, so two calls on the same
-input give the same bits.
+contributions in a fixed order, with no atomics, so two forward calls on
+the same input give the same bits. The backward is another matter: the
+gathers ``t[tok]``, ``t[grid // k]``, ``out_buf[eid, slot]`` and
+``rows[slot_of[:, j]]`` differentiate into accumulating index writes,
+which CUDA runs with atomic adds, so on the card the gradients of x and
+of the expert products' inputs are not bit-reproducible from run to run.
 """
 
 from __future__ import annotations
@@ -70,23 +74,35 @@ def _capacity(tokens: int, k: int, n_experts: int, factor: float) -> int:
     return max(c, 4)
 
 
-def _route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, M) -> topi (T, k) int64, gates (T, k) fp32, aux () fp32."""
-    E, k = cfg.n_experts, cfg.top_k
+def _router_probs(router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, M) -> the softmax (T, E) of the fp32 router logits."""
     logits = matmul(x.float().reshape(-1, x.shape[-1]), router)   # (T, E)
     # jax.nn.softmax, op for op
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
-    probs = e / e.sum(dim=-1, keepdim=True)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _gates_and_aux(probs: torch.Tensor, topi: torch.Tensor,
+                   cfg: ModelConfig):
+    """The chosen experts' probabilities renormalised into gates (T, k)
+    fp32, and the GShard load-balance aux () fp32."""
+    topv = probs.gather(1, topi)
+    gates = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
+    # importance x top-1 load over the tokens
+    me = probs.mean(dim=0)
+    experts = torch.arange(cfg.n_experts, device=probs.device)
+    ce = (topi[:, :1] == experts).float().mean(dim=0)
+    return gates, cfg.n_experts * torch.sum(me * ce)
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, M) -> topi (T, k) int64, gates (T, k) fp32, aux () fp32."""
+    probs = _router_probs(router, x)
     # jax.lax.top_k puts the lower index first among equal values; a
     # stable descending sort does too, where torch.topk promises no order
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
-    gates = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
-    # GShard load-balance aux: importance x top-1 load over the tokens
-    me = probs.mean(dim=0)
-    experts = torch.arange(E, device=x.device)
-    ce = (topi[:, :1] == experts).float().mean(dim=0)
-    aux = E * torch.sum(me * ce)
+    topi = torch.sort(probs.detach(), dim=-1, descending=True,
+                      stable=True)[1][:, :cfg.top_k]
+    gates, aux = _gates_and_aux(probs, topi, cfg)
     return topi, gates, aux
 
 

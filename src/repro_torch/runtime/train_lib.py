@@ -22,7 +22,8 @@ import torch
 from ..models.param import init_params, tree_items, tree_map
 from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update
 
-__all__ = ["TrainState", "build_train_step", "init_train_state"]
+__all__ = ["TrainState", "build_train_step", "init_train_state",
+           "split_microbatches"]
 
 
 class TrainState(NamedTuple):
@@ -48,10 +49,30 @@ def _loss_and_grads(model, params, batch):
     return loss.detach(), tree_map(lambda t: t.grad, leaves)
 
 
+def split_microbatches(batch: dict, mu: int) -> list[dict]:
+    """``batch`` cut into ``mu`` microbatches of consecutive rows. B is
+    read from ``tokens``; a ``mrope_positions`` leaf, (3, B, S), is cut on
+    axis 1 and every other leaf on axis 0, as the reference's reshape
+    (``repro/runtime/train_lib.py:98-103``) cuts them.
+
+    One deliberate departure: the reference tells the positions apart by
+    a leading axis of 3, so it would cut a token batch of B = 3 on its
+    second axis; this split goes by the leaf's name. The two agree at
+    every B other than 3."""
+    B = batch["tokens"].shape[0]
+    if B % mu:
+        raise ValueError(f"batch {B} is not divisible by {mu} microbatches")
+    n = B // mu
+    return [{k: x[:, i * n:(i + 1) * n] if k == "mrope_positions"
+             else x[i * n:(i + 1) * n] for k, x in batch.items()}
+            for i in range(mu)]
+
+
 def build_train_step(model, opt_cfg: AdamWConfig) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics hold
-    ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the device. Batch
-    leaves lead with the global batch, divisible by ``cfg.microbatches``."""
+    ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the device. The
+    global batch, divisible by ``cfg.microbatches``, is split by
+    :func:`split_microbatches`."""
     mu = max(model.cfg.microbatches, 1)
 
     def train_step(state: TrainState, batch):
@@ -59,14 +80,8 @@ def build_train_step(model, opt_cfg: AdamWConfig) -> Callable:
         if mu == 1:
             loss, grads = _loss_and_grads(model, params, batch)
         else:
-            B = next(iter(batch.values())).shape[0]
-            if B % mu:
-                raise ValueError(f"batch {B} is not divisible by "
-                                 f"{mu} microbatches")
             loss, grads = 0.0, None
-            for i in range(mu):
-                mb = {k: x[i * (B // mu):(i + 1) * (B // mu)]
-                      for k, x in batch.items()}
+            for mb in split_microbatches(batch, mu):
                 l, g = _loss_and_grads(model, params, mb)
                 loss = loss + l
                 if grads is None:
@@ -76,7 +91,8 @@ def build_train_step(model, opt_cfg: AdamWConfig) -> Callable:
                                                 tree_items(g)):
                         acc.add_(t.float())
             loss = loss / mu
-            grads = tree_map(lambda t: t / mu, grads)
+            for _, acc in tree_items(grads):    # in place: no second tree
+                acc.div_(mu)
         params, opt, metrics = adamw_update(params, grads, state.opt,
                                             opt_cfg)
         metrics["loss"] = loss

@@ -24,7 +24,10 @@ the forward writes for it to the plain scan's within 1e-4 of their norm.
 The MoE layer (plain torch on both devices) is held to the CPU with its
 routing equal, the output within 1e-5 (fp32) or 2^-6 (bf16,
 tests/test_torch_lm.py's rule) of its largest magnitude, and to itself bit
-for bit across two calls and a CUDA-graph replay.
+for bit across two calls and a CUDA-graph replay. A reduced qwen3-moe
+train step under each remat policy, fed the CPU's experts, is held to the
+CPU by chip_smoke.py's train-check rule (loss 1e-2 relative, each leaf
+within 3e-2 of its norm).
 """
 
 import dataclasses
@@ -507,7 +510,9 @@ def _bwd_close(got, want, dtype) -> bool:
     (1, 40, 6, 3, 32),                    # positions), small D
     (2, 256, 48, 4, 128),                 # starcoder2: G = 12, D = 128
     (2, 256, 48, 8, 128),                 # nemotron, qwen3: G = 6
-    (2, 100, 48, 4, 128)])                # G = 12, ragged S
+    (2, 100, 48, 4, 128),                 # G = 12, ragged S
+    (8, 512, 64, 4, 128),                 # qwen3-moe's training shape:
+    (2, 100, 64, 4, 128)])                # G = 16, D = 128; ragged S
 def test_flash_bwd_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -600,7 +605,7 @@ def test_flash_bwd_cuda_rejects_what_it_does_not_take():
 
 
 def test_flash_attention_grad_goes_through_the_backward_kernel():
-    """flash_attention under grad on the card: the Function's gradient
+    """flash_attention under grad on the card: the custom op's gradient
     (the backward kernel) against autograd through the plain version; a
     non-contiguous dO is taken as it comes."""
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -693,6 +698,53 @@ def test_train_loop_mamba2_goes_through_the_ssd_kernels():
     assert ssd_kernel.launches == 3 * 2 * n_layers
     assert ssd_bwd_kernel.launches == 3 * n_layers
     assert flash_kernel.launches == flash_bwd_kernel.launches == 0
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "names"])
+def test_moe_train_step_under_each_remat_policy_matches_cpu(policy):
+    """One step of the reduced qwen3-moe under each remat policy on the
+    card, its MoE layers fed the CPU's experts (``record_routes`` /
+    ``experts_as`` of chip_smoke.py: a near-tie that routes apart would
+    move a whole expert's gradient), against the CPU's step with remat off:
+    loss 1e-2 relative, each leaf within 3e-2 of its norm (chip_smoke.py's
+    rule for the depth-2 model). The flash forward runs twice a layer under
+    "full" and "names" (recomputed), once under "dots" (its output and
+    log-sum-exp saved); the backward once."""
+    smoke = _chip_smoke()
+    model, params = _reduced_model("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(model.cfg, remat=False)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(2))
+
+    def step(dev, **changes):
+        m = build_model(dataclasses.replace(cfg, **changes))
+        leaves = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(),
+                          params)
+        loss = m.loss_fn(leaves, {"tokens": toks.to(dev)})
+        loss.backward()
+        return float(loss.detach()), {"/".join(k): t.grad.double().cpu()
+                                      for k, t in tree_items(leaves)}
+    routes = {"cpu": [], "cuda": []}
+    with smoke.record_routes(routes):
+        l_cpu, g_cpu = step("cpu")
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    with smoke.experts_as(routes["cpu"]):
+        l_gpu, g_gpu = step("cuda", remat=True, remat_policy=policy)
+    layers = cfg.n_layers
+    assert flash_kernel.launches == (layers if policy == "dots"
+                                     else 2 * layers)
+    assert flash_bwd_kernel.launches == layers
+    assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    for k, w in g_cpu.items():
+        assert float((g_gpu[k] - w).norm()) <= 3e-2 * float(w.norm()), k
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 # ------------------------------------------------- under the DFlow engine

@@ -22,7 +22,9 @@ Tolerances, and why:
   op-by-op and jitted runs differ by 1e-2 after one step).
 """
 
+import collections
 import dataclasses
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -31,6 +33,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 import repro.optim.adamw as jax_adamw
 from repro.configs import get_config as jax_get_config
@@ -51,6 +57,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, warmup_cosine)
 from repro_torch.optim.adamw import _no_decay
 from repro_torch.runtime import TrainState, build_train_step
+from repro_torch.runtime.train_lib import split_microbatches
 
 ARCH = "tinyllama-1.1b"
 
@@ -305,6 +312,12 @@ def test_loss_and_grads_match_jax(fixture, request):
     params, toks, model, jloss, jgrads = request.getfixturevalue(fixture)
     tparams = to_torch(params)
     loss, grads = port_grads(model, tparams, toks)
+    assert_matches_jax(model, tparams, loss, grads, jloss, jgrads)
+
+
+def assert_matches_jax(model, tparams, loss, grads, jloss, jgrads):
+    """The loss within 1e-3 relative and each leaf's gradient within 2^-5
+    of its largest magnitude of JAX's op-by-op run (module docstring)."""
     assert float(loss) == pytest.approx(float(jloss), rel=1e-3)
     tg = port_by_path(grads)
     jg = by_path(jgrads)
@@ -398,9 +411,27 @@ def test_masked_loss_matches_jax_and_ignores_masked_tokens():
     assert float(same) == float(loss)
 
 
-def test_remat_on_and_off_give_the_same_gradients():
-    _, params, model = jax_models(2)
-    tp = to_torch(params)
+# (arch, moe_dispatch): the reduced dense arch and the reduced MoE arch in
+# both dispatch modes
+REMAT_ARCHS = [("tinyllama-1.1b", "scatter"),
+               ("qwen3-moe-235b-a22b", "scatter"),
+               ("qwen3-moe-235b-a22b", "gather")]
+POLICIES = ["full", "dots", "names"]
+
+
+def _policy_model(arch, mode, policy):
+    return build_model(dataclasses.replace(
+        get_config(arch, reduced=True), moe_dispatch=mode,
+        remat_policy=policy))
+
+
+@pytest.mark.parametrize("arch,mode", REMAT_ARCHS)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_on_and_off_give_the_same_gradients(policy, arch, mode):
+    """Each remat policy changes what the backward recomputes, never a
+    value: the loss and every gradient bit-equal to remat off."""
+    model = _policy_model(arch, mode, policy)
+    tp = to_torch(jax_models(2, arch)[1])
     toks = tokens(2)
     assert model.cfg.remat
     loss_on, g_on = port_grads(model, tp, toks)
@@ -411,15 +442,132 @@ def test_remat_on_and_off_give_the_same_gradients():
         assert torch.equal(a, b), k
 
 
-@pytest.mark.parametrize("policy", ["dots", "names"])
-def test_remat_policies_not_ported_raise(policy):
-    _, params, model = jax_models(0)
-    m = build_model(dataclasses.replace(model.cfg, remat_policy=policy))
-    with pytest.raises(NotImplementedError, match="A.3"):
-        port_grads(m, to_torch(params), tokens(0, seq=16))
-    with torch.no_grad():            # no remat without grad: it runs
-        assert torch.isfinite(m.loss_fn(to_torch(params), {
-            "tokens": torch.as_tensor(tokens(0, seq=16))}))
+@pytest.fixture(scope="module")
+def jax_policy_runs():
+    """JAX's loss and gradients op by op under each remat policy, by
+    (arch, moe_dispatch, policy), each computed once; the MoE layer without
+    its shard_map, as ``jax_qwen3_moe_loss_and_grads`` runs it."""
+    import repro.models.moe as jax_moe_mod
+    runs = {}
+
+    def run(arch, mode, policy):
+        if (arch, mode, policy) not in runs:
+            jmodel, params, _ = jax_models(0, arch)
+            jmodel = jax_build_model(dataclasses.replace(
+                jmodel.cfg, moe_dispatch=mode, remat_policy=policy))
+            with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+                mp.setattr(jax_moe_mod, "shard_map", lambda f, **_: f)
+                mp.setattr(jax_moe_mod, "model_axis", lambda mesh=None: None)
+                runs[arch, mode, policy] = (params,) + jax.value_and_grad(
+                    jmodel.loss_fn)(params, {"tokens": jnp.asarray(
+                        tokens(0))})
+        return runs[arch, mode, policy]
+    return run
+
+
+@pytest.mark.parametrize("arch,mode", REMAT_ARCHS)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_matches_jax(policy, arch, mode, jax_policy_runs):
+    """Under each policy the port's loss and gradients against
+    ``jax.value_and_grad(model.loss_fn)`` under the same ``remat_policy``
+    (``jax.checkpoint_dots``, ``save_only_these_names("moe_out")``)."""
+    params, jloss, jgrads = jax_policy_runs(arch, mode, policy)
+    model = _policy_model(arch, mode, policy)
+    tparams = to_torch(params)
+    loss, grads = port_grads(model, tparams, tokens(0))
+    assert_matches_jax(model, tparams, loss, grads, jloss, jgrads)
+
+
+class _OpCounts(TorchDispatchMode):
+    """Calls of each op (by its packet's name) while the mode is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _forward_and_backward_ops(model, tparams, toks):
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), tparams)
+    with _OpCounts() as fwd:
+        loss = model.loss_fn(leaves, {"tokens": torch.as_tensor(toks)})
+    with _OpCounts() as bwd:
+        loss.backward()
+    return fwd.n, bwd.n
+
+
+@pytest.mark.parametrize("arch,mode", REMAT_ARCHS)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_recomputes_what_it_does_not_save(policy, arch, mode):
+    """What the backward runs under each policy, counted at the dispatcher
+    against remat off (whose backward recomputes nothing): "full" runs the
+    matrix products (mm, bmm) again; "dots" runs none of them again but
+    the elementwise work (exp) yes; "names" marks each MoE layer's output
+    once in the forward and never again (the saved ``moe_out``), and runs
+    the products again; without MoE layers it is "full"."""
+    model = _policy_model(arch, mode, policy)
+    tp = to_torch(jax_models(2, arch)[1])
+    toks = tokens(2)
+    _, off = _forward_and_backward_ops(
+        build_model(dataclasses.replace(model.cfg, remat=False)), tp, toks)
+    fwd, bwd = _forward_and_backward_ops(model, tp, toks)
+
+    def products(n):
+        return n["aten.mm"] + n["aten.bmm"]
+    assert bwd["aten.exp"] > off["aten.exp"]
+    if policy == "dots":
+        assert products(bwd) == products(off)
+    else:
+        assert products(bwd) > products(off)
+    marks = model.cfg.n_layers \
+        if policy == "names" and model.cfg.family == "moe" else 0
+    assert fwd["repro_torch.checkpoint_name"] == marks
+    assert bwd["repro_torch.checkpoint_name"] == 0
+    with torch.no_grad(), _OpCounts() as ops:  # no remat without grad
+        model.loss_fn(tp, {"tokens": torch.as_tensor(toks)})
+    assert ops.n["repro_torch.checkpoint_name"] == 0
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_dots_saves_the_flash_kernels_output(policy, monkeypatch):
+    """The flash kernel's forward is an op that the policies see: "dots"
+    saves its output and log-sum-exp, so the backward runs it no second
+    time; "full" and "names" run it again. The kernels are replaced here by
+    their plain versions on the CPU (the CUDA ones run only on the card,
+    tests/test_torch_cuda.py)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_lse_plain, flash_attention_plain, ops)
+    from repro_torch.models.lm import _POLICIES
+    calls = []
+
+    def forward(q, k, v, *, causal, return_lse):
+        calls.append(1)
+        return (flash_attention_plain(q, k, v, causal=causal),
+                flash_attention_lse_plain(q, k, causal=causal))
+    monkeypatch.setattr(ops, "flash_attention_cuda", forward)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda",
+                        lambda q, k, v, o, do, lse, causal:
+                        flash_attention_bwd_plain(q, k, v, do,
+                                                  causal=causal))
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 16, 4, 16, generator=gen).requires_grad_()
+    k, v = (torch.randn(2, 16, 2, 16, generator=gen).requires_grad_()
+            for _ in range(2))
+    context_fn = functools.partial(
+        create_selective_checkpoint_contexts, _POLICIES[policy]) \
+        if policy in _POLICIES else noop_context_fn
+    out = checkpoint(lambda q, k, v: ops.flash_attention_fwd(
+        q, k, v, True)[0] * 2, q, k, v, use_reentrant=False,
+        context_fn=context_fn)
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert len(calls) == (1 if policy == "dots" else 2)
+    want = torch.autograd.grad(
+        (flash_attention_plain(q, k, v) * 2).square().sum(), (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
 def test_microbatched_step_matches_full():
@@ -442,6 +590,47 @@ def test_microbatched_step_matches_full():
     with pytest.raises(ValueError, match="divisible"):
         m = build_model(dataclasses.replace(model.cfg, microbatches=3))
         build_train_step(m, cfg)(TrainState(tp, adamw_init(tp, cfg)), batch)
+
+
+@pytest.mark.parametrize("B,mu", [(4, 2), (3, 3)])
+def test_microbatch_split_matches_the_reference(B, mu):
+    """The split of a batch with M-RoPE positions (3, B, S) against the
+    reference's reshape (``src/repro/runtime/train_lib.py:98-103``),
+    evaluated here with jnp: the reference's train_step does not run on
+    this jax (ROADMAP §C). The positions are cut on axis 1, the rest on
+    axis 0. At B = 3 the reference's key, a leading axis of 3, would take
+    tokens and mask for positions; the port keys on the leaf's name, and
+    the reference's two expressions applied by name are what it gives."""
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, 256, (B, 17)).astype(np.int32),
+             "mask": (rng.random((B, 16)) < 0.7).astype(np.float32),
+             "mrope_positions": rng.integers(0, 64, (3, B, 16))
+             .astype(np.int32)}
+
+    def by_rows(x):
+        return x.reshape((mu, x.shape[0] // mu) + x.shape[1:])
+
+    def by_positions(x):
+        return x.reshape((x.shape[0], mu, x.shape[1] // mu)
+                         + x.shape[2:]).swapaxes(0, 1)
+    if B != 3:      # the reference's own expression, keyed on the shape
+        want = jax.tree.map(lambda x: by_rows(x) if x.shape[0] != 3
+                            else by_positions(x),
+                            {k: jnp.asarray(x) for k, x in batch.items()})
+    else:
+        assert all(x.shape[0] == 3 for x in batch.values())
+        want = {k: by_positions(jnp.asarray(x)) if k == "mrope_positions"
+                else by_rows(jnp.asarray(x)) for k, x in batch.items()}
+    got = split_microbatches({k: torch.as_tensor(x)
+                              for k, x in batch.items()}, mu)
+    assert len(got) == mu
+    for k in batch:
+        for i in range(mu):
+            np.testing.assert_array_equal(got[i][k].numpy(),
+                                          np.asarray(want[k][i]), err_msg=k)
+    with pytest.raises(ValueError, match="divisible"):
+        split_microbatches({k: torch.as_tensor(x)
+                            for k, x in batch.items()}, mu + 1)
 
 
 def test_microbatch_loss_is_the_mean_of_the_halves():
@@ -592,10 +781,10 @@ def test_ssd_on_the_cpu_stays_differentiable():
     assert x.grad is not None and float(x.grad.abs().max()) > 0
 
 
-def test_full_depth_15b_training_on_one_card_raises(monkeypatch):
-    """A 15 B arch's training state (~190 GB) does not fit one 80 GB card:
-    train_loop raises before it builds anything; a cut depth passes the
-    check (it stops here at the build, which needs nvcc)."""
+@pytest.fixture
+def card_of_80_gib(monkeypatch):
+    """A CUDA card of 80 GiB as ``train_loop`` sees it; the build is
+    recorded in the returned list, and the state's draw stops the run."""
     from repro_torch.launch import train as train_mod
 
     class Props:
@@ -609,15 +798,45 @@ def test_full_depth_15b_training_on_one_card_raises(monkeypatch):
     monkeypatch.setattr(train_mod, "init_train_state",
                         lambda *a, **k: (_ for _ in ()).throw(
                             RuntimeError("stop")))
-    with pytest.raises(ValueError, match="A.12"):
-        train_loop("starcoder2-15b", steps=1, device="cuda")
-    assert not built
+    return built
+
+
+def _cut_depth(monkeypatch, layers):
+    from repro_torch.launch import train as train_mod
     full = train_mod.get_config
     monkeypatch.setattr(train_mod, "get_config", lambda arch, reduced=False:
-                        dataclasses.replace(full(arch), n_layers=2))
+                        dataclasses.replace(full(arch), n_layers=layers))
+
+
+def test_full_depth_15b_training_on_one_card_raises(monkeypatch,
+                                                    card_of_80_gib):
+    """A 15 B arch's training state (~190 GB) does not fit one 80 GB card:
+    train_loop raises before it builds anything; a cut depth passes the
+    check (it stops here at the build, which needs nvcc)."""
+    with pytest.raises(ValueError, match="A.12"):
+        train_loop("starcoder2-15b", steps=1, device="cuda")
+    assert not card_of_80_gib
+    _cut_depth(monkeypatch, 2)
     with pytest.raises(RuntimeError, match="stop"):
         train_loop("starcoder2-15b", steps=1, device="cuda")
-    assert built
+    assert card_of_80_gib
+
+
+def test_microbatch_accumulator_counts_against_the_card(monkeypatch,
+                                                        card_of_80_gib):
+    """With microbatches > 1 the step also holds an fp32 gradient
+    accumulator, 4 bytes a parameter. qwen3-moe at 2 layers (6.22 B
+    parameters, derived) takes 74.7 GB at 12 bytes a parameter, under the
+    80 GiB card, and 99.6 GB with the accumulator, over it."""
+    _cut_depth(monkeypatch, 2)
+    with pytest.raises(RuntimeError, match="stop"):
+        train_loop("qwen3-moe-235b-a22b", steps=1, device="cuda")
+    assert card_of_80_gib
+    card_of_80_gib.clear()
+    with pytest.raises(ValueError, match="accumulator"):
+        train_loop("qwen3-moe-235b-a22b", steps=1, device="cuda",
+                   microbatches=4)
+    assert not card_of_80_gib
 
 
 def test_unknown_activation_raises_key_error():
