@@ -28,7 +28,12 @@ Phases, each fatal on failure:
    beside it; the record's "g16" entry) and a ragged S, with planted
    faults on the G = 16 blocks' edges; kimi-k2's
    heads, G = 8 at D = 112, in bf16 and fp32: flash at its serving shape
-   and a ragged S, decode at its serving shape), to bf16 2e-2
+   and a ragged S, decode at its serving shape; seamless-m4t's heads,
+   G = 1 at D = 64: flash non-causal at 8 x 1024 (the encoder), causal at
+   8 x 512 (the decoder's prefill), non-causal with 512 queries over 1024
+   keys (the cross-attention) and at ragged Sq < Skv and Sq > Skv in bf16
+   and fp32, decode over an fp32 cache at the serving lengths and over a
+   bf16 memory of 1024 keys, all read), to bf16 2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
@@ -46,7 +51,10 @@ Phases, each fatal on failure:
    of its 94 layers (62 GB; its MoE layers in plain torch, flash and decode
    at G = 16) and of kimi-k2-1t-a32b at full width cut to 2 of its 61
    layers (73 GB; 384 experts and a shared expert, flash and decode at
-   G = 8, D = 112), batch 8, 512-token prompts, 32 new tokens; and
+   G = 8, D = 112) and of the encoder-decoder seamless-m4t-large-v2 at
+   full width and full depth (24 + 24 layers, 3.26 GB; 1024 frames a
+   prompt; flash 72 launches at the prefill, decode 48 a step), batch 8,
+   512-token prompts, 32 new tokens; and
    ``train_loop("tinyllama-1.1b")`` (flash forward and backward), batch 8,
    512 tokens, ``train_loop("mamba2-370m")`` (ssd forward and
    backward) and ``train_loop("qwen3-moe-235b-a22b")`` at full width cut
@@ -61,14 +69,17 @@ Phases, each fatal on failure:
    before and read just after: they must show every layer of the counted
    run went through them;
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
-   starcoder2-15b, the 12-layer qwen3-moe and the 2-layer kimi-k2 (beside
+   starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2 and
+   seamless-m4t (its two decode kernels' device ms apart) (beside
    the bytes a step must read; the MoE archs' device time also split into
-   routing, dispatch, expert products, combine and attention), one mamba2
-   prefill and one train step of each trained model (qwen3-moe at 1
-   layer), for the device's busy share and the kernels that take its time
-   (at prefill, the ssd kernel's share; in training, the flash or ssd
-   forward's and backward's, the GEMMs', the elementwise work's, the
-   expert products' (``aten::bmm``) and AdamW's alone);
+   routing, dispatch, expert products, combine and attention), one
+   seamless-m4t prefill (1024 frames; the flash kernel's and the GEMMs'
+   shares), one mamba2 prefill and one train step of each trained model
+   (qwen3-moe at 1 layer), for the device's busy share and the kernels
+   that take its time (at prefill, the ssd kernel's share; in training,
+   the flash or ssd forward's and backward's, the GEMMs', the
+   elementwise work's, the expert products' (``aten::bmm``) and AdamW's
+   alone);
 6. model check (attention weights at std 1/sqrt(fan-in), where the
    reference's draw saturates the softmax: ``model_check``): a depth-2,
    full-width model of each of six archs, and kimi-k2 at depth 1 (the
@@ -79,7 +90,12 @@ Phases, each fatal on failure:
    call: few choices apart, each a near-tie that the router logits'
    difference accounts for, the gates of the rest alike; the card's logits
    again with the CPU's routing fed to its MoE layers, and its router
-   logits; four planted faults, each of which must break a rule); one
+   logits; four planted faults, each of which must break a rule);
+   seamless-m4t at full width cut to 2 encoder and 2 decoder layers
+   (``encdec_model_check``: prefill of 64 tokens over 64 frames + decode,
+   the logits and each layer's decode-step cross-attention output rel <
+   0.06, equal argmax; a planted fault, the card's cross length half the
+   memory, must break a rule); one
    full-width qwen3-moe MoE layer at a decode step's and a prefill's shape
    in each dispatch mode captured in a CUDA graph and replayed after its
    input changes on the device, bit for bit an eager call, with its device
@@ -110,9 +126,10 @@ Phases, each fatal on failure:
 
 The run's whole time is printed when every phase has passed. The line
 before the last is the kernels' JSON record (the flash and decode entries
-also hold their D = 112 rows, "d112" in bf16 and "d112_f32", and the
-flash backward its G = 16 row, "g16", with its launches on the qwen3-moe
-training path); the last
+also hold their D = 112 rows, "d112" in bf16 and "d112_f32", and
+seamless-m4t's, "seamless", with the launches of its counted serve_loop
+and a record for each of its timed shapes; the flash backward its G = 16
+row, "g16", with its launches on the qwen3-moe training path); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -215,10 +232,15 @@ def check_flash(torch, timer, gen) -> dict:
     """The flash kernel against its plain version at the prefill shape (bf16
     causal and full, fp32), a ragged S, D = 128, G = 1 and a long B = 1
     prompt, and kimi-k2's D = 112 (the 128 tile with its last 16 columns
-    zero) at its prefill shape in bf16 and fp32 and at a ragged S; the
-    serving shapes, kimi-k2's included, and the long prompt are timed. Each
-    row names the record it goes into: "" (the kernel's own entry, whose
-    time is the bf16 serving shape's), "d112" or "d112_f32"; a record's
+    zero) at its prefill shape in bf16 and fp32 and at a ragged S, and
+    seamless-m4t's G = 1 heads: the encoder's non-causal 8 x 1024, the
+    decoder's causal 8 x 512, the cross-attention's 512 queries over 1024
+    keys, and ragged cross shapes with Sq < Skv and Sq > Skv (bf16 and
+    fp32); the serving shapes, kimi-k2's and seamless's included, and the
+    long prompt are timed, each with its own causal flag. A row's S is
+    Sq = Skv, or the pair (Sq, Skv). Each row names the record it goes
+    into: "" (the kernel's own entry, whose time is the bf16 serving
+    shape's), "d112", "d112_f32" or "seamless_<shape>"; a record's
     max_abs_err is its rows' worst and its time its first timed row's. At
     each shape the rows' log-sum-exp that the kernel writes when asked (the
     training forward) is held to ``flash_attention_lse_plain`` within
@@ -260,10 +282,32 @@ def check_flash(torch, timer, gen) -> dict:
             ("ragged-kimi-d112", 2, 100, 64, 8, 112, bf16, True, False,
              "d112"),
             ("ragged-kimi-d112", 2, 100, 64, 8, 112, f32, True, False,
-             "d112_f32")):
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+             "d112_f32"),
+            # seamless-m4t's heads, H = Hk = 16 at D = 64 (G = 1): the
+            # encoder's non-causal self-attention over 1024 frames, the
+            # decoder's causal prefill, the cross-attention of the 512
+            # prompt tokens over the 1024-frame memory (S = (Sq, Skv)), and
+            # ragged cross shapes with fewer and with more queries than keys
+            ("seamless-encoder", 8, 1024, 16, 16, 64, bf16, False, True,
+             "seamless_encoder"),
+            ("seamless-prefill", 8, 512, 16, 16, 64, bf16, True, True,
+             "seamless_prefill"),
+            ("seamless-cross", 8, (512, 1024), 16, 16, 64, bf16, False, True,
+             "seamless_cross"),
+            ("ragged-cross", 2, (100, 200), 16, 16, 64, bf16, False, False,
+             "seamless_cross"),
+            ("ragged-cross", 2, (200, 100), 16, 16, 64, bf16, False, False,
+             "seamless_cross"),
+            ("ragged-cross", 2, (100, 200), 16, 16, 64, f32, False, False,
+             None),
+            ("ragged-cross", 2, (200, 100), 16, 16, 64, f32, False, False,
+             None)):
+        Sq, Skv = S if isinstance(S, tuple) else (S, S)
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, Skv, Hk, D, generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn(B, Skv, Hk, D, generator=gen,
+                        device="cuda").to(dtype)
         got = flash_attention_cuda(q, k, v, causal=causal)
         with_lse, lse = flash_attention_cuda(q, k, v, causal=causal,
                                              return_lse=True)
@@ -273,7 +317,8 @@ def check_flash(torch, timer, gen) -> dict:
         err, lse_err = max_err(got, want), max_err(lse, want_lse)
         name = str(dtype).split(".")[1]
         log(f"[kernels] flash_attention {label} {name} causal={causal} "
-            f"B={B} S={S} H={H} Hk={Hk} D={D}: max_abs_err={err:.3e} "
+            f"B={B} Sq={Sq} Skv={Skv} H={H} Hk={Hk} D={D}: "
+            f"max_abs_err={err:.3e} "
             f"(tol {TOL[name]:g}); lse max_abs_err={lse_err:.3e} (tol "
             f"{LSE_TOL:g}, |lse| max {float(want_lse.abs().max()):.3f})")
         if not err < TOL[name]:
@@ -289,18 +334,19 @@ def check_flash(torch, timer, gen) -> dict:
             errs[key] = max(errs.get(key, 0.0), err)
         if not timed:
             continue
-        ms = timer.ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+        ms = timer.ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
         lse_ms = timer.ms(lambda: flash_attention_cuda(
-            q, k, v, causal=True, return_lse=True))
+            q, k, v, causal=causal, return_lse=True))
         plain_ms = timer.ms(
-            lambda: flash_attention_plain(q, k, v, causal=True), iters=10)
-        lib_ms = sdpa_ms(torch, timer, q, k, v, causal=True)
-        flops = 4 * B * H * S * S * D / 2
+            lambda: flash_attention_plain(q, k, v, causal=causal), iters=10)
+        lib_ms = sdpa_ms(torch, timer, q, k, v, causal=causal)
+        # causal rows are square: half the score matrix
+        flops = 4 * B * H * Sq * Skv * D / (2 if causal else 1)
         nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
                                      + q.numel())
         b_ms, b_by = bound(flops, nbytes, peak_flops(torch, dtype))
-        log(f"[kernels] flash_attention {label} {name} causal B={B} S={S} "
-            f"H={H} Hk={Hk} D={D}: "
+        log(f"[kernels] flash_attention {label} {name} causal={causal} "
+            f"B={B} Sq={Sq} Skv={Skv} H={H} Hk={Hk} D={D}: "
             f"{ms:.4f} ms, with lse {lse_ms:.4f} ms (plain {plain_ms:.4f} "
             f"ms, sdpa {lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         if key is not None:
@@ -325,9 +371,11 @@ def check_decode(torch, timer, gen) -> dict:
     8192-key cache; the stale tail; a call captured in a CUDA graph and
     replayed after `length` changes on the device; kimi-k2's D = 112 at G =
     8 in bf16 and fp32 (28 lanes to a key row in the fp32 kernel) at the
-    serving shape's lengths. The serving shapes, kimi-k2's in both dtypes,
-    and the long cache are timed. Each row names its record, as in
-    ``check_flash``."""
+    serving shape's lengths; seamless-m4t's G = 1, D = 64 step over its
+    fp32 self cache (L = 544, the serving lengths) and over its bf16
+    memory (L = length = 1024). The serving shapes, kimi-k2's in both
+    dtypes, seamless's two and the long cache are timed. Each row names
+    its record, as in ``check_flash``."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
     from repro_torch.kernels.decode_attention.kernel import keys_per_split
@@ -355,7 +403,15 @@ def check_decode(torch, timer, gen) -> dict:
             # kimi-k2's decode: G = 8 at D = 112, bf16 and fp32
             ("kimi-d112", B, L, 64, 8, 112, bf16, edges, timed_len, "d112"),
             ("kimi-d112", B, L, 64, 8, 112, f32, edges, timed_len,
-             "d112_f32")):
+             "d112_f32"),
+            # seamless-m4t's decode step, H = Hk = 16 at D = 64: the
+            # decoder's fp32 self cache at the serving lengths (513-543),
+            # and the bf16 memory of 1024 frames, read whole
+            ("seamless-self", B, L, 16, 16, 64, f32,
+             (1, split, split + 1, 513, timed_len, 543, L), timed_len,
+             "seamless_self_f32"),
+            ("seamless-cross", B, 1024, 16, 16, 64, bf16, (1024,), 1024,
+             "seamless_cross")):
         name = str(dtype).split(".")[1]
         # one layer's view of a stacked cache, as the model passes it
         cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
@@ -1032,6 +1088,19 @@ def _phase_split(prof, phases: dict, steps: int, bound_ms: float) -> None:
         f"{bound_ms:.3f} ms: {total / steps / 1e3 / bound_ms:.3f}x")
 
 
+def _prefill_args(torch, cfg, model, tok) -> tuple:
+    """A prefill's arguments after the weights at the serving shape, the
+    empty cache last: the encoder-decoder's ``FRAMES_LEN`` random frames
+    a prompt before the tokens."""
+    if cfg.family == "encdec":
+        from repro_torch.launch.serve import FRAMES_LEN
+        frames = torch.randn(8, FRAMES_LEN, cfg.d_model,
+                             device="cuda").bfloat16()
+        return frames, tok, model.init_cache(8, 544, FRAMES_LEN,
+                                             device="cuda")
+    return tok, model.init_cache(8, 544, device="cuda")
+
+
 def profile_decode(torch, arch: str, ours: dict | None = None,
                    steps: int = 4, phases: dict | None = None) -> None:
     """Wall time and device kernel time of decode steps at the serving
@@ -1043,9 +1112,10 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
     from repro_torch.models.param import tree_items
     cfg, model, params = _serving_model(torch, arch)
     tok = torch.randint(0, cfg.vocab, (8, 512), device="cuda")
+    encdec = cfg.family == "encdec"
     with torch.inference_mode():
-        cache = model.init_cache(8, 544, device="cuda")
-        logits, cache = model.prefill(params, tok, cache)
+        logits, cache = model.prefill(params, *_prefill_args(torch, cfg,
+                                                             model, tok))
         for _ in range(2):                                    # warm
             tok = logits[:, -1].argmax(-1)[:, None]
             logits, cache = model.decode_step(params, tok, cache)
@@ -1063,17 +1133,30 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
                     f"{cfg.n_layers} layers", wall, steps, {**(ours or {}), "GEMMs": GEMMS},
                     ranges=tuple(phases or ()))
     # a step reads every weight but the embedding's (8 rows of it), and the
-    # cache: the K/V rows up to its length, or the whole SSM state
+    # cache: the K/V rows up to its length, or the whole SSM state; the
+    # encoder-decoder's step reads the decoder's weights but the cross
+    # wk/wv (their products sit in the memory cache), the final norm and
+    # the head, its fp32 self cache up to the length and the whole memory
+    def read(path) -> bool:
+        if encdec:
+            return path[0] in ("final_norm", "head") or (
+                path[0] == "decoder" and path[-2:] not in (
+                    ("cross_attn", "wk"), ("cross_attn", "wv")))
+        return path != ("embed",) or cfg.tie_embeddings
     nbytes = sum(t.numel() * t.element_size()
-                 for path, t in tree_items(params)
-                 if path != ("embed",) or cfg.tie_embeddings)
-    if cache.kv is not None:
+                 for path, t in tree_items(params) if read(path))
+    if encdec:
+        k = cache.self_kv.k                 # (layers, B, max_len, Hk, D)
+        nbytes += 2 * k.numel() * k.element_size() * int(
+            cache.self_kv.length) // k.shape[2]
+        nbytes += 2 * cache.cross_k.numel() * cache.cross_k.element_size()
+    elif cache.kv is not None:
         k = cache.kv.k                      # (layers, B, max_len, Hk, D)
         nbytes += 2 * k.numel() * k.element_size() * int(
             cache.kv.length) // k.shape[2]
     else:
         nbytes += sum(t.numel() * t.element_size() for t in cache.ssm)
-    log(f"[profile] {arch} decode: a step reads {nbytes / 1e9:.2f} GB "
+    log(f"[profile] {arch} decode: a step reads {nbytes / 1e9:.3f} GB "
         f"(weights but the embedding, the cache), bound "
         f"{nbytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s")
     if phases:
@@ -1083,19 +1166,20 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
 
 def profile_prefill(torch, arch: str, ours: dict) -> None:
     """Wall time and device kernel time of one prefill at the serving shape
-    (batch 8, 512-token prompts, an empty cache), after a
-    warm-up prefill, with the share of the kernels named in ``ours``."""
+    (batch 8, 512-token prompts, 1024 frames for the encoder-decoder, an
+    empty cache), after a warm-up prefill, with the share of the kernels
+    named in ``ours``."""
     from torch.profiler import ProfilerActivity, profile
     cfg, model, params = _serving_model(torch, arch)
     tok = torch.randint(0, cfg.vocab, (8, 512), device="cuda")
     with torch.inference_mode():
-        model.prefill(params, tok, model.init_cache(8, 544, device="cuda"))
-        cache = model.init_cache(8, 544, device="cuda")
+        model.prefill(params, *_prefill_args(torch, cfg, model, tok))
+        args = _prefill_args(torch, cfg, model, tok)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.prefill(params, tok, cache)
+            model.prefill(params, *args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     _profile_report(prof, f"{arch} prefill at batch 8 x 512 tokens", wall,
@@ -1506,8 +1590,8 @@ def captured_attention(seen: list):
     import repro_torch.models.attention as attention
 
     def wrap(core):
-        def capturing_core(q, k, v, cfg):
-            out = core(q, k, v, cfg)
+        def capturing_core(q, k, v, *args):
+            out = core(q, k, v, *args)
             rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
             for name, t in (("dq", q), ("dk", k), ("dv", v), ("do", out)):
                 t.register_hook(lambda g, name=name: rec.update({name: g}))
@@ -2087,6 +2171,163 @@ def orchestrate_check(torch, counters: dict) -> None:
                                  f"over 1.05x train_loop's")
 
 
+# ------------------------------------------------------ encoder-decoder
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+ENCDEC_CHECK_LAYERS = 2  # encoder and decoder layers of encdec_model_check
+
+
+def encdec_prefill_flops(cfg, batch: int, prompt: int, frames: int) -> float:
+    """FLOPs of an encoder-decoder prefill of ``batch`` prompts of
+    ``prompt`` tokens over ``frames`` frames: 2 x each weight x the tokens
+    it multiplies (the encoder's and the decoder's cross wk, wv over the
+    frames, the rest of the decoder over the prompt, the head over each
+    prompt's last token; norms and the embedding lookup left out), plus
+    the attention's two products: the encoder's frames x frames, the
+    decoder's causal prompt x prompt / 2, the cross prompt x frames."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_items
+    flops = 0.0
+    for path, d in tree_items(build_model(cfg).param_decls()):
+        name = path[-1]
+        if path == ("embed",) or name.startswith("ln") \
+                or name.endswith("norm"):
+            continue
+        if path[0] == "encoder" or path[-2:] in (("cross_attn", "wk"),
+                                                 ("cross_attn", "wv")):
+            tokens = batch * frames
+        elif path == ("head",):
+            tokens = batch
+        else:
+            tokens = batch * prompt
+        flops += 2 * d.size * tokens
+    per_pair = 4 * batch * cfg.n_heads * cfg.head_dim
+    return flops + per_pair * (
+        cfg.n_encoder_layers * frames * frames
+        + cfg.n_layers * (prompt * prompt / 2 + prompt * frames))
+
+
+def encdec_serve_check(torch, counters: dict) -> dict:
+    """seamless-m4t-large-v2 at full width and full depth (24 encoder and
+    24 decoder layers, 1.632 B parameters) through ``serve_counted``, 1024
+    frames a prompt: the flash kernel once an encoder layer (non-causal,
+    1024 x 1024), once a decoder layer (causal, 512) and once a decoder
+    layer's cross-attention (512 over 1024) at the prefill, and the decode
+    kernel twice a decoder layer each decode step (fp32 over the self
+    cache, bf16 over the memory); no other kernel."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SEAMLESS_ARCH)
+    counts = serve_counted(torch, counters, SEAMLESS_ARCH, cfg.n_layers,
+                           cfg.vocab)
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=cfg.n_encoder_layers + 2 * cfg.n_layers,
+                decode_attention=2 * cfg.n_layers * 31)
+    if counts != want:
+        raise AssertionError(f"{SEAMLESS_ARCH} launches {counts}: want "
+                             f"{want}")
+    return counts
+
+
+def encdec_model_check(torch) -> None:
+    """seamless-m4t-large-v2 at full width cut to ``ENCDEC_CHECK_LAYERS``
+    encoder and as many decoder layers, the attention weights at std
+    1/sqrt(fan-in) (as ``model_check`` draws them): prefill(64 tokens over
+    64 frames) + decode(1) on the card against the CPU's plain path, the
+    logits held to rel < 0.06 with equal argmax, and each decoder layer's
+    cross-attention output at the decode step to rel < 0.06 of its largest
+    magnitude. A
+    planted fault, the card's cross length set to half the memory (the
+    decode kernel then reads 32 of the 64 frames), must break a rule."""
+    import importlib
+    from attention_conditioning import fan_in_std
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_map
+    encdec_mod = importlib.import_module("repro_torch.models.encdec")
+    cfg = dataclasses.replace(get_config(SEAMLESS_ARCH),
+                              n_layers=ENCDEC_CHECK_LAYERS,
+                              n_encoder_layers=ENCDEC_CHECK_LAYERS,
+                              q_chunk=32, kv_chunk=32, max_cache_len=72)
+    model = build_model(cfg)
+    params_gpu = init_params(model.param_decls(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    params_gpu["encoder"]["attn"] = fan_in_std(params_gpu["encoder"]["attn"],
+                                               cfg.d_model)
+    for name in ("self_attn", "cross_attn"):
+        params_gpu["decoder"][name] = fan_in_std(
+            params_gpu["decoder"][name], cfg.d_model)
+    params_cpu = tree_map(lambda a: a.cpu(), params_gpu)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
+    frames = torch.randn(2, 64, cfg.d_model, generator=gen).bfloat16()
+
+    def run(dev: str, params):
+        """The decode step's logits and each layer's cross-attention
+        output at that step, on the host."""
+        crosses = []
+
+        def recording(cross):
+            def wrapped(p, x, c, memory):
+                out = cross(p, x, c, memory)
+                if x.shape[1] == 1:
+                    crosses.append(out.float().cpu())
+                return out
+            return wrapped
+        with torch.inference_mode(), \
+                patched(encdec_mod, "cross_attention", recording):
+            cache = model.init_cache(2, cfg.max_cache_len, 64, device=dev)
+            _, cache = model.prefill(params, frames.to(dev),
+                                     toks[:, :64].to(dev), cache)
+            logits, _ = model.decode_step(params, toks[:, 64:].to(dev),
+                                          cache)
+        return logits[:, 0].float().cpu(), crosses
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+    ref, ref_cross = run("cpu", params_cpu)
+
+    def on_card(fault) -> tuple[str, list]:
+        with fault():
+            got, cross = run("cuda", params_gpu)
+        r = rel(got, ref)
+        same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+        layers = [rel(c, w) for c, w in zip(cross, ref_cross)]
+        broken = [rule for rule, ok in (
+            ("rel < 0.06 and equal argmax", r < 0.06 and same),
+            ("each layer's cross-attention rel < 0.06",
+             len(layers) == ENCDEC_CHECK_LAYERS and max(layers) < 0.06))
+            if not ok]
+        return (f"rel={r:.4f} argmax_equal={same}, decode-step "
+                f"cross-attention rel by layer "
+                f"{[round(x, 4) for x in layers]}"), broken
+
+    def half_memory():
+        def wrap(init_cache):
+            def faulty(self, batch, max_len, memory_len, *, device="cuda"):
+                cache = init_cache(self, batch, max_len, memory_len,
+                                   device=device)
+                if cache.cross_length.is_cuda:
+                    cache.cross_length.fill_(memory_len // 2)
+                return cache
+            return faulty
+        return patched(encdec_mod.EncDecLM, "init_cache", wrap)
+
+    tag = (f"depth-{ENCDEC_CHECK_LAYERS}+{ENCDEC_CHECK_LAYERS} "
+           f"{SEAMLESS_ARCH}")
+    text, broken = on_card(contextlib.nullcontext)
+    log(f"[model] {tag} prefill(64 tokens, "
+        f"64 frames)+decode(1) (attention weights at std 1/sqrt(fan-in)), "
+        f"cuda vs cpu: {text}; broken: {broken or 'none'}")
+    fault_text, caught = on_card(half_memory)
+    log(f"[model] {tag} planted fault, "
+        f"cross length half the memory: {fault_text}; broken: "
+        f"{caught or 'none'}")
+    if broken or not caught:
+        raise AssertionError(f"model check {SEAMLESS_ARCH}: rules broken "
+                             f"{broken}, planted fault caught {caught}")
+
+
 # ------------------------------------------------------------------- MoE
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 12
 # kimi-k2: 36.5 B parameters (73.0 GB) at 2 of its 61 layers; D = 112
@@ -2214,7 +2455,16 @@ def serve_counted(torch, counters: dict, arch: str, layers: int,
     n_params = param_count(build_model(cfg).param_decls())
     prefill_s = out["prefill_s"]
     rate = prefill_s * PEAK_BF16_FLOPS
-    if cfg.family == "moe":
+    if cfg.family == "encdec":
+        flops = encdec_prefill_flops(cfg, batch=8, prompt=512,
+                                     frames=serve_mod.FRAMES_LEN)
+        derived = (f"derived: prefill FLOPs (every weight over the tokens "
+                   f"it sees: the encoder and the cross wk/wv over "
+                   f"{serve_mod.FRAMES_LEN} frames a prompt, the rest of "
+                   f"the decoder over the prompt, the head on its last "
+                   f"token; and the attention) {flops / 1e12:.2f} T / "
+                   f"prefill s / 989 TFLOP/s = {flops / rate:.3f}")
+    elif cfg.family == "moe":
         active, padded = moe_prefill_flops(cfg, batch=8, prompt=512)
         derived = (
             f"derived: 2 * N_active * prompt tokens / prefill s / 989 "
@@ -2424,6 +2674,7 @@ def main() -> int:
             raise AssertionError(f"{arch} launches {counts}: want {want}")
     moe_serve_check(torch, counters)
     moe_serve_check(torch, counters, KIMI_ARCH, KIMI_LAYERS, 163840)
+    seamless = encdec_serve_check(torch, counters)
 
     n_flash_bwd = train_counted(torch, counters, "tinyllama-1.1b", 22, (
         "flash_attention", "flash_attention_bwd"))["flash_attention_bwd"]
@@ -2452,6 +2703,13 @@ def main() -> int:
             profile_decode(torch, arch, ours=decode_kernels,
                            phases=MOE_PHASES)
         torch.cuda.empty_cache()      # its 62 or 73 GB of weights, released
+    profile_decode(torch, SEAMLESS_ARCH, ours={
+        "decode fp32 (self cache)": ("split_f32_kernel",),
+        "decode bf16 (memory)": ("split_bf16_kernel",),
+        "decode merge (both)": ("combine_kernel",)})
+    profile_prefill(torch, SEAMLESS_ARCH, ours={"flash": FLASH_FWD,
+                                                "GEMMs": GEMMS})
+    torch.cuda.empty_cache()
     profile_prefill(torch, "mamba2-370m", ours={"ssd": ("ssd",)})
     profile_train(torch, "tinyllama-1.1b", {"flash forward": FLASH_FWD,
                                             "flash backward": FLASH_BWD})
@@ -2470,6 +2728,7 @@ def main() -> int:
         torch.cuda.empty_cache()      # the model's card memory, released
     model_check(torch, KIMI_ARCH, depth=KIMI_CHECK_DEPTH,
                 own_routing=False)
+    encdec_model_check(torch)
     gc.collect()
     torch.cuda.empty_cache()
     moe_graph_check(torch, timer)
@@ -2489,6 +2748,14 @@ def main() -> int:
 
     # the backward's G = 16 row: launched on the qwen3-moe training path
     flash_bwd["g16"]["launches"] = n_moe_bwd
+    # seamless-m4t's rows, under one entry with the launches of its counted
+    # serve_loop (flash: encoder, decoder prefill and cross, 24 each;
+    # decode: the fp32 self and bf16 memory steps, 24 each a step)
+    for rec, name in ((flash, "flash_attention"),
+                      (decode, "decode_attention")):
+        rec["seamless"] = {"launches": seamless[name], **{
+            key.removeprefix("seamless_"): rec.pop(key)
+            for key in list(rec) if key.startswith("seamless_")}}
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

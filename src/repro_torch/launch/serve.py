@@ -6,13 +6,16 @@ It runs on the card (``device="cuda"``, full width and depth) unless the
 caller asks for the CPU, where it takes the kernels' plain versions; without
 CUDA and without ``device="cpu"`` it raises. The archs are those of
 ``repro_torch.configs``: tinyllama-1.1b, mamba2-370m, starcoder2-15b,
-nemotron-4-15b, qwen3-14b, qwen3-moe-235b-a22b and kimi-k2-1t-a32b. Each
-of the three 15 B archs holds ~30 GB of bf16 weights, so one card serves one
-of them at a time. The two MoE archs serve on one card only at a cut depth:
-qwen3-moe-235b-a22b holds 470 GB at its 94 layers (12 layers: 62 GB),
-kimi-k2-1t-a32b ~2 TB at its 61 (2 layers: 73 GB). A model whose weights
-exceed the card's memory raises ``ValueError`` before anything is
-allocated.
+nemotron-4-15b, qwen3-14b, qwen3-moe-235b-a22b, kimi-k2-1t-a32b and the
+encoder-decoder seamless-m4t-large-v2 (1.63 B parameters, 3.3 GB, at full
+depth on one card), whose encoder takes seeded random frame embeddings,
+``FRAMES_LEN`` of them a prompt (16 with ``reduced=True``, as the
+reference's ``serve_loop``). Each of the three 15 B archs holds ~30 GB of
+bf16 weights, so one card serves one of them at a time. The two MoE archs
+serve on one card only at a cut depth: qwen3-moe-235b-a22b holds 470 GB
+at its 94 layers (12 layers: 62 GB), kimi-k2-1t-a32b ~2 TB at its 61 (2
+layers: 73 GB). A model whose weights exceed the card's memory raises
+``ValueError`` before anything is allocated.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ from repro_torch.launch import resolve_device
 from repro_torch.models import build_model, init_params
 from repro_torch.models.param import tree_items
 
-__all__ = ["main", "serve_loop"]
+__all__ = ["FRAMES_LEN", "main", "serve_loop"]
+
+# The encoder's frames a prompt at full width: the JAX package's audio stub
+# length (``repro/launch/input_specs.py::FRAMES_LEN``).
+FRAMES_LEN = 1024
 
 
 def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
@@ -69,6 +76,14 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(batch, prompt_len)),
         dtype=torch.int64, device=device)
+    encdec = cfg.family == "encdec"
+    if encdec:
+        # drawn after the prompts, from the same generator, as the
+        # reference draws them
+        frames_len = 16 if reduced else FRAMES_LEN
+        frames = torch.as_tensor(
+            rng.normal(size=(batch, frames_len, cfg.d_model))).to(
+                torch.bfloat16).to(device)
 
     on_card = device.type == "cuda"
     if on_card:
@@ -80,11 +95,17 @@ def serve_loop(arch: str, *, batch: int = 4, prompt_len: int = 32,
         return time.perf_counter()
 
     with torch.inference_mode():
-        cache = model.init_cache(batch, max_len=max_len, device=device)
+        if encdec:
+            cache = model.init_cache(batch, max_len=max_len,
+                                     memory_len=frames_len, device=device)
+            inputs = (frames, prompts)
+        else:
+            cache = model.init_cache(batch, max_len=max_len, device=device)
+            inputs = (prompts,)
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = clock()
-        logits, cache = model.prefill(params, prompts, cache)
+        logits, cache = model.prefill(params, *inputs, cache)
         tok = logits[:, -1].argmax(dim=-1)[:, None]
         t_prefill = clock() - t0
         generated = [tok]

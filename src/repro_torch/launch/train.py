@@ -84,6 +84,13 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
     kernels, so no kernel builds inside a step."""
     device = resolve_device(device, "train_loop")
     cfg = get_config(arch, reduced=reduced)
+    if cfg.family == "encdec":
+        # refused before anything is allocated, as the reference's
+        # train_loop refuses this family
+        raise SystemExit(f"{cfg.name}: train_loop does not train the "
+                         "encoder-decoder yet (ROADMAP item A.11, its "
+                         "training); EncDecLM.loss_fn gives its loss and "
+                         "gradients")
     cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
                               kv_chunk=max(seq // 2, 16),
                               microbatches=microbatches or 1)

@@ -9,6 +9,12 @@ plain versions below on CPU tensors:
 * ``decode_attention``    — one query token against the cache, masked to
   its valid length.
 
+``attention`` is the sublayer with the reference's modes: causal or not
+(the encoder's self-attention), a cache to fill or read, and ``kv_source``
+(cross-attention over an encoder memory, uncached). ``cross_attention`` is
+the encoder-decoder's cached cross-attention, over memory K/V projected
+once at prefill.
+
 Under grad on the card (training), the flash kernel runs as a custom op
 whose gradient is the hand-written backward kernel; on the CPU
 autograd differentiates the plain path op by op.
@@ -37,7 +43,7 @@ from .config import ModelConfig
 from .param import ArrayDecl, ones_init
 
 __all__ = ["attention_decls", "attention", "blockwise_attention",
-           "decode_attention", "KVCache", "init_cache"]
+           "cross_attention", "decode_attention", "KVCache", "init_cache"]
 
 NEG_INF = -1e30
 
@@ -153,73 +159,95 @@ def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                layers: int | None = None,
-               device: str | torch.device = "cuda") -> KVCache:
-    """Empty bf16 cache; ``layers`` adds a leading stacked-layer axis to K/V
-    (the length stays one scalar)."""
+               device: str | torch.device = "cuda",
+               dtype: torch.dtype = torch.bfloat16) -> KVCache:
+    """Empty cache of ``dtype``; ``layers`` adds a leading stacked-layer
+    axis to K/V (the length stays one scalar)."""
     lead = (layers,) if layers else ()
     shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(
-        k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        v=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
         length=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
 # ----------------------------------------------------------------------
-def _prefill_core(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+def _prefill_core(q, k, v, cfg: ModelConfig,
+                  causal: bool = True) -> torch.Tensor:
     if q.is_cuda:
-        return flash_attention(q, k, v, causal=True, block_q=cfg.q_chunk,
+        return flash_attention(q, k, v, causal=causal, block_q=cfg.q_chunk,
                                block_k=cfg.kv_chunk)
     return blockwise_attention(
-        q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+        q, k, v, causal=causal, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
         softmax_dtype=getattr(torch, cfg.softmax_dtype))
 
 
 def _decode_core(q, cache: KVCache) -> torch.Tensor:
+    """One query token over the cache's first ``length`` rows.
+
+    A cache in another dtype than q (the encoder-decoder's fp32 self
+    cache, read by bf16 queries) goes to the kernel of the cache's dtype:
+    q is cast up to it, which is exact, and the output back to q's dtype.
+    The reference multiplies q by the scale in q's dtype and then promotes
+    (``decode_attention``); the kernel multiplies the cast q by the fp32
+    scale 1/sqrt(D). At D = 16, 64 and 256 that scale is a power of two
+    and the two products are equal bit for bit; at other D the kernel's
+    fp32 scale departs from the reference's bf16-rounded one, as the
+    Pallas kernels' own does. On the CPU the plain path takes the mixed
+    dtypes as the reference does."""
     if q.is_cuda:
         # the kernel tiles the cache itself; one block of the whole cache
         # passes the divisibility check for any capacity
-        return decode_kernel(q, cache.k, cache.v, cache.length,
-                             block_k=cache.k.shape[1])
+        out = decode_kernel(q.to(cache.k.dtype), cache.k, cache.v,
+                            cache.length, block_k=cache.k.shape[1])
+        return out.to(q.dtype)
     return decode_attention(q, cache)
 
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              cache: KVCache | None = None):
-    """Causal self-attention sublayer: projections (+ qk-norm) + rope + core
-    (+ the padded heads' mask) + output projection. (The reference's
-    cross-attention, explicit positions and M-RoPE serve families the port
-    has not taken over yet.)
+              causal: bool = True, cache: KVCache | None = None,
+              kv_source: torch.Tensor | None = None):
+    """Attention sublayer: projections (+ qk-norm) + rope + core (+ the
+    padded heads' mask) + output projection. (The reference's explicit
+    positions and M-RoPE serve a family the port has not taken over yet.)
 
     x: (B, S, M).  Modes:
-      * cache is None        -> full-sequence (training / uncached prefill);
+      * cache is None        -> full-sequence (training / uncached prefill),
+        causal unless ``causal=False`` (the encoder);
       * cache given, S == 1  -> cached decode step;
       * cache given, S > 1   -> prefill that fills the cache (the cache is
         empty before a prefill, as in the reference).
+    ``kv_source`` (B, T, M), an encoder memory, switches to cross-attention:
+    q from x, k/v from the memory, no rope, not causal, no cache update.
     Returns (out, new_cache_or_None); the new cache shares the old one's
     K/V buffers, written in place.
     """
     _check_supported(cfg)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
+    is_cross = kv_source is not None
+    kv_in = kv_source if is_cross else x
+    T = kv_in.shape[1]
     # projections as one matmul each: contiguous (B, S, heads, D) results,
     # the layout the kernels read
     q = matmul(x, params["wq"].reshape(M, H * D)).view(B, S, H, D)
-    k = matmul(x, params["wk"].reshape(M, Hk * D)).view(B, S, Hk, D)
-    v = matmul(x, params["wv"].reshape(M, Hk * D)).view(B, S, Hk, D)
+    k = matmul(kv_in, params["wk"].reshape(M, Hk * D)).view(B, T, Hk, D)
+    v = matmul(kv_in, params["wv"].reshape(M, Hk * D)).view(B, T, Hk, D)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
 
-    positions = torch.arange(S, device=x.device)
-    if cache is not None:
-        positions = cache.length + positions
-    cos, sin = rope_table(positions, D, cfg.rope_theta)      # (S, D/2)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if not is_cross:
+        positions = torch.arange(S, device=x.device)
+        if cache is not None:
+            positions = cache.length + positions
+        cos, sin = rope_table(positions, D, cfg.rope_theta)  # (S, D/2)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and not is_cross:
         # in place, at rows length .. length + S - 1, where the reference
         # returns an updated copy
         cache.k.index_copy_(1, positions, k.to(cache.k.dtype))
@@ -228,9 +256,9 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if S == 1:
             out = _decode_core(q, new_cache)
         else:
-            out = _prefill_core(q, k, v, cfg)
+            out = _prefill_core(q, k, v, cfg, causal)
     else:
-        out = _prefill_core(q, k, v, cfg)
+        out = _prefill_core(q, k, v, cfg, causal and not is_cross)
 
     if cfg.pad_heads_to:
         # the padded heads ran through the core like the others; zeroing
@@ -239,3 +267,36 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = out * mask.to(out.dtype)[None, None, :, None]
     y = matmul(out.reshape(B, S, H * D), params["wo"].reshape(H * D, M))
     return y, new_cache
+
+
+def cross_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                    memory: KVCache) -> torch.Tensor:
+    """Cached cross-attention of the encoder-decoder (reference
+    ``encdec.py:103-108``): q from x, non-causal attention over the memory
+    K/V projected at prefill, then ``wo``. memory.k/v: (B, T, Hk, D);
+    memory.length: int32 scalar T on their device, made once with the
+    cache.
+
+    As in the reference, this path applies no qk-norm and no padded-heads
+    mask, where the uncached ``attention(..., kv_source=...)`` applies both
+    (seamless-m4t sets neither, so the two paths compute one function
+    there), and the CPU's blockwise path scores in fp32 whatever the
+    config's ``softmax_dtype``.
+
+    On the card a prefill (S > 1) runs the flash kernel with S queries over
+    T keys, and a decode step (S == 1) the decode kernel with ``length``
+    = T; on the CPU both are the blockwise plain path over all T keys.
+    """
+    B, S, M = x.shape
+    H, D = cfg.n_heads_eff, cfg.head_dim
+    k, v = memory.k, memory.v
+    q = matmul(x, params["wq"].reshape(M, H * D)).view(B, S, H, D)
+    if not q.is_cuda:
+        out = blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                                  kv_chunk=cfg.kv_chunk)
+    elif S == 1:
+        out = decode_kernel(q, k, v, memory.length, block_k=k.shape[1])
+    else:
+        out = flash_attention(q, k, v, causal=False, block_q=cfg.q_chunk,
+                              block_k=cfg.kv_chunk)
+    return matmul(out.reshape(B, S, H * D), params["wo"].reshape(H * D, M))

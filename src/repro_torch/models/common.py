@@ -1,5 +1,5 @@
-"""Shared layer primitives: RMS norm, SiLU, softplus, rotary embeddings and
-the cross-entropy loss.
+"""Shared layer primitives: RMS norm, SiLU, softplus, rotary embeddings,
+the cross-entropy loss and the per-layer remat wrapper.
 
 Same conventions as the JAX package's ``models/common.py``: compute in the
 activation dtype, normalise, rotate and take the loss in fp32. The rest of
@@ -11,9 +11,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 __all__ = ["matmul", "rms_norm", "silu", "gelu", "squared_relu", "softplus",
-           "ACTIVATIONS", "rope_table", "apply_rope", "cross_entropy_loss"]
+           "ACTIVATIONS", "rope_table", "apply_rope", "cross_entropy_loss",
+           "remat_layer"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -108,3 +110,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def remat_layer(body, context_fn=noop_context_fn):
+    """``body`` run under ``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of a layer: with the default ``context_fn`` it saves
+    only its inputs ("full"); a selective-checkpoint ``context_fn`` saves
+    what its policy names."""
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+    return run

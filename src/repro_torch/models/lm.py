@@ -28,8 +28,9 @@ Under grad with ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) with the
 reference's three policies: "full" saves only the layer's input; "dots"
 and "names" run torch's selective checkpointing (:func:`_save_dots`,
-:func:`_save_names`). Other families raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+:func:`_save_names`). The families ``hybrid`` and ``vlm`` raise
+``NotImplementedError`` naming the ROADMAP item that brings them; the
+encoder-decoder is ``encdec.py``'s ``EncDecLM``.
 """
 
 from __future__ import annotations
@@ -38,22 +39,23 @@ import functools
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from .attention import KVCache, attention, attention_decls, init_cache
-from .common import cross_entropy_loss, matmul, rms_norm
+from .common import cross_entropy_loss, matmul, remat_layer, rms_norm
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .moe import moe, moe_decls
-from .param import ArrayDecl, normal_init, ones_init, tree_map
+from .param import (ArrayDecl, normal_init, ones_init, tree_map,
+                    unstack_layers)
 from .ssm import SSMCache, init_ssm_cache, mamba_block, ssm_decls
 
 __all__ = ["LM", "Cache", "AUX_COEF"]
 
 AUX_COEF = 0.01
 
-_PENDING_FAMILIES = {"hybrid": "A.10", "encdec": "A.11", "vlm": "A.7"}
+_PENDING_FAMILIES = {"hybrid": "A.10", "vlm": "A.7"}
 
 
 @torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
@@ -204,22 +206,15 @@ class LM:
             return layer(lp, x)[:2]
 
         run = body
-        if remat:
+        if remat and policy:
+            run = remat_layer(body, functools.partial(
+                create_selective_checkpoint_contexts, policy))
+        elif remat:
             # any other policy name is "full", as in the reference
-            context_fn = functools.partial(
-                create_selective_checkpoint_contexts, policy) if policy \
-                else torch.utils.checkpoint.noop_context_fn
-
-            def run(lp, x):
-                return checkpoint(body, lp, x, use_reentrant=False,
-                                  preserve_rng_state=False,
-                                  context_fn=context_fn)
-        # one unbind per stacked leaf: its gradient is one stack, where a
-        # slice per layer would add a full-size zero-padded gradient each
-        unbound = tree_map(lambda a: a.unbind(0), params["layers"])
+            run = remat_layer(body)
         aux = 0.0
-        for i in range(cfg.n_layers):
-            x, layer_aux = run(tree_map(lambda a: a[i], unbound), x)
+        for lp in unstack_layers(params["layers"], cfg.n_layers):
+            x, layer_aux = run(lp, x)
             aux = aux + layer_aux
         return self._head(params, x), aux
 

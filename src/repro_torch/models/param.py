@@ -23,7 +23,7 @@ import torch
 
 __all__ = ["ArrayDecl", "init_params", "params_from_numpy", "normal_init",
            "ones_init", "zeros_init", "tree_map", "tree_map_with_path",
-           "tree_items", "param_count"]
+           "tree_items", "unstack_layers", "param_count"]
 
 Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
                        torch.Tensor]
@@ -129,6 +129,15 @@ def tree_map_with_path(fn: Callable[[tuple, Any], Any], tree,
 def tree_map(fn: Callable[[Any], Any], tree):
     """Apply ``fn`` to every leaf of a tree of dicts and NamedTuples."""
     return tree_map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def unstack_layers(stacked, n: int) -> list:
+    """The ``n`` per-layer trees of a tree whose leaves stack the layers on
+    their leading axis. One unbind per leaf: under grad its gradient is one
+    stack, where a slice per layer would add a full-size zero-padded
+    gradient each."""
+    unbound = tree_map(lambda a: a.unbind(0), stacked)
+    return [tree_map(lambda a: a[i], unbound) for i in range(n)]
 
 
 def tree_items(tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:

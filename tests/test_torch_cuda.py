@@ -135,6 +135,36 @@ def test_flash_cuda_lse_matches_plain(dtype, causal, B, S, H, Hk, D):
     assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hk,D", [
+    (2, 100, 200, 16, 16, 64),            # cross-attention shapes: fewer
+    (2, 200, 100, 16, 16, 64),            # queries than keys, and more
+    (8, 512, 1024, 16, 16, 64),           # seamless: 512 over 1024 frames
+    (8, 1024, 1024, 16, 16, 64),          # seamless's encoder
+    (2, 100, 200, 32, 4, 64),             # G = 8 over a longer memory
+    (2, 48, 16, 4, 2, 16)])               # the reduced seamless
+def test_flash_cuda_cross_attention_shapes(dtype, B, Sq, Skv, H, Hk, D):
+    """Non-causal flash with Sq != Skv (the encoder-decoder's
+    cross-attention at prefill) and the encoder's non-causal S = 1024:
+    the output and the rows' lse against their plain versions."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = randn(gen, B, Sq, H, D, dtype=tdt)
+    k = randn(gen, B, Skv, Hk, D, dtype=tdt)
+    v = randn(gen, B, Skv, Hk, D, dtype=tdt)
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=False, block_q=Sq, block_k=Skv)
+    out, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    want = flash_attention_plain(q, k, v, causal=False)
+    want_lse = flash_attention_lse_plain(q, k, causal=False)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 2
+    assert got.shape == (B, Sq, H, D)
+    assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+    assert float((lse - want_lse).abs().max()) < LSE_TOL
+    assert torch.equal(out, got)
+
+
 def test_flash_serving_call_allocates_no_lse():
     """Without grad (serving) the forward asks for no lse: the call
     allocates its output and nothing more."""
@@ -217,6 +247,48 @@ def test_decode_cuda_other_shapes(B, H, Hk, D, L):
         want = decode_attention_plain(q, k, v, n)
         torch.cuda.synchronize()
         assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("length", [1, 64, 65, 513, 528, 543, 544])
+def test_decode_cuda_fp32_cache_at_g1(length):
+    """The encoder-decoder's self-attention step: an fp32 cache read by a
+    bf16 query at G = 1, D = 64 (seamless's heads), through the model's
+    ``_decode_core`` (q cast up to fp32, the fp32 kernel, the output cast
+    back), against the plain path at the serving lengths."""
+    from repro_torch.models.attention import KVCache, _decode_core
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, L, H, D = 8, 544, 16, 64
+    k = randn(gen, B, L, H, D, dtype=torch.float32)
+    v = randn(gen, B, L, H, D, dtype=torch.float32)
+    q = randn(gen, B, 1, H, D, dtype=torch.bfloat16)
+    n = torch.tensor(length, dtype=torch.int32, device="cuda")
+    before = decode_kernel.launches
+    got = _decode_core(q, KVCache(k, v, n))
+    want = decode_attention_plain(q.float(), k, v, n)
+    torch.cuda.synchronize()
+    assert decode_kernel.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    # the kernel's fp32 result within fp32's tolerance (2e-5), then one
+    # rounding to bf16, at most 2^-8 of the value
+    assert bool(((got.float() - want).abs()
+                 <= 2 ** -8 * want.abs() + 3e-5).all())
+
+
+def test_decode_cuda_bf16_over_the_whole_memory():
+    """The encoder-decoder's cached cross-attention step: one bf16 query
+    over 1024 memory keys with length = L = 1024, G = 1, D = 64, through
+    ``cross_attention``'s decode-kernel branch, against the plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    B, L, H, D = 8, 1024, 16, 64
+    k = randn(gen, B, L, H, D, dtype=torch.bfloat16)
+    v = randn(gen, B, L, H, D, dtype=torch.bfloat16)
+    q = randn(gen, B, 1, H, D, dtype=torch.bfloat16)
+    n = torch.tensor(L, dtype=torch.int32, device="cuda")
+    got = decode_attention(q, k, v, n, block_k=L)
+    want = decode_attention_plain(q, k, v, n)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < TOL["bfloat16"]
 
 
 def test_decode_cuda_long_cache_batch_one():
@@ -1064,6 +1136,24 @@ def test_serve_loop_moe_goes_through_the_kernels():
     n_layers = get_config("qwen3-moe-235b-a22b", reduced=True).n_layers
     assert flash_kernel.launches == n_layers
     assert decode_kernel.launches == n_layers * 4
+
+
+def test_serve_loop_encdec_goes_through_the_kernels():
+    """The reduced seamless-m4t served on the card: at prefill the flash
+    kernel once an encoder layer (non-causal), once a decoder layer
+    (causal) and once a decoder layer's cross-attention (the prompt over
+    the memory); each decode step the decode kernel twice a decoder layer
+    (the fp32 self cache and the bf16 memory)."""
+    flash_kernel.launches = decode_kernel.launches = 0
+    gen = 5
+    out = serve_loop("seamless-m4t-large-v2", batch=2, prompt_len=32,
+                     gen_tokens=gen, reduced=True)
+    cfg = get_config("seamless-m4t-large-v2", reduced=True)
+    assert out["tokens"].shape == (2, gen)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab)).all()
+    assert torch.isfinite(out["logits"]).all()
+    assert flash_kernel.launches == cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert decode_kernel.launches == 2 * cfg.n_layers * (gen - 1)
 
 
 def test_serve_loop_refuses_full_depth_moe_before_allocating():

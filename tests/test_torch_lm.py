@@ -237,13 +237,22 @@ def test_serve_loop_without_cuda_raises(monkeypatch, arch):
                          reduced=True)
 
 
-@pytest.mark.parametrize("family,item", [("hybrid", "A.10"),
-                                         ("encdec", "A.11"), ("vlm", "A.7")])
-def test_unported_families_raise(family, item):
+@pytest.mark.parametrize("family,error,match", [
+    ("hybrid", NotImplementedError, "A.10"),
+    # the encoder-decoder is ported (models/encdec.py): a config of that
+    # family without encoder layers raises the reference's ValueError
+    ("encdec", ValueError, "encdec needs n_encoder_layers"),
+    ("vlm", NotImplementedError, "A.7")])
+def test_unported_families_raise(family, error, match):
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), family=family,
                               n_experts=8, ssm_state=16)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         build_model(cfg)
+    if family == "encdec":
+        jcfg = dataclasses.replace(jax_get_config(ARCH, reduced=True),
+                                   family=family)
+        with pytest.raises(ValueError, match=match):
+            jax_build_model(jcfg)
 
 
 def test_moe_loss_carries_the_aux_term():

@@ -18,20 +18,23 @@ from repro_torch.models.param import param_count
 
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b",
-             "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"]
+             "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+             "seamless-m4t-large-v2"]
 ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # parameter counts of the full configs (analysis/flops.py's figures):
 # tinyllama ~1.1 B; mamba2-370m ~367 M; the 15 B archs with an untied head,
 # qwen3's lowered at 48 heads (15.19 B; 14.77 B at its 40); qwen3-moe
 # 235.09 B at its 94 layers, 128 experts each; kimi-k2 1043.85 B at its 61
-# layers, 384 experts and one shared expert each
+# layers, 384 experts and one shared expert each; seamless-m4t 1.632 B
+# (encoder 503.4 M, decoder 604.1 M, embedding and head 524.7 M)
 FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "mamba2-370m": (3.4e8, 3.9e8),
                "starcoder2-15b": (1.55e10, 1.65e10),
                "nemotron-4-15b": (1.55e10, 1.60e10),
                "qwen3-14b": (1.50e10, 1.55e10),
                "qwen3-moe-235b-a22b": (2.35e11, 2.36e11),
-               "kimi-k2-1t-a32b": (1.043e12, 1.044e12)}
+               "kimi-k2-1t-a32b": (1.043e12, 1.044e12),
+               "seamless-m4t-large-v2": (1.631e9, 1.633e9)}
 
 
 def _paths(tree, prefix=()):
@@ -189,8 +192,8 @@ def test_configs_registry():
         (red_ref.n_layers, red_ref.d_model, red_ref.n_heads,
          red_ref.n_kv_heads, red_ref.head_dim, red_ref.vocab,
          red_ref.q_chunk)
-    with pytest.raises(KeyError, match="ROADMAP item A.11"):
-        get_config("seamless-m4t-large-v2")
+    with pytest.raises(KeyError, match="ROADMAP item A.7"):
+        get_config("qwen2-vl-72b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 

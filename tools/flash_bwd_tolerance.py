@@ -149,11 +149,11 @@ def model_readings(seq=256, seed=0) -> dict:
             g[:, seq // 4:] *= 0.9
             return g
 
-    def exact(q, k, v, cfg):
-        return flash_attention_plain(q, k, v, causal=True)
+    def exact(q, k, v, cfg, causal=True):
+        return flash_attention_plain(q, k, v, causal=causal)
 
-    def low_dv(q, k, v, cfg):
-        return blockwise(q, k, LowDv.apply(v), cfg)
+    def low_dv(q, k, v, cfg, *args):
+        return blockwise(q, k, LowDv.apply(v), cfg, *args)
 
     def grads(core, dtype):
         model = build_model(cfg)

@@ -42,8 +42,8 @@ DENSE = ("starcoder2-15b", "nemotron-4-15b", "qwen3-14b", "tinyllama-1.1b")
 KERNELS = (attention._prefill_core, attention._decode_core)
 
 
-def plain_prefill(q, k, v, cfg):
-    return attention.blockwise_attention(q, k, v, causal=True,
+def plain_prefill(q, k, v, cfg, causal=True):
+    return attention.blockwise_attention(q, k, v, causal=causal,
                                          q_chunk=cfg.q_chunk,
                                          kv_chunk=cfg.kv_chunk)
 
@@ -62,8 +62,8 @@ def run(model, params, toks, dev, cores):
     attention cores ``cores``."""
     calls = []
 
-    def prefill(q, k, v, cfg):
-        out = cores[0](q, k, v, cfg)
+    def prefill(q, k, v, cfg, *args):
+        out = cores[0](q, k, v, cfg, *args)
         calls.append(("prefill", q, k, v, None, out))
         return out
 
