@@ -33,7 +33,11 @@ Phases, each fatal on failure:
    8 x 512 (the decoder's prefill), non-causal with 512 queries over 1024
    keys (the cross-attention) and at ragged Sq < Skv and Sq > Skv in bf16
    and fp32, decode over an fp32 cache at the serving lengths and over a
-   bf16 memory of 1024 keys, all read), to bf16 2e-2
+   bf16 memory of 1024 keys, all read; the backward at the encoder's
+   non-causal 8 x 1024, the cross-attention's non-causal 512 queries over
+   1024 keys and the decoder's causal 8 x 512 (timed, with planted faults
+   at the first two), 1024 queries over 512 keys, fp32, ragged Sq != Skv
+   and causal Sq != Skv), to bf16 2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
@@ -63,7 +67,12 @@ Phases, each fatal on failure:
    ms a step, tokens/s, 6·N_active·tokens/s / 989 TFLOP/s, the peak held
    within 1.05 x AdamW's derived peak: the state plus 7 fp32 temporaries
    of the largest leaf), the same shape, remat "full", on the synthetic
-   pipeline. Each is called once to warm up
+   pipeline; and seamless-m4t-large-v2 at full width and depth trained
+   through ``setup_training``'s step on ``batch_at``'s ``{'frames',
+   'tokens'}`` batches (``train_loop`` refuses the family, as the
+   reference's does): 8 x 512 tokens over 1024 frames, remat, 19.6 GB of
+   training state; the flash forward twice and the backward once for each
+   of its 72 attention calls a step. Each is called once to warm up
    (the first call of each shape pays one-time library and module-loading
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
@@ -77,9 +86,10 @@ Phases, each fatal on failure:
    shares), one mamba2 prefill and one train step of each trained model
    (qwen3-moe at 1 layer), for the device's busy share and the kernels
    that take its time (at prefill, the ssd kernel's share; in training,
-   the flash or ssd forward's and backward's, the GEMMs', the
-   elementwise work's, the expert products' (``aten::bmm``) and AdamW's
-   alone);
+   of each trained model and of seamless-m4t, the flash or ssd forward's
+   and backward's, the GEMMs', the elementwise work's, the expert
+   products' (``aten::bmm``), the kernels inside ``adamw_update`` and the
+   rest; and AdamW's alone);
 6. model check (attention weights at std 1/sqrt(fan-in), where the
    reference's draw saturates the softmax: ``model_check``): a depth-2,
    full-width model of each of six archs, and kimi-k2 at depth 1 (the
@@ -95,7 +105,12 @@ Phases, each fatal on failure:
    (``encdec_model_check``: prefill of 64 tokens over 64 frames + decode,
    the logits and each layer's decode-step cross-attention output rel <
    0.06, equal argmax; a planted fault, the card's cross length half the
-   memory, must break a rule); one
+   memory, must break a rule) and its train step (``encdec_train_check``:
+   2 x 256 tokens over 512 frames, remat on the card, against the CPU:
+   loss, every leaf, each of the 6 attention calls' backward-kernel
+   gradients; two planted faults, the cross-attention's backward run
+   causal and the memory detached before the decoder, must each break a
+   rule); one
    full-width qwen3-moe MoE layer at a decode step's and a prefill's shape
    in each dispatch mode captured in a CUDA graph and replayed after its
    input changes on the device, bit for bit an eager call, with its device
@@ -129,7 +144,9 @@ before the last is the kernels' JSON record (the flash and decode entries
 also hold their D = 112 rows, "d112" in bf16 and "d112_f32", and
 seamless-m4t's, "seamless", with the launches of its counted serve_loop
 and a record for each of its timed shapes; the flash backward its G = 16
-row, "g16", with its launches on the qwen3-moe training path); the last
+row, "g16", with its launches on the qwen3-moe training path, and
+seamless-m4t's, "seamless", with the launches of its counted training run
+and a record for each of its three timed shapes); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -692,17 +709,26 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     full; ragged S; G = 1; D = 128; a 2048-token sequence; fp32; the 15 B
     archs' G = 12 and 6 and qwen3-moe's G = 16 at D = 128 (its training
     shape, 8 x 512 tokens, and a ragged S), whose numbers go into the
-    record's "g16" entry. A rule on the largest magnitude would not do:
+    record's "g16" entry; and seamless-m4t's G = 1 heads at D = 64, whose
+    numbers go into its "seamless" entry: the encoder's non-causal 8 x 1024,
+    the cross-attention's non-causal 512 queries over 1024 keys, the
+    decoder's causal 8 x 512 (the three timed), non-causal 1024 queries
+    over 512 keys, fp32 at the encoder's and the cross's lengths, ragged
+    Sq != Skv both ways, and causal Sq != Skv both ways (the mask qpos >=
+    kpos, both from 0, as the plain version's). A row's S is Sq = Skv, or
+    the pair (Sq, Skv). A rule on the largest magnitude would not do:
     under the causal mask the first keys' dk and dv are ~100x the typical
     key's, so it would pass a kernel that is 10% wrong on most keys. At the
-    training shape, G = 12 and G = 16 the check is shown to see such
-    faults: the kernel's own result, with dv or dk scaled by 0.9 past key
-    128, dv zeroed on the last 12% of keys or dq scaled by 0.9 on the last
-    12% of rows, must each fail the rule (``tools/flash_bwd_tolerance.py``
-    gives the kernel's rounding ~0.3% and these faults 1.9-4.3% on the
-    CPU), and at G = 12 and 16 so must ``block_edge_faults``. The training
-    shape, the long sequence and the G = 12, 6 and 16 shapes are timed,
-    backward alone: the kernel, the plain version and, as the yardstick,
+    training shape, G = 12, G = 16 and seamless's encoder and cross rows the
+    check is shown to see such faults: the kernel's own result, with dv or
+    dk scaled by 0.9 past key 128, dv zeroed on the last 12% of keys or dq
+    scaled by 0.9 on the last 12% of rows, must each fail the rule
+    (``tools/flash_bwd_tolerance.py`` gives the kernel's rounding ~0.3% and
+    these faults 1.9-4.3% on the CPU), at G = 12 and 16 so must
+    ``block_edge_faults``, and the rows unsplit (``n_split=1``) must pass.
+    The training shape, the long sequence, the G = 12, 6 and 16 shapes and
+    seamless's three are timed, backward alone, each with its own lengths
+    and causal flag: the kernel, the plain version and, as the yardstick,
     SDPA's backward (``torch.autograd.grad`` through SDPA with
     ``enable_gqa``, its forward outside the timed call)."""
     from flash_bwd_tolerance import grad_err, planted_faults
@@ -712,28 +738,58 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     from repro_torch.kernels.flash_attention.kernel_bwd import (auto_split,
                                                                 split_plan)
     F = torch.nn.functional
-    rows, worst, worst_g16 = {}, 0.0, 0.0
-    # (label, B, S, H, Hk, D, dtype, causal, timed)
-    for label, B, S, H, Hk, D, dtype, causal, timed in (
-            ("training", 8, 512, 32, 4, 64, torch.bfloat16, True, True),
-            ("training", 8, 512, 32, 4, 64, torch.bfloat16, False, False),
-            ("ragged", 2, 100, 32, 4, 64, torch.bfloat16, True, False),
-            ("g1", 2, 256, 8, 8, 64, torch.bfloat16, True, False),
-            ("d128", 2, 256, 32, 4, 128, torch.bfloat16, True, False),
-            ("long", 1, 2048, 32, 4, 64, torch.bfloat16, True, True),
-            ("fp32", 2, 256, 32, 4, 64, torch.float32, True, False),
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, worst = {}, {}
+    # the rows whose planted faults must fail the rule, and whose n_split=1
+    # run must pass it: (label, causal)
+    faulted = {("training", True), ("g12", True), ("g16", True),
+               ("seamless-encoder", False), ("seamless-cross", False)}
+    # (label, B, S, H, Hk, D, dtype, causal, timed, record)
+    for label, B, S, H, Hk, D, dtype, causal, timed, key in (
+            ("training", 8, 512, 32, 4, 64, bf16, True, True, ""),
+            ("training", 8, 512, 32, 4, 64, bf16, False, False, ""),
+            ("ragged", 2, 100, 32, 4, 64, bf16, True, False, ""),
+            ("g1", 2, 256, 8, 8, 64, bf16, True, False, ""),
+            ("d128", 2, 256, 32, 4, 128, bf16, True, False, ""),
+            ("long", 1, 2048, 32, 4, 64, bf16, True, True, None),
+            ("fp32", 2, 256, 32, 4, 64, f32, True, False, None),
             # the 15 B archs' heads at the train check's length: G = 12
             # (starcoder2) and G = 6 (qwen3, nemotron), D = 128
-            ("g12", 2, 256, 48, 4, 128, torch.bfloat16, True, True),
-            ("g6", 2, 256, 48, 8, 128, torch.bfloat16, True, True),
+            ("g12", 2, 256, 48, 4, 128, bf16, True, True, None),
+            ("g6", 2, 256, 48, 8, 128, bf16, True, True, None),
             # qwen3-moe's training shape: G = 16 at D = 128 (4 positions a
             # forward block, 8192 folded rows a (b, hk)), and a ragged S
-            ("g16", 8, 512, 64, 4, 128, torch.bfloat16, True, True),
-            ("ragged-g16", 2, 100, 64, 4, 128, torch.bfloat16, True,
-             False)):
-        q, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+            ("g16", 8, 512, 64, 4, 128, bf16, True, True, "g16"),
+            ("ragged-g16", 2, 100, 64, 4, 128, bf16, True, False, "g16"),
+            # seamless-m4t's training path, H = Hk = 16 at D = 64: the
+            # encoder's self-attention over 1024 frames, the
+            # cross-attention of 512 tokens over the 1024-frame memory, the
+            # decoder's causal self-attention; more queries than keys;
+            # fp32; ragged lengths; the causal mask with Sq != Skv
+            ("seamless-encoder", 8, 1024, 16, 16, 64, bf16, False, True,
+             "seamless_encoder"),
+            ("seamless-cross", 8, (512, 1024), 16, 16, 64, bf16, False, True,
+             "seamless_cross"),
+            ("seamless-decoder", 8, 512, 16, 16, 64, bf16, True, True,
+             "seamless_decoder"),
+            ("seamless-sq>skv", 8, (1024, 512), 16, 16, 64, bf16, False,
+             False, "seamless_cross"),
+            ("seamless-encoder", 2, 1024, 16, 16, 64, f32, False, False,
+             None),
+            ("seamless-cross", 2, (512, 1024), 16, 16, 64, f32, False, False,
+             None),
+            ("ragged-cross", 2, (100, 300), 16, 16, 64, bf16, False, False,
+             "seamless_cross"),
+            ("ragged-cross", 2, (300, 100), 16, 16, 64, bf16, False, False,
+             "seamless_cross"),
+            ("causal-sq<skv", 2, (512, 1024), 16, 16, 64, bf16, True, False,
+             None),
+            ("causal-sq>skv", 2, (1024, 512), 16, 16, 64, bf16, True, False,
+             None)):
+        Sq, Skv = S if isinstance(S, tuple) else (S, S)
+        q, do = (torch.randn(B, Sq, H, D, generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
-        k, v = (torch.randn(B, S, Hk, D, generator=gen, device="cuda")
+        k, v = (torch.randn(B, Skv, Hk, D, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
         o, lse = flash_attention_cuda(q, k, v, causal=causal,
                                       return_lse=True)
@@ -742,10 +798,11 @@ def check_flash_bwd(torch, timer, gen) -> dict:
         torch.cuda.synchronize()
         name = str(dtype).split(".")[1]
         tol = BWD_TOL[name]
+        shape = f"B={B} Sq={Sq} Skv={Skv} H={H} Hk={Hk} D={D}"
         for grad, g, w in zip(("dq", "dk", "dv"), got, want):
             err, wa = grad_err(g, w), w.float().abs()
             log(f"[kernels] flash_attention_bwd {label} {name} "
-                f"causal={causal} B={B} S={S} H={H} Hk={Hk} D={D} {grad}: "
+                f"causal={causal} {shape} {grad}: "
                 f"||err||/||want|| {err:.3e} (tol {tol:g}), max_abs_err "
                 f"{max_err(g, w):.3e}, |want| median {wa.median():.3e} "
                 f"max {wa.max():.3e}")
@@ -753,77 +810,83 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                 raise AssertionError(f"flash_attention_bwd {label} {name} "
                                      f"causal={causal} {grad}: "
                                      f"||err||/||want|| {err} > {tol}")
-            if dtype is torch.bfloat16:
-                worst = max(worst, max_err(g, w))
-            if "g16" in label:
-                worst_g16 = max(worst_g16, max_err(g, w))
-        if label in ("training", "g12", "g16") and causal:
+            # the kernel's own entry ("") holds every bf16 row's worst,
+            # each other record its own rows' worst
+            for rec in {key, "" if dtype is bf16 else None} - {None}:
+                worst[rec] = max(worst.get(rec, 0.0), max_err(g, w))
+        if (label, causal) in faulted:
             # the rows unsplit: one range a key tile, the partials summed
             # from one term, within the same rule
-            one = flash_attention_bwd_cuda(q, k, v, o, do, lse, n_split=1)
+            one = flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                           causal=causal, n_split=1)
             errs = [grad_err(g, w) for g, w in zip(one, want)]
             log(f"[kernels] flash_attention_bwd {label} n_split=1: "
                 f"||err||/||want|| dq, dk, dv "
                 f"{', '.join(f'{e:.3e}' for e in errs)} (tol {tol:g})")
             if not max(errs) <= tol:
-                raise AssertionError(f"flash_attention_bwd n_split=1: "
-                                     f"||err||/||want|| {errs} > {tol}")
-            faults = planted_faults(got, S)
+                raise AssertionError(f"flash_attention_bwd {label} "
+                                     f"n_split=1: ||err||/||want|| {errs} "
+                                     f"> {tol}")
+            faults = planted_faults(got)
             if label in ("g12", "g16"):
                 faults.update(block_edge_faults(got, H // Hk))
             for fault, (i, bad) in faults.items():
                 err = grad_err(bad, want[i])
-                log(f"[kernels] flash_attention_bwd planted fault, "
+                log(f"[kernels] flash_attention_bwd {label} planted fault, "
                     f"{fault}: ||err||/||want|| {err:.3e} (must exceed "
                     f"{tol:g})")
                 if not err > tol:
                     raise AssertionError(f"the backward's check passes a "
-                                         f"planted fault: {fault}")
+                                         f"planted fault at {label}: {fault}")
         if not timed:
             continue
-        ms = timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
-        passes = kernel_ms(torch, timer, lambda: flash_attention_bwd_cuda(
-            q, k, v, o, do, lse), FLASH_BWD)
-        plain_ms = timer.ms(
-            lambda: flash_attention_bwd_plain(q, k, v, do), iters=10)
+
+        def backward():
+            return flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                            causal=causal)
+        ms = timer.ms(backward)
+        passes = kernel_ms(torch, timer, backward, FLASH_BWD)
+        plain_ms = timer.ms(lambda: flash_attention_bwd_plain(
+            q, k, v, do, causal=causal), iters=10)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         try:
-            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal,
                                                  enable_gqa=True)
             lib_ms = timer.ms(lambda: torch.autograd.grad(
                 out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
         except TypeError:       # a torch without enable_gqa
             lib_ms = None
-        # five causal products (S, dP, dV, dK, dQ) of 2 * B * H * S^2 / 2 * D
-        # each; q, o, do, dq and k, v, dk, dv moved once (lse, 4 bytes a
-        # row, read once)
-        flops = 5 * 2 * B * H * S * S * D / 2
+        # five products (S, dP, dV, dK, dQ) of 2 * B * H * D over the
+        # (query, key) pairs: Sq * Skv, half of it under the causal mask
+        # (the timed causal rows are square); q, o, do, dq and k, v, dk, dv
+        # moved once (lse, 4 bytes a row, read once)
+        assert not causal or Sq == Skv
+        flops = 5 * 2 * B * H * Sq * Skv * D / (2 if causal else 1)
         nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         # this design also writes and reads back fp32 partial dk, dv: one
         # (64, D) slice of each a block of its dk/dv pass
-        n_split = auto_split(B, Hk, S, S, H // Hk, True,
+        n_split = auto_split(B, Hk, Sq, Skv, H // Hk, causal,
                              torch.cuda.get_device_properties(0)
                              .multi_processor_count)
-        ranges = split_plan(S, S, H // Hk, True, n_split)[1]
+        ranges = split_plan(Sq, Skv, H // Hk, causal, n_split)[1]
         part_bytes = 2 * 2 * B * Hk * ranges * 64 * D * 4
         bp_ms, bp_by = bound(flops, nbytes + part_bytes, PEAK_BF16_FLOPS)
-        log(f"[kernels] flash_attention_bwd {label} bf16 causal B={B} S={S} "
-            f"H={H} Hk={Hk} D={D}: {ms:.4f} ms (passes, profiled: "
+        log(f"[kernels] flash_attention_bwd {label} bf16 causal={causal} "
+            f"{shape}: {ms:.4f} ms (passes, profiled: "
             f"{profiled(passes)}; "
             f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound "
             f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB; n_split {n_split}, {B * Hk * ranges} "
             f"dk/dv blocks, whose fp32 partials add {part_bytes / 1e6:.1f} "
             f"MB: bound with them {bp_ms:.4f} ms by {bp_by})")
-        if label in ("training", "g16"):
-            rows[label] = {"ms": ms, "plain_ms": plain_ms,
-                           "library_ms": lib_ms, "bound_ms": b_ms,
-                           "bound_by": b_by}
-    rec = dict(rows["training"], max_abs_err=worst)
-    rec["g16"] = dict(rows["g16"], max_abs_err=worst_g16)
-    return rec
+        if key is not None:
+            rows.setdefault(key, {"ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by})
+    return _records(rows, worst)
 
 
 # the names of the ssd kernels' launches (bf16), as the profiler shows them
@@ -980,12 +1043,14 @@ def _serving_model(torch, arch: str):
 
 def _profile_report(prof, what: str, wall: float, steps: int,
                     ours: dict[str, tuple], top: int = 6,
-                    ranges: tuple = ()) -> None:
+                    ranges: tuple = ()) -> dict:
     """Device kernel time of a profiled window: per step, its busy share of
     the wall time, the ``top`` largest kernels, and for each group of
     ``ours`` the share of the kernels whose names contain one of its
     fragments. The device-side spans of the ``record_function`` ranges
-    named in ``ranges`` are not kernels and are left out."""
+    named in ``ranges`` are not kernels and are left out. Returns the
+    device ms a step ("device") and each group's (empty when nothing was
+    traced)."""
     from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     n_kernels = 0
@@ -997,7 +1062,7 @@ def _profile_report(prof, what: str, wall: float, steps: int,
     if not by_name:
         log(f"[profile] {what}: no device events traced; busy share not "
             "measured")
-        return
+        return {}
     busy = sum(by_name.values()) / 1e6
     log(f"[profile] {what}, {steps} step(s) under the profiler: "
         f"{wall / steps * 1e3:.3f} ms/step wall, "
@@ -1007,12 +1072,15 @@ def _profile_report(prof, what: str, wall: float, steps: int,
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {us / steps / 1e3:.4f} ms/step "
             f"({us / 1e6 / busy:.3f})  {name[:90]}")
+    out = {"device": busy * 1e3 / steps}
     for label, frags in ours.items():
         mine = [us for name, us in by_name.items()
                 if any(frag in name for frag in frags)]
+        out[label] = sum(mine) / 1e3 / steps
         log(f"[profile] {what}: {label} (kernels named {list(frags)}) take "
             f"{sum(mine) / 1e3 / steps:.4f} ms/step, a share of "
             f"{sum(mine) / 1e6 / busy:.3f} of the device time")
+    return out
 
 
 # The MoE decode step's phases: label -> (module, function), each call of
@@ -1062,10 +1130,11 @@ def phase_ranges(torch, phases: dict):
         yield
 
 
-def _phase_split(prof, phases: dict, steps: int, bound_ms: float) -> None:
+def _phase_split(prof, phases: dict, steps: int,
+                 bound_ms: float | None = None) -> dict:
     """Per step, the device time of the kernels launched inside each phase's
     ranges (host-side ranges, their kernels summed) and the span of the
-    ranges on the device."""
+    ranges on the device; returns the former, ms a step by phase."""
     from torch.autograd import DeviceType
     kernel_us = dict.fromkeys(phases, 0.0)
     span_us = dict.fromkeys(phases, 0.0)
@@ -1084,8 +1153,11 @@ def _phase_split(prof, phases: dict, steps: int, bound_ms: float) -> None:
             f"({kernel_us[label] / max(total, 1e-9):.3f} of the phases' "
             f"{total / steps / 1e3:.4f} ms), device span "
             f"{span_us[label] / steps / 1e3:.4f} ms/step")
-    log(f"[profile]   the phases' kernels against the step's bytes bound "
-        f"{bound_ms:.3f} ms: {total / steps / 1e3 / bound_ms:.3f}x")
+    if bound_ms is not None:
+        log(f"[profile]   the phases' kernels against the step's bytes "
+            f"bound {bound_ms:.3f} ms: "
+            f"{total / steps / 1e3 / bound_ms:.3f}x")
+    return {label: us / steps / 1e3 for label, us in kernel_us.items()}
 
 
 def _prefill_args(torch, cfg, model, tok) -> tuple:
@@ -1519,37 +1591,60 @@ def op_device_ms(prof, op: str) -> float:
                if e.key == op) / 1e3
 
 
+# the train step's optimizer, which the training profile wraps in a
+# ``record_function`` range
+TRAIN_PHASES = {"AdamW": ("repro_torch.runtime.train_lib", "adamw_update")}
+
+
 def profile_train(torch, arch: str, ours: dict) -> None:
     """One train step of ``arch`` (full depth unless ``cut_depth`` cuts
-    it; batch 8 x 512 tokens, remat, AdamW) under the profiler, after a
+    it; batch 8 x 512 tokens, the encoder-decoder over ``FRAMES_LEN``
+    random frames a sequence; remat, AdamW) under the profiler, after a
     warm step: busy share, the largest kernels, the shares of ``ours`` (the
-    port's kernels), the GEMMs' and the elementwise ops', and the kernels
-    launched by ``aten::bmm`` calls (on the card only the MoE's batched
-    expert products, forward, recomputed and backward); then the AdamW
-    update alone under CUDA events."""
+    port's kernels), the GEMMs' and the elementwise ops', the kernels
+    launched inside ``adamw_update`` (a ``record_function`` range) and the
+    rest of the device time, and the kernels launched by ``aten::bmm``
+    calls (on the card only the MoE's batched expert products, forward,
+    recomputed and backward); then the AdamW update alone under CUDA
+    events."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import FRAMES_LEN
     from repro_torch.models.param import tree_items, tree_map
     from repro_torch.optim import AdamWConfig, adamw_update
     from repro_torch.runtime import build_train_step, init_train_state
     model = _train_model(arch)
+    cfg = model.cfg
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     state = init_train_state(model, opt, seed=0, device="cuda")
     step = build_train_step(model, opt)
-    batch = {"tokens": torch.randint(0, model.cfg.vocab, (8, 513),
+    batch = {"tokens": torch.randint(0, cfg.vocab, (8, 513),
                                      device="cuda", dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(8, FRAMES_LEN, cfg.d_model,
+                                      device="cuda").to(torch.bfloat16)
     state, _ = step(state, batch)                             # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with phase_ranges(torch, TRAIN_PHASES), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _profile_report(prof, f"{arch} train step at batch 8 x 512 tokens", wall,
-                    1, {**ours, "GEMMs": GEMMS,
-                        "elementwise, reductions and copies": (
-                            "elementwise", "reduce", "Memcpy", "copy")},
-                    top=12)
+    split = _profile_report(
+        prof, f"{arch} train step at batch 8 x 512 tokens", wall, 1,
+        {**ours, "GEMMs": GEMMS, "elementwise, reductions and copies": (
+            "elementwise", "reduce", "Memcpy", "copy")},
+        top=12, ranges=tuple(TRAIN_PHASES))
+    adamw = _phase_split(prof, TRAIN_PHASES, 1)["AdamW"]
+    if split:
+        parts = {label: split[label] for label in (*ours, "GEMMs")}
+        parts["AdamW"] = adamw
+        rest = split["device"] - sum(parts.values())
+        log(f"[profile] {arch} train step, device ms by part: "
+            f"{', '.join(f'{k} {v:.3f}' for k, v in parts.items())}, the "
+            f"rest {rest:.3f}, of {split['device']:.3f} ms of device "
+            f"kernels in {wall * 1e3:.3f} ms wall")
     bmm_ms = op_device_ms(prof, "aten::bmm")
     if bmm_ms:
         log(f"[profile] {arch} train step: the kernels of aten::bmm (the "
@@ -1567,16 +1662,20 @@ def profile_train(torch, arch: str, ours: dict) -> None:
         f"{start.elapsed_time(end):.2f} ms")
 
 
-def _loss_and_grads(model, params, toks, dev: str):
-    """The loss and every leaf's gradient (fp32, on the host) of ``params``
-    copied to ``dev``."""
+def _loss_and_grads(model, params, toks, dev: str, **extra):
+    """The loss and every leaf's gradient (fp32, on the host; zeros where
+    none reached the leaf) of ``params`` copied to ``dev``, on the batch of
+    ``toks`` and the tensors ``extra`` (the encoder-decoder's frames)."""
     from repro_torch.models.param import tree_items, tree_map
     leaves = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(),
                       params)
-    value = model.loss_fn(leaves, {"tokens": toks.to(dev)})
+    batch = {"tokens": toks, **extra}
+    value = model.loss_fn(leaves, {k: t.to(dev) for k, t in batch.items()})
     value.backward()
-    return float(value.detach()), {"/".join(p): t.grad.float().cpu()
-                                   for p, t in tree_items(leaves)}
+    return float(value.detach()), {
+        "/".join(p): (t.grad if t.grad is not None
+                      else t.detach().new_zeros(t.shape)).float().cpu()
+        for p, t in tree_items(leaves)}
 
 
 TRAIN_GRAD_TOL = 3e-2
@@ -1585,14 +1684,17 @@ TRAIN_GRAD_TOL = 3e-2
 @contextlib.contextmanager
 def captured_attention(seen: list):
     """Context: each call of the attention core (``_prefill_core``, the
-    flash kernels on the card) appends a dict of its q, k and v and, by
-    hooks, its dq, dk, dv and dO to ``seen``."""
+    flash kernels on the card) appends a dict of its q, k, v and causal
+    flag and, by hooks, its dq, dk, dv and dO to ``seen``. Under remat the
+    recomputed calls are captured too; their hooks never fire, as the
+    gradients run through the first forward's graph."""
     import repro_torch.models.attention as attention
 
     def wrap(core):
-        def capturing_core(q, k, v, *args):
-            out = core(q, k, v, *args)
-            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
+        def capturing_core(q, k, v, cfg, causal=True):
+            out = core(q, k, v, cfg, causal)
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(),
+                   "causal": causal}
             for name, t in (("dq", q), ("dk", k), ("dv", v), ("do", out)):
                 t.register_hook(lambda g, name=name: rec.update({name: g}))
             seen.append(rec)
@@ -1602,20 +1704,23 @@ def captured_attention(seen: list):
         yield
 
 
-def attention_grad_errs(seen: list, layers: int) -> list:
-    """Per captured attention call (``captured_attention``), one a layer,
-    the backward kernel's dq, dk and dv inside the step against
-    ``flash_attention_bwd_plain`` on the same tensors, each
-    ||got - want|| / ||want||."""
+def attention_grad_errs(seen: list, calls: int) -> list:
+    """Per captured attention call (``captured_attention``) whose
+    gradients arrived, ``calls`` of them (one a layer, three a decoder
+    layer of the encoder-decoder), the backward kernel's dq, dk and dv
+    inside the step against ``flash_attention_bwd_plain`` on the same
+    tensors with the call's causal flag, each ||got - want|| / ||want||."""
     from flash_bwd_tolerance import grad_err
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
-    if len(seen) != layers or not all(len(rec) == 7 for rec in seen):
-        raise AssertionError(f"train check: captured {len(seen)} attention "
-                             f"calls, want {layers} with gradients")
+    done = [rec for rec in seen
+            if all(n in rec for n in ("dq", "dk", "dv", "do"))]
+    if len(done) != calls:
+        raise AssertionError(f"train check: captured {len(done)} attention "
+                             f"calls with gradients, want {calls}")
     errs = []
-    for rec in seen:
+    for rec in done:
         want = flash_attention_bwd_plain(rec["q"], rec["k"], rec["v"],
-                                         rec["do"])
+                                         rec["do"], causal=rec["causal"])
         errs.append([grad_err(rec[n], w)
                      for n, w in zip(("dq", "dk", "dv"), want)])
     return errs
@@ -2328,6 +2433,227 @@ def encdec_model_check(torch) -> None:
                              f"{broken}, planted fault caught {caught}")
 
 
+def encdec_train_flops(cfg, batch: int, tokens: int, frames: int) -> float:
+    """Model FLOPs of one encoder-decoder train step over ``batch``
+    sequences of ``tokens`` tokens and ``frames`` frames: three times a
+    forward (the backward's two products a weight and a score product),
+    the forward counted as ``encdec_prefill_flops`` counts a prefill but
+    with the head over every token. Remat's recomputed forward is not
+    counted."""
+    head = 2 * cfg.d_model * cfg.vocab * batch * (tokens - 1)
+    return 3 * (encdec_prefill_flops(cfg, batch, tokens, frames) + head)
+
+
+def encdec_train_counted(torch, counters: dict) -> int:
+    """seamless-m4t-large-v2 at full width and full depth trained on the
+    card at batch 8 x 512 tokens over ``FRAMES_LEN`` frames, remat on,
+    through the port's own way for the family (``train_loop`` refuses it,
+    as the reference's does): ``setup_training``'s ``step_fn``
+    (``build_train_step``) on ``batch_at(setup, i)``, the batches drawn
+    before the timed steps. A cold call of 2 steps, then a counted call of
+    4, its kernels' launch counts set to 0 just before and read just
+    after. Held: each of the 72 attention calls a step (24 encoder, 24
+    decoder self, 24 cross) launches the flash forward twice (remat
+    recomputes it) and the backward once, no other kernel; finite losses;
+    the peak under the card's memory. Printed: ms a step, decoder tokens/s,
+    the share of 989 TFLOP/s of ``encdec_train_flops`` (and with the
+    recomputed forward), the peak beside the derived training state.
+    Returns the backward's launches."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import _state_bytes
+    from repro_torch.models import param_count
+    kw = dict(batch=8, seq=512, seed=0, device="cuda")
+
+    def run(steps: int, counted: bool):
+        setup = train_mod.setup_training(SEAMLESS_ARCH, steps=steps, **kw)
+        batches = [train_mod.batch_at(setup, i) for i in range(steps)]
+        state, losses = setup.state, []
+        torch.cuda.synchronize()
+        if counted:
+            torch.cuda.reset_peak_memory_stats()
+            for k in counters.values():
+                k.launches = 0
+        t0 = time.perf_counter()
+        for b in batches:
+            state, metrics = setup.step_fn(state, b)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in counters.items()}
+        return setup, wall / steps, losses, counts
+
+    t_phase = time.perf_counter()
+    setup, ms, losses, _ = run(2, False)
+    log(f"[train] {SEAMLESS_ARCH} first call (cold), 2 steps: "
+        f"{ms * 1e3:.1f} ms/step, losses {losses}")
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = 4
+    setup, ms, losses, counts = run(steps, True)
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    cfg = setup.model.cfg
+    B, S = kw["batch"], kw["seq"]
+    flops = encdec_train_flops(cfg, B, S, setup.frames_len)
+    recompute = encdec_prefill_flops(cfg, B, S, setup.frames_len)
+    state_bytes = _state_bytes(setup.model, setup.opt_cfg)
+    n_params = param_count(setup.model.param_decls())
+    log(f"[train] {SEAMLESS_ARCH} batch={B} x {S} tokens over "
+        f"{setup.frames_len} frames ({n_params / 1e9:.3f} B params, "
+        f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, remat) {steps} "
+        f"steps: {ms * 1e3:.1f} ms/step, {B * S / ms:.0f} decoder "
+        f"tokens/s; losses {losses}; launches {counts}; peak memory "
+        f"{peak / 2**30:.2f} GiB of the card's {card / 2**30:.2f} "
+        f"(training state {state_bytes / 1e9:.1f} GB, derived); derived: "
+        f"model FLOPs a step {flops / 1e12:.2f} T / step s / 989 TFLOP/s "
+        f"= {flops / ms / PEAK_BF16_FLOPS:.3f}, with remat's recomputed "
+        f"forward ({recompute / 1e12:.2f} T more) "
+        f"{(flops + recompute) / ms / PEAK_BF16_FLOPS:.3f}; both calls in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    calls = cfg.n_encoder_layers + 2 * cfg.n_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=steps * 2 * calls,
+                flash_attention_bwd=steps * calls)
+    if counts != want:
+        raise AssertionError(f"{SEAMLESS_ARCH} training launches {counts}: "
+                             f"want {want} ({calls} attention calls a step, "
+                             f"the forward recomputed under remat)")
+    if len(losses) != steps or not all(
+            l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"{SEAMLESS_ARCH} training losses {losses}")
+    if not peak < card:
+        raise AssertionError(f"{SEAMLESS_ARCH} training peak {peak} bytes "
+                             f"over the card's {card}")
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention_bwd"]
+
+
+def encdec_train_check(torch) -> None:
+    """seamless-m4t-large-v2 at full width cut to ``ENCDEC_CHECK_LAYERS``
+    encoder and as many decoder layers, in bf16, the attention weights at
+    std 1/sqrt(fan-in) (as ``encdec_model_check`` draws them): one train
+    step's loss and every leaf's gradient on the card (the flash kernels,
+    remat on: each layer's forward recomputed) against the CPU (the plain
+    path, remat off), same weights and batch (2 x 256 tokens over 512
+    frames, so the cross-attention keeps Sq != Skv). Held, as
+    ``train_check`` holds a dense arch: the loss within 1e-2 relative; each
+    leaf within ``TRAIN_GRAD_TOL`` of its norm; each of the 6 attention
+    calls' dq, dk and dv as the backward kernel computed them inside the
+    step against ``flash_attention_bwd_plain`` on the card on the same
+    tensors, within ``BWD_TOL``; the flash forward launched twice a call,
+    the backward once. Two planted faults must each break a rule: the
+    cross-attention's backward run with ``causal=True``, and the memory
+    detached before the decoder (the encoder's leaves then get no
+    gradient)."""
+    import importlib
+    from attention_conditioning import fan_in_std
+    from flash_bwd_tolerance import grad_err
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_map
+    ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
+    encdec_mod = importlib.import_module("repro_torch.models.encdec")
+    L, seq, frames_len = ENCDEC_CHECK_LAYERS, 256, 512
+    cfg = dataclasses.replace(get_config(SEAMLESS_ARCH), n_layers=L,
+                              n_encoder_layers=L, remat=False,
+                              q_chunk=seq // 2, kv_chunk=seq // 2)
+    model = build_model(cfg)
+    on_card = build_model(dataclasses.replace(cfg, remat=True))
+    params = init_params(model.param_decls(),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    params["encoder"]["attn"] = fan_in_std(params["encoder"]["attn"],
+                                           cfg.d_model)
+    for name in ("self_attn", "cross_attn"):
+        params["decoder"][name] = fan_in_std(params["decoder"][name],
+                                             cfg.d_model)
+    params = tree_map(lambda a: a.cpu(), params)
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, seq + 1), generator=gen)
+    frames = torch.randn(2, frames_len, cfg.d_model,
+                         generator=gen).to(torch.bfloat16)
+    calls = L + 2 * L
+
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu",
+                                          frames=frames)
+    cpu_s = time.perf_counter() - t0
+
+    def card_step(fault) -> tuple[str, list]:
+        seen = []
+        flash_k.launches = bwd_k.launches = 0
+        with fault(), captured_attention(seen):
+            loss, grads = _loss_and_grads(on_card, params, toks, "cuda",
+                                          frames=frames)
+        launches = (flash_k.launches, bwd_k.launches)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        errs = {k: grad_err(grads[k], w) for k, w in ref_grads.items()}
+        top = sorted(errs, key=lambda k: -errs[k])[:4]
+        try:
+            attn = attention_grad_errs(seen, calls)
+            attn_ok = max(map(max, attn)) <= BWD_TOL["bfloat16"]
+        except AssertionError as e:     # calls that got no gradient
+            attn, attn_ok = str(e), False
+        broken = [rule for rule, ok in (
+            ("loss rel < 1e-2", rel < 1e-2),
+            (f"each leaf within {TRAIN_GRAD_TOL:g} of its norm",
+             max(errs.values()) <= TRAIN_GRAD_TOL),
+            (f"each call's dq, dk, dv within {BWD_TOL['bfloat16']:g}",
+             attn_ok),
+            ("flash launches: 2 forward, 1 backward a call",
+             launches == (2 * calls, calls))) if not ok]
+        shown = attn if isinstance(attn, str) else [
+            [f"{e:.2e}" for e in errs_of_call] for errs_of_call in attn]
+        return (f"loss {loss:.6f} vs {ref_loss:.6f} (rel {rel:.2e}); worst "
+                f"||diff||/||g|| "
+                f"{', '.join(f'{k} {errs[k]:.2e}' for k in top)}; the "
+                f"backward kernel in the step against the plain version, "
+                f"per call (dq, dk, dv; encoder, then each decoder layer's "
+                f"self and cross): {shown}; launches (forward, backward) "
+                f"{launches}"), broken
+
+    def cross_causal():
+        def wrap(bwd):
+            def faulty(q, k, v, o, do, lse, *, causal=True, n_split=None):
+                if q.shape[1] != k.shape[1]:    # the cross-attention
+                    causal = True
+                return bwd(q, k, v, o, do, lse, causal=causal,
+                           n_split=n_split)
+            return faulty
+        return patched(ops, "flash_attention_bwd_cuda", wrap)
+
+    def memory_detached():
+        def wrap(encode):
+            def faulty(self, params, frames):
+                return encode(self, params, frames).detach()
+            return faulty
+        return patched(encdec_mod.EncDecLM, "encode", wrap)
+
+    tag = f"depth-{L}+{L} {SEAMLESS_ARCH}"
+    text, broken = card_step(contextlib.nullcontext)
+    log(f"[model] {tag} bf16 train step, 2 x {seq} tokens over "
+        f"{frames_len} frames (attention weights at std 1/sqrt(fan-in); "
+        f"the card under remat, the CPU step {cpu_s:.1f} s), cuda vs cpu: "
+        f"{text}; broken: {broken or 'none'}")
+    caught = {}
+    for fault, plant in (("the cross-attention's backward run causal",
+                          cross_causal),
+                         ("the memory detached before the decoder",
+                          memory_detached)):
+        fault_text, caught[fault] = card_step(plant)
+        log(f"[model] {tag} planted fault, {fault}: {fault_text}; broken: "
+            f"{caught[fault] or 'none'}")
+    if broken or not all(caught.values()):
+        raise AssertionError(f"train check {SEAMLESS_ARCH}: rules broken "
+                             f"{broken}, planted faults caught {caught}")
+
+
 # ------------------------------------------------------------------- MoE
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 12
 # kimi-k2: 36.5 B parameters (73.0 GB) at 2 of its 61 layers; D = 112
@@ -2689,6 +3015,8 @@ def main() -> int:
             ("flash_attention", "flash_attention_bwd"),
             optimizer_bound=True)["flash_attention_bwd"]
     torch.cuda.empty_cache()
+    # seamless-m4t at full width and depth (19.6 GB of training state)
+    n_seamless_bwd = encdec_train_counted(torch, counters)
 
     # the split kernels are split_bf16_kernel and split_f32_kernel
     decode_kernels = {"decode_attention": ("split_bf16_kernel",
@@ -2722,6 +3050,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[profile] {MOE_ARCH} train step profiled in "
         f"{time.perf_counter() - t0:.1f} s")
+    profile_train(torch, SEAMLESS_ARCH, {"flash forward": FLASH_FWD,
+                                         "flash backward": FLASH_BWD})
+    gc.collect()
+    torch.cuda.empty_cache()
     for arch in ("tinyllama-1.1b", "mamba2-370m", "starcoder2-15b",
                  "nemotron-4-15b", "qwen3-14b", MOE_ARCH):
         model_check(torch, arch)
@@ -2729,6 +3061,7 @@ def main() -> int:
     model_check(torch, KIMI_ARCH, depth=KIMI_CHECK_DEPTH,
                 own_routing=False)
     encdec_model_check(torch)
+    encdec_train_check(torch)
     gc.collect()
     torch.cuda.empty_cache()
     moe_graph_check(torch, timer)
@@ -2750,10 +3083,12 @@ def main() -> int:
     flash_bwd["g16"]["launches"] = n_moe_bwd
     # seamless-m4t's rows, under one entry with the launches of its counted
     # serve_loop (flash: encoder, decoder prefill and cross, 24 each;
-    # decode: the fp32 self and bf16 memory steps, 24 each a step)
-    for rec, name in ((flash, "flash_attention"),
-                      (decode, "decode_attention")):
-        rec["seamless"] = {"launches": seamless[name], **{
+    # decode: the fp32 self and bf16 memory steps, 24 each a step) or, for
+    # the backward, of its counted training run (72 a step)
+    for rec, launches in ((flash, seamless["flash_attention"]),
+                          (decode, seamless["decode_attention"]),
+                          (flash_bwd, n_seamless_bwd)):
+        rec["seamless"] = {"launches": launches, **{
             key.removeprefix("seamless_"): rec.pop(key)
             for key in list(rec) if key.startswith("seamless_")}}
     kernels = [

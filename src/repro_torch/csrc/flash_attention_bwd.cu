@@ -25,9 +25,10 @@
 // Hk=4, D=64, bf16, causal) it must move 76 MB (q, o, do, dq at 16.8 MB,
 // k, v, dk, dv at 2.1 MB, the forward's lse at 0.5 MB), 22.7 us at
 // 3.35 TB/s, and do 21.5 GFLOP of causal products (five products of the
-// forward's two), 21.7 us at 989 TFLOP/s. This design does two more
+// forward's two), 21.7 us at 989 TFLOP/s. This design does three more
 // products (S and dP again in the dq pass, as no atomics may sum dq across
-// key blocks) and moves fp32 partials of dk and dv (below).
+// key blocks, and P.K there, for delta below) and moves fp32 partials of
+// dk and dv (below).
 //
 // Design: three launches and no atomics, so a run reproduces bit for bit.
 // Both gradient passes are one warpgroup (4 warps) a block on wgmma
@@ -38,9 +39,11 @@
 //  1. dq pass: 64 folded query rows of one (b, hk) a block. It reads the
 //     forward's lse and walks its keys once, 64 a tile: S = Q.K^T,
 //     dP = dO.V^T (both operands in shared memory), P = 2^(s c -
-//     lse log2(e)), dS = P (dP - delta), dq += dS.K (dS from registers, K
-//     transposed by the descriptor). delta = rowsum(dO o) is computed at
-//     its head and handed to pass 2 through fp32 scratch.
+//     lse log2(e)), dS = P (dP - delta), dq += dS.K and P.K (dS and P
+//     from registers, K transposed by the descriptor). delta = rowsum(dO
+//     o) is computed at its head; at its end each row's dS is corrected to
+//     sum to 0 (its comment says why) and the corrected delta is handed to
+//     pass 2 through fp32 scratch.
 //  2. dk/dv pass: 64 keys of one (b, hk) and one range of the folded query
 //     rows that reach them a block (the wrapper's n_split sets the ranges,
 //     so the first keys' long walks spread over several blocks): S^T =
@@ -262,11 +265,29 @@ __device__ __forceinline__ void pack_cols(uint32_t (&x)[4][4], int j,
   x[j / 2][2 * (j & 1) + 1] = pack_bf16(v[2], v[3]);
 }
 
+// The sum of a packed pair, as the product reads it (rounded to bf16).
+__device__ __forceinline__ float packed_sum(uint32_t x) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return f.x + f.y;
+}
+
 // Pass 1: dq, and delta into scratch. Grid (B * Hk, row tiles): the blocks
 // launch row tile by row tile, the longest rows (causal) first. One
 // warpgroup on wgmma: warp w holds rows 16 w .. 16 w + 15 of the
 // accumulators (element i: row 16 w + gq + 8 ((i % 4) / 2), column
 // 8 (i / 4) + 2 tq + i % 2).
+//
+// delta. rowsum(dO o) reads the forward's bf16 output, so it is off the
+// exact sum_j p_ij dp_ij by o's rounding, and dS_i then sums to that error
+// c_i in place of 0. dq_i = sum_j dS_ij k_j carries c_i (P K)_i, which a
+// component common to all keys makes large against dq itself (in a
+// seamless-m4t decoder layer whose keys' mean is 0.82 of their spread
+// about it, 1.1% of dq's norm; tools/flash_bwd_tolerance.py, and measured
+// on an H100). So the walk also sums each row's dS and P
+// as the products read them (bf16) and accumulates P K, and dq takes
+// dS - (c_i / sum_j P_ij) P: its row sums to 0, as the exact dS's. Pass 2
+// gets delta + c_i / sum_j P_ij, the same correction.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 1)
 bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -355,10 +376,7 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (half == 0) {
-      delta_s[dr] = s;
-      if (R0 + dr < NR) p.delta[scratch + R0 + dr] = s;
-    }
+    if (half == 0) delta_s[dr] = s;
   }
   __syncthreads();
 
@@ -366,10 +384,12 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float deltaA = delta_s[RA - R0], deltaB = delta_s[RB - R0];
   const uint32_t q_s = smem_u32(Qs), do_s = smem_u32(dOs);
 
-  // dq += dS . K, one walk over the keys, the next tiles' copies in flight
-  float acc[D / 2];
+  // dq += dS . K and pk += P . K, one walk over the keys, the next tiles'
+  // copies in flight; dS and P summed along the rows, as rounded to bf16
+  float acc[D / 2], pk[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = pk[i] = 0.f;
+  float dsA = 0.f, dsB = 0.f, pA = 0.f, pB = 0.f;
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * kRows;
     if (t + kStages - 1 < n_tiles) load_kv(t + kStages - 1);
@@ -395,43 +415,69 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // tile's last key)
     const bool edge = kv0 + kRows > p.Skv
                       || (p.causal && R0 < (kv0 + kRows - 1) * p.G);
-    uint32_t da[4][4];
+    uint32_t pa[4][4], da[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float ds[4];
+      float pr[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kv0 + j * 8 + 2 * tq + (e & 1);
         const bool a = e < 2;
         const bool masked = edge && (key >= p.Skv
                                      || (p.causal && key > (a ? posA : posB)));
-        const float pr = masked ? 0.f
-                                : ex2(fmaf(sc[4 * j + e], scale_log2,
-                                           -(a ? lseA : lseB)));
-        ds[e] = pr * (dp[4 * j + e] - (a ? deltaA : deltaB));
+        pr[e] = masked ? 0.f
+                       : ex2(fmaf(sc[4 * j + e], scale_log2,
+                                  -(a ? lseA : lseB)));
+        ds[e] = pr[e] * (dp[4 * j + e] - (a ? deltaA : deltaB));
       }
+      pack_cols(pa, j, pr);
       pack_cols(da, j, ds);
+      const int x = j / 2, y = 2 * (j & 1);
+      pA += packed_sum(pa[x][y]);
+      pB += packed_sum(pa[x][y + 1]);
+      dsA += packed_sum(da[x][y]);
+      dsB += packed_sum(da[x][y + 1]);
     }
     fence_regs(acc);
+    fence_regs(pk);
     wgmma_fence();
     accumulate<D>(acc, da, k_s);
+    accumulate<D>(pk, pa, k_s);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
+    fence_regs(pk);
     __syncthreads();                        // stage free for tile t + kStages
   }
 
+  // the rows' sums over the quad of threads that holds them (tq = 0..3)
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    pA += __shfl_xor_sync(0xffffffffu, pA, m);
+    pB += __shfl_xor_sync(0xffffffffu, pB, m);
+    dsA += __shfl_xor_sync(0xffffffffu, dsA, m);
+    dsB += __shfl_xor_sync(0xffffffffu, dsB, m);
+  }
+  // c = sum_j dS / sum_j P: dS - c P sums to 0 along the row
+  const float cA = pA > 0.f ? dsA / pA : 0.f;
+  const float cB = pB > 0.f ? dsB / pB : 0.f;
+  if (tq == 0) {
+    if (RA < NR) p.delta[scratch + RA] = deltaA + cA;
+    if (RB < NR) p.delta[scratch + RB] = deltaB + cB;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + 2 * tq;
     if (RA < NR)
       *reinterpret_cast<uint32_t*>(dq + row_offset(RA, b, hk, p.dqs, p)
                                    + col) =
-          pack_bf16(acc[4 * j] * p.scale, acc[4 * j + 1] * p.scale);
+          pack_bf16(fmaf(-cA, pk[4 * j], acc[4 * j]) * p.scale,
+                    fmaf(-cA, pk[4 * j + 1], acc[4 * j + 1]) * p.scale);
     if (RB < NR)
       *reinterpret_cast<uint32_t*>(dq + row_offset(RB, b, hk, p.dqs, p)
                                    + col) =
-          pack_bf16(acc[4 * j + 2] * p.scale, acc[4 * j + 3] * p.scale);
+          pack_bf16(fmaf(-cB, pk[4 * j + 2], acc[4 * j + 2]) * p.scale,
+                    fmaf(-cB, pk[4 * j + 3], acc[4 * j + 3]) * p.scale);
   }
 }
 

@@ -14,6 +14,15 @@ arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so those train at full
 depth only across devices (ROADMAP A.12) and a full-depth run of one on a
 single card raises ``ValueError``; a cut depth of them trains.
 
+The encoder-decoder (seamless-m4t-large-v2, 1.63 B parameters, ~20 GB of
+training state at full depth) trains as the reference trains it: not
+through ``train_loop``, which refuses the family as the reference's does,
+but through :func:`setup_training`'s ``step_fn`` (``build_train_step``)
+on the ``{'frames', 'tokens'}`` batch of :func:`batch_at`, keyed by step:
+the tokens of ``SyntheticLM``, and ``FRAMES_LEN`` seeded random frame
+embeddings a sequence (16 with ``reduced=True``), as ``launch/serve.py``
+draws them for a prompt.
+
 Fault tolerance: ``--simulate-failure K`` raises after step K; rerunning
 the same command with ``--resume`` resumes from the last complete
 checkpoint and reproduces the loss trajectory (the data pipeline is keyed
@@ -36,20 +45,23 @@ import dataclasses
 import time
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, list_archs
-from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.data import DataConfig, SyntheticLM, make_pipeline
 from repro_torch.kernels import _build
 from repro_torch.launch import resolve_device
+from repro_torch.launch.serve import FRAMES_LEN
 from repro_torch.models import build_model
 from repro_torch.models.param import tree_items
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import (TrainState, build_train_step,
                                  init_train_state)
 
-__all__ = ["TrainSetup", "main", "setup_training", "train_loop"]
+__all__ = ["TrainSetup", "batch_at", "main", "setup_training",
+           "train_loop"]
 
 
 def _state_bytes(model, opt_cfg: AdamWConfig) -> int:
@@ -71,6 +83,7 @@ class TrainSetup(NamedTuple):
     state: TrainState
     data: DataConfig
     device: torch.device
+    frames_len: int = 0      # the encoder's frames a sequence (encdec)
 
 
 def setup_training(arch: str, *, steps: int, batch: int, seq: int,
@@ -79,18 +92,13 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
                    device: str | torch.device = "cuda") -> TrainSetup:
     """The model of ``arch`` for ``seq``-token sequences, AdamW scheduled
     over ``steps`` steps, the train step, the seeded initial state on
-    ``device`` and the data config of ``batch`` x ``seq`` tokens. On the
-    card it first refuses a state larger than the card and builds the
-    kernels, so no kernel builds inside a step."""
+    ``device`` and the data config of ``batch`` x ``seq`` tokens (for the
+    encoder-decoder also ``frames_len``, the frames a sequence:
+    ``FRAMES_LEN``, 16 reduced). On the card it first refuses a state
+    larger than the card and builds the kernels, so no kernel builds inside
+    a step."""
     device = resolve_device(device, "train_loop")
     cfg = get_config(arch, reduced=reduced)
-    if cfg.family == "encdec":
-        # refused before anything is allocated, as the reference's
-        # train_loop refuses this family
-        raise SystemExit(f"{cfg.name}: train_loop does not train the "
-                         "encoder-decoder yet (ROADMAP item A.11, its "
-                         "training); EncDecLM.loss_fn gives its loss and "
-                         "gradients")
     cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
                               kv_chunk=max(seq // 2, 16),
                               microbatches=microbatches or 1)
@@ -109,12 +117,32 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
                 f"{have / 1e9:.0f} GB; training it needs several devices "
                 f"(ROADMAP item A.12), or a cut depth")
         _build.build()               # set-up, outside the timed loop
+    frames_len = 0
+    if cfg.family == "encdec":
+        frames_len = 16 if reduced else FRAMES_LEN
     return TrainSetup(
         model, opt_cfg, build_train_step(model, opt_cfg),
         init_train_state(model, opt_cfg, seed=seed, device=device),
         DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                    seed=seed),
-        device)
+        device, frames_len)
+
+
+def batch_at(setup: TrainSetup, step: int) -> dict:
+    """The batch of step ``step`` on the set-up's device, a pure function of
+    (seed, step): ``tokens`` (B, seq + 1) from ``SyntheticLM(setup.data)``
+    and, for the encoder-decoder, ``frames`` (B, ``setup.frames_len``,
+    d_model) bf16, standard normal draws of ``numpy.random.default_rng(
+    (seed, step))`` (``launch/serve.py`` draws a prompt's frames alike)."""
+    data = setup.data
+    batch = {"tokens": torch.as_tensor(
+        SyntheticLM(data).batch_at(step)["tokens"]).to(setup.device)}
+    if setup.frames_len:
+        rng = np.random.default_rng((data.seed, step))
+        batch["frames"] = torch.as_tensor(rng.normal(size=(
+            data.global_batch, setup.frames_len,
+            setup.model.cfg.d_model))).to(torch.bfloat16).to(setup.device)
+    return batch
 
 
 def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
@@ -127,6 +155,16 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
 
     Returns ``losses`` (one a step run), ``wall_s``, ``tokens_per_s``,
     ``final_loss`` and ``start_step`` (nonzero after a resume)."""
+    cfg = get_config(arch, reduced=reduced)
+    if cfg.family == "encdec":
+        # refused before anything is allocated, as the reference's
+        # train_loop refuses this family
+        raise SystemExit(
+            f"{cfg.name}: train_loop does not train the encoder-decoder, "
+            "as the reference's does not (ROADMAP item A.11, its "
+            "training): train it through setup_training(...).step_fn, "
+            "build_train_step's step, on batch_at(setup, i), the "
+            "{'frames', 'tokens'} batch")
     setup = setup_training(arch, steps=steps, batch=batch, seq=seq,
                            reduced=reduced, seed=seed,
                            microbatches=microbatches, device=device)

@@ -584,14 +584,22 @@ def _bwd_close(got, want, dtype) -> bool:
     (2, 256, 48, 8, 128),                 # nemotron, qwen3: G = 6
     (2, 100, 48, 4, 128),                 # G = 12, ragged S
     (8, 512, 64, 4, 128),                 # qwen3-moe's training shape:
-    (2, 100, 64, 4, 128)])                # G = 16, D = 128; ragged S
+    (2, 100, 64, 4, 128),                 # G = 16, D = 128; ragged S
+    # S = (Sq, Skv), seamless-m4t's heads (G = 1, D = 64): the
+    # cross-attention's 512 queries over 1024 keys, more queries than
+    # keys, and ragged lengths both ways
+    pytest.param(2, (512, 1024), 16, 16, 64, id="2-512x1024-16-16-64"),
+    pytest.param(2, (1024, 512), 16, 16, 64, id="2-1024x512-16-16-64"),
+    pytest.param(2, (100, 300), 16, 16, 64, id="2-100x300-16-16-64"),
+    pytest.param(2, (300, 100), 16, 16, 64, id="2-300x100-16-16-64")])
 def test_flash_bwd_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q = randn(gen, B, S, H, D, dtype=tdt)
-    k = randn(gen, B, S, Hk, D, dtype=tdt)
-    v = randn(gen, B, S, Hk, D, dtype=tdt)
-    do = randn(gen, B, S, H, D, dtype=tdt)
+    q = randn(gen, B, Sq, H, D, dtype=tdt)
+    k = randn(gen, B, Skv, Hk, D, dtype=tdt)
+    v = randn(gen, B, Skv, Hk, D, dtype=tdt)
+    do = randn(gen, B, Sq, H, D, dtype=tdt)
     o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
     before = flash_bwd_kernel.launches
     got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
@@ -622,19 +630,23 @@ def test_flash_bwd_cuda_is_deterministic(n_split):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,Hk,D,n_split", [
     (8, 512, 32, 4, 64, 4), (2, 100, 32, 4, 64, 3), (2, 256, 8, 8, 128, 2),
-    (1, 48, 6, 2, 16, 2), (1, 2048, 32, 4, 64, 8)])
+    (1, 48, 6, 2, 16, 2), (1, 2048, 32, 4, 64, 8),
+    # S = (Sq, Skv): seamless-m4t's cross-attention and its mirror
+    pytest.param(2, (512, 1024), 16, 16, 64, 4, id="2-512x1024-16-16-64-4"),
+    pytest.param(2, (1024, 512), 16, 16, 64, 4, id="2-1024x512-16-16-64-4")])
 def test_flash_bwd_cuda_row_split_matches_one_range(dtype, causal, B, S, H,
                                                     Hk, D, n_split):
     """The dk/dv pass with its rows split over ranges (fp32 partials summed
     by the reduce pass) against n_split = 1 (one range a key tile) and the
     plain gradient, within the rule; dq does not depend on the split."""
     tdt = getattr(torch, dtype)
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    q, do = (randn(gen, B, S, H, D, dtype=tdt) for _ in range(2))
-    k, v = (randn(gen, B, S, Hk, D, dtype=tdt) for _ in range(2))
+    q, do = (randn(gen, B, Sq, H, D, dtype=tdt) for _ in range(2))
+    k, v = (randn(gen, B, Skv, Hk, D, dtype=tdt) for _ in range(2))
     o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
-    assert split_plan(S, S, H // Hk, causal, n_split)[1] > \
-        split_plan(S, S, H // Hk, causal, 1)[1]
+    assert split_plan(Sq, Skv, H // Hk, causal, n_split)[1] > \
+        split_plan(Sq, Skv, H // Hk, causal, 1)[1]
     one = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                    n_split=1)
     split = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
@@ -809,6 +821,64 @@ def test_moe_train_step_under_each_remat_policy_matches_cpu(policy):
     assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
     for k, w in g_cpu.items():
         assert float((g_gpu[k] - w).norm()) <= 3e-2 * float(w.norm()), k
+
+
+def test_encdec_train_step_matches_cpu():
+    """One step of the reduced seamless-m4t cut to 2 encoder and 2 decoder
+    layers (2 x 32 tokens over 64 frames: the cross-attention keeps Sq !=
+    Skv) with its attention weights at std 1/sqrt(fan-in): on the card
+    under remat, against the CPU with remat off, by chip_smoke.py's
+    train-check rule (loss 1e-2 relative, each leaf within 3e-2 of its
+    norm). Each of its 6 attention calls launches the flash forward twice
+    (remat recomputes it) and the backward once."""
+    smoke = _chip_smoke()
+    from attention_conditioning import fan_in_std
+    cfg = dataclasses.replace(
+        get_config("seamless-m4t-large-v2", reduced=True), n_layers=2,
+        n_encoder_layers=2, remat=False, q_chunk=16, kv_chunk=16)
+    params = init_params(build_model(cfg).param_decls(),
+                         torch.Generator().manual_seed(0), "cpu")
+    params["encoder"]["attn"] = fan_in_std(params["encoder"]["attn"],
+                                           cfg.d_model)
+    for name in ("self_attn", "cross_attn"):
+        params["decoder"][name] = fan_in_std(params["decoder"][name],
+                                             cfg.d_model)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
+    frames = torch.randn(2, 64, cfg.d_model, generator=gen).bfloat16()
+    l_cpu, g_cpu = smoke._loss_and_grads(build_model(cfg), params, toks,
+                                         "cpu", frames=frames)
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    l_gpu, g_gpu = smoke._loss_and_grads(
+        build_model(dataclasses.replace(cfg, remat=True)), params, toks,
+        "cuda", frames=frames)
+    assert (flash_kernel.launches, flash_bwd_kernel.launches) == (12, 6)
+    assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    for k, w in g_cpu.items():
+        assert float((g_gpu[k] - w).norm()) <= 3e-2 * float(w.norm()), k
+
+
+def test_setup_training_trains_encdec_on_the_card():
+    """The reduced seamless-m4t trained on the card the port's way for the
+    family: setup_training's step on batch_at's {'frames', 'tokens'}
+    batches (16 frames a sequence), 2 steps: finite losses, the flash
+    forward twice and the backward once for each attention call."""
+    from repro_torch.launch.train import batch_at, setup_training
+    s = setup_training("seamless-m4t-large-v2", steps=2, batch=2, seq=32,
+                       reduced=True)
+    cfg = s.model.cfg
+    calls = cfg.n_encoder_layers + 2 * cfg.n_layers
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    state, losses = s.state, []
+    for i in range(2):
+        batch = batch_at(s, i)
+        assert batch["frames"].shape == (2, 16, cfg.d_model)
+        assert batch["frames"].is_cuda and batch["tokens"].is_cuda
+        state, metrics = s.step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert (flash_kernel.launches, flash_bwd_kernel.launches) == \
+        (2 * 2 * calls, 2 * calls)
 
 
 def _chip_smoke():

@@ -496,6 +496,216 @@ def test_non_causal_attention_matches_jax():
     assert rel_err(want, causal) > 10 * TIGHT     # the mode matters
 
 
+# ---------------------------------------------------------- the train step
+def to_jax(tree):
+    """A port tree (bf16 or fp32 torch leaves) as JAX arrays, bit for bit."""
+    return jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32), tree)
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b": leaf} -> {"a": {"b": leaf}}."""
+    tree = {}
+    for path, leaf in flat.items():
+        *head, last = path.split("/")
+        node = tree
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def frames_batch(frames, toks) -> dict:
+    return {"frames": torch.as_tensor(frames), "tokens": torch.as_tensor(toks)}
+
+
+def test_train_step_is_adamw_on_the_port_gradients(jax_loss_and_grads):
+    """One composed train step on the reduced model's {'frames', 'tokens'}
+    batch equals the JAX package's ``adamw_update`` applied to the port's
+    own gradients (which test_loss_and_grads_match_jax holds to JAX's):
+    bf16 parameters within one rounding (2^-8 relative), the fp32 moments
+    1e-5 (tests/test_torch_train.py's rule). The step writes into its
+    state, so it steps a copy of the shared weights."""
+    from repro.optim import adamw as jax_adamw
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import TrainState, build_train_step
+    frames, toks, runs = jax_loss_and_grads
+    model, params = runs[True][:2]
+    cfg = dict(lr=5e-3, warmup_steps=2, total_steps=50)
+    loss, grads = port_grads(model, params, frames, toks)
+    jcfg = jax_adamw.AdamWConfig(**cfg)
+    jparams = to_jax(params)
+    jgrads = to_jax(unflatten(grads))
+    # jitted: op by op it would compile each primitive at each leaf's shape
+    jp, jstate, _ = jax.jit(lambda p, g, st: jax_adamw.adamw_update(
+        p, g, st, jcfg))(jparams, jgrads, jax_adamw.adamw_init(jparams, jcfg))
+    tcfg = AdamWConfig(**cfg)
+    tparams = tree_map(torch.clone, params)
+    state = TrainState(tparams, adamw_init(tparams, tcfg))
+    state, metrics = build_train_step(model, tcfg)(
+        state, frames_batch(frames, toks))
+    assert float(metrics["loss"]) == float(loss)
+    got_p = {"/".join(p): t for p, t in tree_items(state.params)}
+    got_m = {"/".join(p): t for p, t in tree_items(state.opt.m)}
+    want_m = jax_by_path(jstate.m)
+    for k, want in jax_by_path(jp).items():
+        np.testing.assert_allclose(f32(got_p[k]), f32(want), rtol=2 ** -8,
+                                   atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(f32(got_m[k]), f32(want_m[k]), rtol=1e-5,
+                                   atol=1e-9, err_msg=k)
+
+
+def test_four_train_steps_track_jax_jitted():
+    """Four composed train steps on one {'frames', 'tokens'} batch, from
+    the fan-in draw, against the JAX package's jitted
+    ``value_and_grad(EncDecLM.loss_fn)`` + ``adamw_update``: the losses
+    within 5e-2 relative (tests/test_torch_train.py's bound: Adam's first
+    steps move each bf16 weight by ~lr whatever its gradient's size, and
+    jitted JAX rounds elsewhere than the op-by-op run the port follows);
+    both descend."""
+    from repro.optim import adamw as jax_adamw
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import TrainState, build_train_step
+    jmodel, params_j, model, params_t = models(0, "fan-in")
+    frames, toks = inputs(6)
+    cfg = dict(lr=5e-3, warmup_steps=2, total_steps=50)
+    jcfg = jax_adamw.AdamWConfig(**cfg)
+
+    @jax.jit
+    def jstep(p, opt, batch):
+        loss, grads = jax.value_and_grad(jmodel.loss_fn)(p, batch)
+        p, opt, _ = jax_adamw.adamw_update(p, grads, opt, jcfg)
+        return p, opt, loss
+
+    jbatch = {"frames": jnp.asarray(frames), "tokens": jnp.asarray(toks)}
+    jp, jopt, jlosses = params_j, jax_adamw.adamw_init(params_j, jcfg), []
+    for _ in range(4):
+        jp, jopt, loss = jstep(jp, jopt, jbatch)
+        jlosses.append(float(loss))
+    tcfg = AdamWConfig(**cfg)
+    state = TrainState(params_t, adamw_init(params_t, tcfg))
+    step = build_train_step(model, tcfg)
+    losses = []
+    for _ in range(4):
+        state, metrics = step(state, frames_batch(frames, toks))
+        losses.append(float(metrics["loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=5e-2)
+    assert losses[-1] < losses[0] and jlosses[-1] < jlosses[0]
+    assert int(state.opt.step) == 4
+
+
+@pytest.mark.parametrize("Bm,mu", [(2, 2), (4, 2), (4, 4)])
+def test_microbatch_split_of_frames_matches_the_reference(Bm, mu):
+    """``split_microbatches`` on a {'frames', 'tokens', 'mask'} batch
+    against the reference's reshape (``src/repro/runtime/train_lib.py:
+    98-103``, evaluated with jnp: its train_step does not run on this jax,
+    ROADMAP §C): frames (B, T, M) are cut on axis 0 like the tokens. B = 3
+    is left out: the reference tells M-RoPE positions apart by a leading
+    axis of 3, so at B = 3 it would cut the frames on their frame axis
+    (ROADMAP C.1), where the port keys on the leaf's name."""
+    from repro_torch.runtime.train_lib import split_microbatches
+    rng = np.random.default_rng(Bm + mu)
+    batch = {"frames": rng.normal(size=(Bm, T, 64)).astype(np.float32),
+             "tokens": rng.integers(0, 256, (Bm, S + 1)).astype(np.int32),
+             "mask": (rng.random((Bm, S)) < 0.7).astype(np.float32)}
+    want = jax.tree.map(
+        lambda x: x.reshape((mu, x.shape[0] // mu) + x.shape[1:])
+        if x.shape[0] != 3 else
+        x.reshape((x.shape[0], mu, x.shape[1] // mu)
+                  + x.shape[2:]).swapaxes(0, 1),
+        {k: jnp.asarray(x) for k, x in batch.items()})
+    got = split_microbatches({k: torch.as_tensor(x)
+                              for k, x in batch.items()}, mu)
+    assert len(got) == mu
+    for k in batch:
+        for i in range(mu):
+            np.testing.assert_array_equal(got[i][k].numpy(),
+                                          np.asarray(want[k][i]), err_msg=k)
+
+
+def test_batch_at_is_keyed_by_seed_and_step(monkeypatch):
+    """``batch_at(setup, i)``, the encoder-decoder's batch of step i: the
+    same (seed, step) gives the same tokens and frames; another step or
+    seed other frames. The tokens are ``SyntheticLM``'s, the frames
+    ``default_rng((seed, step))``'s normal draws rounded to bf16, 16 a
+    sequence reduced and ``FRAMES_LEN`` (1024) at full width (checked on
+    the reduced width under the full-width name, as
+    test_serve_loop_draws_full_length_frames checks the serving frames)."""
+    from repro_torch.data import SyntheticLM
+
+    def setup(seed=0, **kw):
+        return train.setup_training(ARCH, steps=2, batch=2, seq=16,
+                                    seed=seed, device="cpu", **kw)
+    s = setup(reduced=True)
+    assert s.frames_len == 16
+    a, again, other = (train.batch_at(s, i) for i in (3, 3, 4))
+    assert set(a) == {"frames", "tokens"}
+    for k in a:
+        assert torch.equal(a[k], again[k]), k
+    assert not torch.equal(a["frames"], other["frames"])
+    assert not torch.equal(a["frames"],
+                           train.batch_at(setup(seed=1, reduced=True),
+                                          3)["frames"])
+    np.testing.assert_array_equal(
+        a["tokens"].numpy(), SyntheticLM(s.data).batch_at(3)["tokens"])
+    want = torch.as_tensor(np.random.default_rng((0, 3)).normal(
+        size=(2, 16, 64))).to(torch.bfloat16)
+    assert a["frames"].dtype == torch.bfloat16
+    assert torch.equal(a["frames"], want)
+
+    def tiny(arch, *, reduced=False):
+        cfg = get_config(arch, reduced=True)
+        return cfg if reduced else dataclasses.replace(cfg, name=arch)
+    monkeypatch.setattr(train, "get_config", tiny)
+    full = setup()
+    assert full.frames_len == serve.FRAMES_LEN == 1024
+    assert train.batch_at(full, 0)["frames"].shape == (2, 1024, 64)
+
+
+def test_setup_training_takes_encdec_and_its_step_descends():
+    """setup_training on the CPU takes the reduced encoder-decoder (its
+    set-up has no frames-less path to refuse): four steps of its step_fn on
+    batch_at's batches give finite losses, and the last below the first on
+    a batch seen twice."""
+    s = train.setup_training(ARCH, steps=4, batch=2, seq=16, reduced=True,
+                             device="cpu")
+    state, losses = s.state, []
+    for i in (0, 1, 0, 0):
+        state, metrics = s.step_fn(state, train.batch_at(s, i))
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_setup_training_refuses_encdec_larger_than_the_card(monkeypatch):
+    """On the card the encoder-decoder's training state is held to the
+    card's memory before anything is built: seamless-m4t at full depth,
+    19.6 GB (derived: 1.632 B parameters at 12 bytes), passes an 80 GiB
+    card and stops here at the build (it needs nvcc), and raises on a
+    16 GiB one naming A.12."""
+    class Card:
+        total_memory = 80 * 2 ** 30
+    built = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Card)
+    monkeypatch.setattr(train._build, "build",
+                        lambda: built.append(1) or {})
+    monkeypatch.setattr(train, "init_train_state",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            RuntimeError("stop")))
+    with pytest.raises(RuntimeError, match="stop"):
+        train.setup_training(ARCH, steps=1, batch=8, seq=512)
+    assert built
+    need = train._state_bytes(build_model(get_config(ARCH)),
+                              train.AdamWConfig())
+    assert 19.5e9 < need < 19.7e9
+    Card.total_memory = 16 * 2 ** 30
+    built.clear()
+    with pytest.raises(ValueError, match="A.12"):
+        train.setup_training(ARCH, steps=1, batch=8, seq=512)
+    assert not built
+
+
 def test_train_loop_refuses_encdec():
     """The reference's train_loop refuses the family (SystemExit) before it
     builds anything; the port's names ROADMAP A.11."""

@@ -161,7 +161,13 @@ def test_kernel_formula_backward_matches_jax_vjp(causal, B, S, H, Hk, D):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("Sq,Skv,G,n_split", [
     (512, 512, 8, 4), (512, 512, 8, 1), (2048, 2048, 8, 8), (100, 100, 8, 3),
-    (37, 37, 3, 2), (64, 200, 1, 2), (300, 64, 16, 64), (1, 1, 1, 1)])
+    (37, 37, 3, 2), (64, 200, 1, 2), (300, 64, 16, 64), (1, 1, 1, 1),
+    # seamless-m4t's training path (G = 1): the encoder's 1024 x 1024, the
+    # cross-attention's 512 queries over 1024 keys, and more queries than
+    # keys; None: auto_split's n_split at its B = 8, Hk = 16 on a 132-SM
+    # card, which is 1 (one range a key tile already gives 2048 blocks)
+    (1024, 1024, 1, None), (512, 1024, 1, None), (1024, 512, 1, None),
+    (1024, 1024, 1, 4), (512, 1024, 1, 4), (1024, 512, 1, 4)])
 def test_split_plan_covers_each_reaching_row_once(causal, Sq, Skv, G,
                                                   n_split):
     """Each key tile's ranges, cut as the source's ranges_of cuts them, are
@@ -169,6 +175,9 @@ def test_split_plan_covers_each_reaching_row_once(causal, Sq, Skv, G,
     its first key under the causal mask), hold ``span`` rows each but the
     last, and number ``ranges`` in all; the first key tile gets at most
     ``n_split`` of them."""
+    if n_split is None:
+        n_split = auto_split(8, 16, Sq, Skv, G, causal, 132)
+        assert n_split == 1
     span, ranges = split_plan(Sq, Skv, G, causal, n_split)
     NR = Sq * G
     assert span % TILE == 0 and span >= TILE
@@ -252,3 +261,25 @@ def test_phases_tool_finds_each_cut_once():
                              "dkdv-no-acc", "dkdv-no-exp"}
     assert all(text != variants["full"] for name, text in variants.items()
                if name != "full")
+
+
+def test_ab_tool_needs_a_source_to_compare():
+    """tools/flash_bwd_ab.py (card only) times the backward against another
+    version of its source; without one it prints its usage and returns 2
+    before it looks for a card."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "flash_bwd_ab", root / "tools" / "flash_bwd_ab.py")
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+    finally:
+        sys.path.remove(str(root))
+    assert tool.main([]) == 2
+    assert tool.main([str(root / "no-such-file.cu")]) == 2
+    assert {label for label, *_ in tool.SHAPES} >= {
+        "seamless-encoder", "seamless-cross", "seamless-decoder"}

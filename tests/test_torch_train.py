@@ -686,27 +686,33 @@ def test_train_loop_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 # ------------------------------------------- gradients of the kernels' paths
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("B,S,H,Hk,D", [(2, 16, 4, 2, 16), (1, 24, 6, 3, 8),
-                                        (1, 8, 2, 2, 32)])
+@pytest.mark.parametrize("B,S,H,Hk,D", [
+    (2, 16, 4, 2, 16), (1, 24, 6, 3, 8), (1, 8, 2, 2, 32),
+    # S = (Sq, Skv): fewer queries than keys (the encoder-decoder's
+    # cross-attention) and more
+    pytest.param(2, (8, 24), 4, 4, 16, id="2-8x24-4-4-16"),
+    pytest.param(1, (24, 8), 6, 3, 8, id="1-24x8-6-3-8")])
 def test_flash_bwd_plain_matches_jax_grad(causal, B, S, H, Hk, D):
     """The backward kernel's plain version against ``jax.vjp`` of the JAX
     package's flash oracle, in fp32 (sums in another order: 1e-5)."""
-    rng = np.random.default_rng(B * S + D)
-    q, do = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
+    rng = np.random.default_rng(B * Sq + D)
+    q, do = (rng.standard_normal((B, Sq, H, D)).astype(np.float32)
              for _ in range(2))
-    k, v = (rng.standard_normal((B, S, Hk, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Skv, Hk, D)).astype(np.float32)
             for _ in range(2))
     G = H // Hk
 
-    def fold(x):       # (B, S, H, D) -> (B, Hk, G, S, D)
-        return jnp.asarray(x).reshape(B, S, Hk, G, D).transpose(0, 2, 3, 1, 4)
+    def fold(x):       # (B, Sq, H, D) -> (B, Hk, G, Sq, D)
+        return jnp.asarray(x).reshape(B, Sq, Hk, G, D).transpose(
+            0, 2, 3, 1, 4)
 
     def jfn(qg, kk, vv):
         return jax_flash_ref(qg, kk, vv, causal=causal)
     kt, vt = (jnp.asarray(x).transpose(0, 2, 1, 3) for x in (k, v))
     _, vjp = jax.vjp(jfn, fold(q), kt, vt)
     jdq, jdk, jdv = vjp(fold(do))
-    want = (np.asarray(jdq).transpose(0, 3, 1, 2, 4).reshape(B, S, H, D),
+    want = (np.asarray(jdq).transpose(0, 3, 1, 2, 4).reshape(B, Sq, H, D),
             np.asarray(jdk).transpose(0, 2, 1, 3),
             np.asarray(jdv).transpose(0, 2, 1, 3))
     got = flash_attention_bwd_plain(*(torch.as_tensor(x)
@@ -754,6 +760,26 @@ def test_flash_bwd_rule_passes_the_kernel_rounding_and_fails_faults():
             assert err < 0.5e-2, name
         else:
             assert err > 1e-2, name
+
+
+def test_zeroed_row_sums_keep_dq_within_the_rule_on_common_keys():
+    """The backward kernel's dq pass makes each row of dS sum to 0 (its
+    delta from the forward's bf16 output is off by that output's
+    rounding). On the attention calls of a depth-2 + 2, full-width
+    seamless-m4t train step (tools/flash_bwd_tolerance.py's encdec
+    readings, the kernel's rounding emulated), dq stays well inside the
+    1e-2 rule at every call; without the correction it is several times
+    larger at the call whose keys share the largest common component (a
+    decoder self-attention: 1.1e-2 there, 1.09e-2 on an H100 before the
+    repair)."""
+    readings = _tolerance_tool().encdec_readings()
+    assert len(readings) == 6
+    for call in readings.values():
+        assert call["dq"] < 0.5e-2 and call["dk"] < 0.5e-2
+    common = max(readings.values(),
+                 key=lambda c: c["keys' common component"])
+    assert common["causal"]
+    assert common["dq, row sums not zeroed"] > 4 * common["dq"]
 
 
 def test_flash_attention_on_the_cpu_is_differentiable():

@@ -13,8 +13,9 @@ cut out, and times each pass of each copy with ``chip_smoke.py``'s
 - ``dq-prologue``: the dq pass without its walk over the keys (Q, dO, o
   read, delta written, dq stored): what a block costs before its first
   tile;
-- ``dq-no-dQ``: without the dQ += dS K product (the S and dP products,
-  their loads and the ring stay; the exponentials, now unused, go too);
+- ``dq-no-dQ``: without the dQ += dS K and P K products (the S and dP
+  products, their loads and the ring stay; the exponentials, now used only
+  by the rows' sums, stay);
 - ``dq-no-exp``: P = S in place of the exponential of S less lse;
 - ``dkdv-no-acc``: the dk/dv pass without its dV and dK products (S^T and
   dP^T stay; the exponentials, now unused, go too);
@@ -43,9 +44,10 @@ OUT = ROOT / "build" / "flash_bwd_phases"
 
 _DQ_LOOP = ("  for (int t = 0; t < n_tiles; ++t) {\n"
             "    const int kv0 = t * kRows;")
-_DQ_PRODUCT = "    accumulate<D>(acc, da, k_s);\n"
+_DQ_PRODUCTS = ("    accumulate<D>(acc, da, k_s);\n"
+                "    accumulate<D>(pk, pa, k_s);\n")
 _DQ_EXP = ("ex2(fmaf(sc[4 * j + e], scale_log2,\n"
-           "                                           -(a ? lseA : lseB)))")
+           "                                  -(a ? lseA : lseB)))")
 _DKDV_PRODUCTS = ("    accumulate<D>(dv_acc, pa, do_s);\n"
                   "    accumulate<D>(dk_acc, da, q_s);\n")
 _DKDV_EXP = ("ex2(fmaf(sc[4 * j + e], scale_log2,\n"
@@ -67,7 +69,7 @@ def variants() -> dict[str, str]:
         "full": src,
         "dq-prologue": _swap(src, _DQ_LOOP, _DQ_LOOP.replace(
             "t < n_tiles", "t < 0")),
-        "dq-no-dQ": _swap(src, _DQ_PRODUCT, ""),
+        "dq-no-dQ": _swap(src, _DQ_PRODUCTS, ""),
         "dq-no-exp": _swap(src, _DQ_EXP, "sc[4 * j + e]"),
         "dkdv-no-acc": _swap(src, _DKDV_PRODUCTS, ""),
         "dkdv-no-exp": _swap(src, _DKDV_EXP, "sc[4 * j + e]")}

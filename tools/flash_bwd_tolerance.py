@@ -21,7 +21,12 @@ gives the numbers those limits rest on:
   with its attention weights at std 1/sqrt(fan-in): each leaf's gradient
   from the plain path against two other correct computations (the exact
   softmax in place of the blockwise one; fp32 weights and activations) and
-  against a backward whose dv is 10% low past a quarter of the keys.
+  against a backward whose dv is 10% low past a quarter of the keys;
+- encdec: the six attention calls of a depth-2 + 2, full-width
+  seamless-m4t-large-v2 train step (2 x 256 tokens over 512 frames): where
+  the keys share a large common component, dq under the kernel's rounding
+  with delta from the bf16 output alone, and with each row of dS made to
+  sum to 0 (the kernel's design).
 
 Prints one line per reading and, last, all of them as one JSON object.
 """
@@ -50,23 +55,28 @@ def _bf16(t):
     return t.to(torch.bfloat16).double()
 
 
-def backward(q, k, v, do, *, causal=True, kernel_rounding=False):
-    """dq, dk, dv of causal GQA attention in fp64, model layout: q, do
-    (B, S, H, D); k, v (B, S, Hk, D). With ``kernel_rounding``, P comes
-    from the rows' log-sum-exp rounded to fp32 (the forward's lse), and P,
-    dS and the forward's output round to bf16 where the bf16 kernels round
-    them. Both results are rounded to bf16 at the end, as the kernel's and
-    the plain version's outputs are (the kernel accumulates in fp32 and sums
-    its fp32 partials before that one rounding: ~1e-6 of the norm, far
-    under bf16's)."""
-    B, S, H, D = q.shape
+def backward(q, k, v, do, *, causal=True, kernel_rounding=False,
+             zero_row_sums=True):
+    """dq, dk, dv of GQA attention (causal: qpos >= kpos, both from 0) in
+    fp64, model layout: q, do (B, Sq, H, D); k, v (B, Skv, Hk, D). With
+    ``kernel_rounding``, P comes from the rows' log-sum-exp rounded to fp32
+    (the forward's lse), and P, dS and the forward's output round to bf16
+    where the bf16 kernels round them; with ``zero_row_sums`` (the kernel's
+    design since the encoder-decoder's training), the dq pass then takes
+    dS - c P for each row, c = sum_j dS / sum_j P of the rounded values, so
+    that the row sums to 0, and the dk/dv pass takes delta + c. Both results
+    are rounded to bf16 at the end, as the kernel's and the plain version's
+    outputs are (the kernel accumulates in fp32 and sums its fp32 partials
+    before that one rounding: ~1e-6 of the norm, far under bf16's)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
     G = H // k.shape[2]
     qh, doh = (t.double().transpose(1, 2) for t in (q, do))      # B H S D
     kh, vh = (t.double().transpose(1, 2).repeat_interleave(G, 1)
               for t in (k, v))
     s = qh @ kh.transpose(-1, -2) / math.sqrt(D)
     if causal:
-        keep = torch.ones(S, S, dtype=torch.bool).tril()
+        keep = torch.ones(Sq, Skv, dtype=torch.bool).tril()
         s = s.masked_fill(~keep, float("-inf"))
     if kernel_rounding:
         lse = torch.logsumexp(s, -1, keepdim=True).float().double()
@@ -76,20 +86,32 @@ def backward(q, k, v, do, *, causal=True, kernel_rounding=False):
     o = p @ vh
     if kernel_rounding:
         o = _bf16(o)
-    ds = p * (doh @ vh.transpose(-1, -2) - (doh * o).sum(-1, keepdim=True))
+    dp = doh @ vh.transpose(-1, -2)
+    delta = (doh * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
     if kernel_rounding:
         p, ds = _bf16(p), _bf16(ds)
-    dq = ds @ kh / math.sqrt(D)
+    dq = ds @ kh
+    if kernel_rounding and zero_row_sums:
+        c = ds.sum(-1, keepdim=True) / p.sum(-1, keepdim=True)
+        dq = dq - c * (p @ kh)
+        ds = _bf16(torch.exp(s - lse) * (dp - delta - c))
+    dq = dq / math.sqrt(D)
     dk = (ds.transpose(-1, -2) @ qh / math.sqrt(D)).unflatten(
         1, (-1, G)).sum(2)
     dv = (p.transpose(-1, -2) @ doh).unflatten(1, (-1, G)).sum(2)
     return tuple(_bf16(t.transpose(1, 2)) for t in (dq, dk, dv))
 
 
-def planted_faults(grads, S: int) -> dict:
-    """name -> (index of the gradient, the faulty copy of it)."""
+def planted_faults(grads) -> dict:
+    """name -> (index of the gradient, the faulty copy of it). The last 12%
+    are counted on each gradient's own sequence axis: Sq positions for dq,
+    Skv keys for dk and dv."""
     dq, dk, dv = grads
-    tail = S - S * 12 // 100
+
+    def tail(g):
+        S = g.shape[1]
+        return S - S * 12 // 100
 
     def scaled(g, start, factor):
         bad = g.clone()
@@ -97,8 +119,9 @@ def planted_faults(grads, S: int) -> dict:
         return bad
     return {"dv x 0.9 past key 128": (2, scaled(dv, 128, 0.9)),
             "dk x 0.9 past key 128": (1, scaled(dk, 128, 0.9)),
-            "dv = 0 on the last 12% of keys": (2, scaled(dv, tail, 0.0)),
-            "dq x 0.9 on the last 12% of rows": (0, scaled(dq, tail, 0.9))}
+            "dv = 0 on the last 12% of keys": (2, scaled(dv, tail(dv), 0.0)),
+            "dq x 0.9 on the last 12% of rows": (0, scaled(dq, tail(dq),
+                                                           0.9))}
 
 
 def kernel_readings(B=2, S=512, H=32, Hk=4, D=64, seed=0) -> dict:
@@ -111,7 +134,7 @@ def kernel_readings(B=2, S=512, H=32, Hk=4, D=64, seed=0) -> dict:
     got = backward(q, k, v, do, kernel_rounding=True)
     out = {f"rounding {n}": grad_err(g, w)
            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-    for name, (i, bad) in planted_faults(got, S).items():
+    for name, (i, bad) in planted_faults(got).items():
         out[name] = grad_err(bad, want[i])
     return out
 
@@ -182,9 +205,79 @@ def model_readings(seq=256, seed=0) -> dict:
     return out
 
 
+def encdec_readings(seq=256, frames=512, seed=0) -> dict:
+    """The attention calls of one train step of seamless-m4t-large-v2 at
+    full width cut to 2 encoder and 2 decoder layers (2 x ``seq`` tokens
+    over ``frames`` frames, the attention weights at std 1/sqrt(fan-in), as
+    ``chip_smoke.py::encdec_train_check`` runs it), on the CPU's plain
+    path: for each call (the encoder's two, then each decoder layer's self
+    and cross), the keys' common component (the norm of their mean over
+    the mean norm of their spread about it), and dq's error under the
+    kernel's emulated rounding without and with the zeroed row sums, and
+    dk's with them."""
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_map
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              n_layers=2, n_encoder_layers=2, remat=False,
+                              q_chunk=seq // 2, kv_chunk=seq // 2)
+    model = build_model(cfg)
+    params = init_params(model.param_decls(),
+                         torch.Generator().manual_seed(seed), "cpu")
+    for owner, name in ((params["encoder"], "attn"),
+                        (params["decoder"], "self_attn"),
+                        (params["decoder"], "cross_attn")):
+        at = owner[name]
+        for n in ("wq", "wk", "wv"):            # (L, M, H, D): fan-in M
+            at[n] = (at[n].float() * math.sqrt(at[n].shape[-2]
+                                               / cfg.d_model)).bfloat16()
+        at["wo"] = (at["wo"].float() / math.sqrt(      # (L, H, D, M)
+            at["wo"].shape[-3])).bfloat16()
+    gen = torch.Generator().manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, seq + 1),
+                                     generator=gen),
+             "frames": torch.randn(2, frames, cfg.d_model,
+                                   generator=gen).bfloat16()}
+    blockwise, seen = attention._prefill_core, []
+
+    def capturing(q, k, v, cfg, causal=True):
+        out = blockwise(q, k, v, cfg, causal)
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(),
+               "causal": causal}
+        out.register_hook(lambda g: rec.update(do=g))
+        seen.append(rec)
+        return out
+    attention._prefill_core = capturing
+    try:
+        model.loss_fn(tree_map(lambda a: a.requires_grad_(), params),
+                      batch).backward()
+    finally:
+        attention._prefill_core = blockwise
+    out = {}
+    for i, rec in enumerate(seen):
+        q, k, v, do, causal = (rec[n] for n in ("q", "k", "v", "do",
+                                                  "causal"))
+        kd = k.double()
+        mean = kd.mean(1, keepdim=True)
+        common = float(mean.norm(dim=-1).mean()
+                       / (kd - mean).norm(dim=-1).mean())
+        want = backward(q, k, v, do, causal=causal)
+        old = backward(q, k, v, do, causal=causal, kernel_rounding=True,
+                       zero_row_sums=False)
+        new = backward(q, k, v, do, causal=causal, kernel_rounding=True)
+        out[f"call {i}"] = {"causal": causal, "keys' common component":
+                            common, "dq, row sums not zeroed":
+                            grad_err(old[0], want[0]),
+                            "dq": grad_err(new[0], want[0]),
+                            "dk": grad_err(new[1], want[1])}
+    return out
+
+
 def main() -> int:
     torch.manual_seed(0)
-    readings = {"kernel": kernel_readings(), "model": model_readings()}
+    readings = {"kernel": kernel_readings(), "model": model_readings(),
+                "encdec": encdec_readings()}
     for part, values in readings.items():
         for name, value in values.items():
             print(f"[{part}] {name}: {value}")
