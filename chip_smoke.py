@@ -37,7 +37,11 @@ Phases, each fatal on failure:
    non-causal 8 x 1024, the cross-attention's non-causal 512 queries over
    1024 keys and the decoder's causal 8 x 512 (timed, with planted faults
    at the first two), 1024 queries over 512 keys, fp32, ragged Sq != Skv
-   and causal Sq != Skv), to bf16 2e-2
+   and causal Sq != Skv; qwen2-vl's heads, G = 8 at D = 128: flash at its
+   prefill shape, causal (timed with and without lse) and not, bf16 and
+   fp32, and a ragged S, decode at its serving shape, the backward at its
+   training shape (timed, with planted faults on the G = 8 blocks' edges)
+   and a ragged S), to bf16 2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
@@ -55,7 +59,10 @@ Phases, each fatal on failure:
    of its 94 layers (62 GB; its MoE layers in plain torch, flash and decode
    at G = 16) and of kimi-k2-1t-a32b at full width cut to 2 of its 61
    layers (73 GB; 384 experts and a shared expert, flash and decode at
-   G = 8, D = 112) and of the encoder-decoder seamless-m4t-large-v2 at
+   G = 8, D = 112) and of qwen2-vl-72b at full width cut to 40 of its 80
+   layers (75.2 GB; tokens only, as the reference's serve loop runs it;
+   flash and decode at G = 8, D = 128) and of the encoder-decoder
+   seamless-m4t-large-v2 at
    full width and full depth (24 + 24 layers, 3.26 GB; 1024 frames a
    prompt; flash 72 launches at the prefill, decode 48 a step), batch 8,
    512-token prompts, 32 new tokens; and
@@ -66,8 +73,10 @@ Phases, each fatal on failure:
    backward at G = 16, D = 128; 805 M-element expert leaves under AdamW;
    ms a step, tokens/s, 6·N_active·tokens/s / 989 TFLOP/s, the peak held
    within 1.05 x AdamW's derived peak: the state plus 7 fp32 temporaries
-   of the largest leaf), the same shape, remat "full", on the synthetic
-   pipeline; and seamless-m4t-large-v2 at full width and depth trained
+   of the largest leaf) and ``train_loop("qwen2-vl-72b")`` at full width
+   cut to 1 of its 80 layers (40.4 GB of training state; flash at G = 8,
+   D = 128; the peak held alike, 70.14 GiB derived), the same shape, remat
+   "full", on the synthetic pipeline; and seamless-m4t-large-v2 at full width and depth trained
    through ``setup_training``'s step on ``batch_at``'s ``{'frames',
    'tokens'}`` batches (``train_loop`` refuses the family, as the
    reference's does): 8 x 512 tokens over 1024 frames, remat, 19.6 GB of
@@ -78,13 +87,15 @@ Phases, each fatal on failure:
    before and read just after: they must show every layer of the counted
    run went through them;
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
-   starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2 and
+   starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
+   40-layer qwen2-vl and
    seamless-m4t (its two decode kernels' device ms apart) (beside
    the bytes a step must read; the MoE archs' device time also split into
    routing, dispatch, expert products, combine and attention), one
    seamless-m4t prefill (1024 frames; the flash kernel's and the GEMMs'
    shares), one mamba2 prefill and one train step of each trained model
-   (qwen3-moe at 1 layer), for the device's busy share and the kernels
+   (qwen3-moe and qwen2-vl at 1 layer), for the device's busy share and
+   the kernels
    that take its time (at prefill, the ssd kernel's share; in training,
    of each trained model and of seamless-m4t, the flash or ssd forward's
    and backward's, the GEMMs', the elementwise work's, the expert
@@ -110,12 +121,18 @@ Phases, each fatal on failure:
    loss, every leaf, each of the 6 attention calls' backward-kernel
    gradients; two planted faults, the cross-attention's backward run
    causal and the memory detached before the decoder, must each break a
-   rule); one
+   rule); qwen2-vl-72b at full width cut to 2 layers (``vlm_model_check``:
+   forward over 64 tokens whose first 16 are vision embeddings, and
+   prefill(64) + decode(1), each with Qwen2-VL's 3-D positions; the
+   logits and layer 0's attention output rel < 0.06, equal argmax; a
+   planted 1-D RoPE on the card must break a rule in both); one
    full-width qwen3-moe MoE layer at a decode step's and a prefill's shape
    in each dispatch mode captured in a CUDA graph and replayed after its
    input changes on the device, bit for bit an eager call, with its device
-   ms (``moe_graph_check``); a depth-2 bf16 train step of tinyllama and the
-   three 15 B archs on the card against the CPU (loss 1e-2 relative,
+   ms (``moe_graph_check``); a bf16 train step of tinyllama at depth 2, of
+   the three 15 B archs at depth 1 and of qwen2-vl at depth 1 (with 16
+   vision embeddings and 3-D positions) on the card against the CPU (loss
+   1e-2 relative,
    each gradient within 3e-2 of its norm, each layer's backward-kernel
    gradients against the plain backward on the same captured tensors
    within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
@@ -146,7 +163,9 @@ seamless-m4t's, "seamless", with the launches of its counted serve_loop
 and a record for each of its timed shapes; the flash backward its G = 16
 row, "g16", with its launches on the qwen3-moe training path, and
 seamless-m4t's, "seamless", with the launches of its counted training run
-and a record for each of its three timed shapes); the last
+and a record for each of its three timed shapes; the flash, decode and
+backward entries qwen2-vl's G = 8, D = 128 row, "qwen2vl", with the
+launches of its counted serve_loop or training run); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -249,23 +268,24 @@ def check_flash(torch, timer, gen) -> dict:
     """The flash kernel against its plain version at the prefill shape (bf16
     causal and full, fp32), a ragged S, D = 128, G = 1 and a long B = 1
     prompt, and kimi-k2's D = 112 (the 128 tile with its last 16 columns
-    zero) at its prefill shape in bf16 and fp32 and at a ragged S, and
-    seamless-m4t's G = 1 heads: the encoder's non-causal 8 x 1024, the
+    zero) at its prefill shape in bf16 and fp32 and at a ragged S,
+    qwen2-vl's G = 8 at D = 128 at its prefill shape in bf16 and fp32 and
+    at a ragged S, and seamless-m4t's G = 1 heads: the encoder's non-causal 8 x 1024, the
     decoder's causal 8 x 512, the cross-attention's 512 queries over 1024
     keys, and ragged cross shapes with Sq < Skv and Sq > Skv (bf16 and
-    fp32); the serving shapes, kimi-k2's and seamless's included, and the
-    long prompt are timed, each with its own causal flag. A row's S is
+    fp32); the serving shapes, kimi-k2's, qwen2-vl's and seamless's
+    included, and the long prompt are timed, each with its own causal flag. A row's S is
     Sq = Skv, or the pair (Sq, Skv). Each row names the record it goes
     into: "" (the kernel's own entry, whose time is the bf16 serving
-    shape's), "d112", "d112_f32" or "seamless_<shape>"; a record's
+    shape's), "d112", "d112_f32", "qwen2vl" or "seamless_<shape>"; a record's
     max_abs_err is its rows' worst and its time its first timed row's. At
     each shape the rows' log-sum-exp that the kernel writes when asked (the
     training forward) is held to ``flash_attention_lse_plain`` within
     ``LSE_TOL`` (1e-4 absolute, fp32: the kernel sums 2^x from ex2.approx,
     ~2 ulp each, with an online rescaling, where the plain version takes an
     exact fp32 logsumexp; |lse| stays under ~10 here), and the output with
-    lse asked for must equal the one without. The serving shape is timed
-    with lse and without."""
+    lse asked for must equal the one without. Each timed shape is timed
+    with lse ("lse_ms", the training forward) and without ("ms")."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_lse_plain,
         flash_attention_plain)
@@ -300,6 +320,17 @@ def check_flash(torch, timer, gen) -> dict:
              "d112"),
             ("ragged-kimi-d112", 2, 100, 64, 8, 112, f32, True, False,
              "d112_f32"),
+            # qwen2-vl-72b's prefill and training forward: G = 8 at D =
+            # 128 (8 positions a block), causal (timed, with and without
+            # lse) and not, bf16 and fp32, and a ragged S
+            ("qwen2vl", 8, 512, 64, 8, 128, bf16, True, True, "qwen2vl"),
+            ("qwen2vl", 8, 512, 64, 8, 128, bf16, False, False, "qwen2vl"),
+            ("qwen2vl", 8, 512, 64, 8, 128, f32, True, False, None),
+            ("ragged-qwen2vl", 2, 100, 64, 8, 128, bf16, True, False,
+             "qwen2vl"),
+            ("ragged-qwen2vl", 2, 100, 64, 8, 128, bf16, False, False,
+             "qwen2vl"),
+            ("ragged-qwen2vl", 2, 100, 64, 8, 128, f32, False, False, None),
             # seamless-m4t's heads, H = Hk = 16 at D = 64 (G = 1): the
             # encoder's non-causal self-attention over 1024 frames, the
             # decoder's causal prefill, the cross-attention of the 512
@@ -367,7 +398,8 @@ def check_flash(torch, timer, gen) -> dict:
             f"{ms:.4f} ms, with lse {lse_ms:.4f} ms (plain {plain_ms:.4f} "
             f"ms, sdpa {lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         if key is not None:
-            rows.setdefault(key, {"ms": ms, "plain_ms": plain_ms,
+            rows.setdefault(key, {"ms": ms, "lse_ms": lse_ms,
+                                  "plain_ms": plain_ms,
                                   "library_ms": lib_ms, "bound_ms": b_ms,
                                   "bound_by": b_by})
     return _records(rows, errs)
@@ -388,10 +420,11 @@ def check_decode(torch, timer, gen) -> dict:
     8192-key cache; the stale tail; a call captured in a CUDA graph and
     replayed after `length` changes on the device; kimi-k2's D = 112 at G =
     8 in bf16 and fp32 (28 lanes to a key row in the fp32 kernel) at the
-    serving shape's lengths; seamless-m4t's G = 1, D = 64 step over its
+    serving shape's lengths; qwen2-vl's G = 8 at D = 128 at the same
+    lengths; seamless-m4t's G = 1, D = 64 step over its
     fp32 self cache (L = 544, the serving lengths) and over its bf16
     memory (L = length = 1024). The serving shapes, kimi-k2's in both
-    dtypes, seamless's two and the long cache are timed. Each row names
+    dtypes, qwen2-vl's, seamless's two and the long cache are timed. Each row names
     its record, as in ``check_flash``."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
@@ -421,6 +454,9 @@ def check_decode(torch, timer, gen) -> dict:
             ("kimi-d112", B, L, 64, 8, 112, bf16, edges, timed_len, "d112"),
             ("kimi-d112", B, L, 64, 8, 112, f32, edges, timed_len,
              "d112_f32"),
+            # qwen2-vl-72b's decode: G = 8 at D = 128
+            ("qwen2vl", B, L, 64, 8, 128, bf16, edges, timed_len,
+             "qwen2vl"),
             # seamless-m4t's decode step, H = Hk = 16 at D = 64: the
             # decoder's fp32 self cache at the serving lengths (513-543),
             # and the bf16 memory of 1024 frames, read whole
@@ -709,7 +745,8 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     full; ragged S; G = 1; D = 128; a 2048-token sequence; fp32; the 15 B
     archs' G = 12 and 6 and qwen3-moe's G = 16 at D = 128 (its training
     shape, 8 x 512 tokens, and a ragged S), whose numbers go into the
-    record's "g16" entry; and seamless-m4t's G = 1 heads at D = 64, whose
+    record's "g16" entry; qwen2-vl's G = 8 at D = 128 (its training shape
+    and a ragged S, the record's "qwen2vl" entry); and seamless-m4t's G = 1 heads at D = 64, whose
     numbers go into its "seamless" entry: the encoder's non-causal 8 x 1024,
     the cross-attention's non-causal 512 queries over 1024 keys, the
     decoder's causal 8 x 512 (the three timed), non-causal 1024 queries
@@ -719,14 +756,15 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     the pair (Sq, Skv). A rule on the largest magnitude would not do:
     under the causal mask the first keys' dk and dv are ~100x the typical
     key's, so it would pass a kernel that is 10% wrong on most keys. At the
-    training shape, G = 12, G = 16 and seamless's encoder and cross rows the
+    training shape, G = 12, G = 16, qwen2-vl's and seamless's encoder and
+    cross rows the
     check is shown to see such faults: the kernel's own result, with dv or
     dk scaled by 0.9 past key 128, dv zeroed on the last 12% of keys or dq
     scaled by 0.9 on the last 12% of rows, must each fail the rule
     (``tools/flash_bwd_tolerance.py`` gives the kernel's rounding ~0.3% and
-    these faults 1.9-4.3% on the CPU), at G = 12 and 16 so must
+    these faults 1.9-4.3% on the CPU), at G = 12, 16 and 8 so must
     ``block_edge_faults``, and the rows unsplit (``n_split=1``) must pass.
-    The training shape, the long sequence, the G = 12, 6 and 16 shapes and
+    The training shape, the long sequence, the G = 12, 6, 16 and 8 shapes and
     seamless's three are timed, backward alone, each with its own lengths
     and causal flag: the kernel, the plain version and, as the yardstick,
     SDPA's backward (``torch.autograd.grad`` through SDPA with
@@ -743,7 +781,8 @@ def check_flash_bwd(torch, timer, gen) -> dict:
     # the rows whose planted faults must fail the rule, and whose n_split=1
     # run must pass it: (label, causal)
     faulted = {("training", True), ("g12", True), ("g16", True),
-               ("seamless-encoder", False), ("seamless-cross", False)}
+               ("qwen2vl", True), ("seamless-encoder", False),
+               ("seamless-cross", False)}
     # (label, B, S, H, Hk, D, dtype, causal, timed, record)
     for label, B, S, H, Hk, D, dtype, causal, timed, key in (
             ("training", 8, 512, 32, 4, 64, bf16, True, True, ""),
@@ -761,6 +800,11 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             # forward block, 8192 folded rows a (b, hk)), and a ragged S
             ("g16", 8, 512, 64, 4, 128, bf16, True, True, "g16"),
             ("ragged-g16", 2, 100, 64, 4, 128, bf16, True, False, "g16"),
+            # qwen2-vl-72b's training shape: G = 8 at D = 128 (8
+            # positions a forward block), and a ragged S
+            ("qwen2vl", 8, 512, 64, 8, 128, bf16, True, True, "qwen2vl"),
+            ("ragged-qwen2vl", 2, 100, 64, 8, 128, bf16, True, False,
+             "qwen2vl"),
             # seamless-m4t's training path, H = Hk = 16 at D = 64: the
             # encoder's self-attention over 1024 frames, the
             # cross-attention of 512 tokens over the 1024-frame memory, the
@@ -828,7 +872,7 @@ def check_flash_bwd(torch, timer, gen) -> dict:
                                      f"n_split=1: ||err||/||want|| {errs} "
                                      f"> {tol}")
             faults = planted_faults(got)
-            if label in ("g12", "g16"):
+            if label in ("g12", "g16", "qwen2vl"):
                 faults.update(block_edge_faults(got, H // Hk))
             for fault, (i, bad) in faults.items():
                 err = grad_err(bad, want[i])
@@ -1679,6 +1723,14 @@ def _loss_and_grads(model, params, toks, dev: str, **extra):
 
 
 TRAIN_GRAD_TOL = 3e-2
+# the 15 B archs' train checks run one layer, so that qwen2-vl's checks
+# fit the script's time: their CPU steps took 28.1, 59.3 and 37.0 s at two
+# layers and 17.8, 49.8 and 28.1 s at one (H100 80GB HBM3 host, PERF.md
+# §6). What goes: at one layer no backward call at G = 12 or G = 6 gets
+# its dO through an upper layer's backward, and no leaf's gradient passes
+# through two kernel backwards; only tinyllama (G = 8, D = 64) and the
+# encoder-decoder still check chained layers
+TRAIN_CHECK_15B_DEPTH = 1
 
 
 @contextlib.contextmanager
@@ -1726,10 +1778,12 @@ def attention_grad_errs(seen: list, calls: int) -> list:
     return errs
 
 
-def train_check(torch, arch: str) -> None:
-    """Depth-2, full-width ``arch`` (dense) in bf16: the loss and every leaf's
-    gradient of one train step on the card (the flash kernels) against the
-    CPU (the plain path), same weights and batch (2 x 256 tokens), remat off
+def train_check(torch, arch: str, depth: int = 2) -> None:
+    """Full-width ``arch`` (dense or vlm) cut to ``depth`` layers, in bf16:
+    the loss and every leaf's gradient of one train step on the card (the
+    flash kernels) against the CPU (the plain path), same weights and batch
+    (2 x 256 tokens; for the vlm family also 16 vision embeddings and the
+    3-D positions of ``qwen2vl_positions``), remat off
     (the launch counts of ``train_loop`` cover remat). Held: the loss within
     1e-2 relative; each leaf within ``TRAIN_GRAD_TOL`` (3e-2) of the CPU's,
     ||card - cpu|| / ||cpu||; and each layer's attention gradient as the
@@ -1757,7 +1811,7 @@ def train_check(torch, arch: str) -> None:
     from repro_torch.models.param import tree_map
     seq = 256
     model = build_model(dataclasses.replace(
-        get_config(arch), n_layers=2, remat=False,
+        get_config(arch), n_layers=depth, remat=False,
         q_chunk=seq // 2, kv_chunk=seq // 2))
     # drawn on the card and copied to the CPU, as model_check does
     params = tree_map(lambda a: a.cpu(), init_params(
@@ -1769,20 +1823,30 @@ def train_check(torch, arch: str) -> None:
                                           cfg.d_model)
     toks = torch.as_tensor(SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
+    extra, what = {}, ""
+    if cfg.family == "vlm":
+        n_vis = QWEN2VL_GRID[0] * QWEN2VL_GRID[1]
+        extra = {"vision_embeds": torch.randn(
+            2, n_vis, cfg.d_model, generator=torch.Generator().manual_seed(
+                2)).bfloat16(),
+            "mrope_positions": qwen2vl_positions(torch, seq, 2)}
+        what = f", {n_vis} vision embeddings and 3-D positions"
 
     seen = []
     t0 = time.perf_counter()
     with captured_attention(seen):
-        loss, grads = _loss_and_grads(model, params, toks, "cuda")
-    ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu")
+        loss, grads = _loss_and_grads(model, params, toks, "cuda", **extra)
+    ref_loss, ref_grads = _loss_and_grads(model, params, toks, "cpu",
+                                          **extra)
     seconds = time.perf_counter() - t0
 
     rel = abs(loss - ref_loss) / abs(ref_loss)
     errs = {k: grad_err(grads[k], w) for k, w in ref_grads.items()}
     top = sorted(errs, key=lambda k: -errs[k])[:4]
     attn_errs = attention_grad_errs(seen, cfg.n_layers)
-    log(f"[model] depth-2 {arch} bf16 train step (attention weights "
-        f"at std 1/sqrt(fan-in); {seconds:.1f} s), cuda vs cpu: loss "
+    log(f"[model] depth-{depth} {arch} bf16 train step{what} (attention "
+        f"weights at std 1/sqrt(fan-in); {seconds:.1f} s; "
+        f"{host_memory()}), cuda vs cpu: loss "
         f"{loss:.6f} vs "
         f"{ref_loss:.6f} (rel {rel:.2e}, tol 1e-2); worst ||diff||/||g|| "
         f"{', '.join(f'{k} {errs[k]:.2e}' for k in top)} (tol "
@@ -2755,6 +2819,159 @@ def moe_graph_check(torch, timer) -> None:
             torch.cuda.empty_cache()
 
 
+# qwen2-vl-72b serves at 40 of its 80 layers (37.598 B parameters, 75.2 GB
+# of bf16 weights; 145.4 GB at full depth) and trains at 1 (3.369 B
+# parameters, 40.4 GB of state; at 2 layers, 51.0 GB of state and AdamW's
+# fp32 temporaries of the 1.246 B-element embedding or head, 34.9 GB, pass
+# the card); all derived
+QWEN2VL_ARCH = "qwen2-vl-72b"
+QWEN2VL_SERVE_LAYERS, QWEN2VL_TRAIN_LAYERS = 40, 1
+QWEN2VL_CHECK_DEPTH, QWEN2VL_TRAIN_CHECK_DEPTH = 2, 1
+QWEN2VL_GRID = (4, 4)        # the checks' image: 16 patches
+
+
+def qwen2vl_positions(torch, seq: int, batch: int):
+    """(3, batch, seq) int64 M-RoPE positions in Qwen2-VL's layout
+    (arXiv:2409.12191 §2.1): the ``QWEN2VL_GRID`` of patches first, patch (r, c) at
+    (t, h, w) = (0, r, c); then text from max(grid h, grid w), advancing in
+    all three streams together (a decode token continues the text)."""
+    gh, gw = QWEN2VL_GRID
+    n = gh * gw
+    text = max(gh, gw) + torch.arange(seq - n)
+    cell = torch.arange(n)
+    pos = torch.stack([torch.cat([torch.zeros(n, dtype=torch.long), text]),
+                       torch.cat([cell // gw, text]),
+                       torch.cat([cell % gw, text])])
+    return pos[:, None].expand(3, batch, seq).contiguous()
+
+
+@contextlib.contextmanager
+def rope_1d_on_card(torch):
+    """Planted fault: on the card, M-RoPE replaced by the 1-D RoPE over 0 ..
+    S-1 of each call's S tokens, as if the 3-D positions were lost."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.models.common import apply_rope, rope_table
+
+    def wrap(mrope):
+        def faulty(x, positions_3d, head_dim, sections=None, theta=1e6):
+            if not x.is_cuda:
+                return mrope(x, positions_3d, head_dim, sections, theta)
+            p = torch.arange(x.shape[1], device=x.device)
+            return apply_rope(x, *rope_table(p, head_dim, theta))
+        return faulty
+    with patched(attn_mod, "apply_mrope", wrap):
+        yield
+
+
+@contextlib.contextmanager
+def attention_outputs(outs: list):
+    """Context: each call of the LM's attention sublayer appends its output
+    (before the residual) to ``outs``, on the host in fp32; a run's first
+    call is layer 0's."""
+    import repro_torch.models.lm as lm_mod
+
+    def wrap(attn):
+        def recording(*args, **kw):
+            y, cache = attn(*args, **kw)
+            outs.append(y.detach().float().cpu())
+            return y, cache
+        return recording
+    with patched(lm_mod, "attention", wrap):
+        yield
+
+
+def vlm_model_check(torch) -> None:
+    """qwen2-vl-72b at full width cut to ``QWEN2VL_CHECK_DEPTH`` layers: the card (the
+    kernels) against the CPU (the plain path), same weights with the
+    attention at fan-in std (as ``model_check`` draws them), in two cases,
+    each with Qwen2-VL's 3-D positions (``qwen2vl_positions``, a 4 x 4
+    grid): ``forward`` over 64 tokens whose first 16 are vision embeddings,
+    and ``prefill(64)`` + ``decode_step(1)``. Held in each case: the logits
+    rel < 0.06 (every position of the forward's) with equal argmax (the
+    forward's last position; the share of its positions whose argmax agree
+    is printed), and layer 0's attention output (the forward's, the decode
+    step's) rel < 0.06. A planted fault, the 1-D RoPE over 0 .. S-1 on the
+    card (``rope_1d_on_card``), must break a rule in each case; its
+    readings are printed. The host holds a copy of the weights (8.5 GB at
+    depth 2), so its memory is printed."""
+    from attention_conditioning import fan_in_std
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_map
+    tag = f"depth-{QWEN2VL_CHECK_DEPTH} {QWEN2VL_ARCH}"
+    log(f"[model] {tag}: {host_memory()} before")
+    cfg = dataclasses.replace(get_config(QWEN2VL_ARCH),
+                              n_layers=QWEN2VL_CHECK_DEPTH,
+                              q_chunk=32, kv_chunk=32, max_cache_len=72)
+    model = build_model(cfg)
+    params_gpu = init_params(model.param_decls(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+    params_gpu["layers"]["attn"] = fan_in_std(params_gpu["layers"]["attn"],
+                                              cfg.d_model)
+    params_cpu = tree_map(lambda a: a.cpu(), params_gpu)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
+    n_vis = QWEN2VL_GRID[0] * QWEN2VL_GRID[1]
+    vision = torch.randn(2, n_vis, cfg.d_model, generator=gen).bfloat16()
+    pos = qwen2vl_positions(torch, 65, 2)
+
+    def run(dev: str, params) -> dict:
+        """case -> (logits, layer 0's attention output), on the host."""
+        outs = []
+        with torch.inference_mode(), attention_outputs(outs):
+            full, _ = model.forward(
+                params, toks[:, :64].to(dev), vision_embeds=vision.to(dev),
+                mrope_positions=pos[..., :64].to(dev))
+            cache = model.init_cache(2, cfg.max_cache_len, device=dev)
+            _, cache = model.prefill(params, toks[:, :64].to(dev), cache,
+                                     mrope_positions=pos[..., :64].to(dev))
+            n_before = len(outs)
+            logits, _ = model.decode_step(
+                params, toks[:, 64:].to(dev), cache,
+                mrope_positions=pos[..., 64:].to(dev))
+        return {"forward": (full.float().cpu(), outs[0]),
+                "decode": (logits[:, 0].float().cpu(), outs[n_before])}
+
+    ref = run("cpu", params_cpu)
+
+    def on_card(fault) -> tuple[str, list]:
+        with fault():
+            got = run("cuda", params_gpu)
+        readings, broken = [], []
+        for case, ((g, g_attn), (r, r_attn)) in zip(
+                ("forward", "decode"), zip(got.values(), ref.values())):
+            rel = float((g - r).abs().max() / r.abs().max())
+            agree = g.argmax(-1) == r.argmax(-1)
+            same = bool(agree[..., -1].all() if case == "forward"
+                        else agree.all())
+            attn = float((g_attn - r_attn).abs().max() / r_attn.abs().max())
+            text = (f"{case}: rel={rel:.4f} argmax_equal={same} layer-0 "
+                    f"attention rel={attn:.4f}")
+            if case == "forward":
+                text += (f" (argmax equal at {int(agree.sum())} of "
+                         f"{agree.numel()} positions)")
+            readings.append(text)
+            broken += [f"{case}: {rule}" for rule, ok in (
+                ("rel < 0.06 and equal argmax", rel < 0.06 and same),
+                ("layer-0 attention rel < 0.06", attn < 0.06)) if not ok]
+        return "; ".join(readings), broken
+
+    text, broken = on_card(contextlib.nullcontext)
+    log(f"[model] {tag} forward(64, 16 vision embeddings) and "
+        f"prefill(64)+decode(1), 3-D positions on a {QWEN2VL_GRID} grid "
+        f"(attention weights at std 1/sqrt(fan-in)), cuda vs cpu: {text}; "
+        f"broken: {broken or 'none'}; {host_memory()} with the host's copy")
+    text, caught = on_card(lambda: rope_1d_on_card(torch))
+    missed = [case for case in ("forward", "decode")
+              if not any(rule.startswith(case) for rule in caught)]
+    log(f"[model] {tag} planted fault, the 1-D RoPE over 0..S-1 on the "
+        f"card: {text}; broken: {caught or 'none'}")
+    if broken or missed:
+        raise AssertionError(f"model check {QWEN2VL_ARCH}: rules broken "
+                             f"{broken}, planted fault passed in {missed}")
+
+
 def serve_counted(torch, counters: dict, arch: str, layers: int,
                   vocab: int) -> dict:
     """``serve_loop(arch)`` at batch 8, 512-token prompts, 32 new tokens:
@@ -2822,15 +3039,17 @@ def serve_counted(torch, counters: dict, arch: str, layers: int,
     return counts
 
 
-def moe_serve_check(torch, counters: dict, arch: str = MOE_ARCH,
-                    layers: int = MOE_LAYERS, vocab: int = 151936) -> None:
-    """An MoE arch at full width cut to ``layers`` layers through
+def cut_serve_check(torch, counters: dict, arch: str = MOE_ARCH,
+                    layers: int = MOE_LAYERS, vocab: int = 151936) -> dict:
+    """An arch at full width cut to ``layers`` layers through
     ``serve_counted``: qwen3-moe-235b-a22b at 12 of its 94 layers (62 GB of
     weights; its full depth, 470 GB, raises in ``serve_loop``), G = 16 at
     D = 128 in both attention kernels; kimi-k2-1t-a32b at 2 of its 61 (73
-    GB; 2.09 TB at full depth), G = 8 at D = 112. The MoE layers run in
-    plain torch; exactly one flash launch a layer and one decode launch a
-    layer a decode step, no other kernel."""
+    GB; 2.09 TB at full depth), G = 8 at D = 112; qwen2-vl-72b at 40 of its
+    80 (75.2 GB; 145.4 GB at full depth), G = 8 at D = 128, on tokens alone
+    as the reference's serve loop runs it. The MoE layers run in plain
+    torch; exactly one flash launch a layer and one decode launch a layer
+    a decode step, no other kernel. Returns the launch counts."""
     from repro_torch.launch import serve as serve_mod
     with cut_depth(serve_mod, layers):
         counts = serve_counted(torch, counters, arch, layers, vocab)
@@ -2838,6 +3057,7 @@ def moe_serve_check(torch, counters: dict, arch: str = MOE_ARCH,
     want.update(flash_attention=layers, decode_attention=layers * 31)
     if counts != want:
         raise AssertionError(f"{arch} launches {counts}: want {want}")
+    return counts
 
 
 # fp32 temporaries of one leaf that ``optim/adamw.py::adamw_update`` holds
@@ -2998,8 +3218,10 @@ def main() -> int:
         want.update(flash_attention=layers, decode_attention=layers * 31)
         if counts != want:
             raise AssertionError(f"{arch} launches {counts}: want {want}")
-    moe_serve_check(torch, counters)
-    moe_serve_check(torch, counters, KIMI_ARCH, KIMI_LAYERS, 163840)
+    cut_serve_check(torch, counters)
+    cut_serve_check(torch, counters, KIMI_ARCH, KIMI_LAYERS, 163840)
+    qwen2vl = cut_serve_check(torch, counters, QWEN2VL_ARCH,
+                              QWEN2VL_SERVE_LAYERS, 152064)
     seamless = encdec_serve_check(torch, counters)
 
     n_flash_bwd = train_counted(torch, counters, "tinyllama-1.1b", 22, (
@@ -3014,6 +3236,13 @@ def main() -> int:
             torch, counters, MOE_ARCH, MOE_TRAIN_LAYERS,
             ("flash_attention", "flash_attention_bwd"),
             optimizer_bound=True)["flash_attention_bwd"]
+    torch.cuda.empty_cache()
+    # qwen2-vl at full width cut to 1 of its 80 layers (40.4 GB of training
+    # state, derived): flash at G = 8, D = 128; AdamW's peak near the card's
+    with cut_depth(train_mod, QWEN2VL_TRAIN_LAYERS):
+        qwen2vl_train = train_counted(
+            torch, counters, QWEN2VL_ARCH, QWEN2VL_TRAIN_LAYERS,
+            ("flash_attention", "flash_attention_bwd"), optimizer_bound=True)
     torch.cuda.empty_cache()
     # seamless-m4t at full width and depth (19.6 GB of training state)
     n_seamless_bwd = encdec_train_counted(torch, counters)
@@ -3031,6 +3260,9 @@ def main() -> int:
             profile_decode(torch, arch, ours=decode_kernels,
                            phases=MOE_PHASES)
         torch.cuda.empty_cache()      # its 62 or 73 GB of weights, released
+    with cut_depth(serve_mod, QWEN2VL_SERVE_LAYERS):
+        profile_decode(torch, QWEN2VL_ARCH, ours=decode_kernels)
+    torch.cuda.empty_cache()          # its 75.2 GB of weights, released
     profile_decode(torch, SEAMLESS_ARCH, ours={
         "decode fp32 (self cache)": ("split_f32_kernel",),
         "decode bf16 (memory)": ("split_bf16_kernel",),
@@ -3050,6 +3282,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[profile] {MOE_ARCH} train step profiled in "
         f"{time.perf_counter() - t0:.1f} s")
+    with cut_depth(train_mod, QWEN2VL_TRAIN_LAYERS):
+        profile_train(torch, QWEN2VL_ARCH, {"flash forward": FLASH_FWD,
+                                            "flash backward": FLASH_BWD})
+    torch.cuda.empty_cache()
     profile_train(torch, SEAMLESS_ARCH, {"flash forward": FLASH_FWD,
                                          "flash backward": FLASH_BWD})
     gc.collect()
@@ -3060,16 +3296,26 @@ def main() -> int:
         torch.cuda.empty_cache()      # the model's card memory, released
     model_check(torch, KIMI_ARCH, depth=KIMI_CHECK_DEPTH,
                 own_routing=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_model_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     encdec_model_check(torch)
     encdec_train_check(torch)
     gc.collect()
     torch.cuda.empty_cache()
     moe_graph_check(torch, timer)
     torch.cuda.empty_cache()
-    for arch in ("tinyllama-1.1b", "starcoder2-15b", "nemotron-4-15b",
-                 "qwen3-14b"):
-        train_check(torch, arch)
+    # tinyllama at depth 2, the 15 B archs at depth 1
+    # (``TRAIN_CHECK_15B_DEPTH``), so that qwen2-vl's checks fit the time
+    train_check(torch, "tinyllama-1.1b")
+    for arch in ("starcoder2-15b", "nemotron-4-15b", "qwen3-14b"):
+        train_check(torch, arch, depth=TRAIN_CHECK_15B_DEPTH)
         torch.cuda.empty_cache()
+    train_check(torch, QWEN2VL_ARCH, depth=QWEN2VL_TRAIN_CHECK_DEPTH)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_check_ssm(torch)
     moe_train_check(torch)
     torch.cuda.empty_cache()
@@ -3081,6 +3327,16 @@ def main() -> int:
 
     # the backward's G = 16 row: launched on the qwen3-moe training path
     flash_bwd["g16"]["launches"] = n_moe_bwd
+    # qwen2-vl's rows (G = 8, D = 128), each with the launches of its
+    # counted serve_loop (flash: 40, one a layer; decode: 40 x 31) or of
+    # its counted training run (the backward 4, the forward 8)
+    flash["qwen2vl"] = {"launches": qwen2vl["flash_attention"],
+                        "train_launches": qwen2vl_train["flash_attention"],
+                        **flash.pop("qwen2vl")}
+    decode["qwen2vl"] = {"launches": qwen2vl["decode_attention"],
+                         **decode.pop("qwen2vl")}
+    flash_bwd["qwen2vl"] = {"launches": qwen2vl_train["flash_attention_bwd"],
+                            **flash_bwd.pop("qwen2vl")}
     # seamless-m4t's rows, under one entry with the launches of its counted
     # serve_loop (flash: encoder, decoder prefill and cross, 24 each;
     # decode: the fp32 self and bf16 memory steps, 24 each a step) or, for

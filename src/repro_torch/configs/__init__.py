@@ -23,11 +23,11 @@ ARCHS = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 # archs of the JAX package not ported yet -> the ROADMAP item that brings them
 PENDING = {
-    "qwen2-vl-72b": "A.7 (VLM, M-RoPE)",
     "jamba-1.5-large-398b": "A.10 (hybrid)",
 }
 

@@ -6,16 +6,20 @@ It runs on the card (``device="cuda"``, full width and depth) unless the
 caller asks for the CPU, where it takes the kernels' plain versions; without
 CUDA and without ``device="cpu"`` it raises. The archs are those of
 ``repro_torch.configs``: tinyllama-1.1b, mamba2-370m, starcoder2-15b,
-nemotron-4-15b, qwen3-14b, qwen3-moe-235b-a22b, kimi-k2-1t-a32b and the
-encoder-decoder seamless-m4t-large-v2 (1.63 B parameters, 3.3 GB, at full
+nemotron-4-15b, qwen3-14b, qwen3-moe-235b-a22b, kimi-k2-1t-a32b,
+qwen2-vl-72b and the encoder-decoder seamless-m4t-large-v2 (1.63 B parameters, 3.3 GB, at full
 depth on one card), whose encoder takes seeded random frame embeddings,
 ``FRAMES_LEN`` of them a prompt (16 with ``reduced=True``, as the
 reference's ``serve_loop``). Each of the three 15 B archs holds ~30 GB of
 bf16 weights, so one card serves one of them at a time. The two MoE archs
-serve on one card only at a cut depth: qwen3-moe-235b-a22b holds 470 GB
-at its 94 layers (12 layers: 62 GB), kimi-k2-1t-a32b ~2 TB at its 61 (2
-layers: 73 GB). A model whose weights exceed the card's memory raises
-``ValueError`` before anything is allocated.
+and qwen2-vl serve on one card only at a cut depth: qwen3-moe-235b-a22b
+holds 470 GB at its 94 layers (12 layers: 62 GB), kimi-k2-1t-a32b ~2 TB at
+its 61 (2 layers: 73 GB), qwen2-vl-72b 145 GB at its 80 (40 layers: 75
+GB). A model whose weights exceed the card's memory raises ``ValueError``
+naming ROADMAP item A.12 before anything is allocated. qwen2-vl serves as
+the reference's serve loop runs it: on tokens alone, with no vision
+embeddings and no M-RoPE positions, so its attention takes the 1-D RoPE
+(the model's ``forward``, ``prefill`` and ``decode_step`` take both).
 """
 
 from __future__ import annotations

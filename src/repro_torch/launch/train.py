@@ -12,7 +12,11 @@ On one card it trains what fits: the parameters, their gradients and
 AdamW's two fp32 moments take ~12 bytes a parameter, ~190 GB for a 15 B
 arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so those train at full
 depth only across devices (ROADMAP A.12) and a full-depth run of one on a
-single card raises ``ValueError``; a cut depth of them trains.
+single card raises ``ValueError``; a cut depth of them trains. So does
+qwen2-vl-72b (872 GB of state at its 80 layers; at 1 layer, 40 GB), which
+trains as the reference's ``train_loop`` trains it: on the synthetic
+tokens alone, so its attention takes the 1-D RoPE (``loss_fn`` reads
+``vision_embeds`` and ``mrope_positions`` when a batch carries them).
 
 The encoder-decoder (seamless-m4t-large-v2, 1.63 B parameters, ~20 GB of
 training state at full depth) trains as the reference trains it: not

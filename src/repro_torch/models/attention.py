@@ -38,7 +38,7 @@ import torch
 
 from ..kernels.decode_attention import decode_attention as decode_kernel
 from ..kernels.flash_attention import flash_attention
-from .common import apply_rope, matmul, rms_norm, rope_table
+from .common import apply_mrope, apply_rope, matmul, rms_norm, rope_table
 from .config import ModelConfig
 from .param import ArrayDecl, ones_init
 
@@ -54,14 +54,8 @@ class KVCache(NamedTuple):
     length: torch.Tensor    # () int32 — tokens currently valid
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.use_mrope:
-        raise NotImplementedError("M-RoPE: ROADMAP item A.7")
-
-
 def attention_decls(cfg: ModelConfig, layers: int | None = None) -> dict:
     """Parameter declarations; ``layers`` adds a leading stacked-layer axis."""
-    _check_supported(cfg)
     H, Hk, D, M = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     lead = (layers,) if layers else ()
     lax_ = ("layers",) if layers else ()
@@ -206,11 +200,15 @@ def _decode_core(q, cache: KVCache) -> torch.Tensor:
 
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              mrope_positions: torch.Tensor | None = None,
               causal: bool = True, cache: KVCache | None = None,
               kv_source: torch.Tensor | None = None):
     """Attention sublayer: projections (+ qk-norm) + rope + core (+ the
-    padded heads' mask) + output projection. (The reference's explicit
-    positions and M-RoPE serve a family the port has not taken over yet.)
+    padded heads' mask) + output projection. With ``cfg.use_mrope`` and
+    ``mrope_positions`` (3, B, S) given, q and k are rotated by M-RoPE at
+    those (t, h, w) positions, else by the 1-D RoPE at ``length + s``, as
+    the reference chooses. (The reference's explicit 1-D ``positions``
+    argument, which no caller of it sets, is not ported.)
 
     x: (B, S, M).  Modes:
       * cache is None        -> full-sequence (training / uncached prefill),
@@ -221,9 +219,9 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ``kv_source`` (B, T, M), an encoder memory, switches to cross-attention:
     q from x, k/v from the memory, no rope, not causal, no cache update.
     Returns (out, new_cache_or_None); the new cache shares the old one's
-    K/V buffers, written in place.
+    K/V buffers, written in place. The cache rows are always ``length ..
+    length + S - 1``, whatever positions rotate q and k.
     """
-    _check_supported(cfg)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     is_cross = kv_source is not None
@@ -239,19 +237,25 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         k = rms_norm(k, params["k_norm"])
 
     if not is_cross:
-        positions = torch.arange(S, device=x.device)
+        # the tokens' cache rows, and their 1-D positions: length + s, with
+        # length read on the device
+        rows = torch.arange(S, device=x.device)
         if cache is not None:
-            positions = cache.length + positions
-        cos, sin = rope_table(positions, D, cfg.rope_theta)  # (S, D/2)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+            rows = cache.length + rows
+        if cfg.use_mrope and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, D, theta=cfg.rope_theta)
+            k = apply_mrope(k, mrope_positions, D, theta=cfg.rope_theta)
+        else:
+            cos, sin = rope_table(rows, D, cfg.rope_theta)  # (S, D/2)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
 
     new_cache = None
     if cache is not None and not is_cross:
         # in place, at rows length .. length + S - 1, where the reference
         # returns an updated copy
-        cache.k.index_copy_(1, positions, k.to(cache.k.dtype))
-        cache.v.index_copy_(1, positions, v.to(cache.v.dtype))
+        cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
         new_cache = KVCache(cache.k, cache.v, cache.length + S)
         if S == 1:
             out = _decode_core(q, new_cache)

@@ -3,7 +3,7 @@ the cross-entropy loss and the per-layer remat wrapper.
 
 Same conventions as the JAX package's ``models/common.py``: compute in the
 activation dtype, normalise, rotate and take the loss in fp32. The rest of
-that module (layer norm, M-RoPE) comes with the slices that use it.
+that module (layer norm) comes with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ import torch
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 __all__ = ["matmul", "rms_norm", "silu", "gelu", "squared_relu", "softplus",
-           "ACTIVATIONS", "rope_table", "apply_rope", "cross_entropy_loss",
-           "remat_layer"]
+           "ACTIVATIONS", "rope_table", "apply_rope", "apply_mrope",
+           "cross_entropy_loss", "remat_layer"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -96,6 +96,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, head_dim: int,
+                sections: tuple[int, int, int] | None = None,
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the head dim is split into (temporal, h, w)
+    sections, each rotated by its own position stream.
+
+    x: (B, S, H, D); positions_3d: (3, B, S) int.
+    ``sections`` are in half-dim units and must sum to D // 2; the default
+    is Qwen2-VL's 1:1.5:1.5 split, (16, 24, 24) at D = 128.
+    """
+    half = head_dim // 2
+    if sections is None:
+        t = half // 4
+        w = (half - t) // 2
+        sections = (t, half - t - w, w)
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} must sum to {half}")
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions_3d.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    # angle[b, s, i] = pos[section of i, b, s] * freqs[i]: each stream
+    # repeated over its section's columns, with no host-side index tensor
+    pos = positions_3d.float()                                # (3, B, S)
+    pos_sel = torch.cat([pos[j, ..., None].expand(*pos.shape[1:], n)
+                         for j, n in enumerate(sections)], dim=-1)
+    angles = pos_sel * freqs                                  # (B, S, half)
+    return apply_rope(x, torch.cos(angles), torch.sin(angles))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

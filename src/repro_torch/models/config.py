@@ -2,9 +2,9 @@
 
 One dataclass covers every family the JAX package knows, so that a config
 can be written once and checked by the same ``reduced()`` rule on both sides.
-The port runs ``family="dense"``, ``"moe"`` and ``"ssm"`` (``models/lm.py``)
-and ``"encdec"`` (``models/encdec.py``); ``"hybrid"`` and ``"vlm"`` raise
-``NotImplementedError`` where they are built (``models/lm.py``).
+The port runs ``family="dense"``, ``"moe"``, ``"ssm"`` and ``"vlm"``
+(``models/lm.py``) and ``"encdec"`` (``models/encdec.py``); ``"hybrid"``
+raises ``NotImplementedError`` where it is built (``models/lm.py``).
 """
 
 from __future__ import annotations

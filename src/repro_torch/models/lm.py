@@ -1,11 +1,17 @@
-"""Decoder-only LM, families ``dense``, ``moe`` and ``ssm``: port of
-``repro/models/lm.py``.
+"""Decoder-only LM, families ``dense``, ``vlm``, ``moe`` and ``ssm``: port
+of ``repro/models/lm.py``.
 
 * ``dense`` (tinyllama, starcoder2, nemotron, qwen3): token embedding, a
   stack of layers (RMSNorm -> GQA attention with RoPE, qwen3's with
   qk-norm and zero-masked padded heads -> residual -> RMSNorm -> MLP,
   SwiGLU or plain gelu / squared ReLU -> residual), final RMSNorm, vocab
   head.
+* ``vlm`` (qwen2-vl): the dense model with M-RoPE: given ``mrope_positions``
+  (3, B, S), every layer rotates q and k at those (t, h, w) positions
+  (``common.apply_mrope``); ``forward`` also splices ``vision_embeds`` (B,
+  nv, M), precomputed patch embeddings (the vision frontend is a stub, as
+  in the reference), in front of the token embeddings. Without positions
+  and vision embeddings it is the dense model, bit for bit.
 * ``moe`` (qwen3-moe): the dense frame with the MLP replaced by the
   mixture of experts of ``moe.py``; ``forward`` also returns the sum of
   the layers' load-balance aux losses.
@@ -18,9 +24,11 @@ Entry points, as in the reference:
 
 * ``loss_fn(params, batch)``            -> next-token cross entropy plus
   ``AUX_COEF`` times the aux loss (train);
-* ``forward(params, tokens)``           -> (logits (B, S, V), aux);
-* ``prefill(params, tokens, cache)``    -> (last-token logits, cache);
-* ``decode_step(params, token, cache)`` -> (logits (B, 1, V), cache).
+* ``forward(params, tokens, *, vision_embeds=None, mrope_positions=None)``
+                                        -> (logits (B, S, V), aux);
+* ``prefill(params, tokens, cache, **kw)``    -> (last-token logits, cache);
+* ``decode_step(params, token, cache, **kw)`` -> (logits (B, 1, V), cache);
+  ``kw`` is ``mrope_positions``, as in the reference.
 
 The cache is written in place (see ``attention.py`` and ``ssm.py``); the
 returned cache holds the same buffers (with the advanced length for KV).
@@ -28,9 +36,9 @@ Under grad with ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) with the
 reference's three policies: "full" saves only the layer's input; "dots"
 and "names" run torch's selective checkpointing (:func:`_save_dots`,
-:func:`_save_names`). The families ``hybrid`` and ``vlm`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them; the
-encoder-decoder is ``encdec.py``'s ``EncDecLM``.
+:func:`_save_names`). The family ``hybrid`` raises ``NotImplementedError``
+naming the ROADMAP item that brings it; the encoder-decoder is
+``encdec.py``'s ``EncDecLM``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ __all__ = ["LM", "Cache", "AUX_COEF"]
 
 AUX_COEF = 0.01
 
-_PENDING_FAMILIES = {"hybrid": "A.10", "vlm": "A.7"}
+_PENDING_FAMILIES = {"hybrid": "A.10"}
 
 
 @torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
@@ -111,7 +119,7 @@ _POLICIES = {"dots": _save_dots, "names": _save_names}
 class Cache(NamedTuple):
     """Stacked per-layer serving cache; each family fills its member.
 
-    kv (families dense and moe): kv.k / kv.v are (n_layers, B, max_len,
+    kv (families dense, vlm and moe): kv.k / kv.v are (n_layers, B, max_len,
     kv_heads, head_dim); kv.length is one () int32 for the batch (the
     reference broadcasts it per layer). ssm (family ssm): every member of the
     SSMCache has a leading n_layers axis."""
@@ -125,7 +133,7 @@ class LM:
             raise NotImplementedError(
                 f"family {cfg.family!r}: ROADMAP item "
                 f"{_PENDING_FAMILIES[cfg.family]}")
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "vlm", "moe", "ssm"):
             raise ValueError(cfg.family)
         self.cfg = cfg
 
@@ -163,11 +171,11 @@ class LM:
 
     # ------------------------------------------------------------------
     def _layer(self, lp: dict, x: torch.Tensor, *, cache=None,
-               mark: bool = False):
+               mrope_positions=None, mark: bool = False):
         """-> (x, aux, new_kv); aux is 0.0 for an MLP layer. ``mark`` names
         the MoE output "moe_out" for the "names" policy."""
         h, new_kv = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
-                              cache=cache)
+                              mrope_positions=mrope_positions, cache=cache)
         x = x + h
         if "moe" in lp:
             y, aux = moe(lp["moe"], rms_norm(x, lp["ln2"]), self.cfg)
@@ -177,8 +185,10 @@ class LM:
             y, aux = mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg), 0.0
         return x + y, aux, new_kv
 
-    def _ssm_layer(self, lp: dict, x: torch.Tensor, *, cache=None):
-        """-> (x, aux 0.0, new_ssm)."""
+    def _ssm_layer(self, lp: dict, x: torch.Tensor, *, cache=None,
+                   mrope_positions=None):
+        """-> (x, aux 0.0, new_ssm); ``mrope_positions`` is unused (no
+        attention), taken for one layer signature across families."""
         h, new_ssm = mamba_block(lp["mamba"], rms_norm(x, lp["ln1"]),
                                  self.cfg, cache=cache)
         return x + h, 0.0, new_ssm
@@ -192,18 +202,28 @@ class LM:
             else params["head"]
         return matmul(x, head.to(x.dtype))
 
-    def forward(self, params, tokens: torch.Tensor):
+    def forward(self, params, tokens: torch.Tensor, *,
+                vision_embeds: torch.Tensor | None = None,
+                mrope_positions: torch.Tensor | None = None):
         """tokens: (B, S) -> logits (B, S, V); also returns the aux loss,
-        summed over the layers (0.0 without MoE layers)."""
+        summed over the layers (0.0 without MoE layers). ``vision_embeds``
+        (B, nv, M) go in front of the token embeddings, whose last nv are
+        dropped, and the sequence is cut to S; ``mrope_positions`` (3, B,
+        S) reach every layer's attention."""
         cfg = self.cfg
         x = self._embed(params, tokens)
+        if vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            if nv:
+                x = torch.cat([vision_embeds.to(x.dtype), x[:, :-nv]], dim=1)
+            x = x[:, :tokens.shape[1]]
         remat = cfg.remat and torch.is_grad_enabled()
         policy = _POLICIES.get(cfg.remat_policy) if remat else None
         layer = self._ssm_layer if cfg.family == "ssm" else \
             functools.partial(self._layer, mark=policy is _save_names)
 
-        def body(lp, x):
-            return layer(lp, x)[:2]
+        def body(lp, x, positions):
+            return layer(lp, x, mrope_positions=positions)[:2]
 
         run = body
         if remat and policy:
@@ -214,16 +234,19 @@ class LM:
             run = remat_layer(body)
         aux = 0.0
         for lp in unstack_layers(params["layers"], cfg.n_layers):
-            x, layer_aux = run(lp, x)
+            x, layer_aux = run(lp, x, mrope_positions)
             aux = aux + layer_aux
         return self._head(params, x), aux
 
     def loss_fn(self, params, batch) -> torch.Tensor:
-        """batch: {'tokens': (B, S+1), optional 'mask' (B, S)} -> scalar fp32
+        """batch: {'tokens': (B, S+1), optional 'vision_embeds' (B, nv, M),
+        'mrope_positions' (3, B, S), 'mask' (B, S)} -> scalar fp32
         next-token cross entropy plus ``AUX_COEF`` times the aux loss (0
         without MoE layers)."""
         tokens = batch["tokens"]
-        logits, aux = self.forward(params, tokens[:, :-1])
+        logits, aux = self.forward(
+            params, tokens[:, :-1], vision_embeds=batch.get("vision_embeds"),
+            mrope_positions=batch.get("mrope_positions"))
         ce = cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
         return ce + AUX_COEF * aux
 
@@ -241,7 +264,8 @@ class LM:
         return Cache(kv=init_cache(self.cfg, batch, max_len, layers=L,
                                    device=device))
 
-    def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache):
+    def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache, *,
+                      mrope_positions=None):
         x = self._embed(params, tokens)
         if self.cfg.family == "ssm":
             for i in range(self.cfg.n_layers):
@@ -254,15 +278,18 @@ class LM:
         for i in range(self.cfg.n_layers):
             lp = tree_map(lambda a: a[i], params["layers"])
             x, _, new_kv = self._layer(
-                lp, x, cache=KVCache(kv.k[i], kv.v[i], kv.length))
+                lp, x, cache=KVCache(kv.k[i], kv.v[i], kv.length),
+                mrope_positions=mrope_positions)
             new_len = new_kv.length
         logits = self._head(params, x[:, -1:])
         return logits, Cache(kv=KVCache(kv.k, kv.v, new_len))
 
-    def prefill(self, params, tokens: torch.Tensor, cache: Cache):
-        """tokens: (B, S). Returns (last-token logits (B, 1, V), cache)."""
-        return self._apply_cached(params, tokens, cache)
+    def prefill(self, params, tokens: torch.Tensor, cache: Cache, **kw):
+        """tokens: (B, S); ``kw``: ``mrope_positions`` (3, B, S). Returns
+        (last-token logits (B, 1, V), cache)."""
+        return self._apply_cached(params, tokens, cache, **kw)
 
-    def decode_step(self, params, token: torch.Tensor, cache: Cache):
-        """token: (B, 1). Returns (logits (B, 1, V), cache)."""
-        return self._apply_cached(params, token, cache)
+    def decode_step(self, params, token: torch.Tensor, cache: Cache, **kw):
+        """token: (B, 1); ``kw``: ``mrope_positions`` (3, B, 1). Returns
+        (logits (B, 1, V), cache)."""
+        return self._apply_cached(params, token, cache, **kw)

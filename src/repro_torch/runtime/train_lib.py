@@ -53,7 +53,8 @@ def split_microbatches(batch: dict, mu: int) -> list[dict]:
     """``batch`` cut into ``mu`` microbatches of consecutive rows. B is
     read from ``tokens``; a ``mrope_positions`` leaf, (3, B, S), is cut on
     axis 1 and every other leaf on axis 0 (``tokens``, ``mask``, the
-    encoder-decoder's ``frames`` (B, T, d_model)), as the reference's
+    vlm's ``vision_embeds`` (B, nv, d_model), the encoder-decoder's
+    ``frames`` (B, T, d_model)), as the reference's
     reshape (``repro/runtime/train_lib.py:98-103``) cuts them.
 
     One deliberate departure: the reference tells the positions apart by

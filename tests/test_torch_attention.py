@@ -99,15 +99,6 @@ def test_cache_is_written_in_place():
     assert int(cache.length) == 0 and int(new.length) == 4
 
 
-@pytest.mark.parametrize("field,item", [("use_mrope", "A.7")])
-def test_unported_attention_options_raise(field, item):
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b", reduced=True),
-                              **{field: True})
-    x = torch.zeros(1, 2, cfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=item):
-        attention({}, x, cfg)
-
-
 @pytest.mark.parametrize("mode", ["no_cache", "prefill", "decode"])
 @pytest.mark.parametrize("head_dim", [112, 128])
 def test_inexact_scale_rounds_as_jax(mode, head_dim):

@@ -95,7 +95,9 @@ def randn(gen, *shape, dtype):
     (2, 100, 64, 4, 128),                 # G = 16 at D = 128, ragged S
     (8, 512, 64, 8, 112),                 # kimi-k2: D = 112 in the 128
     (2, 100, 64, 8, 112),                 # tile, G = 8; and a ragged S
-    (1, 64, 16, 2, 112)])
+    (1, 64, 16, 2, 112),
+    (8, 512, 64, 8, 128),                 # qwen2-vl: G = 8, D = 128, 8
+    (2, 100, 64, 8, 128)])                # positions a block; ragged S
 def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -117,7 +119,8 @@ def test_flash_cuda_matches_plain(dtype, causal, B, S, H, Hk, D):
     (8, 512, 32, 4, 64), (2, 256, 32, 4, 128), (2, 256, 8, 8, 64),
     (2, 200, 64, 4, 64), (1, 48, 6, 2, 16), (1, 2048, 32, 4, 64),
     (8, 512, 48, 4, 128), (8, 512, 48, 8, 128), (2, 100, 48, 4, 128),
-    (8, 512, 64, 4, 128), (8, 512, 64, 8, 112), (2, 100, 64, 8, 112)])
+    (8, 512, 64, 4, 128), (8, 512, 64, 8, 112), (2, 100, 64, 8, 112),
+    (8, 512, 64, 8, 128), (2, 100, 64, 8, 128)])
 def test_flash_cuda_lse_matches_plain(dtype, causal, B, S, H, Hk, D):
     """The rows' log-sum-exp the forward writes when asked, in the folded
     (B, Hk, Sq * G) layout, against its plain version; the output is the
@@ -206,7 +209,8 @@ def test_flash_cuda_reads_strided_views(dtype):
                                     (48, 8, 128),    # nemotron, qwen3: G = 6
                                     (64, 4, 128),    # qwen3-moe: G = 16,
                                     # G x D = 2048, the kernel's limit
-                                    (64, 8, 112)])   # kimi-k2: G = 8
+                                    (64, 8, 112),    # kimi-k2: G = 8
+                                    (64, 8, 128)])   # qwen2-vl: G = 8
 def test_decode_cuda_matches_plain(dtype, length, H, Hk, D):
     """Lengths 63, 64, 65 sit on the first boundary of the kernel's 64-key
     splits, 527 and 528 inside the last full one (528: the mean cache
@@ -487,6 +491,37 @@ def test_lm_cuda_matches_cpu(arch):
     assert bool((got.argmax(-1) == ref.argmax(-1)).all())
 
 
+def test_vlm_cuda_matches_cpu():
+    """The reduced qwen2-vl with M-RoPE positions (distinct (t, h, w): a
+    2 x 4 grid of patches, then text from 4): forward over 8 vision
+    embeddings and 9 tokens, and prefill(16) + decode(1) with positions,
+    the kernels on the card against the plain path on the CPU."""
+    model, params_cpu = _reduced_model("qwen2-vl-72b")
+    params_gpu = tree_map(lambda a: a.to("cuda"), params_cpu)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 256, (2, 17), generator=gen)
+    vision = torch.randn(2, 8, model.cfg.d_model, generator=gen)
+    r, c = torch.arange(8) // 4, torch.arange(8) % 4
+    text = 4 + torch.arange(9)
+    pos = torch.stack([torch.cat([torch.zeros(8, dtype=torch.long), text]),
+                       torch.cat([r, text]), torch.cat([c, text])])
+    pos = pos[:, None].expand(3, 2, 17)
+    out = {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        full, _ = model.forward(params, toks[:, :16].to(dev),
+                                vision_embeds=vision.to(dev),
+                                mrope_positions=pos[..., :16].to(dev))
+        cache = model.init_cache(2, model.cfg.max_cache_len, device=dev)
+        _, cache = model.prefill(params, toks[:, :16].to(dev), cache,
+                                 mrope_positions=pos[..., :16].to(dev))
+        logits, _ = model.decode_step(params, toks[:, 16:].to(dev), cache,
+                                      mrope_positions=pos[..., 16:].to(dev))
+        out[dev] = (full.float().cpu(), logits[:, 0].float().cpu())
+    for ref, got in zip(out["cpu"], out["cuda"]):
+        assert float((got - ref).abs().max() / ref.abs().max()) < 0.06
+        assert bool((got.argmax(-1) == ref.argmax(-1)).all())
+
+
 def test_serve_loop_cuda_goes_through_the_kernels():
     flash_kernel.launches = decode_kernel.launches = 0
     out = serve_loop("tinyllama-1.1b", batch=2, prompt_len=32, gen_tokens=5,
@@ -585,6 +620,8 @@ def _bwd_close(got, want, dtype) -> bool:
     (2, 100, 48, 4, 128),                 # G = 12, ragged S
     (8, 512, 64, 4, 128),                 # qwen3-moe's training shape:
     (2, 100, 64, 4, 128),                 # G = 16, D = 128; ragged S
+    (8, 512, 64, 8, 128),                 # qwen2-vl's training shape:
+    (2, 100, 64, 8, 128),                 # G = 8, D = 128; ragged S
     # S = (Sq, Skv), seamless-m4t's heads (G = 1, D = 64): the
     # cross-attention's 512 queries over 1024 keys, more queries than
     # keys, and ragged lengths both ways

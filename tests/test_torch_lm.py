@@ -2,7 +2,10 @@
 the port runs, reduced (dense: tinyllama-1.1b, starcoder2-15b with gelu and
 nemotron-4-15b with squared ReLU in a plain MLP, qwen3-14b with qk-norm;
 moe: qwen3-moe-235b-a22b, 8 experts top-2 with qk-norm, and
-kimi-k2-1t-a32b, 8 experts top-2 and a shared expert; ssm: mamba2-370m),
+kimi-k2-1t-a32b, 8 experts top-2 and a shared expert; ssm: mamba2-370m;
+vlm: qwen2-vl-72b, run here on tokens alone, as the reference's serve
+and train loops run it; tests/test_torch_vlm.py holds its M-RoPE and
+vision embeddings),
 with the JAX weights carried across. ``reduced()``
 resets ``pad_heads_to``, so qwen3's zero-masked padded heads run in a
 variant that sets it again (``qwen3-14b/pad6``: 6 lowered heads over 2 KV
@@ -55,7 +58,8 @@ from repro_torch.models import LM, build_model, params_from_numpy
 TIGHT = 2.0 ** -6
 ARCH = "tinyllama-1.1b"
 ARCHS = ["tinyllama-1.1b", "mamba2-370m", "starcoder2-15b", "nemotron-4-15b",
-         "qwen3-14b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b"]
+         "qwen3-14b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+         "qwen2-vl-72b"]
 VARIANTS = ARCHS + ["qwen3-14b/pad6", "kimi-k2-1t-a32b/d112"]
 
 
@@ -193,8 +197,9 @@ def test_serve_loop_matches_jax(monkeypatch, arch):
     steps = []
 
     class Recording(LM):
-        def _apply_cached(self, params, tokens, cache):
-            logits, cache = super()._apply_cached(params, tokens, cache)
+        def _apply_cached(self, params, tokens, cache, **kw):
+            logits, cache = super()._apply_cached(params, tokens, cache,
+                                                  **kw)
             steps.append(logits[:, -1].float())
             return logits, cache
 
@@ -241,8 +246,7 @@ def test_serve_loop_without_cuda_raises(monkeypatch, arch):
     ("hybrid", NotImplementedError, "A.10"),
     # the encoder-decoder is ported (models/encdec.py): a config of that
     # family without encoder layers raises the reference's ValueError
-    ("encdec", ValueError, "encdec needs n_encoder_layers"),
-    ("vlm", NotImplementedError, "A.7")])
+    ("encdec", ValueError, "encdec needs n_encoder_layers")])
 def test_unported_families_raise(family, error, match):
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), family=family,
                               n_experts=8, ssm_state=16)
@@ -308,3 +312,38 @@ def test_full_depth_kimi_serving_on_one_card_raises(monkeypatch):
     """kimi-k2-1t-a32b's 61 layers hold 2.09 TB of bf16 weights; 2 layers
     (73.0 GB) fit."""
     refuses_full_depth(monkeypatch, "kimi-k2-1t-a32b", 2)
+
+
+def test_full_depth_qwen2_vl_serving_on_one_card_raises(monkeypatch):
+    """qwen2-vl-72b's 80 layers hold 145.4 GB of bf16 weights; 40 layers
+    (75.2 GB) fit."""
+    refuses_full_depth(monkeypatch, "qwen2-vl-72b", 40)
+
+
+def test_full_depth_qwen2_vl_training_on_one_card_raises(monkeypatch):
+    """qwen2-vl-72b's training state at its 80 layers, 12 bytes a
+    parameter, is 872 GB: on an 80 GiB card train_loop raises ValueError
+    naming A.12 before it builds anything; at 1 layer (40.4 GB) it passes
+    the check (stopped here at the build, which needs nvcc)."""
+    from repro_torch.launch import train as train_mod
+
+    class Props:
+        total_memory = 80 * 2 ** 30
+    built = []
+
+    def build():
+        built.append(1)
+        raise RuntimeError("stop")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    monkeypatch.setattr(train_mod._build, "build", build)
+    with pytest.raises(ValueError, match=r"A\.12.*cut depth"):
+        train_mod.train_loop("qwen2-vl-72b", steps=1, device="cuda")
+    assert not built
+    full = train_mod.get_config
+    monkeypatch.setattr(train_mod, "get_config", lambda arch, reduced=False:
+                        dataclasses.replace(full(arch), n_layers=1))
+    with pytest.raises(RuntimeError, match="stop"):
+        train_mod.train_loop("qwen2-vl-72b", steps=1, device="cuda")
+    assert built

@@ -19,14 +19,16 @@ from repro_torch.models.param import param_count
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b",
              "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
-             "seamless-m4t-large-v2"]
+             "seamless-m4t-large-v2", "qwen2-vl-72b"]
 ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # parameter counts of the full configs (analysis/flops.py's figures):
 # tinyllama ~1.1 B; mamba2-370m ~367 M; the 15 B archs with an untied head,
 # qwen3's lowered at 48 heads (15.19 B; 14.77 B at its 40); qwen3-moe
 # 235.09 B at its 94 layers, 128 experts each; kimi-k2 1043.85 B at its 61
 # layers, 384 experts and one shared expert each; seamless-m4t 1.632 B
-# (encoder 503.4 M, decoder 604.1 M, embedding and head 524.7 M)
+# (encoder 503.4 M, decoder 604.1 M, embedding and head 524.7 M);
+# qwen2-vl 72.705 B at its 80 layers of 0.878 B, with 2.491 B of
+# embedding and untied head
 FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "mamba2-370m": (3.4e8, 3.9e8),
                "starcoder2-15b": (1.55e10, 1.65e10),
@@ -34,7 +36,8 @@ FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "qwen3-14b": (1.50e10, 1.55e10),
                "qwen3-moe-235b-a22b": (2.35e11, 2.36e11),
                "kimi-k2-1t-a32b": (1.043e12, 1.044e12),
-               "seamless-m4t-large-v2": (1.631e9, 1.633e9)}
+               "seamless-m4t-large-v2": (1.631e9, 1.633e9),
+               "qwen2-vl-72b": (7.270e10, 7.271e10)}
 
 
 def _paths(tree, prefix=()):
@@ -192,8 +195,8 @@ def test_configs_registry():
         (red_ref.n_layers, red_ref.d_model, red_ref.n_heads,
          red_ref.n_kv_heads, red_ref.head_dim, red_ref.vocab,
          red_ref.q_chunk)
-    with pytest.raises(KeyError, match="ROADMAP item A.7"):
-        get_config("qwen2-vl-72b")
+    with pytest.raises(KeyError, match="ROADMAP item A.10"):
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
@@ -241,6 +244,23 @@ def test_config_matches_jax_field_by_field(reduced, arch):
     ref = jax_get_config(arch, reduced=reduced)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
     assert cfg.n_heads_eff == ref.n_heads_eff
+
+
+def test_qwen2_vl_config_and_schema():
+    """qwen2-vl-72b: the vlm family with M-RoPE at theta 1e6 over head_dim
+    128 (sections (16, 24, 24)), 64 heads over 8 KV heads, the dense
+    layer's SwiGLU MLP and an untied head; 0.8777 B parameters a layer."""
+    cfg = get_config("qwen2-vl-72b")
+    assert (cfg.family, cfg.use_mrope, cfg.rope_theta, cfg.head_dim,
+            cfg.n_heads, cfg.n_kv_heads, cfg.tie_embeddings) == \
+        ("vlm", True, 1e6, 128, 64, 8, False)
+    layers = build_model(cfg).param_decls()["layers"]
+    assert set(layers) == {"ln1", "attn", "ln2", "mlp"}
+    assert layers["mlp"]["w_gate"].shape == (80, 8192, 29568)
+    one = dataclasses.replace(cfg, n_layers=1)
+    per_layer = param_count(build_model(cfg).param_decls()) - param_count(
+        build_model(one).param_decls())
+    assert per_layer == 79 * 877_674_496
 
 
 def test_qwen3_schema_has_qk_norm_and_padded_heads():
