@@ -41,7 +41,9 @@ Phases, each fatal on failure:
    prefill shape, causal (timed with and without lse) and not, bf16 and
    fp32, and a ragged S, decode at its serving shape, the backward at its
    training shape (timed, with planted faults on the G = 8 blocks' edges)
-   and a ragged S), to bf16 2e-2
+   and a ragged S; jamba's SSD at its prefill shape, 256 heads of P = 64,
+   N = 128, state0 and state_out a slice of a zeroed stacked cache, timed),
+   to bf16 2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
@@ -61,7 +63,11 @@ Phases, each fatal on failure:
    layers (73 GB; 384 experts and a shared expert, flash and decode at
    G = 8, D = 112) and of qwen2-vl-72b at full width cut to 40 of its 80
    layers (75.2 GB; tokens only, as the reference's serve loop runs it;
-   flash and decode at G = 8, D = 128) and of the encoder-decoder
+   flash and decode at G = 8, D = 128) and of jamba-1.5-large-398b
+   cut to one super-block of period 4 (``cut_hybrid``: 3 Mamba sublayers,
+   attention at 3, MoE at 1 and 3, each at its published width, 45.96 GB;
+   a different model from jamba's 1:7 interleave; flash 1, decode 31 and
+   ssd 3 launches, no other kernel) and of the encoder-decoder
    seamless-m4t-large-v2 at
    full width and full depth (24 + 24 layers, 3.26 GB; 1024 frames a
    prompt; flash 72 launches at the prefill, decode 48 a step), batch 8,
@@ -88,7 +94,8 @@ Phases, each fatal on failure:
    run went through them;
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
-   40-layer qwen2-vl and
+   40-layer qwen2-vl, the period-4 jamba block (its device time split
+   into Mamba, attention, MoE and MLP sublayers) and
    seamless-m4t (its two decode kernels' device ms apart) (beside
    the bytes a step must read; the MoE archs' device time also split into
    routing, dispatch, expert products, combine and attention), one
@@ -102,7 +109,12 @@ Phases, each fatal on failure:
    products' (``aten::bmm``), the kernels inside ``adamw_update`` and the
    rest; and AdamW's alone);
 6. model check (attention weights at std 1/sqrt(fan-in), where the
-   reference's draw saturates the softmax: ``model_check``): a depth-2,
+   reference's draw saturates the softmax: ``model_check``): jamba's
+   period-4 block at full width first (its host copy 46.0 GB; the MoE
+   rules, each Mamba sublayer's scan y, output and state, and four faults
+   of its own: the attention at sublayer 2 in place of 3, a decode step
+   from a zeroed SSM state, the ssd kernel's y zeroed in its last chunk,
+   a Mamba output dropped at decode), a depth-2,
    full-width model of each of six archs, and kimi-k2 at depth 1 (the
    host holds a copy of the weights: 38.8 GB), on the card against the
    same model on the CPU's plain path (relative error < 0.06, equal
@@ -129,8 +141,9 @@ Phases, each fatal on failure:
    full-width qwen3-moe MoE layer at a decode step's and a prefill's shape
    in each dispatch mode captured in a CUDA graph and replayed after its
    input changes on the device, bit for bit an eager call, with its device
-   ms (``moe_graph_check``); a bf16 train step of tinyllama at depth 2, of
-   the three 15 B archs at depth 1 and of qwen2-vl at depth 1 (with 16
+   ms (``moe_graph_check``); a bf16 train step of tinyllama and qwen3-14b
+   at depth 2, of starcoder2 and nemotron at depth 1
+   (``TRAIN_CHECK_15B_DEPTH``) and of qwen2-vl at depth 1 (with 16
    vision embeddings and 3-D positions) on the card against the CPU (loss
    1e-2 relative,
    each gradient within 3e-2 of its norm, each layer's backward-kernel
@@ -165,7 +178,9 @@ row, "g16", with its launches on the qwen3-moe training path, and
 seamless-m4t's, "seamless", with the launches of its counted training run
 and a record for each of its three timed shapes; the flash, decode and
 backward entries qwen2-vl's G = 8, D = 128 row, "qwen2vl", with the
-launches of its counted serve_loop or training run); the last
+launches of its counted serve_loop or training run; the flash and decode
+entries jamba's launches, "jamba", at qwen2-vl's timed shape, and the ssd
+entry jamba's H = 256 row, "jamba", with its launches); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -545,8 +560,9 @@ def check_ssd(torch, timer, gen) -> dict:
     """The SSD kernel against its plain version: y (relative to its largest
     magnitude, 5x the bf16/fp32 tolerance, as tests/test_kernels.py holds
     the Pallas kernel) and the final state (relative, 1e-4, the bound
-    tests/test_models.py holds chunk lengths 4-32 to). The serving shape and
-    a batch-1 8192-token prompt are timed."""
+    tests/test_models.py holds chunk lengths 4-32 to). The serving shape,
+    a batch-1 8192-token prompt and jamba's 256-head prefill (its record
+    under "jamba") are timed."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
@@ -668,6 +684,34 @@ def check_ssd(torch, timer, gen) -> dict:
         raise AssertionError("ssd in place: wrote outside its layer's slice "
                              "or returned another tensor")
     rec["max_abs_err"] = worst
+
+    # jamba-1.5-large-398b's prefill: 256 heads, state0 and state_out one
+    # Mamba sublayer's slice of the block's zeroed (period - 1, B, H, P, N)
+    # cache, as models/ssm.py calls it there; the row's own record
+    B, S, Hj, P = 8, 512, 256, 64
+    x = randn(B, S, Hj, P, dtype=torch.bfloat16)
+    dt, A = F.softplus(randn(B, S, Hj)), -torch.exp(randn(Hj))
+    Bm = randn(B, S, N, dtype=torch.bfloat16)
+    Cm = randn(B, S, N, dtype=torch.bfloat16)
+    cache = torch.zeros(JAMBA_PERIOD - 1, B, Hj, P, N, device="cuda")
+    want = ssd_plain(x, dt, A, Bm, Cm, chunk=256, state0=cache[1].clone())
+    got = ssd_cuda(x, dt, A, Bm, Cm, state0=cache[1], state_out=cache[1])
+    err = check(f"jamba x=bfloat16 dt=float32 B={B} S={S} H={Hj} P={P} "
+                f"N={N} state0=zero, in place in the block's cache", got,
+                want, "bfloat16")
+    launches = ssd_k.launches
+    # the same work every call: state0 is read whatever it holds
+    ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, state0=cache[1],
+                                   state_out=cache[1]))
+    plain_ms = timer.ms(lambda: ssd_plain(x, dt, A, Bm, Cm, chunk=256,
+                                          state0=cache[1]), iters=10)
+    ssd_k.launches = launches         # timing launches are not the path's
+    b_ms, b_by = bound_of(B, S, Hj, P, x, dt, A, Bm, Cm, got[1])
+    log(f"[kernels] ssd jamba bf16 B={B} S={S} H={Hj}: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, no library call computes SSD, bound "
+        f"{b_ms:.4f} ms by {b_by}, {plan_line(B, Hj, P)})")
+    rec["jamba"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
     return rec
 
 
@@ -1266,12 +1310,15 @@ def profile_decode(torch, arch: str, ours: dict | None = None,
         nbytes += 2 * k.numel() * k.element_size() * int(
             cache.self_kv.length) // k.shape[2]
         nbytes += 2 * cache.cross_k.numel() * cache.cross_k.element_size()
-    elif cache.kv is not None:
-        k = cache.kv.k                      # (layers, B, max_len, Hk, D)
-        nbytes += 2 * k.numel() * k.element_size() * int(
-            cache.kv.length) // k.shape[2]
     else:
-        nbytes += sum(t.numel() * t.element_size() for t in cache.ssm)
+        # a hybrid's cache holds both: K/V a block, and the SSM state and
+        # conv tails of each of its Mamba sublayers
+        if cache.kv is not None:
+            k = cache.kv.k                  # (layers, B, max_len, Hk, D)
+            nbytes += 2 * k.numel() * k.element_size() * int(
+                cache.kv.length) // k.shape[2]
+        if cache.ssm is not None:
+            nbytes += sum(t.numel() * t.element_size() for t in cache.ssm)
     log(f"[profile] {arch} decode: a step reads {nbytes / 1e9:.3f} GB "
         f"(weights but the embedding, the cache), bound "
         f"{nbytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s")
@@ -1517,15 +1564,36 @@ def model_check(torch, arch: str, depth: int = 2,
     (rel and argmax, printed still): a choice that routes apart at the
     decode token moves the compared logits by a whole expert's output
     (kimi-k2 at depth 1 on the H100: 1 of its 16 decode choices, rel
-    0.0729-0.0736, ROADMAP C)."""
+    0.0729-0.0736, ROADMAP C).
+
+    A hybrid arch (jamba) runs, in place of ``depth`` layers, one
+    super-block of ``JAMBA_PERIOD`` sublayers (``one_block``: every
+    sublayer at full width) and is held to the MoE rules over its MoE
+    sublayers and, in the run fed the CPU's routing (inputs apart by
+    rounding only), each Mamba sublayer to rel < 0.06 in five readings:
+    the scan's y (the ssd kernel's on the card) at the prefill, the
+    recurrence's y at the decode step, the sublayer's output at each, and
+    the SSM state it carries out of the decode step. At this draw the
+    D-skip term outweighs the scan in a Mamba output (dt ~ 1e-3..1e-1),
+    so a scan wrong over half the prefill moves the sublayers' outputs and
+    the logits by less than their rules; the scans' y are held for that.
+    ``hybrid_faults`` join the planted faults."""
+    import repro_torch.models.lm as lm_mod
+    import repro_torch.models.ssm as ssm_mod
     from attention_conditioning import fan_in_std
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
     from repro_torch.models.param import tree_map
-    log(f"[model] depth-{depth} {arch}: {host_memory()} before")
-    cfg = dataclasses.replace(get_config(arch), n_layers=depth,
-                              q_chunk=32, kv_chunk=32, max_cache_len=72)
-    moe = cfg.family == "moe"
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    what = f"one period-{JAMBA_PERIOD} block of {arch}" if hybrid \
+        else f"depth-{depth} {arch}"
+    log(f"[model] {what}: {host_memory()} before")
+    cfg = one_block(cfg) if hybrid \
+        else dataclasses.replace(cfg, n_layers=depth)
+    cfg = dataclasses.replace(cfg, q_chunk=32, kv_chunk=32, max_cache_len=72)
+    moe = cfg.family in ("moe", "hybrid")
+    n_moe = cfg.n_layers // cfg.hybrid_moe_every if hybrid else depth
     model = build_model(cfg)
     # drawn on the card and copied: the CPU's generator takes minutes for a
     # 15 B arch's vocab-wide embedding and head
@@ -1539,10 +1607,35 @@ def model_check(torch, arch: str, depth: int = 2,
     toks = torch.randint(0, cfg.vocab, (2, 65),
                          generator=torch.Generator().manual_seed(1))
 
+    last = {}     # a hybrid's Mamba readings in the latest run
+    # the functions whose outputs are recorded: the Mamba sublayer (its
+    # first JAMBA_PERIOD - 1 calls at the prefill, the rest at the decode
+    # step), the scan at the prefill, the recurrence at the decode step
+    recorded = {"block": (lm_mod, "mamba_block"), "ssd": (ssm_mod, "ssd"),
+                "step": (ssm_mod, "ssd_decode_step")}
+
     def logits_on(dev: str, params):
-        cache = model.init_cache(2, cfg.max_cache_len, device=dev)
-        _, cache = model.prefill(params, toks[:, :64].to(dev), cache)
-        logits, _ = model.decode_step(params, toks[:, 64:].to(dev), cache)
+        rec = {name: [] for name in recorded}
+        with contextlib.ExitStack() as stack:
+            for name, (owner, fn) in recorded.items() if hybrid else ():
+                stack.enter_context(outputs_of(owner, fn, rec[name]))
+            cache = model.init_cache(2, cfg.max_cache_len, device=dev)
+            _, cache = model.prefill(params, toks[:, :64].to(dev), cache)
+            logits, cache = model.decode_step(params, toks[:, 64:].to(dev),
+                                              cache)
+        if hybrid:       # each reading a list of one tensor a sublayer
+            nm = JAMBA_PERIOD - 1
+            last.update({
+                "scan's y at the prefill": rec["ssd"],
+                "output at the prefill": rec["block"][:nm],
+                "recurrence's y at the decode step": rec["step"],
+                "output at the decode step": rec["block"][nm:],
+                "SSM state after the decode step":
+                    list(cache.ssm.state.flatten(0, 1).float().cpu())})
+            counts = [len(v) for v in last.values()]
+            if counts != [nm] * len(counts):
+                raise AssertionError(f"model check {arch}: Mamba readings "
+                                     f"{counts} a kind, want {nm}")
         return logits[:, 0].float().cpu()
 
     def against_cpu(got) -> tuple[float, bool]:
@@ -1552,9 +1645,10 @@ def model_check(torch, arch: str, depth: int = 2,
     routes = {"cpu": [], "cuda": []}   # each MoE call's topi, gates, logits
     with torch.inference_mode(), record_routes(routes):
         ref = logits_on("cpu", params_cpu)
-    if moe and len(routes["cpu"]) != 2 * depth:
+    ref_mamba = dict(last)
+    if moe and len(routes["cpu"]) != 2 * n_moe:
         raise AssertionError(f"model check {arch}: {len(routes['cpu'])} MoE "
-                             f"calls recorded, want {2 * depth}")
+                             f"calls recorded, want {2 * n_moe}")
 
     def on_card(fault) -> tuple[str, list]:
         """The card's run under the context ``fault``: its readings and
@@ -1596,19 +1690,28 @@ def model_check(torch, arch: str, depth: int = 2,
             ("gates", gate_err < GATE_TOL),
             ("fed rel < 0.06 and equal argmax", fed_rel < 0.06 and fed_same),
             ("router logits", router_rel < ROUTER_TOL)) if not ok]
+        for name, want in ref_mamba.items():      # a hybrid's, fed
+            rels = [float((g - w).abs().max() / w.abs().max())
+                    for g, w in zip(last[name], want)]
+            text += (f"; fed, each Mamba sublayer's {name} rel "
+                     f"{[f'{r:.4f}' for r in rels]} (< 0.06)")
+            if max(rels) >= 0.06:
+                broken.append(f"each Mamba sublayer's {name} rel < 0.06")
         return text, broken
 
     drawn = " (attention weights at std 1/sqrt(fan-in))" if cfg.attends \
         else ""
     held = "" if own_routing else " (own-routing rel and argmax not held)"
     text, broken = on_card(contextlib.nullcontext)
-    log(f"[model] depth-{depth} {arch} prefill(64)+decode(1){drawn}, cuda "
+    log(f"[model] {what} prefill(64)+decode(1){drawn}, cuda "
         f"vs cpu{held}: {text}; broken: {broken or 'none'}; "
         f"{host_memory()} with the host's copy")
     missed = []
-    for name, fault in (planted_faults(torch).items() if moe else ()):
+    faults = {**planted_faults(torch),
+              **(hybrid_faults(torch) if hybrid else {})} if moe else {}
+    for name, fault in faults.items():
         text, caught = on_card(fault)
-        log(f"[model] depth-{depth} {arch} planted fault, {name}: {text}; "
+        log(f"[model] {what} planted fault, {name}: {text}; "
             f"broken: {caught or 'none'}")
         missed += [] if caught else [name]
     if broken or missed:
@@ -1723,14 +1826,18 @@ def _loss_and_grads(model, params, toks, dev: str, **extra):
 
 
 TRAIN_GRAD_TOL = 3e-2
-# the 15 B archs' train checks run one layer, so that qwen2-vl's checks
-# fit the script's time: their CPU steps took 28.1, 59.3 and 37.0 s at two
-# layers and 17.8, 49.8 and 28.1 s at one (H100 80GB HBM3 host, PERF.md
-# §6). What goes: at one layer no backward call at G = 12 or G = 6 gets
-# its dO through an upper layer's backward, and no leaf's gradient passes
-# through two kernel backwards; only tinyllama (G = 8, D = 64) and the
-# encoder-decoder still check chained layers
-TRAIN_CHECK_15B_DEPTH = 1
+# the 15 B archs' train-check depths. qwen3-14b runs two layers: its G = 6
+# backward calls (padded heads, qk-norm) get dO through an upper layer's
+# backward, and each leaf's gradient below the top layer passes through
+# two kernel backwards. starcoder2 (G = 12) and nemotron (G = 6) run one,
+# so that the script keeps its time: their CPU steps took 28.1 and 59.3 s
+# at two layers, 17.8 and 49.8 s at one (qwen3-14b 37.0 and 28.1; H100
+# 80GB HBM3 host, PERF.md §6). At one layer no G = 12 backward call is
+# fed by an upper layer's, and no starcoder2 or nemotron leaf's gradient
+# passes through two kernel backwards; tinyllama (G = 8, D = 64), qwen3-14b
+# (G = 6) and the encoder-decoder (G = 1) check chained layers
+TRAIN_CHECK_15B_DEPTH = {"starcoder2-15b": 1, "nemotron-4-15b": 1,
+                         "qwen3-14b": 2}
 
 
 @contextlib.contextmanager
@@ -2089,15 +2196,21 @@ def remat_policy_steps(torch, counters: dict) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def cut_depth(launch_mod, layers: int = 2):
+def cut_configs(launch_mod, change):
     """Context: the configs a launch module reads (``launch/train.py``,
-    ``launch/serve.py``) cut to ``layers`` layers, at full width."""
-    def wrap(full_depth):
+    ``launch/serve.py``) passed through ``change``."""
+    def wrap(full):
         def cut(arch, *, reduced=False):
-            return dataclasses.replace(full_depth(arch, reduced=reduced),
-                                       n_layers=layers)
+            return change(full(arch, reduced=reduced))
         return cut
     return patched(launch_mod, "get_config", wrap)
+
+
+def cut_depth(launch_mod, layers: int = 2):
+    """Context: the launch module's configs cut to ``layers`` layers, at
+    full width."""
+    return cut_configs(launch_mod, lambda cfg: dataclasses.replace(
+        cfg, n_layers=layers))
 
 
 def resume_check(torch, arch: str, exact: bool = False) -> None:
@@ -2726,11 +2839,13 @@ KIMI_ARCH, KIMI_LAYERS, KIMI_CHECK_DEPTH = "kimi-k2-1t-a32b", 2, 1
 
 def moe_prefill_flops(cfg, batch: int, prompt: int) -> tuple[float, float]:
     """An MoE model's active parameters a token (attention, router,
-    ``top_k / n_experts`` of the expert weights, head; the embedding is a
-    lookup) and the FLOPs of a prefill of ``batch`` x ``prompt`` tokens
-    with capacity padding: every token's projections and router, the
-    expert products over all E x C slots whether filled or not, the head
-    on each prompt's last token."""
+    ``top_k / n_experts`` of the expert weights, head; in a hybrid also
+    the Mamba and MLP sublayers' weights; the embedding is a lookup) and
+    the FLOPs of a prefill of ``batch`` x ``prompt`` tokens with capacity
+    padding: every token's projections (attention, Mamba, MLP) and router,
+    the expert products over all E x C slots whether filled or not, the
+    head on each prompt's last token. The attention's scores and the SSD
+    scan are left out."""
     from repro_torch.models import build_model
     from repro_torch.models.moe import _capacity
     from repro_torch.models.param import tree_items
@@ -2864,19 +2979,19 @@ def rope_1d_on_card(torch):
 
 
 @contextlib.contextmanager
-def attention_outputs(outs: list):
-    """Context: each call of the LM's attention sublayer appends its output
-    (before the residual) to ``outs``, on the host in fp32; a run's first
-    call is layer 0's."""
-    import repro_torch.models.lm as lm_mod
-
-    def wrap(attn):
+def outputs_of(owner, name: str, outs: list):
+    """Context: each call of ``owner.name`` (a sublayer of
+    ``models/lm.py``, a scan of ``models/ssm.py``) appends the first
+    member of what it returns (the sublayer's output before the residual,
+    the scan's y) to ``outs``, on the host in fp32, in the order of the
+    calls."""
+    def wrap(fn):
         def recording(*args, **kw):
-            y, cache = attn(*args, **kw)
-            outs.append(y.detach().float().cpu())
-            return y, cache
+            out = fn(*args, **kw)
+            outs.append(out[0].detach().float().cpu())
+            return out
         return recording
-    with patched(lm_mod, "attention", wrap):
+    with patched(owner, name, wrap):
         yield
 
 
@@ -2894,6 +3009,7 @@ def vlm_model_check(torch) -> None:
     card (``rope_1d_on_card``), must break a rule in each case; its
     readings are printed. The host holds a copy of the weights (8.5 GB at
     depth 2), so its memory is printed."""
+    import repro_torch.models.lm as lm_mod
     from attention_conditioning import fan_in_std
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
@@ -2919,7 +3035,8 @@ def vlm_model_check(torch) -> None:
     def run(dev: str, params) -> dict:
         """case -> (logits, layer 0's attention output), on the host."""
         outs = []
-        with torch.inference_mode(), attention_outputs(outs):
+        with torch.inference_mode(), \
+                outputs_of(lm_mod, "attention", outs):
             full, _ = model.forward(
                 params, toks[:, :64].to(dev), vision_embeds=vision.to(dev),
                 mrope_positions=pos[..., :64].to(dev))
@@ -2972,6 +3089,127 @@ def vlm_model_check(torch) -> None:
                              f"{broken}, planted fault passed in {missed}")
 
 
+# ---------------------------------------------------------------- hybrid
+# jamba-1.5-large-398b: one period-8 super-block at full width holds 45.14 B
+# parameters (90.3 GB, derived), more than the card; one block of period 4
+# (attention at 3, MoE at 1 and 3, 3 Mamba sublayers, every sublayer at its
+# published width) holds 22.98 B (45.96 GB): a different model from
+# jamba's 1:7 interleave, the one the card serves here
+JAMBA_ARCH, JAMBA_PERIOD = "jamba-1.5-large-398b", 4
+
+
+def one_block(cfg):
+    """A hybrid config cut to one whole super-block of ``JAMBA_PERIOD``
+    sublayers at full width; refuses a config of another family, or one
+    whose attention sublayer the cut leaves out."""
+    cfg = dataclasses.replace(cfg, hybrid_period=JAMBA_PERIOD,
+                              n_layers=JAMBA_PERIOD)
+    if cfg.family != "hybrid" or cfg.hybrid_attn_index >= JAMBA_PERIOD:
+        raise AssertionError(f"{cfg.name}: no period-{JAMBA_PERIOD} hybrid "
+                             f"block (family {cfg.family}, attention at "
+                             f"{cfg.hybrid_attn_index})")
+    return cfg
+
+
+def cut_hybrid(launch_mod):
+    """Context beside ``cut_depth``: the launch module's configs cut to one
+    super-block of ``JAMBA_PERIOD`` sublayers (``one_block``)."""
+    return cut_configs(launch_mod, one_block)
+
+
+# jamba's decode step by phase: each sublayer kind, wrapped where the
+# hybrid block calls it (``models/lm.py``'s own names)
+HYBRID_PHASES = {
+    "Mamba (projections, conv, recurrence, gated norm, out projection)":
+        ("repro_torch.models.lm", "mamba_block"),
+    "attention (projections, RoPE, decode kernel)":
+        ("repro_torch.models.lm", "attention"),
+    "MoE (routing, dispatch, expert products, combine)":
+        ("repro_torch.models.lm", "moe"),
+    "MLP": ("repro_torch.models.lm", "mlp"),
+}
+
+
+def hybrid_serve_check(torch, counters: dict) -> dict:
+    """jamba-1.5-large-398b cut to one period-4 block through
+    ``serve_counted`` (batch 8, 512-token prompts, 32 new tokens): the
+    flash kernel once (the block's attention, at the prefill), the decode
+    kernel once a decode step (31), the ssd kernel once a Mamba sublayer
+    at the prefill (3), no other kernel. Returns the launch counts."""
+    from repro_torch.launch import serve as serve_mod
+    t0 = time.perf_counter()
+    with cut_hybrid(serve_mod):
+        counts = serve_counted(torch, counters, JAMBA_ARCH, JAMBA_PERIOD,
+                               65536)
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=1, decode_attention=31,
+                ssd=JAMBA_PERIOD - 1)
+    if counts != want:
+        raise AssertionError(f"{JAMBA_ARCH} launches {counts}: want {want}")
+    log(f"[serve] {JAMBA_ARCH} serving phase in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def hybrid_faults(torch) -> dict:
+    """Faults of the hybrid's own, planted on the card's path only, each a
+    context factory that the model check reads: the attention at sublayer
+    2 in place of 3 (``hybrid_attn_index``); each decode step's Mamba
+    sublayers run from a zeroed SSM state, so that the state prefill left
+    is not carried; the ssd kernel's y zeroed in its last chunk at the
+    prefill; the first Mamba sublayer's output dropped at each decode
+    step."""
+    import copy
+    import importlib
+    lm_mod = importlib.import_module("repro_torch.models.lm")
+    ssm_mod = importlib.import_module("repro_torch.models.ssm")
+
+    def attention_moved(block):
+        def faulty(self, bp, x, **kw):
+            if x.is_cuda:
+                self = copy.copy(self)
+                self.cfg = dataclasses.replace(self.cfg, hybrid_attn_index=2)
+            return block(self, bp, x, **kw)
+        return faulty
+
+    def state_zeroed(mamba_block):
+        def faulty(params, u, cfg, *, cache=None):
+            if u.is_cuda and cache is not None and u.shape[1] == 1:
+                cache.state.zero_()
+            return mamba_block(params, u, cfg, cache=cache)
+        return faulty
+
+    def last_chunk_zeroed(ssd):
+        def faulty(x, *args, chunk, **kw):
+            y, state = ssd(x, *args, chunk=chunk, **kw)
+            if x.is_cuda:
+                y[:, (y.shape[1] - 1) // chunk * chunk:] = 0
+            return y, state
+        return faulty
+
+    def first_output_dropped(mamba_block):
+        decode_calls = [0]
+
+        def faulty(params, u, cfg, *, cache=None):
+            out, cache = mamba_block(params, u, cfg, cache=cache)
+            if u.is_cuda and u.shape[1] == 1:
+                decode_calls[0] += 1
+                if decode_calls[0] % (JAMBA_PERIOD - 1) == 1:
+                    out = torch.zeros_like(out)
+            return out, cache
+        return faulty
+    return {
+        "attention at sublayer 2 in place of 3":
+            lambda: patched(lm_mod.LM, "_hybrid_block", attention_moved),
+        "decode from a zeroed SSM state":
+            lambda: patched(lm_mod, "mamba_block", state_zeroed),
+        "ssd's y zeroed in its last chunk at the prefill":
+            lambda: patched(ssm_mod, "ssd", last_chunk_zeroed),
+        "Mamba sublayer 0's output dropped at the decode step":
+            lambda: patched(lm_mod, "mamba_block", first_output_dropped),
+    }
+
+
 def serve_counted(torch, counters: dict, arch: str, layers: int,
                   vocab: int) -> dict:
     """``serve_loop(arch)`` at batch 8, 512-token prompts, 32 new tokens:
@@ -3007,12 +3245,14 @@ def serve_counted(torch, counters: dict, arch: str, layers: int,
                    f"the decoder over the prompt, the head on its last "
                    f"token; and the attention) {flops / 1e12:.2f} T / "
                    f"prefill s / 989 TFLOP/s = {flops / rate:.3f}")
-    elif cfg.family == "moe":
+    elif cfg.family in ("moe", "hybrid"):
         active, padded = moe_prefill_flops(cfg, batch=8, prompt=512)
+        dense = "attention, Mamba and MLP sublayers, router" \
+            if cfg.family == "hybrid" else "attention, router"
         derived = (
             f"derived: 2 * N_active * prompt tokens / prefill s / 989 "
             f"TFLOP/s = {2 * active * 8 * 512 / rate:.3f}"
-            f" (N_active {active / 1e9:.3f} B: attention, router, "
+            f" (N_active {active / 1e9:.3f} B: {dense}, "
             f"top_k / n_experts of the expert weights, head); "
             f"capacity-padded prefill FLOPs (projections of every "
             f"token, the expert products over all E x C slots, the head "
@@ -3222,6 +3462,11 @@ def main() -> int:
     cut_serve_check(torch, counters, KIMI_ARCH, KIMI_LAYERS, 163840)
     qwen2vl = cut_serve_check(torch, counters, QWEN2VL_ARCH,
                               QWEN2VL_SERVE_LAYERS, 152064)
+    torch.cuda.empty_cache()
+    # jamba cut to one period-4 super-block (45.96 GB): flash 1, decode 31,
+    # ssd 3
+    jamba = hybrid_serve_check(torch, counters)
+    torch.cuda.empty_cache()
     seamless = encdec_serve_check(torch, counters)
 
     n_flash_bwd = train_counted(torch, counters, "tinyllama-1.1b", 22, (
@@ -3263,6 +3508,13 @@ def main() -> int:
     with cut_depth(serve_mod, QWEN2VL_SERVE_LAYERS):
         profile_decode(torch, QWEN2VL_ARCH, ours=decode_kernels)
     torch.cuda.empty_cache()          # its 75.2 GB of weights, released
+    t0 = time.perf_counter()
+    with cut_hybrid(serve_mod):
+        profile_decode(torch, JAMBA_ARCH, ours=decode_kernels,
+                       phases=HYBRID_PHASES)
+    torch.cuda.empty_cache()          # its 45.96 GB of weights, released
+    log(f"[profile] {JAMBA_ARCH} decode profiled in "
+        f"{time.perf_counter() - t0:.1f} s")
     profile_decode(torch, SEAMLESS_ARCH, ours={
         "decode fp32 (self cache)": ("split_f32_kernel",),
         "decode bf16 (memory)": ("split_bf16_kernel",),
@@ -3290,6 +3542,13 @@ def main() -> int:
                                          "flash backward": FLASH_BWD})
     gc.collect()
     torch.cuda.empty_cache()
+    # jamba first, where the host has the most room for its 42.8 GiB copy
+    t0 = time.perf_counter()
+    model_check(torch, JAMBA_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[model] {JAMBA_ARCH} model check in "
+        f"{time.perf_counter() - t0:.1f} s; {host_memory()} after")
     for arch in ("tinyllama-1.1b", "mamba2-370m", "starcoder2-15b",
                  "nemotron-4-15b", "qwen3-14b", MOE_ARCH):
         model_check(torch, arch)
@@ -3307,11 +3566,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_graph_check(torch, timer)
     torch.cuda.empty_cache()
-    # tinyllama at depth 2, the 15 B archs at depth 1
-    # (``TRAIN_CHECK_15B_DEPTH``), so that qwen2-vl's checks fit the time
+    # tinyllama and qwen3-14b at depth 2 (chained layers at G = 8 and
+    # G = 6), starcoder2 and nemotron at depth 1 (``TRAIN_CHECK_15B_DEPTH``)
     train_check(torch, "tinyllama-1.1b")
-    for arch in ("starcoder2-15b", "nemotron-4-15b", "qwen3-14b"):
-        train_check(torch, arch, depth=TRAIN_CHECK_15B_DEPTH)
+    for arch, depth in TRAIN_CHECK_15B_DEPTH.items():
+        train_check(torch, arch, depth=depth)
         torch.cuda.empty_cache()
     train_check(torch, QWEN2VL_ARCH, depth=QWEN2VL_TRAIN_CHECK_DEPTH)
     gc.collect()
@@ -3337,6 +3596,13 @@ def main() -> int:
                          **decode.pop("qwen2vl")}
     flash_bwd["qwen2vl"] = {"launches": qwen2vl_train["flash_attention_bwd"],
                             **flash_bwd.pop("qwen2vl")}
+    # jamba's launches of its counted serve_loop: its attention is
+    # qwen2-vl's shape (G = 8, D = 128; that row's times), its ssd row
+    # H = 256
+    for rec, name in ((flash, "flash_attention"),
+                      (decode, "decode_attention")):
+        rec["jamba"] = {"launches": jamba[name], "timed_row": "qwen2vl"}
+    ssd["jamba"] = {"launches": jamba["ssd"], **ssd["jamba"]}
     # seamless-m4t's rows, under one entry with the launches of its counted
     # serve_loop (flash: encoder, decoder prefill and cross, 24 each;
     # decode: the fp32 self and bf16 memory steps, 24 each a step) or, for

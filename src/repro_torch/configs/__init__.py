@@ -1,8 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-It holds only the archs the port runs. Every other arch of the JAX
-package's registry raises ``KeyError`` naming the ROADMAP item that
-brings it over.
+It holds every arch of the JAX package's registry.
 """
 
 from __future__ import annotations
@@ -24,18 +22,11 @@ ARCHS = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "qwen2-vl-72b": "qwen2_vl_72b",
-}
-
-# archs of the JAX package not ported yet -> the ROADMAP item that brings them
-PENDING = {
-    "jamba-1.5-large-398b": "A.10 (hybrid)",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:
-    if arch in PENDING:
-        raise KeyError(f"arch {arch!r} is not ported yet: ROADMAP item "
-                       f"{PENDING[arch]}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")

@@ -17,6 +17,10 @@ qwen2-vl-72b (872 GB of state at its 80 layers; at 1 layer, 40 GB), which
 trains as the reference's ``train_loop`` trains it: on the synthetic
 tokens alone, so its attention takes the 1-D RoPE (``loss_fn`` reads
 ``vision_embeds`` and ``mrope_positions`` when a batch carries them).
+jamba-1.5-large-398b does not train on one card at any depth: one MoE
+sublayer alone is 9.66 B parameters, 116 GB of state, so ``train_loop``
+raises ``ValueError`` naming A.12 (4.77 TB at its 72 layers, 276 GB for
+one period-4 super-block); its ``loss_fn`` and gradients run on the CPU.
 
 The encoder-decoder (seamless-m4t-large-v2, 1.63 B parameters, ~20 GB of
 training state at full depth) trains as the reference trains it: not

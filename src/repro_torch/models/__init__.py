@@ -1,6 +1,6 @@
-"""Model zoo of the port: the decoder LM (dense, moe and ssm families, with
-the training loss ``LM.loss_fn``), the encoder-decoder (``EncDecLM``) and
-their layers."""
+"""Model zoo of the port: the decoder LM (dense, vlm, moe, ssm and hybrid
+families, with the training loss ``LM.loss_fn``), the encoder-decoder
+(``EncDecLM``) and their layers."""
 
 from .config import ModelConfig
 from .encdec import EncDecCache, EncDecLM
@@ -17,8 +17,8 @@ __all__ = ["ModelConfig", "LM", "Cache", "EncDecLM", "EncDecCache",
 
 def build_model(cfg: ModelConfig) -> LM | EncDecLM:
     """Family-dispatching factory: ``encdec`` builds ``EncDecLM``; ``dense``,
-    ``moe`` and ``ssm`` build ``LM``, which raises for the families the port
-    has not taken over."""
+    ``vlm``, ``moe``, ``ssm`` and ``hybrid`` build ``LM``, which raises
+    ``ValueError`` for any other family."""
     if cfg.family == "encdec":
         return EncDecLM(cfg)
     return LM(cfg)

@@ -2,9 +2,8 @@
 
 One dataclass covers every family the JAX package knows, so that a config
 can be written once and checked by the same ``reduced()`` rule on both sides.
-The port runs ``family="dense"``, ``"moe"``, ``"ssm"`` and ``"vlm"``
-(``models/lm.py``) and ``"encdec"`` (``models/encdec.py``); ``"hybrid"``
-raises ``NotImplementedError`` where it is built (``models/lm.py``).
+The port runs every family: ``"dense"``, ``"moe"``, ``"ssm"``, ``"vlm"``
+and ``"hybrid"`` in ``models/lm.py``, ``"encdec"`` in ``models/encdec.py``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Decoder-only LM, families ``dense``, ``vlm``, ``moe`` and ``ssm``: port
-of ``repro/models/lm.py``.
+"""Decoder-only LM, families ``dense``, ``vlm``, ``moe``, ``ssm`` and
+``hybrid``: port of ``repro/models/lm.py``.
 
 * ``dense`` (tinyllama, starcoder2, nemotron, qwen3): token embedding, a
   stack of layers (RMSNorm -> GQA attention with RoPE, qwen3's with
@@ -16,9 +16,17 @@ of ``repro/models/lm.py``.
   mixture of experts of ``moe.py``; ``forward`` also returns the sum of
   the layers' load-balance aux losses.
 * ``ssm`` (mamba2): the same frame with layers ``x + mamba(RMSNorm(x))``.
+* ``hybrid`` (jamba): the frame over super-blocks of ``hybrid_period``
+  sublayers (``_hybrid_block``). Each sublayer is RMSNorm -> a mixer ->
+  residual -> RMSNorm -> an FFN -> residual; the mixer is the attention at
+  ``hybrid_attn_index`` and a Mamba-2 block elsewhere, the FFN is the MoE
+  where ``i % hybrid_moe_every == 1`` and the MLP elsewhere. ``forward``
+  returns the sum of the blocks' MoE aux losses.
 
 Parameters are the nested dict the schema declares, with a leading stacked
-layer axis; a Python loop over that axis takes the place of ``lax.scan``.
+layer axis (for ``hybrid``, a leading block axis, and inside a block the
+Mamba, MoE and MLP sublayers stacked apart); a Python loop over that axis
+takes the place of ``lax.scan``.
 
 Entry points, as in the reference:
 
@@ -36,9 +44,8 @@ Under grad with ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) with the
 reference's three policies: "full" saves only the layer's input; "dots"
 and "names" run torch's selective checkpointing (:func:`_save_dots`,
-:func:`_save_names`). The family ``hybrid`` raises ``NotImplementedError``
-naming the ROADMAP item that brings it; the encoder-decoder is
-``encdec.py``'s ``EncDecLM``.
+:func:`_save_names`). A hybrid super-block is one such layer. The
+encoder-decoder is ``encdec.py``'s ``EncDecLM``.
 """
 
 from __future__ import annotations
@@ -62,8 +69,6 @@ from .ssm import SSMCache, init_ssm_cache, mamba_block, ssm_decls
 __all__ = ["LM", "Cache", "AUX_COEF"]
 
 AUX_COEF = 0.01
-
-_PENDING_FAMILIES = {"hybrid": "A.10"}
 
 
 @torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
@@ -122,29 +127,59 @@ class Cache(NamedTuple):
     kv (families dense, vlm and moe): kv.k / kv.v are (n_layers, B, max_len,
     kv_heads, head_dim); kv.length is one () int32 for the batch (the
     reference broadcasts it per layer). ssm (family ssm): every member of the
-    SSMCache has a leading n_layers axis."""
+    SSMCache has a leading n_layers axis. Family hybrid holds both: kv.k /
+    kv.v (nb, B, max_len, kv_heads, head_dim), one attention a block, and
+    every SSMCache member (nb, hybrid_period - 1, ...), with nb =
+    n_layers // hybrid_period."""
     kv: KVCache | None = None
     ssm: SSMCache | None = None
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family in _PENDING_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r}: ROADMAP item "
-                f"{_PENDING_FAMILIES[cfg.family]}")
-        if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
             raise ValueError(cfg.family)
         self.cfg = cfg
 
     # ------------------------------------------------------------------
     # parameter schema (same tree paths and shapes as the reference)
     # ------------------------------------------------------------------
+    def _n_stacked(self) -> int:
+        """Entries of the stacked layer axis: layers, or super-blocks."""
+        cfg = self.cfg
+        return cfg.n_layers // cfg.hybrid_period \
+            if cfg.family == "hybrid" else cfg.n_layers
+
+    def _hybrid_decls(self) -> dict:
+        """One super-block's sublayers, each leaf with a leading block axis:
+        the Mamba blocks stacked ``period - 1``, the MoE ``period //
+        moe_every``, the MLP the rest, one attention, and the two norms of
+        each sublayer, (period, d_model)."""
+        cfg = self.cfg
+        per = cfg.hybrid_period
+        n_moe = per // cfg.hybrid_moe_every
+        sub = {
+            "mamba": ssm_decls(cfg, layers=per - 1),
+            "attn": attention_decls(cfg),
+            "moe": moe_decls(cfg, layers=n_moe),
+            "mlp": mlp_decls(cfg, layers=per - n_moe),
+            "ln_mix": ArrayDecl((per, cfg.d_model), (None, "embed"),
+                                init=ones_init),
+            "ln_ffn": ArrayDecl((per, cfg.d_model), (None, "embed"),
+                                init=ones_init),
+        }
+        nb = cfg.n_layers // per
+        return tree_map(lambda d: ArrayDecl(
+            (nb,) + d.shape, ("layers",) + d.axes, dtype=d.dtype,
+            init=d.init), sub)
+
     def param_decls(self) -> dict:
         cfg = self.cfg
         L = cfg.n_layers
         ln1 = ArrayDecl((L, cfg.d_model), ("layers", "embed"), init=ones_init)
-        if cfg.family == "ssm":
+        if cfg.family == "hybrid":
+            layers = self._hybrid_decls()
+        elif cfg.family == "ssm":
             layers = {"ln1": ln1, "mamba": ssm_decls(cfg, layers=L)}
         else:
             layers = {
@@ -193,6 +228,58 @@ class LM:
                                  self.cfg, cache=cache)
         return x + h, 0.0, new_ssm
 
+    def _hybrid_block(self, bp: dict, x: torch.Tensor, *, cache=None,
+                      mrope_positions=None):
+        """One super-block, the reference's sublayers in its order: the
+        attention at ``hybrid_attn_index`` (cache ``cache.kv``), a Mamba
+        block elsewhere (the ``mi``-th, cache ``cache.ssm``'s ``mi``-th
+        slice, written in place); then the ``fi_moe``-th MoE where ``i %
+        hybrid_moe_every == 1``, the ``fi_mlp``-th MLP elsewhere. -> (x,
+        the MoE sublayers' summed aux, new_kv). ``mrope_positions`` is
+        unused (the reference's block takes none), taken for one layer
+        signature across families. The reference marks no MoE output
+        here, so the "names" policy saves nothing in a hybrid block."""
+        cfg = self.cfg
+        per = cfg.hybrid_period
+        n_moe = per // cfg.hybrid_moe_every
+        mamba = unstack_layers(bp["mamba"], per - 1)
+        moes = unstack_layers(bp["moe"], n_moe)
+        mlps = unstack_layers(bp["mlp"], per - n_moe)
+        ln_mix, ln_ffn = bp["ln_mix"].unbind(0), bp["ln_ffn"].unbind(0)
+        aux, new_kv = 0.0, None
+        mi = fi_moe = fi_mlp = 0
+        for i in range(per):
+            xn = rms_norm(x, ln_mix[i])
+            if i == cfg.hybrid_attn_index:
+                h, new_kv = attention(bp["attn"], xn, cfg, cache=None
+                                      if cache is None else cache.kv)
+            else:
+                sc = None if cache is None else \
+                    SSMCache(*(a[mi] for a in cache.ssm))
+                h, _ = mamba_block(mamba[mi], xn, cfg, cache=sc)
+                mi += 1
+            x = x + h
+            xn = rms_norm(x, ln_ffn[i])
+            if i % cfg.hybrid_moe_every == 1:
+                y, layer_aux = moe(moes[fi_moe], xn, cfg)
+                aux = aux + layer_aux
+                fi_moe += 1
+            else:
+                y = mlp(mlps[fi_mlp], xn, cfg)
+                fi_mlp += 1
+            x = x + y
+        return x, aux, new_kv
+
+    def _layer_fn(self, mark: bool = False):
+        """The family's layer, (lp, x, *, cache, mrope_positions) -> (x,
+        aux, new cache): ``_layer`` (``mark`` as there), ``_ssm_layer``, or
+        for ``hybrid`` a super-block (``_hybrid_block``)."""
+        if self.cfg.family == "ssm":
+            return self._ssm_layer
+        if self.cfg.family == "hybrid":
+            return self._hybrid_block
+        return functools.partial(self._layer, mark=mark)
+
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(torch.bfloat16)
 
@@ -219,8 +306,7 @@ class LM:
             x = x[:, :tokens.shape[1]]
         remat = cfg.remat and torch.is_grad_enabled()
         policy = _POLICIES.get(cfg.remat_policy) if remat else None
-        layer = self._ssm_layer if cfg.family == "ssm" else \
-            functools.partial(self._layer, mark=policy is _save_names)
+        layer = self._layer_fn(mark=policy is _save_names)
 
         def body(lp, x, positions):
             return layer(lp, x, mrope_positions=positions)[:2]
@@ -233,7 +319,7 @@ class LM:
             # any other policy name is "full", as in the reference
             run = remat_layer(body)
         aux = 0.0
-        for lp in unstack_layers(params["layers"], cfg.n_layers):
+        for lp in unstack_layers(params["layers"], self._n_stacked()):
             x, layer_aux = run(lp, x, mrope_positions)
             aux = aux + layer_aux
         return self._head(params, x), aux
@@ -257,32 +343,39 @@ class LM:
                    device: str | torch.device = "cuda") -> Cache:
         """Zero cache. An SSM cache has no length, so ``max_len`` is unused
         there (kept for one signature across families)."""
-        L = self.cfg.n_layers
-        if self.cfg.family == "ssm":
-            return Cache(ssm=init_ssm_cache(self.cfg, batch, layers=L,
+        cfg, L = self.cfg, self._n_stacked()
+        if cfg.family == "ssm":
+            return Cache(ssm=init_ssm_cache(cfg, batch, layers=L,
                                             device=device))
-        return Cache(kv=init_cache(self.cfg, batch, max_len, layers=L,
-                                   device=device))
+        kv = init_cache(cfg, batch, max_len, layers=L, device=device)
+        if cfg.family != "hybrid":
+            return Cache(kv=kv)
+        nm = cfg.hybrid_period - 1
+        ssm = init_ssm_cache(cfg, batch, layers=L * nm, device=device)
+        return Cache(kv=kv, ssm=SSMCache(*(
+            a.view((L, nm) + a.shape[1:]) for a in ssm)))
 
     def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache, *,
                       mrope_positions=None):
         x = self._embed(params, tokens)
-        if self.cfg.family == "ssm":
-            for i in range(self.cfg.n_layers):
-                lp = tree_map(lambda a: a[i], params["layers"])
-                x, _, _ = self._ssm_layer(
-                    lp, x, cache=SSMCache(*(a[i] for a in cache.ssm)))
-            return self._head(params, x[:, -1:]), cache
-        kv = cache.kv
-        new_len = kv.length
-        for i in range(self.cfg.n_layers):
+        layer, kv, ssm = self._layer_fn(), cache.kv, cache.ssm
+        for i in range(self._n_stacked()):
             lp = tree_map(lambda a: a[i], params["layers"])
-            x, _, new_kv = self._layer(
-                lp, x, cache=KVCache(kv.k[i], kv.v[i], kv.length),
-                mrope_positions=mrope_positions)
-            new_len = new_kv.length
+            # layer (or block) i's slices of the cache, written in place
+            kv_i = None if kv is None else KVCache(kv.k[i], kv.v[i],
+                                                   kv.length)
+            ssm_i = None if ssm is None else SSMCache(*(a[i] for a in ssm))
+            if self.cfg.family == "hybrid":
+                cache_i = Cache(kv_i, ssm_i)
+            else:
+                cache_i = ssm_i if kv is None else kv_i
+            x, _, new = layer(lp, x, cache=cache_i,
+                              mrope_positions=mrope_positions)
         logits = self._head(params, x[:, -1:])
-        return logits, Cache(kv=KVCache(kv.k, kv.v, new_len))
+        if kv is None:
+            return logits, cache
+        # every layer's K/V cache moves to the same new length
+        return logits, Cache(KVCache(kv.k, kv.v, new.length), ssm)
 
     def prefill(self, params, tokens: torch.Tensor, cache: Cache, **kw):
         """tokens: (B, S); ``kw``: ``mrope_positions`` (3, B, S). Returns

@@ -243,9 +243,9 @@ def test_serve_loop_without_cuda_raises(monkeypatch, arch):
 
 
 @pytest.mark.parametrize("family,error,match", [
-    ("hybrid", NotImplementedError, "A.10"),
-    # the encoder-decoder is ported (models/encdec.py): a config of that
-    # family without encoder layers raises the reference's ValueError
+    # every family is ported (the hybrid: tests/test_torch_hybrid.py); a
+    # config of the encoder-decoder family without encoder layers raises
+    # the reference's ValueError
     ("encdec", ValueError, "encdec needs n_encoder_layers")])
 def test_unported_families_raise(family, error, match):
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), family=family,

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import build_model as jax_build_model
 from repro.models import init_params as jax_init_params
 from repro_torch.configs import get_config, list_archs
@@ -19,7 +20,8 @@ from repro_torch.models.param import param_count
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NEW_ARCHS = ["starcoder2-15b", "nemotron-4-15b", "qwen3-14b",
              "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
-             "seamless-m4t-large-v2", "qwen2-vl-72b"]
+             "seamless-m4t-large-v2", "qwen2-vl-72b",
+             "jamba-1.5-large-398b"]
 ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # parameter counts of the full configs (analysis/flops.py's figures):
 # tinyllama ~1.1 B; mamba2-370m ~367 M; the 15 B archs with an untied head,
@@ -28,7 +30,7 @@ ARCHS = ["tinyllama-1.1b", "mamba2-370m"] + NEW_ARCHS
 # layers, 384 experts and one shared expert each; seamless-m4t 1.632 B
 # (encoder 503.4 M, decoder 604.1 M, embedding and head 524.7 M);
 # qwen2-vl 72.705 B at its 80 layers of 0.878 B, with 2.491 B of
-# embedding and untied head
+# embedding and untied head; jamba 397.7 B in its 9 period-8 super-blocks
 FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "mamba2-370m": (3.4e8, 3.9e8),
                "starcoder2-15b": (1.55e10, 1.65e10),
@@ -37,7 +39,8 @@ FULL_PARAMS = {"tinyllama-1.1b": (1.0e9, 1.2e9),
                "qwen3-moe-235b-a22b": (2.35e11, 2.36e11),
                "kimi-k2-1t-a32b": (1.043e12, 1.044e12),
                "seamless-m4t-large-v2": (1.631e9, 1.633e9),
-               "qwen2-vl-72b": (7.270e10, 7.271e10)}
+               "qwen2-vl-72b": (7.270e10, 7.271e10),
+               "jamba-1.5-large-398b": (3.976e11, 3.978e11)}
 
 
 def _paths(tree, prefix=()):
@@ -183,6 +186,7 @@ def test_init_params_is_seeded():
 
 def test_configs_registry():
     assert list_archs() == ARCHS
+    assert set(ARCHS) == set(jax_list_archs())    # every arch is ported
     cfg = get_config("tinyllama-1.1b")
     ref = jax_get_config("tinyllama-1.1b")
     for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
@@ -195,8 +199,6 @@ def test_configs_registry():
         (red_ref.n_layers, red_ref.d_model, red_ref.n_heads,
          red_ref.n_kv_heads, red_ref.head_dim, red_ref.vocab,
          red_ref.q_chunk)
-    with pytest.raises(KeyError, match="ROADMAP item A.10"):
-        get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
