@@ -167,7 +167,13 @@ Phases, each fatal on failure:
    "dataflow" and "controlflow": ms a step, 44 flash forward and 22
    backward launches a step in the DAG's threads (set to 0 before each
    run, read after), the engine's per-function times, and each peak
-   within 1.05x of ``train_loop``'s.
+   within 1.05x of ``train_loop``'s; then "dataflow, traced", the same
+   job with the port's DScope on (``orchestrate_trace``): the engine's
+   ``Tracer`` and its store's ``MetricsRegistry``, one request span and
+   an invoke span a function nested in it, the spans' attribution against
+   the DAG's own DPlan, in process and through ``python -m
+   repro_torch.obs``, the same launches and, within rtol 2e-2, the same
+   losses as the untraced "dataflow" run.
 
 The run's whole time is printed when every phase has passed. The line
 before the last is the kernels' JSON record (the flash and decode entries
@@ -191,6 +197,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2321,6 +2328,138 @@ def run_orchestrated(torch, train_mod, pattern: str, kw: dict, *,
             "waited": waited}
 
 
+def run_traced(torch, train_mod, kw: dict) -> dict:
+    """``run_orchestrated``'s "dataflow" job with the port's DScope on: the
+    engine that ``run_training`` builds gets a ``Tracer`` through its
+    ``spans=`` argument, and its instance's store a ``MetricsRegistry``
+    (``DStore.attach_metrics``), both bound by ``patched`` while the run
+    lasts. Returns ``run_orchestrated``'s result, the finished spans, the
+    tracer's span count and the registry's totals, read at once (the
+    registry's collectors hold the store, and with it the state)."""
+    from repro_torch.core.dstore import DStore
+    from repro_torch.core.obs import MetricsRegistry, Tracer
+    from repro_torch.runtime import orchestrator
+    tracer, registry = Tracer(), MetricsRegistry()
+
+    def traced(engine):
+        class TracedEngine(engine):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, spans=tracer, **kw)
+
+            def start(self, wf, inputs=None, *, store=None, **kw):
+                if store is None:
+                    store = DStore(self.nodes, self.transport)
+                    store.attach_metrics(registry)
+                return super().start(wf, inputs, store=store, **kw)
+        return TracedEngine
+
+    with patched(orchestrator, "DFlowEngine", traced):
+        out = run_orchestrated(torch, train_mod, "dataflow", kw)
+    dump = registry.collect()
+    gets = registry.histogram("dstore_get_seconds")
+    out.update(spans=tracer.finished(), started=tracer._next_id,
+               gets=(gets.count, gets.summary()["sum"]),
+               registry={k: v for k, v in sorted(
+                   {**dump["counters"], **dump["gauges"]}.items())})
+    return out
+
+
+def orchestrate_trace(traced: dict, untraced: dict, steps: int) -> None:
+    """The traced run's spans held to the engine's rules, attributed
+    against the DPlan of the DAG that ``run_training`` builds
+    (``build_training_workflow``'s exec-time hints: 0.05 s a fetch, 0.2 s
+    a step; the plan is read, not run), written under ``build/`` and read
+    back by ``python -m repro_torch.obs summarize`` and ``attribute
+    --format json``, whose report must equal the one computed here. Its
+    losses within rtol 2e-2 of the untraced "dataflow" run's."""
+    import collections
+    from repro_torch.core.obs import (attribute, plan_attribution,
+                                      read_spans_jsonl, write_spans_jsonl)
+    from repro_torch.core.plan import build_plan
+    from repro_torch.runtime.orchestrator import build_training_workflow
+    wf = build_training_workflow(steps, fetch=lambda i: None,
+                                 train=lambda state, batch: (state, {}))
+    plan = build_plan(wf, nodes=["node0", "node1"])
+    spans = traced["spans"]
+    kinds = collections.Counter(s.kind for s in spans)
+    log(f"[orchestrate] traced: {len(spans)} spans by kind "
+        f"{dict(sorted(kinds.items()))}")
+    problems = []
+    requests = [s for s in spans if s.kind == "request"]
+    invokes = [s for s in spans if s.kind == "invoke"]
+    if len(requests) != 1:
+        problems.append(f"{len(requests)} request spans, want 1")
+    if sorted(s.name for s in invokes) != sorted(wf.functions):
+        problems.append(f"invoke spans {sorted(s.name for s in invokes)}, "
+                        f"want one for each of {sorted(wf.functions)}")
+    if sorted(s.id for s in spans) != list(range(1, traced["started"] + 1)):
+        problems.append(f"{traced['started'] - len(spans)} spans left open")
+    for req in requests[:1]:
+        for s in invokes:
+            if s.parent != req.id or not (
+                    req.start <= s.start and s.end <= req.end):
+                problems.append(f"invoke {s.name} not nested in the "
+                                f"request span")
+    path = ROOT / "build" / "chip_smoke_orchestrate_spans.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_spans_jsonl(spans, str(path), plan=plan_attribution(plan))
+    back, meta = read_spans_jsonl(str(path))
+    report = attribute(back, meta["plan"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = {cmd: subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", cmd, str(path), *extra],
+        capture_output=True, text=True, env=env, timeout=300)
+        for cmd, extra in (("summarize", ()),
+                           ("attribute", ("--format", "json")))}
+    for cmd, proc in cli.items():
+        if proc.returncode:
+            problems.append(f"python -m repro_torch.obs {cmd} exited "
+                            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    log("[orchestrate] python -m repro_torch.obs summarize:\n"
+        + cli["summarize"].stdout.rstrip())
+    same = (not cli["attribute"].returncode and json.dumps(
+        json.loads(cli["attribute"].stdout), sort_keys=True)
+        == json.dumps(report, sort_keys=True))
+    log(f"[orchestrate] attribute --format json equals the in-process "
+        f"attribution: {same}")
+    if not same:
+        problems.append("the CLI's attribution differs from attribute()")
+    dur = {s.name: s.duration for s in invokes}
+    rows = {r["function"]: r for r in report["functions"]}
+    if sorted(rows) != sorted(wf.functions):
+        problems.append(f"the attribution covers {sorted(rows)}")
+
+    def ms(agg):
+        return agg.get("mean", float("nan")) * 1e3
+    for name in sorted(rows, key=lambda f: (f.split(".")[-1], f)):
+        r, fp = rows[name], plan.functions[name]
+        log(f"[orchestrate] traced {name}: invoke "
+            f"{dur.get(name, float('nan')) * 1e3:.1f} ms (plan "
+            f"{(fp.eft - fp.est) * 1e3:.0f}), start drift "
+            f"{ms(r['start_drift']):.1f} ms, finish drift "
+            f"{ms(r['finish_drift']):.1f} ms")
+    log(f"[orchestrate] traced request: latency "
+        f"{report['latency']['mean'] * 1e3:.1f} ms against the plan's "
+        f"critical path {report['critical_path'] * 1e3:.0f} ms, drift "
+        f"{report['cp_drift']['mean'] * 1e3:.1f} ms")
+    n_gets, get_s = traced["gets"]
+    log(f"[orchestrate] traced registry: {n_gets} Gets, {get_s * 1e3:.1f} "
+        f"ms inside them; {kinds.get('put', 0)} Puts (spans); totals "
+        f"(DStore's sizes, a dict of tensors 64 bytes: metadata, not the "
+        f"state's bytes) {traced['registry']}")
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(traced["losses"], untraced["losses"]))
+    log(f"[orchestrate] traced {traced['wall_s'] / steps * 1e3:.1f} ms a "
+        f"step against untraced dataflow's "
+        f"{untraced['wall_s'] / steps * 1e3:.1f} (one run each, "
+        f"unordered); losses max rel {rel:.2e} (tol 2e-2), identical: "
+        f"{traced['losses'] == untraced['losses']}")
+    if not rel < 2e-2:
+        problems.append(f"losses rel {rel:.2e} from the untraced run's")
+    if problems:
+        raise AssertionError("traced orchestrate run: " + "; ".join(problems))
+
+
 def _ckpt_leaves(directory: Path, step: int) -> dict:
     """Every leaf of a saved checkpoint as fp64 (bf16 from its bits)."""
     import numpy as np
@@ -2406,7 +2545,7 @@ def orchestrate_check(torch, counters: dict) -> None:
     kw = dict(steps=6, batch=8, seq=512, seed=0)
     layers, steps = 22, kw["steps"]
     runs = {}
-    for how in ("train_loop", "dataflow", "controlflow"):
+    for how in ("train_loop", "dataflow", "controlflow", "dataflow, traced"):
         gc.collect()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
@@ -2416,6 +2555,8 @@ def orchestrate_check(torch, counters: dict) -> None:
         if how == "train_loop":
             out = train_mod.train_loop(ORCH_ARCH, log_every=0,
                                        device="cuda", **kw)
+        elif how == "dataflow, traced":
+            out = run_traced(torch, train_mod, kw)
         else:
             out = run_orchestrated(torch, train_mod, how, kw)
         peak = torch.cuda.max_memory_allocated()
@@ -2442,7 +2583,7 @@ def orchestrate_check(torch, counters: dict) -> None:
                 l == l and abs(l) < float("inf") for l in out["losses"]):
             raise AssertionError(f"{how}: losses {out['losses']}")
     loop, loop_peak = runs["train_loop"]
-    for how in ("dataflow", "controlflow"):
+    for how in ("dataflow", "controlflow", "dataflow, traced"):
         out, peak = runs[how]
         same = out["losses"] == loop["losses"]
         log(f"[orchestrate] {how}: peak / train_loop's "
@@ -2451,6 +2592,8 @@ def orchestrate_check(torch, counters: dict) -> None:
         if peak > 1.05 * loop_peak:
             raise AssertionError(f"{how} peaks at {peak / 2**30:.2f} GiB, "
                                  f"over 1.05x train_loop's")
+    orchestrate_trace(runs["dataflow, traced"][0], runs["dataflow"][0],
+                      steps)
 
 
 # ------------------------------------------------------ encoder-decoder

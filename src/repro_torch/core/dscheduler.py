@@ -31,12 +31,8 @@ incremental fault recovery (only functions whose outputs were lost re-run;
 the paper's §3.3.5 restarts the whole workflow).
 
 Copy of ``repro/core/dscheduler.py`` for the PyTorch port, which imports
-nothing of ``repro``. One change: a DScale prewarm ``budget`` raises
-:class:`NotImplementedError` when an instance is built with one, since
-``scale.py`` is not copied (ROADMAP A.15); the reference imports it lazily
-where a budget is first used. ``plan``, ``containers`` and ``spans`` stay
-duck-typed, as in the reference, so DPlan, DServe's container service and
-DScope objects of a later copy plug in unchanged.
+nothing of ``repro``; its code is the reference's, line for line, with no
+departure.
 """
 
 from __future__ import annotations
@@ -169,12 +165,6 @@ class InstanceRun:
         # every prewarm — slack-scheduled or heuristic — must be granted
         # container-seconds first, and unfired grants are refunded when
         # the instance completes or is evicted.
-        if budget is not None:
-            # The budget paths below are the reference's; they run once
-            # scale.py is copied.
-            raise NotImplementedError(
-                "a DScale prewarm budget needs repro/core/scale.py, which "
-                "the PyTorch port has not copied yet (ROADMAP A.15)")
         self._budget = budget
         self._grants: list[Any] = []
         self._prewarms_cancelled = False

@@ -67,8 +67,8 @@ DF009, DF011-DF013) *before* construction so defects that
 when any error-severity diagnostic fires.
 
 Copy of ``repro/core/lint.py`` for the PyTorch port, which imports
-nothing of ``repro``; its code is the reference's, line for line. The
-``python -m repro.lint`` CLI is not copied (ROADMAP A.15).
+nothing of ``repro``; its code is the reference's, line for line, with no
+departure. Its CLI is ``python -m repro_torch.lint``.
 """
 
 from __future__ import annotations

@@ -38,9 +38,7 @@ eviction and DCheck tracing all run unchanged on top of it — the 200-seed
 differential corpus is byte-exact against the single-store baseline.
 
 Copy of ``repro/core/router.py`` for the PyTorch port, which imports nothing
-of ``repro``. One change: the typing-only import of ``.plan`` is gone (DPlan
-is not copied, ROADMAP A.15); ``"WorkflowPlan"`` annotations stay strings
-and a plan stays duck-typed, as it is at run time in the reference.
+of ``repro``; its code is the reference's, line for line, with no departure.
 """
 
 from __future__ import annotations
@@ -57,8 +55,7 @@ from .stream import base_key, chunk_key
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from .dag import Workflow
-    # "WorkflowPlan" (repro/core/plan.py, not copied: ROADMAP A.15) stays a
-    # string annotation: a plan is duck-typed here, as in the reference.
+    from .plan import WorkflowPlan
 
 __all__ = ["ShardedDStore", "RoutingTable", "Coordinator", "TieredTransport",
            "static_routes", "routes_from_plan",

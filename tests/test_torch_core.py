@@ -6,9 +6,9 @@ reference (``repro.core``).
   parts of test_stream.py, unchanged but for the package they reach: each
   runs once on either package (``[repro]``, ``[repro_torch]``) through the
   namespace ``C``. Workflows that the reference's helpers build
-  (``tests/strategies.py``, the paper's benchmarks) reach the port rebuilt
-  as its own ``FunctionSpec``s, field by field; DPlan (not copied) is built
-  by the reference and read duck-typed by either router.
+  (``tests/strategies.py``) reach the port rebuilt as its own
+  ``FunctionSpec``s, field by field; the paper's benchmarks and each DPlan
+  come from the package under test's own ``workloads`` and ``plan``.
 * A differential run: both engines, under both invocation patterns and over
   a sharded store, on 60 seeds of ``random_workflow``, against
   ``oracle_run`` and each other.
@@ -17,7 +17,6 @@ reference (``repro.core``).
   reference's.
 """
 
-import dataclasses
 import importlib
 import threading
 import time
@@ -28,31 +27,18 @@ import pytest
 import torch
 from conftest import given, settings, st  # hypothesis or skip-shim
 from strategies import external_inputs, oracle_run, random_workflow
+from torch_cases import port_workflow
 
 import repro.core.dstore as ref_dstore
 import repro_torch.core.dstore as port_dstore
 from repro.core.check import content_digest as ref_content_digest
-from repro.core.plan import build_plan
-from repro.core.workloads import BENCHMARKS
-from repro_torch.core import dag as port_dag
 from repro_torch.core.check import content_digest as port_content_digest
 
 PACKAGES = {"repro": "repro.core", "repro_torch": "repro_torch.core"}
 MODULES = ("dag", "check", "stream", "dstore", "partition", "router", "lint",
-           "dscheduler")
+           "dscheduler", "plan", "workloads")
 
 C = types.SimpleNamespace()     # the names of the package under test
-
-
-def port_workflow(wf):
-    """A reference ``Workflow`` rebuilt as the port's, each ``FunctionSpec``
-    field by field."""
-    return port_dag.Workflow(
-        wf.name,
-        [port_dag.FunctionSpec(**{f.name: getattr(spec, f.name)
-                                  for f in dataclasses.fields(spec)})
-         for spec in wf.functions.values()],
-        external_inputs=dict(wf.external_inputs))
 
 
 def _names(package: str) -> dict:
@@ -359,8 +345,8 @@ def test_partition_properties_random_dags(data):
 
 def test_benchmarks_cut_below_total():
     nodes = [f"node{i+1}" for i in range(7)]
-    for name, gen in BENCHMARKS.items():
-        wf = C.workflow(gen())
+    for name, gen in C.BENCHMARKS.items():
+        wf = gen()
         pl = C.partition_workflow(wf, nodes)
         total = sum(wf.functions[p].size_of(k)
                     for f in wf.functions.values() for k in f.inputs
@@ -390,10 +376,9 @@ def test_static_routes_follow_placement():
 def test_routes_from_plan_agree_with_static():
     """DPlan's transfer matrix names the same homes the placement does —
     the plan is just the richer source (it also sizes per-node peaks)."""
-    ref = random_workflow(23)
-    wf = C.workflow(ref)
+    wf = C.workflow(random_workflow(23))
     placement = C.partition_workflow(wf, NODES)
-    plan = build_plan(ref, placement)      # DPlan is duck-typed in both
+    plan = C.build_plan(wf, placement)
     from_plan = C.routes_from_plan(plan)
     static = C.static_routes(wf, placement, nodes=NODES)
     for k, home in from_plan.items():
@@ -401,12 +386,11 @@ def test_routes_from_plan_agree_with_static():
 
 
 def test_register_instance_installs_prefixed_routes():
-    ref = random_workflow(7)
-    wf = C.workflow(ref)
+    wf = C.workflow(random_workflow(7))
     placement = C.partition_workflow(wf, NODES)
     store = C.ShardedDStore(NODES)
     store.register_instance("fuzz7#0:", wf, placement,
-                            plan=build_plan(ref, placement))
+                            plan=C.build_plan(wf, placement))
     for f in wf.functions.values():
         for k in f.outputs:
             assert store.coordinator.route_of(
@@ -416,14 +400,15 @@ def test_register_instance_installs_prefixed_routes():
 
 
 def test_presize_from_plan_takes_max_per_node():
-    wf = random_workflow(7)
-    plan = build_plan(wf, nodes=NODES)
+    wf = C.workflow(random_workflow(7))
+    plan = C.build_plan(wf, nodes=NODES)
     store = C.ShardedDStore(NODES)
     store.presize_from_plan(plan)
     for node, peak in plan.peak_resident.items():
         assert store.capacity_bytes[node] == int(peak)
     before = dict(store.capacity_bytes)
-    store.presize_from_plan(build_plan(random_workflow(3), nodes=NODES))
+    store.presize_from_plan(C.build_plan(C.workflow(random_workflow(3)),
+                                         nodes=NODES))
     assert all(store.capacity_bytes[n] >= before[n] for n in NODES)
 
 

@@ -1017,6 +1017,56 @@ def test_run_training_on_the_card_takes_train_loops_steps(tmp_path,
         assert float(np.abs(a - b).max()) <= 2e-2 * scale, name
 
 
+
+def test_run_training_on_the_card_under_a_tracer(monkeypatch):
+    """Depth-2, full-width tinyllama under the port's DFlow engine with its
+    DScope on (the engine's ``spans=``, as ``chip_smoke.py`` binds it):
+    one request span, an invoke span a function nested in it and none left
+    open, the kernels launched in the DAG's threads, and an attribution
+    against the DAG's own DPlan that covers every ``step.i``."""
+    import functools
+    import repro_torch.launch.train as train_mod
+    import repro_torch.runtime.orchestrator as orchestrator
+    from repro_torch.core.obs import Tracer, attribute, plan_attribution
+    from repro_torch.core.plan import build_plan
+    from repro_torch.data import SyntheticLM
+    full_depth = train_mod.get_config
+    monkeypatch.setattr(train_mod, "get_config", lambda arch, reduced=False:
+                        dataclasses.replace(full_depth(arch), n_layers=2))
+    tracer = Tracer()
+    monkeypatch.setattr(orchestrator, "DFlowEngine", functools.partial(
+        orchestrator.DFlowEngine, spans=tracer))
+    s = train_mod.setup_training("tinyllama-1.1b", steps=3, batch=2,
+                                 seq=256, seed=3)
+    source = SyntheticLM(s.data)
+    flash_kernel.launches = flash_bwd_kernel.launches = 0
+    rep = orchestrator.run_training(
+        orchestrator.OrchestratorConfig(n_steps=3, pattern="dataflow"),
+        init_state=s.state, train=s.step_fn,
+        fetch=lambda i: {k: torch.as_tensor(v).cuda()
+                         for k, v in source.batch_at(i).items()})
+    assert flash_kernel.launches == 3 * 2 * 2
+    assert flash_bwd_kernel.launches == 3 * 2
+    losses = [float(rep.outputs[f"metrics.{i}"]["loss"]) for i in range(3)]
+    assert all(l == l for l in losses)
+    spans = tracer.finished()
+    assert sorted(sp.id for sp in spans) == list(
+        range(1, tracer._next_id + 1))            # every span ended
+    (req,) = [sp for sp in spans if sp.kind == "request"]
+    invokes = [sp for sp in spans if sp.kind == "invoke"]
+    wf = orchestrator.build_training_workflow(
+        3, fetch=lambda i: None, train=lambda state, batch: (state, {}))
+    assert sorted(sp.name for sp in invokes) == sorted(wf.functions)
+    for sp in invokes:
+        assert sp.parent == req.id
+        assert req.start <= sp.start <= sp.end <= req.end
+    report = attribute(spans, plan_attribution(
+        build_plan(wf, nodes=["node0", "node1"])))
+    assert report["requests"] == 1
+    covered = {r["function"] for r in report["functions"]}
+    assert {f"step.{i}" for i in range(3)} <= covered
+
+
 # ------------------------------------------------------- the SSD backward
 def _ssd_tool():
     spec = importlib.util.spec_from_file_location(

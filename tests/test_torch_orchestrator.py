@@ -11,9 +11,12 @@ against the port's own ``train_loop``.
   ``train_loop`` bit for bit under both patterns (same ops on the same data
   in the same order, only on other threads), also when the save waits for
   the next step before it snapshots;
-* what the port refuses: a straggler factor, a DScale budget.
+* what the port refuses: a straggler factor;
+* a DScale prewarm budget through the port's engine, granted as the
+  reference's engine grants it.
 """
 
+import importlib
 import threading
 import time
 
@@ -272,8 +275,53 @@ def test_the_engines_straggler_path_stays_for_pure_functions():
     assert rep.outputs["y"] == 14 and len(calls) >= 2
 
 
-def test_a_prewarm_budget_is_refused():
-    wf = Workflow("w", [FunctionSpec("f", outputs=("y",),
-                                     fn=lambda: {"y": 1})])
-    with pytest.raises(NotImplementedError, match="A.15"):
-        DFlowEngine(n_nodes=1).start(wf, budget=object())
+def _budget_run(pkg: str, capacity: float) -> tuple:
+    """A diamond (``b`` on the critical path, ``c`` with slack) run with
+    CPU containers and slack-timed prewarm under a DScale budget of
+    ``capacity`` container-seconds on ``pkg``'s engine: the outputs, each
+    grant's function, cost and slack, and the budget's counts."""
+    dag, dsch, plan_mod, scale, serve = (
+        importlib.import_module(f"{pkg}.core.{m}")
+        for m in ("dag", "dscheduler", "plan", "scale", "serve"))
+
+    def mk(out, sleep):
+        def fn(**kw):
+            time.sleep(sleep)
+            return {out: out.encode() + b"".join(sorted(kw.values()))}
+        return fn
+    wf = dag.Workflow("dia", [
+        dag.FunctionSpec("a", ("x",), ("ka",), fn=mk("ka", 0.01),
+                         exec_time=0.01, cold_start=0.02),
+        dag.FunctionSpec("b", ("ka",), ("kb",), fn=mk("kb", 0.05),
+                         exec_time=0.05, cold_start=0.02),
+        dag.FunctionSpec("c", ("ka",), ("kc",), fn=mk("kc", 0.01),
+                         exec_time=0.01, cold_start=0.02),
+        dag.FunctionSpec("d", ("kb", "kc"), ("kd",), fn=mk("kd", 0.01),
+                         exec_time=0.01, cold_start=0.02)])
+    svc = serve.ContainerService(["node0", "node1"], keepalive=10.0)
+    eng = dsch.DFlowEngine(n_nodes=2, containers=svc, prewarm=True,
+                           get_timeout=5.0)
+    placement = eng.gs.assign(wf)
+    plan = plan_mod.build_plan(wf, placement)
+    budget = scale.PrewarmBudget(capacity)
+    run = eng.start(wf, {"x": b"x"}, placement=placement, plan=plan,
+                    budget=budget)
+    rep = run.wait()
+    svc.shutdown()
+    return (rep.outputs, placement,
+            sorted((g.function, g.cost, g.slack) for g in run._grants),
+            budget.granted, budget.denied)
+
+
+@pytest.mark.parametrize("capacity", [0.0, 0.025, 10.0])
+def test_a_prewarm_budget_runs_as_the_reference(capacity):
+    """``DFlowEngine.start(..., budget=PrewarmBudget(...))`` on the port's
+    engine grants what the reference's grants on the same workflow."""
+    got = _budget_run("repro_torch", capacity)
+    want = _budget_run("repro", capacity)
+    assert got == want
+    assert got[0]["kd"] == b"kdkbkaxkckax"
+    if capacity == 10.0:
+        assert got[3] >= 3 and got[4] == 0
+    if capacity == 0.0:
+        assert got[4] >= 1       # priced boots dropped at zero budget
