@@ -43,7 +43,10 @@ Phases, each fatal on failure:
    training shape (timed, with planted faults on the G = 8 blocks' edges)
    and a ragged S; jamba's SSD at its prefill shape, 256 heads of P = 64,
    N = 128, state0 and state_out a slice of a zeroed stacked cache, timed),
-   to bf16 2e-2
+   and the decode kernel's partial entry (one span of a sequence-cut
+   cache: out and lse, at local lengths 0, 1, a mid value and the whole
+   span, D = 64, 112, 128 and G = 1, 8, 12, 16, bf16 and fp32), to bf16
+   2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
    chunk states it writes for the backward; each gradient of the two
@@ -91,7 +94,21 @@ Phases, each fatal on failure:
    (the first call of each shape pays one-time library and module-loading
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
-   run went through them;
+   run went through them; then ``sharded_serve_check``: the dense family
+   over a (data, model) mesh through ``runtime/serve_lib.py``'s steps, at
+   the same serving shape with the cache's 1056 rows cut on their sequence
+   axis (at a model axis of 2 the decode crosses from rank 0's span into
+   rank 1's): tinyllama-1.1b at (1, 1) under NCCL and at (1, 2) and (2, 2)
+   under gloo, starcoder2-15b at (1, 2) under gloo, each rank a spawned
+   process on the one card, joined with a timeout; every rank's prefill and
+   31 teacher-forced decode steps against the unsharded ``serve_loop`` on
+   the same seed (rel < 0.06, equal argmax; its span of the first and last
+   layers' K/V cache alike), its shard shapes against the specs, its
+   launches (flash once a layer, the decode kernel's partial entry once a
+   layer a step, nothing else), and three planted faults (a merge that
+   drops model rank 0's partial, the new token's K/V written into every
+   rank's span, a vocab shard one shard off), each of which must break a
+   rule;
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
    40-layer qwen2-vl, the period-4 jamba block (its device time split
@@ -560,6 +577,82 @@ def check_decode(torch, timer, gen) -> dict:
                                  f"{n} differs from an eager call")
     log("[kernels] decode_attention in a CUDA graph, replayed at lengths "
         "1, 65, 299 set on the device: equal to eager calls")
+    return _records(rows, errs)
+
+
+def check_decode_partial(torch, timer, gen) -> dict:
+    """The decode kernel's partial entry (one rank's span of a cache cut on
+    its sequence axis) against its plain version, bf16 and fp32, at local
+    lengths 0, 1, a mid value and the whole span, at D = 64, 112 and 128
+    and G = 1, 8, 12 and 16, to ``check_decode``'s tolerances; its lse to
+    ``LSE_TOL`` (relative to its largest magnitude over 1), and at length 0
+    out 0 and lse -inf. Timed at tinyllama's span of a (1, 2) mesh (528
+    rows, 512 valid: the first decode step's); no single PyTorch call
+    returns the (out, lse) pair with GQA, so no library time."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_partial_cuda, decode_attention_partial_plain)
+    errs, rows = {}, {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, L, H, Hk, D, dtype, timed length)
+    for label, Bc, Lc, Hc, Hkc, Dc, dtype, timed in (
+            ("tinyllama-span", 8, 528, 32, 4, 64, bf16, 512),
+            ("tinyllama-span", 8, 528, 32, 4, 64, f32, None),
+            ("g1", 2, 272, 4, 4, 64, bf16, None),
+            ("g1", 2, 272, 4, 4, 64, f32, None),
+            ("g12-d128", 8, 528, 48, 4, 128, bf16, None),
+            ("g12-d128", 8, 528, 48, 4, 128, f32, None),
+            ("g16-d128", 2, 272, 64, 4, 128, bf16, None),
+            ("g16-d128", 2, 272, 64, 4, 128, f32, None),
+            ("g8-d112", 2, 272, 64, 8, 112, bf16, None),
+            ("g8-d112", 2, 272, 64, 8, 112, f32, None)):
+        name = str(dtype).split(".")[1]
+        cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
+                              device="cuda").to(dtype)
+        cache_v = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
+                              device="cuda").to(dtype)
+        k, v = cache_k[1], cache_v[1]
+        q = torch.randn(Bc, 1, Hc, Dc, generator=gen, device="cuda").to(dtype)
+        for n in (0, 1, Lc // 2 + 3, Lc):
+            length = torch.tensor(n, dtype=torch.int32, device="cuda")
+            out, lse = decode_attention_partial_cuda(q, k, v, length)
+            want_out, want_lse = decode_attention_partial_plain(q, k, v,
+                                                                length)
+            torch.cuda.synchronize()
+            err = max_err(out, want_out)
+            if n == 0:
+                lse_err = 0.0 if bool(torch.isneginf(lse).all()) \
+                    else float("inf")
+            else:
+                lse_err = max_err(lse, want_lse) / max(
+                    1.0, float(want_lse.abs().max()))
+            log(f"[kernels] decode_attention_partial {label} {name} B={Bc} "
+                f"L={Lc} H={Hc} Hk={Hkc} D={Dc} length={n}: out "
+                f"max_abs_err={err:.3e} (tol {TOL[name]:g}), lse "
+                f"err={lse_err:.3e} (tol {LSE_TOL:g})")
+            if not (err < TOL[name] and lse_err < LSE_TOL):
+                raise AssertionError(f"decode_attention_partial {label} "
+                                     f"{name} length={n}: out {err}, lse "
+                                     f"{lse_err}")
+            errs[""] = max(errs.get("", 0.0), err)
+            if n == 0 and bool(out.any()):
+                raise AssertionError("decode_attention_partial: a span of 0 "
+                                     "valid keys gave a nonzero output")
+        if timed is None:
+            continue
+        length = torch.tensor(timed, dtype=torch.int32, device="cuda")
+        ms = timer.ms(lambda: decode_attention_partial_cuda(q, k, v, length))
+        plain_ms = timer.ms(lambda: decode_attention_partial_plain(
+            q, k, v, length))
+        flops = 4 * Bc * Hc * timed * Dc
+        nbytes = (q.element_size() * (2 * Bc * Hkc * timed * Dc + q.numel())
+                  + 4 * (q.numel() + Bc * Hc))
+        b_ms, b_by = bound(flops, nbytes, peak_flops(torch, dtype))
+        log(f"[kernels] decode_attention_partial {label} {name} B={Bc} "
+            f"H={Hc} Hk={Hkc} D={Dc} length={timed}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; no library "
+            f"call returns out and lse with GQA)")
+        rows[""] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by}
     return _records(rows, errs)
 
 
@@ -3530,16 +3623,471 @@ def train_counted(torch, counters: dict, arch: str, layers: int,
     return counts
 
 
+# ------------------------------------------------------- sharded serving
+# One arch over a (data, model) mesh through ``runtime/serve_lib.py``'s
+# steps: batch 8, 512-token prompts, 32 new tokens, seeded random weights.
+SHARD_BATCH, SHARD_PROMPT, SHARD_GEN = 8, 512, 32
+# cache rows of a sharded run: at a model axis of 2 each rank holds 528, so
+# the prompt (rows 0-511) ends in rank 0's span and the decode (rows
+# 512-543) crosses into rank 1's at row 528
+SHARD_MAX_LEN = 1056
+# (arch, (data, model), backend, vocab): NCCL at 1 x 1; gloo for ranks that
+# share the one card (NCCL refuses two ranks on one device)
+SHARD_RUNS = (("tinyllama-1.1b", (1, 1), "nccl", 32000),
+              ("tinyllama-1.1b", (1, 2), "gloo", 32000),
+              ("tinyllama-1.1b", (2, 2), "gloo", 32000),
+              ("starcoder2-15b", (1, 2), "gloo", 49152))
+SHARD_JOIN_S = 600
+MODEL_TOL = 0.06      # tests/test_archs.py's rule: rel, with equal argmax
+# the planted faults; at a model axis of 1 the last two are the correct
+# program (one span takes every token, one vocab shard every row)
+SHARD_FAULTS = ("merge drops model rank 0's partial",
+                "new token's K/V written into every rank's span",
+                "vocab shard's row offset one shard off")
+# decode steps of each fault's pass: the dropped partial and the shifted
+# vocab show at the prefill; the everywhere-write at the first step, where
+# rank 1 writes the token at row 512 into its own first row (global 528),
+# which the reference holds empty
+FAULT_STEPS = dict(zip(SHARD_FAULTS, (1, 1, 1)))
+# the faults planted in the decode step alone start from the counted pass's
+# cache after its prefill (and its prefill logits); the vocab shard's runs
+# its own prefill
+DECODE_ONLY_FAULTS = SHARD_FAULTS[:2]
+
+
+def attention_at_fan_in(params: dict, cfg) -> None:
+    """The dense model's wq, wk, wv and wo rescaled in place from the
+    reference's draw (std 1/sqrt(heads); wo 1/sqrt(D)) to std
+    1/sqrt(fan-in) (d_model; H * D for wo), as ``model_check`` draws them
+    (``tools/attention_conditioning.py::fan_in_std``). Elementwise with the
+    global head counts, so a rank's shards are rescaled exactly as the
+    whole leaves."""
+    attn = params["layers"]["attn"]
+    for name, heads in (("wq", cfg.n_heads_eff), ("wk", cfg.n_kv_heads),
+                        ("wv", cfg.n_kv_heads)):
+        attn[name].mul_((heads / cfg.d_model) ** 0.5)
+    attn["wo"].mul_(cfg.n_heads_eff ** -0.5)
+
+
+def sharded_reference(torch, arch: str, path: Path) -> None:
+    """``serve_loop(arch)`` unsharded on the card (batch 8, 512-token
+    prompts, 32 new tokens, seed 0) with a model that keeps each step's
+    logits on the host; saved to ``path`` for the ranks with its prompts,
+    its tokens and the first and last layers of its final K/V cache. The
+    card's memory is released after."""
+    import numpy as np
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import LM
+    steps, kept = [], {}
+
+    class Recording(LM):
+        def _apply_cached(self, params, tokens, cache, **kw):
+            logits, cache = super()._apply_cached(params, tokens, cache,
+                                                  **kw)
+            steps.append(logits[:, -1].float().cpu())
+            kept["kv"] = cache.kv
+            return logits, cache
+
+    def drawn_at_fan_in(init):
+        def init_params(decls, gen, device):
+            params = init(decls, gen, device)
+            attention_at_fan_in(params, kept["cfg"])
+            return params
+        return init_params
+
+    def recording(build):
+        def build_model(cfg):
+            kept["cfg"] = cfg
+            return Recording(cfg)
+        return build_model
+
+    with patched(serve_mod, "build_model", recording), \
+            patched(serve_mod, "init_params", drawn_at_fan_in):
+        out = serve_mod.serve_loop(arch, batch=SHARD_BATCH,
+                                   prompt_len=SHARD_PROMPT,
+                                   gen_tokens=SHARD_GEN, seed=0,
+                                   device="cuda")
+    vocab = steps[0].shape[-1]
+    prompts = np.random.default_rng(0).integers(
+        0, vocab, size=(SHARD_BATCH, SHARD_PROMPT))
+    kv = kept.pop("kv")
+    torch.save({"prompts": torch.as_tensor(prompts),
+                "tokens": torch.as_tensor(out["tokens"]),
+                "logits": torch.stack(steps),
+                "k": kv.k[[0, -1]].cpu(), "v": kv.v[[0, -1]].cpu()}, path)
+    del kv, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|; over an all-zero ``want`` (a span
+    no token reached), 0 if ``got`` is zero too, else inf."""
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if diff != diff:                  # a NaN breaks the rule
+        return float("inf")
+    return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+
+
+def _shard_faults(torch, which: str):
+    """A context that plants one of ``SHARD_FAULTS`` in this rank's
+    modules."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.runtime import serve_lib
+
+    def drop_rank0(merge):
+        def faulty(out, lse, shard):
+            if shard.mesh.coords["model"] == 0:
+                out = torch.zeros_like(out)
+                lse = torch.full_like(lse, float("-inf"))
+            return merge(out, lse, shard)
+        return faulty
+
+    def write_everywhere(write):
+        def faulty(cache, k, v, shard):
+            row = (cache.length - shard.seq.start).clamp(
+                0, shard.seq.size - 1).reshape(1).long()
+            for buf, new in ((cache.k, k), (cache.v, v)):
+                buf.index_copy_(1, row, new.to(buf.dtype))
+        return faulty
+
+    def vocab_off(layout_fn):
+        def faulty(*args, **kw):
+            layout = layout_fn(*args, **kw)
+            span = layout.vocab
+            return dataclasses.replace(layout, vocab=dataclasses.replace(
+                span, start=(span.start + span.size) % span.total))
+        return faulty
+
+    return {SHARD_FAULTS[0]: (attn_mod, "_merge_partials", drop_rank0),
+            SHARD_FAULTS[1]: (attn_mod, "_write_token", write_everywhere),
+            SHARD_FAULTS[2]: (serve_lib, "shard_layout", vocab_off)}[which]
+
+
+def sharded_rank_run(torch, arch: str, data: int, model: int,
+                     ref_path: str) -> dict:
+    """One rank's part of a sharded run: this rank's weights drawn from
+    the unsharded model's seeded draw, its shard shapes against the specs,
+    a short warm-up, the counted pass (prefill, then 31 decode steps fed
+    the reference's tokens), and one pass under each planted fault (a
+    prefill, or the counted pass's prefilled cache for a fault of the
+    decode step, and ``FAULT_STEPS`` decode steps). Each pass is held to the
+    reference: every step's logits rel < 0.06; each token picked apart
+    from the reference's a near-tie (the reference's gap between the two
+    within twice the row's largest logit difference: bf16 logits near 5
+    are 2^-5 apart, and many rows' top two are within one or two of those
+    steps); and this rank's span of the first and last layers' K/V cache
+    rel < 0.06, rows the reference had not written yet zeros."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.param import tree_at, tree_items
+    from repro_torch.runtime import serve_lib
+    from repro_torch.sharding.rules import local_shape
+    ref = torch.load(ref_path)
+    mesh = make_local_mesh(data, model)
+    cfg = dataclasses.replace(get_config(arch), q_chunk=SHARD_PROMPT // 2,
+                              kv_chunk=SHARD_PROMPT // 2,
+                              max_cache_len=SHARD_MAX_LEN)
+    lm = build_model(cfg)
+    B, S, T = SHARD_BATCH, SHARD_PROMPT, SHARD_MAX_LEN
+    layout = serve_lib.shard_layout(lm, mesh, B, T)
+    specs = serve_lib.param_specs(lm, mesh)
+    t0 = time.perf_counter()
+    params = init_params(lm.param_decls(),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", specs=specs, mesh=mesh)
+    attention_at_fan_in(params, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    decls = dict(tree_items(lm.param_decls()))
+    shape_faults = []
+    for path, a in tree_items(params):
+        want = local_shape(tree_at(specs, path), decls[path].shape, mesh)
+        if tuple(a.shape) != want:
+            shape_faults.append(("/".join(path), tuple(a.shape), want))
+    kv_spec = serve_lib.cache_specs(lm, mesh, B, T).kv.k
+    kv_shape = local_shape(kv_spec, (cfg.n_layers, B, T, cfg.n_kv_heads,
+                                     cfg.head_dim), mesh)
+    weights = sum(a.numel() * a.element_size() for _, a in tree_items(params))
+    prompts, tokens = ref["prompts"].cuda(), ref["tokens"].cuda()
+    span = layout.seq
+    counters = kernel_counters()
+
+    snapshot = {}
+
+    def run_pass(steps: int, prefill_first: bool = True,
+                 keep: bool = False, resume: bool = False):
+        """``steps`` decode steps after a prefill (``prefill_first``), or
+        from the kept cache and prefill logits (``resume``); ``keep``
+        keeps them after this pass's prefill."""
+        cache = serve_lib.init_cache_shards(lm, mesh, B, T, device="cuda")
+        if tuple(cache.kv.k.shape) != kv_shape:
+            shape_faults.append(("kv/k", tuple(cache.kv.k.shape), kv_shape))
+        prefill = serve_lib.build_prefill_step(lm, mesh, B, S, T)
+        decode = serve_lib.build_decode_step(lm, mesh, B, T)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = []
+            if resume:
+                cache.kv.k.copy_(snapshot["k"])
+                cache.kv.v.copy_(snapshot["v"])
+                cache.kv.length.copy_(snapshot["length"])
+                out.append(snapshot["logits"])
+            elif prefill_first:
+                logits, cache = prefill(params, prompts, cache)
+                out.append(logits[:, -1])
+                if keep:
+                    snapshot.update(k=cache.kv.k.clone(), v=cache.kv.v.clone(),
+                                    length=cache.kv.length.clone(),
+                                    logits=logits[:, -1].clone())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = decode(params, tokens[:, i:i + 1], cache)
+                out.append(logits[:, -1])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        times = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                 "decode_tok_per_s": B * steps / max(t2 - t1, 1e-9),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        return times, out, cache
+
+    def rules(out: list, cache, steps: int) -> dict:
+        """The logits of the pass's steps, and this rank's span of the
+        first and last layers' K/V, against the reference's after as many
+        steps (rows it had not written yet are zeros)."""
+        errs = [_rel(got.cpu(), want) for got, want in
+                zip(out, ref["logits"])]
+        # picks apart: (step, row, the reference's gap between its top
+        # logit and its logit at this run's pick, the row's largest logit
+        # difference); a near-tie when the gap is within twice it
+        apart = []
+        for step, (got, want) in enumerate(zip(out, ref["logits"])):
+            got = got.cpu().float()
+            top, pick = want.argmax(-1), got.argmax(-1)
+            for row in (top != pick).nonzero().flatten().tolist():
+                gap = float(want[row, top[row]] - want[row, pick[row]])
+                diff = float((got[row] - want[row]).abs().max())
+                apart.append((step, row, gap, diff))
+        b = layout.batch.slice()
+        kv_errs = []              # first layer, last layer
+        rows = S + steps          # rows written after the pass
+        for buf, want in ((cache.kv.k, ref["k"]), (cache.kv.v, ref["v"])):
+            full = torch.zeros(want.shape[:2] + (T,) + want.shape[3:],
+                               dtype=want.dtype)
+            full[:, :, :rows] = want[:, :, :rows]
+            got = buf[[0, -1]].cpu()
+            kv_errs.append([_rel(got[i], full[i, b, span.slice()])
+                            for i in (0, 1)])
+        kv_errs = [max(k, v) for k, v in zip(*kv_errs)]
+        near_ties = all(gap <= 2 * diff for _, _, gap, diff in apart)
+        picks = len(out) * B
+        ok = all(e < MODEL_TOL for e in errs + kv_errs) and near_ties
+        return {"ok": ok, "max_rel": max(errs), "apart": apart[:8],
+                "n_apart": len(apart), "picks": picks,
+                "kv_rel": kv_errs}
+
+    # warm-up: two decode steps on an empty cache (the prefill's first
+    # call is in its timed pass)
+    run_pass(2, prefill_first=False)
+    for k in counters.values():
+        k.launches = 0
+    times, out, cache = run_pass(SHARD_GEN - 1, keep=True)
+    launches = {name: k.launches for name, k in counters.items()}
+    result = {"coords": dict(mesh.coords), "span": (span.start, span.size),
+              "init_s": init_s, "weights_gib": weights / 2**30,
+              "launches": launches, **times,
+              **rules(out, cache, SHARD_GEN - 1)}
+    del out, cache
+    faults = {}
+    for which in SHARD_FAULTS if model > 1 else SHARD_FAULTS[:1]:
+        owner, name, wrap = _shard_faults(torch, which)
+        with patched(owner, name, wrap):
+            _, out, cache = run_pass(FAULT_STEPS[which],
+                                     resume=which in DECODE_ONLY_FAULTS)
+            faults[which] = rules(out, cache, FAULT_STEPS[which])
+        del out, cache
+    result["faults"] = faults
+    result["shape_faults"] = shape_faults
+    return result
+
+
+def _shard_rank(rank: int, arch: str, mesh_shape: tuple, backend: str,
+                init_file: str, ref_path: str, queue) -> None:
+    """Entry of a spawned rank: its process group (``backend`` over a
+    ``file://`` rendezvous), its run, and ``(rank, result or the
+    traceback)`` on ``queue``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        data, model = mesh_shape
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                world_size=data * model, rank=rank,
+                                timeout=datetime.timedelta(seconds=300))
+        queue.put((rank, sharded_rank_run(torch, arch, data, model,
+                                          ref_path)))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(arch: str, mesh_shape: tuple, backend: str,
+                ref_path: Path) -> dict:
+    """Each rank of the mesh in a process of its own (start method
+    ``spawn``), all on the one card; every rank joined with a timeout. A
+    rank that fails, hangs or exits nonzero fails the run."""
+    import multiprocessing
+    import queue as queue_mod
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    results = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = ctx.Queue()
+        n = mesh_shape[0] * mesh_shape[1]
+        procs = [ctx.Process(target=_shard_rank, args=(
+            r, arch, mesh_shape, backend, os.path.join(tmp, "rendezvous"),
+            str(ref_path), out)) for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + SHARD_JOIN_S
+        try:
+            # until every rank has reported, the time is up, or a rank has
+            # died without reporting
+            while len(results) < n and time.perf_counter() < deadline:
+                try:
+                    rank, res = out.get(timeout=5.0)
+                    results[rank] = res
+                except queue_mod.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs) or \
+                            all(p.exitcode is not None for p in procs):
+                        break
+        finally:
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.perf_counter()))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    failed = {r: res for r, res in results.items() if isinstance(res, str)}
+    codes = [p.exitcode for p in procs]
+    if failed or len(results) < n or any(codes):
+        raise AssertionError(f"{arch} on {mesh_shape} ({backend}): ranks "
+                             f"{sorted(results)} of {n} reported, exit codes "
+                             f"{codes}; failures: {failed}")
+    return results
+
+
+def sharded_serve_check(torch) -> dict:
+    """``sharded_serve_check``: the dense family served over a (data,
+    model) mesh through ``runtime/serve_lib.py``, at full width and depth:
+    tinyllama-1.1b at (1, 1) under NCCL and at (1, 2) and (2, 2) under
+    gloo, starcoder2-15b at (1, 2) under gloo (G = 12, D = 128, 2 of its 4
+    KV heads and 24576 of its 49152 vocab rows a rank). Several ranks share
+    the one card: their times are of processes on one card over gloo's
+    host-staged transport, not a multi-card figure.
+
+    For each run the unsharded ``serve_loop`` first gives the reference,
+    with the attention weights at fan-in std on both sides (at the
+    reference's draw the softmax saturates and any other order of the
+    sums moves the logits, as ``model_check`` finds), then the ranks run
+    (``sharded_rank_run``): every step's logits rel < 0.06 on every rank,
+    picks apart only at near-ties, the shard shapes the specs give, each
+    rank's span of the cache; the counted pass's launches (flash once a
+    layer, the partial decode once a layer a step, nothing else); each
+    planted fault (``SHARD_FAULTS``) must break a rule on some rank. The
+    decode crosses rank 0's span into rank 1's at a model axis of 2.
+    Returns the partial decode's launches over every counted pass."""
+    t_phase = time.perf_counter()
+    partial = 0
+    refs = {}
+    for arch, mesh_shape, backend, vocab in SHARD_RUNS:
+        path = ROOT / "build" / f"sharded-reference-{arch}.pt"
+        if arch not in refs:
+            t0 = time.perf_counter()
+            sharded_reference(torch, arch, path)
+            refs[arch] = path
+            log(f"[sharded] {arch}: unsharded serve_loop reference in "
+                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        results = spawn_ranks(arch, mesh_shape, backend, path)
+        wall = time.perf_counter() - t0
+        data, model = mesh_shape
+        from repro_torch.configs import get_config
+        layers = get_config(arch).n_layers
+        label = ("one process, NCCL" if backend == "nccl" else
+                 f"{data * model} processes sharing one card over gloo's "
+                 f"host-staged transport, not a multi-card figure")
+        for rank, res in sorted(results.items()):
+            log(f"[sharded] {arch} mesh {mesh_shape} ({label}) rank {rank} "
+                f"{res['coords']} span {res['span']}: weights "
+                f"{res['weights_gib']:.2f} GiB (drawn in "
+                f"{res['init_s']:.1f} s), prefill {res['prefill_s']:.4f} s, "
+                f"decode {res['decode_s']:.4f} s "
+                f"({res['decode_tok_per_s']:.1f} tok/s), peak "
+                f"{res['peak_gib']:.2f} GiB; logits max rel "
+                f"{res['max_rel']:.4f}, picks apart {res['n_apart']} of "
+                f"{res['picks']} (step, row, gap, largest difference: "
+                f"{res['apart']}), K/V rel (first, last layer) "
+                f"{res['kv_rel']}; launches {res['launches']}")
+            want = {name: 0 for name in res["launches"]}
+            want.update(flash_attention=layers,
+                        decode_attention_partial=layers * (SHARD_GEN - 1))
+            if res["launches"] != want:
+                raise AssertionError(f"{arch} {mesh_shape} rank {rank} "
+                                     f"launches {res['launches']}: want "
+                                     f"{want}")
+            if not res["ok"] or res["shape_faults"]:
+                raise AssertionError(f"{arch} {mesh_shape} rank {rank}: "
+                                     f"rules {res} (rel < {MODEL_TOL}, "
+                                     f"equal argmax, shapes)")
+            partial += res["launches"]["decode_attention_partial"]
+        for which in results[0]["faults"]:
+            broke = [r for r, res in results.items()
+                     if not res["faults"][which]["ok"]]
+            log(f"[sharded] {arch} {mesh_shape} planted fault '{which}': "
+                f"breaks a rule on ranks {broke} ("
+                + ", ".join(f"rank {r}: rel {res['faults'][which]['max_rel']:.3g}"
+                            f", picks apart {res['faults'][which]['n_apart']}"
+                            f" of {res['faults'][which]['picks']}, K/V rel "
+                            f"{res['faults'][which]['kv_rel']}"
+                            for r, res in sorted(results.items())) + ")")
+            if not broke:
+                raise AssertionError(f"{arch} {mesh_shape}: the planted "
+                                     f"fault '{which}' broke no rule")
+        # the decode steps write rows 512-542: some span must start there
+        if model > 1 and not any(
+                SHARD_PROMPT < res["span"][0] <= SHARD_PROMPT + SHARD_GEN - 2
+                for res in results.values()):
+            raise AssertionError(f"{arch} {mesh_shape}: the decode crossed "
+                                 f"no span boundary")
+        log(f"[sharded] {arch} {mesh_shape} ({backend}) run in {wall:.1f} s")
+    for path in refs.values():
+        path.unlink(missing_ok=True)
+    log(f"[sharded] sharded_serve_check phase in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"decode_attention_partial": partial}
+
+
 def kernel_counters() -> dict:
     """Each kernel's launcher module, whose ``launches`` counts its
     launches."""
     from repro_torch.kernels.decode_attention import kernel as decode_k
+    from repro_torch.kernels.decode_attention import partial as partial_k
     from repro_torch.kernels.flash_attention import kernel as flash_k
     from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd_k
     from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.kernels.ssd import kernel_bwd as ssd_bwd_k
     return {"flash_attention": flash_k, "flash_attention_bwd": flash_bwd_k,
-            "decode_attention": decode_k, "ssd": ssd_k, "ssd_bwd": ssd_bwd_k}
+            "decode_attention": decode_k, "ssd": ssd_k, "ssd_bwd": ssd_bwd_k,
+            "decode_attention_partial": partial_k}
 
 
 def main() -> int:
@@ -3552,6 +4100,10 @@ def main() -> int:
     from repro_torch.launch import train as train_mod
 
     t_start = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+
     log(f"[card] {card_line()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -3575,9 +4127,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(torch, timer, gen)
     decode = check_decode(torch, timer, gen)
+    decode_partial = check_decode_partial(torch, timer, gen)
     ssd = check_ssd(torch, timer, gen)
     flash_bwd = check_flash_bwd(torch, timer, gen)
     ssd_bwd = check_ssd_bwd(torch, timer, gen)
+    phase_done("kernels")
 
     counters = kernel_counters()
 
@@ -3611,6 +4165,11 @@ def main() -> int:
     jamba = hybrid_serve_check(torch, counters)
     torch.cuda.empty_cache()
     seamless = encdec_serve_check(torch, counters)
+    phase_done("serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_serve_check(torch)
+    phase_done("sharded serving")
 
     n_flash_bwd = train_counted(torch, counters, "tinyllama-1.1b", 22, (
         "flash_attention", "flash_attention_bwd"))["flash_attention_bwd"]
@@ -3634,6 +4193,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # seamless-m4t at full width and depth (19.6 GB of training state)
     n_seamless_bwd = encdec_train_counted(torch, counters)
+    phase_done("training")
 
     # the split kernels are split_bf16_kernel and split_f32_kernel
     decode_kernels = {"decode_attention": ("split_bf16_kernel",
@@ -3683,6 +4243,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_train(torch, SEAMLESS_ARCH, {"flash forward": FLASH_FWD,
                                          "flash backward": FLASH_BWD})
+    phase_done("profiles")
     gc.collect()
     torch.cuda.empty_cache()
     # jamba first, where the host has the most room for its 42.8 GiB copy
@@ -3707,6 +4268,7 @@ def main() -> int:
     encdec_train_check(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("model checks")
     moe_graph_check(torch, timer)
     torch.cuda.empty_cache()
     # tinyllama and qwen3-14b at depth 2 (chained layers at G = 8 and
@@ -3725,6 +4287,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     resume_check(torch, "tinyllama-1.1b")
     resume_check(torch, "mamba2-370m", exact=True)
+    phase_done("train checks")
     orchestrate_check(torch, counters)
 
     # the backward's G = 16 row: launched on the qwen3-moe training path
@@ -3765,6 +4328,10 @@ def main() -> int:
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:73",
              launches=n_decode, **decode),
+        dict(name="decode_attention_partial", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:73",
+             launches=sharded["decode_attention_partial"], **decode_partial),
         dict(name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd/kernel.py:75",
              launches=n_ssd, **ssd),

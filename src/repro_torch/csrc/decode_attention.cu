@@ -64,6 +64,14 @@
 //     programmatic dependent launch of the split kernel, so its launch and
 //     set-up overlap the split kernel and only its reads wait for it.
 //   Neither kernel allocates; nothing on this path synchronises the host.
+//
+// Partial entry (decode_attention_partial_*): the same two kernels over one
+// rank's span of a cache cut on its sequence axis, for the split-K decode
+// of a sharded model (models/attention.py). The merge writes the span's
+// normalised output in fp32 and its log-sum-exp lse = M + log(L) (of the
+// scaled scores, natural log), so that the ranks' partials merge exactly
+// as the splits do here. A span with no valid key (a local length of 0)
+// gives o = 0 and lse = -inf, whose merge weight e^(lse - max) is 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -540,7 +548,7 @@ __global__ void __launch_bounds__(kThreads)
 combine_kernel(const float* __restrict__ part_ml,
                const float* __restrict__ part_acc,
                const int* __restrict__ length_ptr, T* __restrict__ o,
-               const Params p, const int D) {
+               float* __restrict__ lse, const Params p, const int D) {
   extern __shared__ float w_s[];          // (n_split,) then (groups, D)
   const int bh = blockIdx.x, g = blockIdx.y, G = p.G;
   const int tid = threadIdx.x, lane = tid % 32;
@@ -565,6 +573,10 @@ combine_kernel(const float* __restrict__ part_ml,
     const float inv = 1.f / fmaxf(L, 1e-30f);
     for (int s = lane; s < n_live; s += 32)
       w_s[s] = expf(ml[s * 2 * G + g] - M) * inv;
+    // the partial entry's log-sum-exp; -inf over no valid key
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<long long>(b) * p.H + hk * G + g] =
+          n_live > 0 ? M + logf(L) : -__int_as_float(0x7f800000);
   }
   __syncthreads();
 
@@ -595,16 +607,16 @@ combine_kernel(const float* __restrict__ part_ml,
   }
 }
 
-template <typename T, int D>
-int run(const T* q, const T* k, const T* v, const int* length, T* o,
-        float* part_ml, float* part_acc, int B, const Params& p,
+template <typename T, typename TO, int D>
+int run(const T* q, const T* k, const T* v, const int* length, TO* o,
+        float* lse, float* part_ml, float* part_acc, int B, const Params& p,
         cudaStream_t stream) {
   const size_t smem_w = ((p.n_split + 1) / 2 * 2) * sizeof(float)
                         + kThreads * sizeof(float2);
   cudaError_t err = launch_split<D>(q, k, v, length, part_ml, part_acc, B, p,
                                     split_smem<D>(q, p.G), stream);
   if (err == cudaSuccess && smem_w > 48 * 1024)
-    err = cudaFuncSetAttribute(combine_kernel<T>,
+    err = cudaFuncSetAttribute(combine_kernel<TO>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_w));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -620,13 +632,13 @@ int run(const T* q, const T* k, const T* v, const int* length, T* o,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, combine_kernel<T>, static_cast<const float*>(part_ml),
-      static_cast<const float*>(part_acc), length, o, p, D));
+      &cfg, combine_kernel<TO>, static_cast<const float*>(part_ml),
+      static_cast<const float*>(part_acc), length, o, lse, p, D));
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, const int* length, T* o,
-           float* scratch, long long scratch_floats, int B, int D,
+template <typename T, typename TO>
+int launch(const T* q, const T* k, const T* v, const int* length, TO* o,
+           float* lse, float* scratch, long long scratch_floats, int B, int D,
            const Params& p, cudaStream_t stream) {
   const long long parts = static_cast<long long>(B) * p.Hk * p.n_split * p.G;
   if (p.G > kMaxG || p.G * D > kMaxGD || scratch_floats < parts * (2 + D))
@@ -636,7 +648,8 @@ int launch(const T* q, const T* k, const T* v, const int* length, T* o,
   switch (D) {
 #define DECODE_RUN(DIM)                                                        \
     case DIM:                                                                  \
-      return run<T, DIM>(q, k, v, length, o, part_ml, part_acc, B, p, stream);
+      return run<T, TO, DIM>(q, k, v, length, o, lse, part_ml, part_acc, B,  \
+                             p, stream);
     DECODE_RUN(16) DECODE_RUN(32) DECODE_RUN(64) DECODE_RUN(112)
     DECODE_RUN(128) DECODE_RUN(256)
 #undef DECODE_RUN
@@ -654,12 +667,14 @@ extern "C" int decode_attention_keys_per_split() { return kSplit; }
 // int32 on the device; `scratch` holds `scratch_floats` fp32 values. Strides
 // are in elements (innermost stride 1); the caller guarantees H % Hk == 0,
 // D in {16, 32, 64, 112, 128, 256} with (H / Hk) * D <= 2048 and H / Hk <= 16,
-// and 16-byte aligned cache rows. o is a contiguous (B, 1, H, D). Returns
+// and 16-byte aligned cache rows. o is a contiguous (B, 1, H, D): in q's
+// dtype for decode_attention_*, fp32 for decode_attention_partial_*, whose
+// `lse` is a contiguous fp32 (B, H) (nullptr elsewhere). Returns
 // cudaGetLastError() after the two launches, or cudaErrorInvalidValue for a
 // shape it does not take or a scratch too small.
-#define DECODE_ENTRY(NAME, T)                                                  \
+#define DECODE_ENTRY(NAME, T, TO, LSE_ARG, LSE)                                \
   extern "C" int NAME(const void* q, const void* k, const void* v,            \
-                      const void* length, void* o, void* scratch,             \
+                      const void* length, void* o, LSE_ARG void* scratch,     \
                       long long scratch_floats, int B, int H, int Hk,         \
                       int L, int D, long long qsb, long long qsh,             \
                       long long ksb, long long ksl, long long ksh,            \
@@ -668,12 +683,18 @@ extern "C" int decode_attention_keys_per_split() { return kSplit; }
     const Params p{H, Hk, H / Hk, L, (L + kSplit - 1) / kSplit, qsb, qsh,      \
                    ksb, ksl, ksh, vsb, vsl, vsh,                               \
                    1.0f / sqrtf(static_cast<float>(D))};                       \
-    return launch<T>(static_cast<const T*>(q), static_cast<const T*>(k),       \
-                     static_cast<const T*>(v), static_cast<const int*>(length),\
-                     static_cast<T*>(o), static_cast<float*>(scratch),         \
-                     scratch_floats, B, D, p,                                  \
-                     static_cast<cudaStream_t>(stream));                       \
+    return launch<T, TO>(static_cast<const T*>(q), static_cast<const T*>(k),   \
+                         static_cast<const T*>(v),                             \
+                         static_cast<const int*>(length), static_cast<TO*>(o), \
+                         LSE, static_cast<float*>(scratch), scratch_floats, B, \
+                         D, p, static_cast<cudaStream_t>(stream));             \
   }
 
-DECODE_ENTRY(decode_attention_bf16, bf16)
-DECODE_ENTRY(decode_attention_f32, float)
+#define NO_LSE_PARAM
+#define LSE_PARAM void* lse,
+DECODE_ENTRY(decode_attention_bf16, bf16, bf16, NO_LSE_PARAM, nullptr)
+DECODE_ENTRY(decode_attention_f32, float, float, NO_LSE_PARAM, nullptr)
+DECODE_ENTRY(decode_attention_partial_bf16, bf16, float, LSE_PARAM,
+             static_cast<float*>(lse))
+DECODE_ENTRY(decode_attention_partial_f32, float, float, LSE_PARAM,
+             static_cast<float*>(lse))

@@ -58,17 +58,13 @@ def scratch_floats(B: int, Hk: int, G: int, L: int, D: int) -> int:
     return B * Hk * n_split * G * (2 + D)
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          length: torch.Tensor) -> torch.Tensor:
-    """q: (B, 1, H, D); k, v: (B, L, Hk, D); length: int32 tensor of one
-    element, all on one CUDA device -> (B, 1, H, D) in q's dtype.
-    Contract: 1 <= length <= L (not checked: the host never reads it)."""
-    global launches
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               length: torch.Tensor, what: str) -> None:
+    """Raise ``ValueError`` on inputs the kernel does not take."""
     B, Sq, H, D = q.shape
     L, Hk = k.shape[1], k.shape[2]
     if not all(t.is_cuda and t.device == q.device for t in (k, v, length)):
-        raise ValueError("decode_attention_cuda takes CUDA tensors on one "
-                         "device")
+        raise ValueError(f"{what} takes CUDA tensors on one device")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
                          "kernel takes bf16 or fp32, all alike")
@@ -89,18 +85,34 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"aligned, got strides {t.stride()}")
     if q.stride(-1) != 1:
         raise ValueError(f"q: innermost stride must be 1, got {q.stride()}")
+
+
+def strided_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """B, H, Hk, L, D and the strides, in the C entry points' order."""
+    B, _, H, D = q.shape
+    L, Hk = k.shape[1], k.shape[2]
+    return (B, H, Hk, L, D, q.stride(0), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2))
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          length: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, H, D); k, v: (B, L, Hk, D); length: int32 tensor of one
+    element, all on one CUDA device -> (B, 1, H, D) in q's dtype.
+    Contract: 1 <= length <= L (not checked: the host never reads it)."""
+    global launches
+    check_args(q, k, v, length, "decode_attention_cuda")
+    B, _, H, D = q.shape
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    n_scratch = scratch_floats(B, Hk, G, L, D)
+    n_scratch = scratch_floats(B, k.shape[2], H // k.shape[2], k.shape[1], D)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _entry(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), n_scratch, B, H, Hk, L, D,
-            q.stride(0), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            stream)
+            out.data_ptr(), scratch.data_ptr(), n_scratch,
+            *strided_args(q, k, v), stream)
     _build.check(code, "decode_attention")
     launches += 1
     return out

@@ -22,6 +22,17 @@ autograd differentiates the plain path op by op.
 GQA stays ungrouped on both paths: Q is viewed as (kv_heads, group) and K/V
 are never repeated. Head h maps to (h // G, h % G), as in the reference.
 
+With ``shard`` (a ``sharding.layout.ShardLayout``, passed by
+``runtime/serve_lib.py``'s steps) the sublayer runs on one rank of a
+(data, model) mesh, in the layout the reference's specs give: q heads,
+K/V heads and ``wo``'s heads cut over the model axis where they divide
+(else replicated), the cache cut on its sequence axis, each rank holding a
+contiguous span of rows (``_sharded_attention``). A prefill runs the flash
+kernel on this rank's heads over the whole prompt; a decode step is the
+reference's distributed flash-decode split-K pattern: each rank attends
+over its span with the decode kernel's partial entry, and the partials
+merge by their log-sum-exp (``_merge_partials``).
+
 The cache differs from the reference in one respect: JAX writes it
 functionally (``dynamic_update_slice``); the port writes K/V at ``length``
 in place, so a decode step moves no cache bytes it does not attend to.
@@ -37,8 +48,10 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.decode_attention import decode_attention as decode_kernel
+from ..kernels.decode_attention import decode_attention_partial
 from ..kernels.flash_attention import flash_attention
-from .common import apply_mrope, apply_rope, matmul, rms_norm, rope_table
+from .common import (apply_mrope, apply_rope, matmul, matmul_f32, rms_norm,
+                     rope_table)
 from .config import ModelConfig
 from .param import ArrayDecl, ones_init
 
@@ -202,7 +215,7 @@ def _decode_core(q, cache: KVCache) -> torch.Tensor:
 def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               mrope_positions: torch.Tensor | None = None,
               causal: bool = True, cache: KVCache | None = None,
-              kv_source: torch.Tensor | None = None):
+              kv_source: torch.Tensor | None = None, shard=None):
     """Attention sublayer: projections (+ qk-norm) + rope + core (+ the
     padded heads' mask) + output projection. With ``cfg.use_mrope`` and
     ``mrope_positions`` (3, B, S) given, q and k are rotated by M-RoPE at
@@ -221,7 +234,11 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (out, new_cache_or_None); the new cache shares the old one's
     K/V buffers, written in place. The cache rows are always ``length ..
     length + S - 1``, whatever positions rotate q and k.
+    ``shard`` runs this rank's part of a sharded cached call
+    (:func:`_sharded_attention`; causal, 1-D RoPE, no ``kv_source``).
     """
+    if shard is not None:
+        return _sharded_attention(params, x, cfg, cache, shard)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     is_cross = kv_source is not None
@@ -304,3 +321,131 @@ def cross_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         out = flash_attention(q, k, v, causal=False, block_q=cfg.q_chunk,
                               block_k=cfg.kv_chunk)
     return matmul(out.reshape(B, S, H * D), params["wo"].reshape(H * D, M))
+
+
+# ----------------------------------------------------------------------
+# one rank of a (data, model) mesh
+# ----------------------------------------------------------------------
+def _decode_partial_core(q, k, v, length) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """One span's (out fp32 (B, 1, H, D), lse fp32 (B, H)) over its first
+    ``length`` rows (0 <= length <= rows): the decode kernel's partial
+    entry on the card; on the CPU the plain path of ``decode_attention``
+    (q scaled in its dtype, p rounded to the cache's before P.V), with
+    out = 0 and lse = -inf over no valid key."""
+    if q.is_cuda:
+        return decode_attention_partial(q, k, v, length)
+    B, Sq, H, D = q.shape
+    L, Hk = k.shape[1], k.shape[2]
+    qr = q.reshape(B, Sq, Hk, H // Hk, D) * _scale(D, q.dtype)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qr.float(), k.float())
+    valid = torch.arange(L, device=q.device) < length
+    s = torch.where(valid, s, torch.tensor(-math.inf, device=q.device))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, Sq, H, D), lse.reshape(B, H)
+
+
+def _merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                    shard) -> torch.Tensor:
+    """The model ranks' partials (out (B, 1, H, D), lse (B, H), fp32)
+    merged, in fp32: M = max over ranks of lse (one all_reduce), then
+    sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M) (one all_reduce of both
+    sums). A span with no valid key has lse -inf, weight 0."""
+    B, _, H, D = out.shape
+    m = shard.max_(lse.clone())
+    w = torch.exp(lse - m)                                   # (B, H)
+    sums = torch.cat([(out[:, 0] * w[..., None]).reshape(B, H * D), w],
+                     dim=1)
+    torch.distributed.all_reduce(sums, group=shard.model_group)
+    num, den = sums[:, :H * D].view(B, 1, H, D), sums[:, H * D:]
+    return num / den[:, None, :, None]
+
+
+def _write_token(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                 shard) -> None:
+    """The new token's K/V (B, 1, Hk, D), all KV heads, written at global
+    row ``length`` by the rank whose span holds it; on every other rank the
+    row is rewritten with its own value. A masked write: ``length`` is read
+    on the device only."""
+    row = cache.length - shard.seq.start
+    inside = (row >= 0) & (row < shard.seq.size)
+    index = row.clamp(0, shard.seq.size - 1).reshape(1).long()
+    for buf, new in ((cache.k, k), (cache.v, v)):
+        old = buf.index_select(1, index)
+        buf.index_copy_(1, index, torch.where(inside, new.to(buf.dtype), old))
+
+
+def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                       cache: KVCache, shard):
+    """One rank's share of a cached attention call: x (B_local, S, M),
+    params this rank's shards (q heads ``shard.heads``, K/V heads
+    ``shard.kv_heads``), cache its span ``shard.seq`` of rows (B_local,
+    rows, Hk, D) with the global ``length``.
+
+    * Prefill (S > 1; the cache is empty before it, as in the reference):
+      the flash kernel runs on this rank's q heads and the K/V heads they
+      read, over the whole prompt; the prompt's K/V for every KV head
+      (gathered over the model axis where the heads are cut) goes into the
+      rows of this rank's span.
+    * Decode (S == 1): the new token's K/V goes into global row
+      ``length`` (:func:`_write_token`); q for every head goes to every
+      rank; each rank attends over its span's valid rows, ``clamp(length +
+      1 - start, 0, rows)`` made on the device, with the decode kernel's
+      partial entry; the partials merge by their log-sum-exp.
+
+    This rank's heads of the output go through its rows of ``wo``, summed
+    in fp32 over the model axis where the heads are cut and rounded once.
+    Returns (y, new cache)."""
+    B, S, M = x.shape
+    D = cfg.head_dim
+    H, Hk = shard.heads.total, shard.kv_heads.total
+    Hl, Hkl = shard.heads.size, shard.kv_heads.size
+    q = matmul(x, params["wq"].reshape(M, Hl * D)).view(B, S, Hl, D)
+    k = matmul(x, params["wk"].reshape(M, Hkl * D)).view(B, S, Hkl, D)
+    v = matmul(x, params["wv"].reshape(M, Hkl * D)).view(B, S, Hkl, D)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    rows = cache.length + torch.arange(S, device=x.device)
+    cos, sin = rope_table(rows, D, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    span = shard.seq
+    if S == 1:
+        # every KV head's K/V (the cache holds them all) and every head's
+        # q, in one gather
+        q_all, k, v = shard.gather((q, 2, shard.heads), (k, 2, shard.kv_heads),
+                                   (v, 2, shard.kv_heads))
+        _write_token(cache, k, v, shard)
+        local_len = (cache.length + 1 - span.start).clamp(0, span.size) \
+            .to(torch.int32)
+        out, lse = _decode_partial_core(q_all, cache.k, cache.v, local_len)
+        out = _merge_partials(out, lse, shard)[:, :, shard.heads.slice()]
+        out = out.to(q.dtype)
+    else:
+        # every KV head's K/V: the cache holds them all
+        k, v = shard.gather((k, 2, shard.kv_heads), (v, 2, shard.kv_heads))
+        n = max(0, min(S, span.stop) - span.start)
+        if n:
+            cache.k[:, :n] = k[:, span.start:span.start + n]
+            cache.v[:, :n] = v[:, span.start:span.start + n]
+        # the KV heads this rank's q heads read (one, or whole groups)
+        G = H // Hk
+        lo = shard.heads.start // G
+        hi = (shard.heads.stop - 1) // G + 1
+        out = _prefill_core(q, k[:, :, lo:hi].contiguous(),
+                            v[:, :, lo:hi].contiguous(), cfg, True)
+    if cfg.pad_heads_to:
+        mask = torch.arange(shard.heads.start, shard.heads.stop,
+                            device=out.device) < cfg.n_heads
+        out = out * mask.to(out.dtype)[None, None, :, None]
+    o, wo = out.reshape(B, S, Hl * D), params["wo"].reshape(Hl * D, M)
+    if shard.heads.sharded:
+        y = shard.reduce_sum(matmul_f32(o, wo),
+                             torch.promote_types(o.dtype, wo.dtype))
+    else:
+        y = matmul(o, wo)
+    return y, KVCache(cache.k, cache.v, cache.length + S)

@@ -25,6 +25,23 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dtype) @ w.to(dtype)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, accumulated in fp32 and
+    returned in fp32, not rounded: a row-parallel partial product that is
+    summed over the model axis before it is rounded, as the unsharded
+    product rounds once. On the card one cuBLAS call with an fp32 output
+    (``out_dtype``); on the CPU the operands cast up (a bf16 x bf16 product
+    is exact in fp32)."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dtype), w.to(dtype)
+    if dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.view(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import ACTIVATIONS, matmul
+from .common import ACTIVATIONS, matmul, matmul_f32
 from .config import ModelConfig
 from .param import ArrayDecl
 
@@ -32,14 +32,25 @@ def mlp_decls(cfg: ModelConfig, layers: int | None = None,
     return decls
 
 
-def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+        shard=None) -> torch.Tensor:
     """Gated ``act(x W_gate) * (x W_up)`` or plain ``act(x W_up)``, then
     ``W_down``. An activation name outside ``ACTIVATIONS`` raises
-    ``KeyError``, as the reference's lookup does."""
+    ``KeyError``, as the reference's lookup does.
+
+    With ``shard`` (a ``sharding.layout.ShardLayout``) whose ``mlp`` is cut
+    over the model axis, the params are this rank's columns of ``w_gate``
+    and ``w_up`` and rows of ``w_down``, and the partial products are
+    summed in fp32 over the model axis and rounded once; with ``mlp``
+    replicated no collective runs."""
     act = ACTIVATIONS[cfg.activation]
     up = matmul(x, params["w_up"])
     if cfg.glu:
         h = act(matmul(x, params["w_gate"])) * up
     else:
         h = act(up)
+    if shard is not None and shard.mlp.sharded:
+        return shard.reduce_sum(
+            matmul_f32(h, params["w_down"]),
+            torch.promote_types(h.dtype, params["w_down"].dtype))
     return matmul(h, params["w_down"])

@@ -206,18 +206,21 @@ class LM:
 
     # ------------------------------------------------------------------
     def _layer(self, lp: dict, x: torch.Tensor, *, cache=None,
-               mrope_positions=None, mark: bool = False):
+               mrope_positions=None, mark: bool = False, shard=None):
         """-> (x, aux, new_kv); aux is 0.0 for an MLP layer. ``mark`` names
-        the MoE output "moe_out" for the "names" policy."""
+        the MoE output "moe_out" for the "names" policy; ``shard`` runs this
+        rank's part of a sharded dense layer (see ``_apply_cached``)."""
         h, new_kv = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
-                              mrope_positions=mrope_positions, cache=cache)
+                              mrope_positions=mrope_positions, cache=cache,
+                              shard=shard)
         x = x + h
         if "moe" in lp:
             y, aux = moe(lp["moe"], rms_norm(x, lp["ln2"]), self.cfg)
             if mark:
                 y = checkpoint_name(y, "moe_out")
         else:
-            y, aux = mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg), 0.0
+            y, aux = mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg,
+                         shard=shard), 0.0
         return x + y, aux, new_kv
 
     def _ssm_layer(self, lp: dict, x: torch.Tensor, *, cache=None,
@@ -280,8 +283,20 @@ class LM:
             return self._hybrid_block
         return functools.partial(self._layer, mark=mark)
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(torch.bfloat16)
+    def _embed(self, params, tokens: torch.Tensor,
+               shard=None) -> torch.Tensor:
+        """Token embeddings. With ``shard`` whose ``vocab`` is cut over the
+        model axis, ``params["embed"]`` holds this rank's rows: a token
+        outside them gives 0 here, and the sum over the model axis gives
+        every rank the embedding (vocab-parallel lookup)."""
+        if shard is None or not shard.vocab.sharded:
+            return params["embed"][tokens].to(torch.bfloat16)
+        row = tokens - shard.vocab.start
+        inside = (row >= 0) & (row < shard.vocab.size)
+        x = params["embed"][row.clamp(0, shard.vocab.size - 1)]
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+        return shard.sum_exact(x).to(torch.bfloat16)
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"])
@@ -356,9 +371,18 @@ class LM:
             a.view((L, nm) + a.shape[1:]) for a in ssm)))
 
     def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache, *,
-                      mrope_positions=None):
-        x = self._embed(params, tokens)
+                      mrope_positions=None, shard=None):
+        """With ``shard`` (a ``sharding.layout.ShardLayout``, given by
+        ``runtime/serve_lib.py``'s steps; family dense): this rank's part
+        of a (data, model) mesh. ``tokens`` are this rank's batch rows,
+        ``params`` and ``cache`` its shards; the embedding, the attention
+        and the MLP run their collectives over the model axis, and this
+        rank's logit columns are gathered to the full (B, S, vocab) logits
+        on every rank, as the reference's steps return them."""
+        x = self._embed(params, tokens, shard)
         layer, kv, ssm = self._layer_fn(), cache.kv, cache.ssm
+        if shard is not None:
+            layer = functools.partial(layer, shard=shard)
         for i in range(self._n_stacked()):
             lp = tree_map(lambda a: a[i], params["layers"])
             # layer (or block) i's slices of the cache, written in place
@@ -372,17 +396,20 @@ class LM:
             x, _, new = layer(lp, x, cache=cache_i,
                               mrope_positions=mrope_positions)
         logits = self._head(params, x[:, -1:])
+        if shard is not None:
+            logits = shard.gather_logits(logits)
         if kv is None:
             return logits, cache
         # every layer's K/V cache moves to the same new length
         return logits, Cache(KVCache(kv.k, kv.v, new.length), ssm)
 
     def prefill(self, params, tokens: torch.Tensor, cache: Cache, **kw):
-        """tokens: (B, S); ``kw``: ``mrope_positions`` (3, B, S). Returns
+        """tokens: (B, S); ``kw``: ``mrope_positions`` (3, B, S), or
+        ``shard`` for one rank of a mesh (``_apply_cached``). Returns
         (last-token logits (B, 1, V), cache)."""
         return self._apply_cached(params, tokens, cache, **kw)
 
     def decode_step(self, params, token: torch.Tensor, cache: Cache, **kw):
-        """token: (B, 1); ``kw``: ``mrope_positions`` (3, B, 1). Returns
-        (logits (B, 1, V), cache)."""
+        """token: (B, 1); ``kw``: ``mrope_positions`` (3, B, 1), or
+        ``shard`` (``_apply_cached``). Returns (logits (B, 1, V), cache)."""
         return self._apply_cached(params, token, cache, **kw)

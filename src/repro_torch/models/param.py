@@ -21,9 +21,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["ArrayDecl", "init_params", "params_from_numpy", "normal_init",
-           "ones_init", "zeros_init", "tree_map", "tree_map_with_path",
-           "tree_items", "unstack_layers", "param_count"]
+__all__ = ["ArrayDecl", "init_params", "shard_params", "params_from_numpy",
+           "normal_init", "ones_init", "zeros_init", "tree_map",
+           "tree_map_with_path", "tree_items", "tree_at", "unstack_layers",
+           "param_count"]
 
 Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
                        torch.Tensor]
@@ -40,21 +41,66 @@ Initializer = Callable[[torch.Generator, tuple[int, ...], torch.dtype],
 _SLICE_ELEMENTS = 1 << 30
 
 
-def _fill_normal(out: torch.Tensor, gen, std: float) -> None:
-    """``out`` filled with N(0, std^2) draws in slices of its leading axis of
-    at most ``_SLICE_ELEMENTS`` elements (rows larger than that, row by row
-    along their own leading axis)."""
-    row = out[0].numel() if out.dim() > 1 else 1
+def _normal_pieces(shape: tuple[int, ...], gen, std: float):
+    """The N(0, std^2) draws of a ``shape`` leaf, in the order they are
+    made: (index, fp32 piece) pairs, ``index`` the piece's place in the
+    leaf (leading ints, then a slice of the next axis). Slices of the
+    leading axis hold at most ``_SLICE_ELEMENTS`` elements; rows larger than
+    that are drawn row by row along their own leading axis. No piece is
+    kept here once it is handed out, so a caller that drops each piece
+    before it asks for the next holds one at a time."""
+    row = math.prod(shape[1:]) if len(shape) > 1 else 1
     if row > _SLICE_ELEMENTS:
-        for i in range(out.shape[0]):
-            _fill_normal(out[i], gen, std)
+        for i in range(shape[0]):
+            for index, piece in _normal_pieces(shape[1:], gen, std):
+                item = ((i,) + index, piece)
+                del piece
+                yield item
+                del item
         return
     rows = max(1, _SLICE_ELEMENTS // row)
-    for i in range(0, out.shape[0], rows):
+    for i in range(0, shape[0], rows):
+        n = min(rows, shape[0] - i)
         # scaled in place: the fp32 slice is the largest tensor made here
-        out[i:i + rows] = torch.randn(
-            (min(rows, out.shape[0] - i),) + tuple(out.shape[1:]),
-            generator=gen, device=gen.device).mul_(std)
+        yield (slice(i, i + n),), torch.randn(
+            (n,) + tuple(shape[1:]), generator=gen,
+            device=gen.device).mul_(std)
+
+
+def _keep(out: torch.Tensor, region: tuple[slice, ...], index: tuple,
+          piece: torch.Tensor) -> None:
+    """The part of ``piece`` (at ``index`` of a leaf) inside ``region``,
+    copied into ``out``, which holds that region of the leaf."""
+    k = len(index) - 1               # k leading ints, then a slice of axis k
+    if not all(region[i].start <= index[i] < region[i].stop
+               for i in range(k)):
+        return
+    part, r = index[k], region[k]
+    lo, hi = max(r.start, part.start), min(r.stop, part.stop)
+    if lo >= hi:
+        return
+    dst = tuple(index[i] - region[i].start for i in range(k)) \
+        + (slice(lo - r.start, hi - r.start),)
+    src = (slice(lo - part.start, hi - part.start),) + tuple(region[k + 1:])
+    out[dst] = piece[src]
+
+
+def _fill_normal(out: torch.Tensor, gen, std: float,
+                 shape: tuple[int, ...] | None = None,
+                 region: tuple[slice, ...] | None = None) -> None:
+    """``out`` filled with N(0, std^2) draws made in slices
+    (:func:`_normal_pieces`), one slice alive at a time. With ``region``,
+    ``out`` is that region of a ``shape`` leaf: the whole leaf is drawn
+    piece by piece, as for an unsharded ``out``, so the generator moves on
+    alike, and each piece's part in the region is kept."""
+    if region is None:
+        for index, piece in _normal_pieces(tuple(out.shape), gen, std):
+            out[index] = piece
+            del piece            # before the next slice is drawn
+        return
+    for index, piece in _normal_pieces(tuple(shape), gen, std):
+        _keep(out, region, index, piece)
+        del piece
 
 
 def _normal(gen, shape, dtype, std: float) -> torch.Tensor:
@@ -65,11 +111,31 @@ def _normal(gen, shape, dtype, std: float) -> torch.Tensor:
     return out
 
 
-def _fan_in_init(fan_axis: int = -2) -> Initializer:
+def _region_shape(region: tuple[slice, ...]) -> tuple[int, ...]:
+    return tuple(r.stop - r.start for r in region)
+
+
+def _normal_of(std_of: Callable[[tuple[int, ...]], float]) -> Initializer:
+    """A normal initializer whose std comes from the leaf's shape. Its
+    ``region`` attribute makes one region of the leaf: the same values as
+    that region of the whole leaf drawn from the same generator state, with
+    no more than one drawn slice held beside it (``init_params`` with
+    ``specs``)."""
     def init(gen, shape, dtype):
-        fan_in = shape[fan_axis] if len(shape) >= 2 else shape[-1]
-        return _normal(gen, shape, dtype, 1.0 / math.sqrt(max(fan_in, 1)))
+        return _normal(gen, shape, dtype, std_of(shape))
+
+    def region(gen, shape, dtype, region):
+        out = torch.empty(_region_shape(region), dtype=dtype,
+                          device=gen.device)
+        _fill_normal(out, gen, std_of(shape), shape, region)
+        return out
+    init.region = region
     return init
+
+
+def _fan_in_init(fan_axis: int = -2) -> Initializer:
+    return _normal_of(lambda shape: 1.0 / math.sqrt(max(
+        shape[fan_axis] if len(shape) >= 2 else shape[-1], 1)))
 
 
 def zeros_init(gen, shape, dtype):
@@ -80,10 +146,14 @@ def ones_init(gen, shape, dtype):
     return torch.ones(shape, dtype=dtype, device=gen.device)
 
 
+zeros_init.region = lambda gen, shape, dtype, region: zeros_init(
+    gen, _region_shape(region), dtype)
+ones_init.region = lambda gen, shape, dtype, region: ones_init(
+    gen, _region_shape(region), dtype)
+
+
 def normal_init(stddev: float = 0.02) -> Initializer:
-    def init(gen, shape, dtype):
-        return _normal(gen, shape, dtype, stddev)
-    return init
+    return _normal_of(lambda shape: stddev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,16 +230,50 @@ def param_count(decls) -> int:
     return sum(d.size for d in _leaves(decls))
 
 
+def tree_at(tree, path: tuple):
+    """The subtree of ``tree`` at ``path`` (dict keys and field names, as
+    ``tree_items`` gives them)."""
+    for key in path:
+        tree = tree[key] if isinstance(tree, dict) else getattr(tree, key)
+    return tree
+
+
 def init_params(decls, generator: torch.Generator,
-                device: str | torch.device):
+                device: str | torch.device, *, specs=None, mesh=None):
     """Materialise a tree of ArrayDecl. Draws on ``generator``'s device (a
     CUDA generator fills a card-sized model in place) and moves the result
-    to ``device``."""
-    def make(d: ArrayDecl) -> torch.Tensor:
-        return d.initializer()(generator, d.shape, d.dtype).to(device)
+    to ``device``.
+
+    With ``specs`` (a tree of PartitionSpec matching ``decls``, from
+    ``sharding.rules.spec_tree``) and ``mesh``, each leaf is only this
+    rank's shard (``sharding.rules.local_slices``), holding exactly the
+    values of that shard of the unsharded call's leaf: every leaf is drawn
+    whole, slice by slice, in the same order, and each slice's part in the
+    shard is kept. An initializer without a ``region`` attribute draws its
+    whole leaf and keeps the shard."""
+    from ..sharding.rules import local_slices
+
+    def make(path: tuple, d: ArrayDecl) -> torch.Tensor:
+        init = d.initializer()
+        if specs is None:
+            return init(generator, d.shape, d.dtype).to(device)
+        region = local_slices(tree_at(specs, path), d.shape, mesh)
+        if hasattr(init, "region"):
+            return init.region(generator, d.shape, d.dtype, region).to(device)
+        return init(generator, d.shape, d.dtype)[region].clone().to(device)
     # materialise leaves in sorted-key order so one seed gives one model
-    made = {id(d): make(d) for d in _leaves(decls)}
+    made = {id(d): make(path, d) for path, d in tree_items(decls)}
     return tree_map(lambda d: made[id(d)], decls)
+
+
+def shard_params(params, specs, mesh):
+    """This rank's shards of a full parameter tree: each leaf cut to
+    ``sharding.rules.local_slices`` of its spec (a copy, contiguous)."""
+    from ..sharding.rules import local_slices
+    return tree_map_with_path(
+        lambda path, a: a[local_slices(tree_at(specs, path), tuple(a.shape),
+                                       mesh)].clone(
+            memory_format=torch.contiguous_format), params)
 
 
 def _from_numpy(a: np.ndarray, device) -> torch.Tensor:

@@ -1,0 +1,235 @@
+"""The serving steps over a (data, model) mesh: port of
+``repro/runtime/serve_lib.py``.
+
+Cache sharding, as the reference's: batch over the data axes when they
+divide it, the K/V cache's *sequence* axis over the model axis (each model
+rank owns a contiguous span of rows, and a decode step is the distributed
+flash-decode split-K pattern: each rank's partial (out, lse) over its span,
+merged by an all_reduce of the stats, never a gather of the cache). When
+the batch does not divide (long context, batch 1) the sequence takes every
+axis. SSM states cut their heads over the model axis.
+
+:func:`cache_specs` gives those specs for every family, as the reference's
+do. :func:`build_prefill_step` and :func:`build_decode_step` return
+callables over this rank's parameter and cache shards for the ``dense``
+family: ``(params, tokens, cache) -> (logits, cache)``, with ``tokens`` the
+whole batch (every rank takes its rows) and ``logits`` the whole batch's on
+every rank, as the reference's steps return them. The model's execution
+(``models/lm.py::_apply_cached`` with ``shard``) covers q heads, K/V heads,
+the MLP and the vocab cut over the model axis (or replicated where
+``rules._fits`` refuses), the batch over the data axes and the cache's
+sequence over the model axis. A spec it does not cover (the ``head_dim``
+fallback, ZeRO-3, sequence parallelism, a cache sequence over other axes)
+and the other families raise ``NotImplementedError`` naming ROADMAP A.12
+before anything is allocated.
+
+The steps need a mesh over a process group (``launch/mesh.py::
+make_local_mesh``): NCCL with one rank a card, gloo for ranks that share
+one. The per-rank serve loop lives with its callers (``chip_smoke.py``,
+``tests/test_torch_serve_lib.py``), as the reference's serve loop runs
+under ``make_local_mesh()``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..launch.mesh import Mesh
+from ..models.attention import KVCache
+from ..models.lm import Cache
+from ..models.param import tree_at, tree_items
+from ..models.ssm import SSMCache
+from ..sharding.context import data_axes, mesh_context, model_axis
+from ..sharding.layout import ShardLayout, span_of
+from ..sharding.rules import (PartitionSpec as P, local_shape, make_rules,
+                              spec_tree)
+
+__all__ = ["cache_specs", "build_prefill_step", "build_decode_step",
+           "abstract_cache", "param_specs", "shard_layout",
+           "init_cache_shards"]
+
+# the logical axes the sharded execution cuts over the model axis
+_CUT_AXES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def _lead(axes):
+    return tuple(axes) if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def cache_specs(model, mesh: Mesh, batch: int, max_len: int):
+    """PartitionSpec tree matching ``model.init_cache``'s structure. The
+    K/V ``length`` keeps the reference's per-layer spec, P(None), on the
+    port's one scalar; the encoder-decoder's ``cross_length`` scalar, which
+    the reference's cache has not, is P()."""
+    cfg = model.cfg
+    d = data_axes(mesh)
+    m = model_axis(mesh)
+    nd = 1
+    for a in d:
+        nd *= mesh.shape[a]
+    nm = mesh.shape[m] if m else 1
+
+    batch_ok = d and batch % nd == 0
+    b_ax = _lead(d) if batch_ok else None
+    if batch_ok:
+        seq_ax = m if (m and max_len % nm == 0) else None
+    else:
+        # batch unshardable (long context): give the sequence every axis
+        all_ax = tuple(d) + ((m,) if m else ())
+        size = nd * nm
+        seq_ax = all_ax if (all_ax and max_len % size == 0) else (
+            m if (m and max_len % nm == 0) else None)
+
+    def kv_spec():
+        # (L, B, S, Hk, D)
+        return P(None, b_ax, seq_ax, None, None)
+
+    def ssm_state_spec():
+        # (L, B, H, P, N): heads over model
+        h_ax = m if (m and cfg.ssm_heads % nm == 0) else None
+        return P(None, b_ax, h_ax, None, None)
+
+    def conv_spec():
+        # (L, B, K-1, C)
+        return P(None, b_ax, None, None)
+
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        return Cache(kv=KVCache(k=kv_spec(), v=kv_spec(), length=P(None)))
+    if fam == "ssm":
+        return Cache(ssm=SSMCache(state=ssm_state_spec(),
+                                  conv_x=conv_spec(), conv_B=conv_spec(),
+                                  conv_C=conv_spec()))
+    if fam == "hybrid":
+        # kv: (nb, B, S, Hk, D); ssm leaves: (nb, nm, B, ...)
+        h_ax = m if (m and cfg.ssm_heads % nm == 0) else None
+        return Cache(
+            kv=KVCache(k=kv_spec(), v=kv_spec(), length=P(None)),
+            ssm=SSMCache(state=P(None, None, b_ax, h_ax, None, None),
+                         conv_x=P(None, None, b_ax, None, None),
+                         conv_B=P(None, None, b_ax, None, None),
+                         conv_C=P(None, None, b_ax, None, None)))
+    if fam == "encdec":
+        from ..models.encdec import EncDecCache
+        return EncDecCache(
+            self_kv=KVCache(k=kv_spec(), v=kv_spec(), length=P(None)),
+            cross_k=P(None, b_ax, None, None, None),
+            cross_v=P(None, b_ax, None, None, None),
+            cross_length=P())
+    raise ValueError(fam)
+
+
+def abstract_cache(model, batch: int, max_len: int, *, filled: bool,
+                   memory_len: int | None = None):
+    """The cache tree on the ``meta`` device: shapes and dtypes, no
+    allocation (the dry run's). ``filled`` is unused, as in the
+    reference."""
+    if model.cfg.family == "encdec":
+        return model.init_cache(batch, max_len, memory_len or 128,
+                                device="meta")
+    return model.init_cache(batch, max_len, device="meta")
+
+
+def param_specs(model, mesh: Mesh, *, zero3: bool = False):
+    """The parameters' PartitionSpec tree, as the reference's steps take
+    it: ``spec_tree(model.param_decls(), mesh, make_rules(mesh, zero3))``."""
+    return spec_tree(model.param_decls(), mesh,
+                     make_rules(mesh, zero3=zero3))
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: not in the sharded execution of "
+                               f"the port yet (ROADMAP A.12)")
+
+
+def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
+                 zero3: bool = False) -> ShardLayout:
+    """This rank's :class:`~repro_torch.sharding.layout.ShardLayout` of the
+    dense model under the reference's specs, or ``NotImplementedError``
+    naming ROADMAP A.12 for a spec the execution does not cover. Allocates
+    nothing."""
+    cfg = model.cfg
+    if cfg.family != "dense":
+        raise _unported(f"sharded serving of the {cfg.family} family")
+    if zero3:
+        raise _unported("ZeRO-3 parameter specs (zero3=True)")
+    if model_axis(mesh) is None:
+        raise _unported(f"a mesh without a model axis ({mesh})")
+    decls = model.param_decls()
+    specs = param_specs(model, mesh)
+    for path, d in tree_items(decls):
+        spec = tree_at(specs, path)
+        for name, part in zip(d.axes, spec):
+            if part is not None and not (part == "model"
+                                         and name in _CUT_AXES):
+                raise _unported(
+                    f"{'/'.join(path)}: spec {spec} cuts its {name!r} axis "
+                    f"over {part!r} (the head_dim fallback, where the q "
+                    f"heads do not divide over the model axis)"
+                    if name == "head_dim" else
+                    f"{'/'.join(path)}: spec {spec} cuts its {name!r} axis "
+                    f"over {part!r}")
+    kv = cache_specs(model, mesh, batch, max_len).kv.k
+    if kv[2] != "model":
+        raise _unported(f"a K/V cache spec {kv} whose sequence is not cut "
+                        f"over the model axis alone (max_len {max_len} on "
+                        f"{mesh})")
+    attn, layers = specs["layers"]["attn"], specs["layers"]
+    heads = span_of(attn["wq"][2], cfg.n_heads_eff, mesh)
+    G = cfg.n_heads_eff // cfg.n_kv_heads
+    if heads.size % G and G % heads.size:
+        raise _unported(f"{heads.size} q heads a rank with groups of {G}")
+    return ShardLayout(
+        mesh=mesh, heads=heads,
+        kv_heads=span_of(attn["wk"][2], cfg.n_kv_heads, mesh),
+        mlp=span_of(layers["mlp"]["w_up"][2], cfg.d_ff, mesh),
+        vocab=span_of(specs["embed"][0], cfg.vocab, mesh),
+        batch=span_of(kv[1], batch, mesh),
+        seq=span_of(kv[2], max_len, mesh))
+
+
+def init_cache_shards(model, mesh: Mesh, batch: int, max_len: int, *,
+                      device: str | torch.device = "cuda") -> Cache:
+    """This rank's zero K/V cache shards (dense family): (n_layers,
+    local batch, local rows, kv_heads, head_dim) under :func:`cache_specs`,
+    and the global ``length``, one int32 scalar."""
+    full = abstract_cache(model, batch, max_len, filled=False)
+    specs = cache_specs(model, mesh, batch, max_len)
+    k_shape = local_shape(specs.kv.k, tuple(full.kv.k.shape), mesh)
+    return Cache(kv=KVCache(
+        k=torch.zeros(k_shape, dtype=full.kv.k.dtype, device=device),
+        v=torch.zeros(k_shape, dtype=full.kv.v.dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device)))
+
+
+def _step(model, mesh: Mesh, layout: ShardLayout, method: str, seq: int):
+    if not mesh.is_live:
+        raise ValueError(f"the serving steps run on a mesh over a process "
+                         f"group (make_local_mesh), not {mesh}")
+    run = getattr(model, method)
+    batch = layout.batch
+
+    def step(params, tokens: torch.Tensor, cache: Cache):
+        if tuple(tokens.shape) != (batch.total, seq):
+            raise ValueError(f"tokens {tuple(tokens.shape)}: the step was "
+                             f"built for ({batch.total}, {seq})")
+        with mesh_context(mesh):
+            return run(params, tokens[batch.slice()], cache, shard=layout)
+    return step
+
+
+def build_prefill_step(model, mesh: Mesh, batch: int, seq: int,
+                       max_len: int | None = None, *, zero3: bool = False):
+    """``prefill(params, tokens (batch, seq), cache) -> (last-token logits
+    (batch, 1, vocab), cache)`` on this rank's shards; the cache is empty
+    before it."""
+    layout = shard_layout(model, mesh, batch, max_len or seq, zero3=zero3)
+    return _step(model, mesh, layout, "prefill", seq)
+
+
+def build_decode_step(model, mesh: Mesh, batch: int, max_len: int, *,
+                      zero3: bool = False):
+    """``decode(params, token (batch, 1), cache) -> (logits (batch, 1,
+    vocab), cache)`` on this rank's shards."""
+    layout = shard_layout(model, mesh, batch, max_len, zero3=zero3)
+    return _step(model, mesh, layout, "decode_step", 1)

@@ -1,0 +1,141 @@
+"""What a rank of a sharded serving step holds, and its collectives.
+
+``runtime/serve_lib.py`` reads the specs (``rules.spec_tree``,
+``serve_lib.cache_specs``) into a :class:`ShardLayout`: for each dim that
+the dense model's execution cuts (q heads, KV heads, the MLP's hidden
+units, the vocab, the batch, the cache's sequence), the span of it that
+this rank holds and the mesh axes it is cut over. The model's sharded code
+(``models/attention.py``, ``ffn.py``, ``lm.py``) takes the layout as its
+``shard`` argument and runs the collectives through it, over the mesh's
+process groups.
+
+Every collective is an ``all_reduce``: a gather is a sum over a zero-filled
+full-size buffer into which each rank writes its own part (exact: each
+element has one nonzero term). Gloo takes CUDA tensors in ``broadcast`` and
+``all_reduce`` alone, which is what ranks that share one card run on; NCCL
+(one rank a card) takes the same calls.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..launch.mesh import Mesh
+from .rules import local_slices, spec_axes, PartitionSpec
+
+__all__ = ["Span", "ShardLayout", "span_of"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """This rank's part [start, start + size) of a dim of ``total`` entries
+    cut over the mesh axes ``axes`` (() when the dim is replicated)."""
+
+    start: int
+    size: int
+    total: int
+    axes: tuple[str, ...] = ()
+
+    @property
+    def sharded(self) -> bool:
+        return bool(self.axes)
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.size
+
+    def slice(self) -> slice:
+        return slice(self.start, self.stop)
+
+
+def span_of(entry, total: int, mesh: Mesh) -> Span:
+    """The span of a ``total``-long dim whose spec entry is ``entry``."""
+    sl = local_slices(PartitionSpec(entry), (total,), mesh)[0]
+    return Span(sl.start, sl.stop - sl.start, total, spec_axes(entry))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """One rank's part of a sharded dense model and of its serving cache.
+
+    ``heads`` are the q heads (``wq``'s and ``wo``'s), ``kv_heads`` the K/V
+    projections' heads, ``mlp`` the MLP's hidden units, ``vocab`` the
+    embedding rows and logit columns, ``batch`` the sequences this rank
+    serves and ``seq`` its rows of the K/V cache."""
+
+    mesh: Mesh
+    heads: Span
+    kv_heads: Span
+    mlp: Span
+    vocab: Span
+    batch: Span
+    seq: Span
+
+    @property
+    def model_group(self):
+        """The process group of this rank's model axis: every collective
+        but the logits' runs over it."""
+        return self.mesh.group("model")
+
+    def reduce_sum(self, partial: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+        """Sum of every model rank's fp32 ``partial`` (a row-parallel
+        product, ``common.matmul_f32``), rounded once to ``dtype``."""
+        torch.distributed.all_reduce(partial, group=self.model_group)
+        return partial.to(dtype)
+
+    def sum_exact(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the model ranks where at most one rank's term is
+        nonzero at each element (a vocab-parallel lookup, a gather): exact
+        in any dtype, so taken in ``t``'s. In place."""
+        torch.distributed.all_reduce(t, group=self.model_group)
+        return t
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the model ranks, in place."""
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                     group=self.model_group)
+        return t
+
+    def gather(self, *parts: tuple) -> list[torch.Tensor]:
+        """The whole of each dim cut over the model axis, in one all_reduce
+        for all of them: ``parts`` are (t, dim, span), this rank's ``t``
+        holding ``span`` of dim ``dim``; each comes back full on every
+        rank. A part whose span is not cut comes back as it is."""
+        cut = [(i, t, dim, span) for i, (t, dim, span) in enumerate(parts)
+               if span.sharded]
+        out = [t for t, _, _ in parts]
+        if not cut:
+            return out
+        shapes = []
+        for _, t, dim, span in cut:
+            shape = list(t.shape)
+            shape[dim] = span.total
+            shapes.append(shape)
+        sizes = [math.prod(shape) for shape in shapes]
+        flat = cut[0][1].new_zeros(sum(sizes))
+        offset = 0
+        for (i, t, dim, span), shape, size in zip(cut, shapes, sizes):
+            full = flat[offset:offset + size].view(shape)
+            full.narrow(dim, span.start, span.size).copy_(t)
+            out[i] = full
+            offset += size
+        self.sum_exact(flat)
+        return out
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Full (B, S, vocab) logits on every rank from this rank's (batch
+        span, S, vocab span) block, as the reference's steps return
+        replicated logits. One sum over every rank: a rank writes its block
+        only where it is the first of the ranks that hold the same block
+        (coordinate 0 on each axis that cuts neither dim)."""
+        B, V = self.batch.total, self.vocab.total
+        full = logits.new_zeros((B, logits.shape[1], V))
+        used = set(self.batch.axes) | set(self.vocab.axes)
+        if all(c == 0 for a, c in self.mesh.coords.items() if a not in used):
+            full[self.batch.slice(), :, self.vocab.slice()] = logits
+        torch.distributed.all_reduce(full)
+        return full

@@ -38,13 +38,15 @@ import pytest
 import torch
 
 import repro_torch.kernels.decode_attention.kernel as decode_kernel
+import repro_torch.kernels.decode_attention.partial as partial_kernel
 import repro_torch.kernels.flash_attention.kernel as flash_kernel
 import repro_torch.kernels.flash_attention.kernel_bwd as flash_bwd_kernel
 import repro_torch.kernels.ssd.kernel as ssd_kernel
 import repro_torch.kernels.ssd.kernel_bwd as ssd_bwd_kernel
 from repro_torch.configs import get_config
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_partial,
+    decode_attention_partial_plain, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_bwd_plain,
@@ -229,6 +231,39 @@ def test_decode_cuda_matches_plain(dtype, length, H, Hk, D):
     torch.cuda.synchronize()
     assert decode_kernel.launches == before + 1
     assert float((got.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [0, 1, 300, 544])
+@pytest.mark.parametrize("H,Hk,D", [(4, 4, 64),      # G = 1
+                                    (32, 4, 64),     # tinyllama: G = 8
+                                    (48, 4, 128),    # starcoder2: G = 12
+                                    (64, 4, 128),    # G = 16
+                                    (64, 8, 112)])   # kimi-k2: G = 8
+def test_decode_partial_cuda_matches_plain(dtype, length, H, Hk, D):
+    """The partial entry over one span of a sharded cache: out (fp32) and
+    lse at a local length of 0 (out 0, lse -inf), 1, a mid value and the
+    whole span."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, L = 8, 544
+    cache_k = randn(gen, 2, B, L, Hk, D, dtype=tdt)
+    cache_v = randn(gen, 2, B, L, Hk, D, dtype=tdt)
+    q = randn(gen, B, 1, H, D, dtype=tdt)
+    n = torch.tensor(length, dtype=torch.int32, device="cuda")
+    before = partial_kernel.launches
+    out, lse = decode_attention_partial(q, cache_k[1], cache_v[1], n)
+    want_out, want_lse = decode_attention_partial_plain(q, cache_k[1],
+                                                        cache_v[1], n)
+    torch.cuda.synchronize()
+    assert partial_kernel.launches == before + 1
+    assert out.dtype == lse.dtype == torch.float32
+    assert float((out - want_out).abs().max()) < TOL[dtype]
+    if length == 0:
+        assert not out.any() and torch.isneginf(lse).all()
+    else:
+        assert float((lse - want_lse).abs().max()) < LSE_TOL * max(
+            1.0, float(want_lse.abs().max()))
 
 
 @pytest.mark.parametrize("B,H,Hk,D,L", [(2, 8, 2, 32, 256),
