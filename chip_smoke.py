@@ -42,10 +42,12 @@ Phases, each fatal on failure:
    fp32, and a ragged S, decode at its serving shape, the backward at its
    training shape (timed, with planted faults on the G = 8 blocks' edges)
    and a ragged S; jamba's SSD at its prefill shape, 256 heads of P = 64,
-   N = 128, state0 and state_out a slice of a zeroed stacked cache, timed),
-   and the decode kernel's partial entry (one span of a sequence-cut
-   cache: out and lse, at local lengths 0, 1, a mid value and the whole
-   span, D = 64, 112, 128 and G = 1, 8, 12, 16, bf16 and fp32), to bf16
+   N = 128, state0 and state_out a slice of a zeroed stacked cache, timed;
+   mamba2's prefill on one rank of a (1, 2) mesh, 16 of its 32 heads,
+   timed), and the decode kernel's partial entry (one span of a
+   sequence-cut cache: out and lse, at local lengths 0, 1, a mid value
+   and the whole span, D = 64, 112, 128 and G = 1, 8, 12, 16, bf16 and
+   fp32; timed at each sharded run's span), to bf16
    2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
@@ -94,21 +96,34 @@ Phases, each fatal on failure:
    (the first call of each shape pays one-time library and module-loading
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
-   run went through them; then ``sharded_serve_check``: the dense family
-   over a (data, model) mesh through ``runtime/serve_lib.py``'s steps, at
-   the same serving shape with the cache's 1056 rows cut on their sequence
-   axis (at a model axis of 2 the decode crosses from rank 0's span into
-   rank 1's): tinyllama-1.1b at (1, 1) under NCCL and at (1, 2) and (2, 2)
-   under gloo, starcoder2-15b at (1, 2) under gloo, each rank a spawned
-   process on the one card, joined with a timeout; every rank's prefill and
-   31 teacher-forced decode steps against the unsharded ``serve_loop`` on
-   the same seed (rel < 0.06, equal argmax; its span of the first and last
-   layers' K/V cache alike), its shard shapes against the specs, its
-   launches (flash once a layer, the decode kernel's partial entry once a
-   layer a step, nothing else), and three planted faults (a merge that
-   drops model rank 0's partial, the new token's K/V written into every
-   rank's span, a vocab shard one shard off), each of which must break a
-   rule;
+   run went through them; then ``sharded_serve_check``: the dense, vlm,
+   MoE and SSM families over a (data, model) mesh through
+   ``runtime/serve_lib.py``'s steps, at the same serving shape with the
+   K/V cache's 1056 rows cut on their sequence axis (at a model axis of 2
+   the decode crosses from rank 0's span into rank 1's), one spawn a mesh
+   (``SHARD_GROUPS``), each rank a process on the one card serving its
+   archs one after another, joined with a timeout: tinyllama-1.1b at
+   (1, 1) under NCCL and at (1, 2) and (2, 2) under gloo; under gloo at
+   (1, 2) starcoder2-15b cut to 8 layers, qwen2-vl-72b to 2 (its tokens
+   path), qwen3-moe-235b-a22b to 2 (also at (2, 2), each data shard
+   against the unsharded run on its rows alone), kimi-k2-1t-a32b to 1 and
+   mamba2-370m to 12 (``SHARD_LAYERS``); every rank's prefill and 31
+   teacher-forced decode steps against the unsharded ``serve_loop`` of the
+   same cut model on the same seed (rel < 0.06, picks apart only at
+   near-ties; its span of the first and last layers' K/V cache alike; the
+   MoE routing at most 2% apart, each a near-tie, the MoE logits and K/V
+   held fed the reference's routing, its own printed; mamba2's state
+   shard, conv tails and layer 0's Mamba output alike, ``conv_x`` equal on
+   the model ranks), its shard
+   shapes against the specs, its launches (flash once an attention layer,
+   the decode kernel's partial entry once an attention layer a step, ssd
+   once a Mamba layer, nothing else), and planted faults, each of which
+   must break a rule on some rank: a merge that drops model rank 0's
+   partial, the new token's K/V written into every rank's span, a vocab
+   shard one shard off (tinyllama at (1, 1), the first alone, and (1,
+   2)); every rank serving experts 0..E_loc-1, the experts' sum skipped
+   (each multi-rank MoE run); a rank's dt_bias, A_log and D from heads
+   0..H_loc-1, the gated norm over a rank's own columns (mamba2);
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
    40-layer qwen2-vl, the period-4 jamba block (its device time split
@@ -203,7 +218,10 @@ and a record for each of its three timed shapes; the flash, decode and
 backward entries qwen2-vl's G = 8, D = 128 row, "qwen2vl", with the
 launches of its counted serve_loop or training run; the flash and decode
 entries jamba's launches, "jamba", at qwen2-vl's timed shape, and the ssd
-entry jamba's H = 256 row, "jamba", with its launches); the last
+entry jamba's H = 256 row, "jamba", with its launches, and a mamba2 rank's
+H = 16 row, "h16", with the sharded runs' launches; the partial decode
+entry qwen3-moe's, qwen2-vl's and kimi-k2's spans, "g16_d128", "g8_d128"
+and "g8_d112", each with its arch's sharded launches); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -586,25 +604,33 @@ def check_decode_partial(torch, timer, gen) -> dict:
     lengths 0, 1, a mid value and the whole span, at D = 64, 112 and 128
     and G = 1, 8, 12 and 16, to ``check_decode``'s tolerances; its lse to
     ``LSE_TOL`` (relative to its largest magnitude over 1), and at length 0
-    out 0 and lse -inf. Timed at tinyllama's span of a (1, 2) mesh (528
-    rows, 512 valid: the first decode step's); no single PyTorch call
+    out 0 and lse -inf. Timed at each sharded run's span of a (1, 2) mesh
+    (528 rows, 512 valid: the first decode step's; every head's q, as the
+    decode step gathers it): tinyllama's (the "" record), qwen3-moe's G =
+    16 at D = 128 ("g16_d128"), qwen2-vl's G = 8 at D = 128 ("g8_d128")
+    and kimi-k2's G = 8 at D = 112 ("g8_d112"); no single PyTorch call
     returns the (out, lse) pair with GQA, so no library time."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_partial_cuda, decode_attention_partial_plain)
     errs, rows = {}, {}
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, L, H, Hk, D, dtype, timed length)
-    for label, Bc, Lc, Hc, Hkc, Dc, dtype, timed in (
-            ("tinyllama-span", 8, 528, 32, 4, 64, bf16, 512),
-            ("tinyllama-span", 8, 528, 32, 4, 64, f32, None),
-            ("g1", 2, 272, 4, 4, 64, bf16, None),
-            ("g1", 2, 272, 4, 4, 64, f32, None),
-            ("g12-d128", 8, 528, 48, 4, 128, bf16, None),
-            ("g12-d128", 8, 528, 48, 4, 128, f32, None),
-            ("g16-d128", 2, 272, 64, 4, 128, bf16, None),
-            ("g16-d128", 2, 272, 64, 4, 128, f32, None),
-            ("g8-d112", 2, 272, 64, 8, 112, bf16, None),
-            ("g8-d112", 2, 272, 64, 8, 112, f32, None)):
+    # (label, record, B, L, H, Hk, D, dtype, timed length)
+    for label, key, Bc, Lc, Hc, Hkc, Dc, dtype, timed in (
+            ("tinyllama-span", "", 8, 528, 32, 4, 64, bf16, 512),
+            ("tinyllama-span", "", 8, 528, 32, 4, 64, f32, None),
+            ("g1", "", 2, 272, 4, 4, 64, bf16, None),
+            ("g1", "", 2, 272, 4, 4, 64, f32, None),
+            ("g12-d128", "", 8, 528, 48, 4, 128, bf16, None),
+            ("g12-d128", "", 8, 528, 48, 4, 128, f32, None),
+            ("qwen3-moe-span g16-d128", "g16_d128", 8, 528, 64, 4, 128, bf16,
+             512),
+            ("g16-d128", "g16_d128", 2, 272, 64, 4, 128, f32, None),
+            ("qwen2-vl-span g8-d128", "g8_d128", 8, 528, 64, 8, 128, bf16,
+             512),
+            ("g8-d128", "g8_d128", 2, 272, 64, 8, 128, f32, None),
+            ("kimi-k2-span g8-d112", "g8_d112", 8, 528, 64, 8, 112, bf16,
+             512),
+            ("g8-d112", "g8_d112", 2, 272, 64, 8, 112, f32, None)):
         name = str(dtype).split(".")[1]
         cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
                               device="cuda").to(dtype)
@@ -633,7 +659,7 @@ def check_decode_partial(torch, timer, gen) -> dict:
                 raise AssertionError(f"decode_attention_partial {label} "
                                      f"{name} length={n}: out {err}, lse "
                                      f"{lse_err}")
-            errs[""] = max(errs.get("", 0.0), err)
+            errs[key] = max(errs.get(key, 0.0), err)
             if n == 0 and bool(out.any()):
                 raise AssertionError("decode_attention_partial: a span of 0 "
                                      "valid keys gave a nonzero output")
@@ -651,8 +677,8 @@ def check_decode_partial(torch, timer, gen) -> dict:
             f"H={Hc} Hk={Hkc} D={Dc} length={timed}: {ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; no library "
             f"call returns out and lse with GQA)")
-        rows[""] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                    "bound_ms": b_ms, "bound_by": b_by}
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by}
     return _records(rows, errs)
 
 
@@ -661,8 +687,10 @@ def check_ssd(torch, timer, gen) -> dict:
     magnitude, 5x the bf16/fp32 tolerance, as tests/test_kernels.py holds
     the Pallas kernel) and the final state (relative, 1e-4, the bound
     tests/test_models.py holds chunk lengths 4-32 to). The serving shape,
-    a batch-1 8192-token prompt and jamba's 256-head prefill (its record
-    under "jamba") are timed."""
+    a batch-1 8192-token prompt, mamba2's prefill on one rank of a (1, 2)
+    mesh (16 of its 32 heads: 128 blocks on the 132 SMs; its record under
+    "h16") and jamba's 256-head prefill ("jamba") are timed
+    (``ssd_row``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
@@ -785,20 +813,40 @@ def check_ssd(torch, timer, gen) -> dict:
                              "or returned another tensor")
     rec["max_abs_err"] = worst
 
+    # mamba2's prefill on one rank of a (1, 2) mesh: 16 of its 32 heads,
+    # state0 and state_out one layer's slice of the rank's zeroed stacked
+    # state shard, as models/ssm.py's sharded block calls it; its record
+    rec["h16"] = ssd_row(torch, timer, randn, check, bound_of, plan_line,
+                         "mamba2 rank of (1, 2)", 8, 512, H // 2, 12)
+
     # jamba-1.5-large-398b's prefill: 256 heads, state0 and state_out one
     # Mamba sublayer's slice of the block's zeroed (period - 1, B, H, P, N)
     # cache, as models/ssm.py calls it there; the row's own record
-    B, S, Hj, P = 8, 512, 256, 64
-    x = randn(B, S, Hj, P, dtype=torch.bfloat16)
-    dt, A = F.softplus(randn(B, S, Hj)), -torch.exp(randn(Hj))
+    rec["jamba"] = ssd_row(torch, timer, randn, check, bound_of, plan_line,
+                           "jamba", 8, 512, 256, JAMBA_PERIOD - 1)
+    return rec
+
+
+def ssd_row(torch, timer, randn, check, bound_of, plan_line, label: str,
+            B: int, S: int, H: int, layers: int) -> dict:
+    """One timed ssd row of ``check_ssd`` at a model's prefill shape (P =
+    64, N = 128, bf16, dt fp32), state0 and state_out layer 1's slice of a
+    zeroed stacked (``layers``, B, H, P, N) cache, as models/ssm.py calls
+    it: checked, timed, its record."""
+    from repro_torch.kernels.ssd import kernel as ssd_k
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+    F = torch.nn.functional
+    P, N = 64, 128
+    x = randn(B, S, H, P, dtype=torch.bfloat16)
+    dt, A = F.softplus(randn(B, S, H)), -torch.exp(randn(H))
     Bm = randn(B, S, N, dtype=torch.bfloat16)
     Cm = randn(B, S, N, dtype=torch.bfloat16)
-    cache = torch.zeros(JAMBA_PERIOD - 1, B, Hj, P, N, device="cuda")
+    cache = torch.zeros(layers, B, H, P, N, device="cuda")
     want = ssd_plain(x, dt, A, Bm, Cm, chunk=256, state0=cache[1].clone())
     got = ssd_cuda(x, dt, A, Bm, Cm, state0=cache[1], state_out=cache[1])
-    err = check(f"jamba x=bfloat16 dt=float32 B={B} S={S} H={Hj} P={P} "
-                f"N={N} state0=zero, in place in the block's cache", got,
-                want, "bfloat16")
+    err = check(f"{label} x=bfloat16 dt=float32 B={B} S={S} H={H} P={P} "
+                f"N={N} state0=zero, in place in a stacked cache", got, want,
+                "bfloat16")
     launches = ssd_k.launches
     # the same work every call: state0 is read whatever it holds
     ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, state0=cache[1],
@@ -806,13 +854,12 @@ def check_ssd(torch, timer, gen) -> dict:
     plain_ms = timer.ms(lambda: ssd_plain(x, dt, A, Bm, Cm, chunk=256,
                                           state0=cache[1]), iters=10)
     ssd_k.launches = launches         # timing launches are not the path's
-    b_ms, b_by = bound_of(B, S, Hj, P, x, dt, A, Bm, Cm, got[1])
-    log(f"[kernels] ssd jamba bf16 B={B} S={S} H={Hj}: {ms:.4f} ms (plain "
+    b_ms, b_by = bound_of(B, S, H, P, x, dt, A, Bm, Cm, got[1])
+    log(f"[kernels] ssd {label} bf16 B={B} S={S} H={H}: {ms:.4f} ms (plain "
         f"{plain_ms:.4f} ms, no library call computes SSD, bound "
-        f"{b_ms:.4f} ms by {b_by}, {plan_line(B, Hj, P)})")
-    rec["jamba"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-    return rec
+        f"{b_ms:.4f} ms by {b_by}, {plan_line(B, H, P)})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
@@ -3631,28 +3678,54 @@ SHARD_BATCH, SHARD_PROMPT, SHARD_GEN = 8, 512, 32
 # the prompt (rows 0-511) ends in rank 0's span and the decode (rows
 # 512-543) crosses into rank 1's at row 528
 SHARD_MAX_LEN = 1056
-# (arch, (data, model), backend, vocab): NCCL at 1 x 1; gloo for ranks that
-# share the one card (NCCL refuses two ranks on one device)
-SHARD_RUNS = (("tinyllama-1.1b", (1, 1), "nccl", 32000),
-              ("tinyllama-1.1b", (1, 2), "gloo", 32000),
-              ("tinyllama-1.1b", (2, 2), "gloo", 32000),
-              ("starcoder2-15b", (1, 2), "gloo", 49152))
-SHARD_JOIN_S = 600
+# the layers a sharded run keeps, at full width (full depth where the arch
+# is not named): starcoder2-15b cut to fit the script's time; qwen2-vl,
+# qwen3-moe and kimi-k2 to what ranks that share the one card hold beside
+# the unsharded reference's run; mamba2 to a quarter of its 48
+SHARD_LAYERS = {"starcoder2-15b": 8, QWEN2VL_ARCH: 2, MOE_ARCH: 2,
+                KIMI_ARCH: 1, "mamba2-370m": 12}
+# ((data, model), backend, archs): one spawn a mesh, its ranks serving the
+# archs one after another; NCCL at 1 x 1, gloo for ranks that share the one
+# card (NCCL refuses two ranks on one device)
+SHARD_GROUPS = (((1, 1), "nccl", ("tinyllama-1.1b",)),
+                ((1, 2), "gloo", ("tinyllama-1.1b", "starcoder2-15b",
+                                  QWEN2VL_ARCH, MOE_ARCH, KIMI_ARCH,
+                                  "mamba2-370m")),
+                ((2, 2), "gloo", ("tinyllama-1.1b", MOE_ARCH)))
+SHARD_JOIN_S = 900
 MODEL_TOL = 0.06      # tests/test_archs.py's rule: rel, with equal argmax
-# the planted faults; at a model axis of 1 the last two are the correct
-# program (one span takes every token, one vocab shard every row)
+# the planted faults of the dense family, run at tinyllama's (1, 1) (the
+# first alone: at a model axis of 1 the last two are the correct program,
+# one span taking every token, one vocab shard every row) and (1, 2)
 SHARD_FAULTS = ("merge drops model rank 0's partial",
                 "new token's K/V written into every rank's span",
                 "vocab shard's row offset one shard off")
-# decode steps of each fault's pass: the dropped partial and the shifted
-# vocab show at the prefill; the everywhere-write at the first step, where
-# rank 1 writes the token at row 512 into its own first row (global 528),
-# which the reference holds empty
-FAULT_STEPS = dict(zip(SHARD_FAULTS, (1, 1, 1)))
+# the MoE family's, run in every multi-rank MoE run
+MOE_FAULTS = ("every rank serves experts 0..E_loc-1",
+              "experts' sum over the model axis skipped")
+# the SSM family's, run in every multi-rank SSM run
+SSM_FAULTS = ("a rank's dt_bias, A_log and D from heads 0..H_loc-1",
+              "gated norm over the rank's own columns")
 # the faults planted in the decode step alone start from the counted pass's
-# cache after its prefill (and its prefill logits); the vocab shard's runs
-# its own prefill
+# cache after its prefill (and its prefill logits); every other fault runs
+# its own prefill; each fault's pass runs one decode step: the dropped
+# partial and the shifted vocab show at the prefill, the everywhere-write
+# at the first step, where rank 1 writes the token at row 512 into its own
+# first row (global 528), which the reference holds empty
 DECODE_ONLY_FAULTS = SHARD_FAULTS[:2]
+FAULT_STEPS = 1
+
+
+def shard_faults_of(arch: str, family: str, mesh_shape: tuple) -> tuple:
+    """The planted faults a run of ``arch`` on ``mesh_shape`` carries."""
+    data, model = mesh_shape
+    if model == 1:
+        return SHARD_FAULTS[:1] if arch == "tinyllama-1.1b" else ()
+    if family == "moe":
+        return MOE_FAULTS
+    if family == "ssm":
+        return SSM_FAULTS
+    return SHARD_FAULTS if arch == "tinyllama-1.1b" and data == 1 else ()
 
 
 def attention_at_fan_in(params: dict, cfg) -> None:
@@ -3661,7 +3734,9 @@ def attention_at_fan_in(params: dict, cfg) -> None:
     1/sqrt(fan-in) (d_model; H * D for wo), as ``model_check`` draws them
     (``tools/attention_conditioning.py::fan_in_std``). Elementwise with the
     global head counts, so a rank's shards are rescaled exactly as the
-    whole leaves."""
+    whole leaves. A model without attention is left as it is."""
+    if not cfg.attends:
+        return
     attn = params["layers"]["attn"]
     for name, heads in (("wq", cfg.n_heads_eff), ("wk", cfg.n_kv_heads),
                         ("wv", cfg.n_kv_heads)):
@@ -3669,55 +3744,121 @@ def attention_at_fan_in(params: dict, cfg) -> None:
     attn["wo"].mul_(cfg.n_heads_eff ** -0.5)
 
 
-def sharded_reference(torch, arch: str, path: Path) -> None:
+@contextlib.contextmanager
+def first_output(owner, name: str, kept: dict):
+    """Context: the first call of ``owner.name`` inside it (layer 0's
+    Mamba block at the prefill) keeps the first member of what it returns,
+    the output before the residual, under ``kept["out"]`` on the host in
+    fp32."""
+    def wrap(fn):
+        def recording(*args, **kw):
+            out = fn(*args, **kw)
+            if "out" not in kept:
+                kept["out"] = out[0].detach().float().cpu()
+            return out
+        return recording
+    with patched(owner, name, wrap):
+        yield
+
+
+def _ssm_snapshot(cache) -> dict:
+    """The first and last layers of an SSM cache on the host."""
+    return {field: a[[0, -1]].float().cpu()
+            for field, a in zip(cache.ssm._fields, cache.ssm)}
+
+
+def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
     """``serve_loop(arch)`` unsharded on the card (batch 8, 512-token
-    prompts, 32 new tokens, seed 0) with a model that keeps each step's
-    logits on the host; saved to ``path`` for the ranks with its prompts,
-    its tokens and the first and last layers of its final K/V cache. The
-    card's memory is released after."""
+    prompts, 32 new tokens, seed 0, cut to ``SHARD_LAYERS``) with a model
+    that keeps each step's logits on the host; saved to ``path`` for the
+    ranks with its prompts, its tokens and the first and last layers of its
+    final K/V cache, or of its SSM cache after the first decode step and
+    after the last, with layer 0's Mamba output at the prefill; an MoE
+    arch's routing of every call too. ``shards`` > 1: the batch as as many
+    data shards, each served alone on its rows of the same prompts (the
+    reference's MoE capacity is a data shard's), put back together along
+    the batch; the routing a list a shard. The card's memory is released
+    after."""
     import numpy as np
+    import repro_torch.models.lm as lm_mod
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import LM
-    steps, kept = [], {}
-
-    class Recording(LM):
-        def _apply_cached(self, params, tokens, cache, **kw):
-            logits, cache = super()._apply_cached(params, tokens, cache,
-                                                  **kw)
-            steps.append(logits[:, -1].float().cpu())
-            kept["kv"] = cache.kv
-            return logits, cache
-
-    def drawn_at_fan_in(init):
-        def init_params(decls, gen, device):
-            params = init(decls, gen, device)
-            attention_at_fan_in(params, kept["cfg"])
-            return params
-        return init_params
-
-    def recording(build):
-        def build_model(cfg):
-            kept["cfg"] = cfg
-            return Recording(cfg)
-        return build_model
-
-    with patched(serve_mod, "build_model", recording), \
-            patched(serve_mod, "init_params", drawn_at_fan_in):
-        out = serve_mod.serve_loop(arch, batch=SHARD_BATCH,
-                                   prompt_len=SHARD_PROMPT,
-                                   gen_tokens=SHARD_GEN, seed=0,
-                                   device="cuda")
-    vocab = steps[0].shape[-1]
+    family = get_config(arch).family
     prompts = np.random.default_rng(0).integers(
-        0, vocab, size=(SHARD_BATCH, SHARD_PROMPT))
-    kv = kept.pop("kv")
-    torch.save({"prompts": torch.as_tensor(prompts),
-                "tokens": torch.as_tensor(out["tokens"]),
-                "logits": torch.stack(steps),
-                "k": kv.k[[0, -1]].cpu(), "v": kv.v[[0, -1]].cpu()}, path)
-    del kv, out
-    gc.collect()
-    torch.cuda.empty_cache()
+        0, get_config(arch).vocab, size=(SHARD_BATCH, SHARD_PROMPT))
+    parts = []
+    for rows in np.split(np.arange(SHARD_BATCH), shards):
+        steps, kept, routes, mamba0 = [], {}, {"cuda": []}, {}
+
+        class Recording(LM):
+            def _apply_cached(self, params, tokens, cache, **kw):
+                if tokens.shape[1] > 1:       # the prefill: these rows
+                    tokens = torch.as_tensor(prompts[rows],
+                                             device=tokens.device)
+                logits, cache = super()._apply_cached(params, tokens, cache,
+                                                      **kw)
+                steps.append(logits[:, -1].float().cpu())
+                if cache.ssm is not None and len(steps) - 1 in (
+                        FAULT_STEPS, SHARD_GEN - 1):
+                    kept[len(steps) - 1] = _ssm_snapshot(cache)
+                kept["kv"] = cache.kv
+                return logits, cache
+
+        def drawn_at_fan_in(init):
+            def init_params(decls, gen, device):
+                params = init(decls, gen, device)
+                attention_at_fan_in(params, kept["cfg"])
+                return params
+            return init_params
+
+        def recording(build):
+            def build_model(cfg):
+                kept["cfg"] = cfg
+                return Recording(cfg)
+            return build_model
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(serve_mod, "build_model", recording))
+            stack.enter_context(patched(serve_mod, "init_params",
+                                        drawn_at_fan_in))
+            if arch in SHARD_LAYERS:
+                stack.enter_context(cut_depth(serve_mod, SHARD_LAYERS[arch]))
+            if family == "moe":
+                stack.enter_context(record_routes(routes))
+            if family == "ssm":
+                stack.enter_context(first_output(lm_mod, "mamba_block",
+                                                 mamba0))
+            out = serve_mod.serve_loop(arch, batch=len(rows),
+                                       prompt_len=SHARD_PROMPT,
+                                       gen_tokens=SHARD_GEN, seed=0,
+                                       device="cuda")
+        kv = kept.pop("kv")
+        part = {"tokens": torch.as_tensor(out["tokens"]),
+                "logits": torch.stack(steps), "routes": routes["cuda"]}
+        if kv is not None:
+            part.update(k=kv.k[[0, -1]].cpu(), v=kv.v[[0, -1]].cpu())
+        if family == "ssm":
+            part.update(mamba0=mamba0["out"], ssm={
+                n: kept[n] for n in (FAULT_STEPS, SHARD_GEN - 1)})
+        parts.append(part)
+        del kv, out, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    saved = {"prompts": torch.as_tensor(prompts),
+             "tokens": torch.cat([p["tokens"] for p in parts]),
+             "logits": torch.cat([p["logits"] for p in parts], dim=1),
+             "routes": [p["routes"] for p in parts]}
+    if "k" in parts[0]:
+        saved.update({name: torch.cat([p[name] for p in parts], dim=1)
+                      for name in ("k", "v")})
+    if family == "ssm":
+        saved["mamba0"] = torch.cat([p["mamba0"] for p in parts])
+        saved["ssm"] = {n: {field: torch.cat([p["ssm"][n][field]
+                                              for p in parts], dim=1)
+                            for field in parts[0]["ssm"][n]}
+                        for n in parts[0]["ssm"]}
+    torch.save(saved, path)
 
 
 def _rel(got, want) -> float:
@@ -3730,11 +3871,30 @@ def _rel(got, want) -> float:
     return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
 
 
-def _shard_faults(torch, which: str):
-    """A context that plants one of ``SHARD_FAULTS`` in this rank's
-    modules."""
+class _NoExpertSum:
+    """A layout whose ``reduce_sum`` skips the sum over the model axis (the
+    planted fault "experts' sum over the model axis skipped")."""
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def __getattr__(self, name):
+        return getattr(self.layout, name)
+
+    def reduce_sum(self, partial, dtype):
+        return partial.to(dtype)
+
+
+def _shard_faults(torch, which: str, params0: dict | None = None):
+    """A context that plants one of the planted faults in this rank's
+    modules. ``params0``: for the SSM's heads fault, the rank's parameter
+    tree whose ``dt_bias``, ``A_log`` and ``D`` are swapped, in place while
+    the context lasts, for those of model rank 0 (heads 0..H_loc-1)."""
+    import importlib
     from repro_torch.models import attention as attn_mod
     from repro_torch.runtime import serve_lib
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    ssm_mod = importlib.import_module("repro_torch.models.ssm")
 
     def drop_rank0(merge):
         def faulty(out, lse, shard):
@@ -3752,44 +3912,109 @@ def _shard_faults(torch, which: str):
                 buf.index_copy_(1, row, new.to(buf.dtype))
         return faulty
 
-    def vocab_off(layout_fn):
-        def faulty(*args, **kw):
-            layout = layout_fn(*args, **kw)
-            span = layout.vocab
-            return dataclasses.replace(layout, vocab=dataclasses.replace(
-                span, start=(span.start + span.size) % span.total))
+    def span_moved(name, start):
+        def wrap(layout_fn):
+            def faulty(*args, **kw):
+                layout = layout_fn(*args, **kw)
+                span = getattr(layout, name)
+                return dataclasses.replace(layout, **{
+                    name: dataclasses.replace(span, start=start(span))})
+            return faulty
+        return wrap
+
+    def no_expert_sum(local):
+        def faulty(*args, shard=None, **kw):
+            return local(*args, shard=_NoExpertSum(shard), **kw)
         return faulty
 
-    return {SHARD_FAULTS[0]: (attn_mod, "_merge_partials", drop_rank0),
-            SHARD_FAULTS[1]: (attn_mod, "_write_token", write_everywhere),
-            SHARD_FAULTS[2]: (serve_lib, "shard_layout", vocab_off)}[which]
+    def own_columns(norm_and_tail):
+        def faulty(g, new_x, shard):
+            _, x_full = norm_and_tail(g, new_x, shard)
+            return g.square().mean(dim=-1, keepdim=True), x_full
+        return faulty
+
+    @contextlib.contextmanager
+    def heads_from_rank0():
+        mamba = params0["rank"]["layers"]["mamba"]
+        saved = {n: mamba[n].clone() for n in ("dt_bias", "A_log", "D")}
+        for n in saved:
+            mamba[n].copy_(params0["rank0"]["layers"]["mamba"][n])
+        try:
+            yield
+        finally:
+            for n, a in saved.items():
+                mamba[n].copy_(a)
+
+    patches = {
+        SHARD_FAULTS[0]: (attn_mod, "_merge_partials", drop_rank0),
+        SHARD_FAULTS[1]: (attn_mod, "_write_token", write_everywhere),
+        SHARD_FAULTS[2]: (serve_lib, "shard_layout", span_moved(
+            "vocab", lambda s: (s.start + s.size) % s.total)),
+        MOE_FAULTS[0]: (serve_lib, "shard_layout", span_moved(
+            "experts", lambda s: 0)),
+        MOE_FAULTS[1]: (moe_mod, "_moe_local", no_expert_sum),
+        SSM_FAULTS[1]: (ssm_mod, "_norm_and_tail", own_columns)}
+    if which == SSM_FAULTS[0]:
+        return heads_from_rank0()
+    return patched(*patches[which])
 
 
-def sharded_rank_run(torch, arch: str, data: int, model: int,
-                     ref_path: str) -> dict:
-    """One rank's part of a sharded run: this rank's weights drawn from
-    the unsharded model's seeded draw, its shard shapes against the specs,
-    a short warm-up, the counted pass (prefill, then 31 decode steps fed
-    the reference's tokens), and one pass under each planted fault (a
-    prefill, or the counted pass's prefilled cache for a fault of the
-    decode step, and ``FAULT_STEPS`` decode steps). Each pass is held to the
-    reference: every step's logits rel < 0.06; each token picked apart
-    from the reference's a near-tie (the reference's gap between the two
-    within twice the row's largest logit difference: bf16 logits near 5
-    are 2^-5 apart, and many rows' top two are within one or two of those
-    steps); and this rank's span of the first and last layers' K/V cache
-    rel < 0.06, rows the reference had not written yet zeros."""
+@contextlib.contextmanager
+def counting_all_reduce(torch, count: list):
+    """Context: every ``torch.distributed.all_reduce`` call counted into
+    ``count[0]``."""
+    def wrap(all_reduce):
+        def counted(*args, **kw):
+            count[0] += 1
+            return all_reduce(*args, **kw)
+        return counted
+    with patched(torch.distributed, "all_reduce", wrap):
+        yield
+
+
+def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
+    """One rank's part of a sharded run of ``arch`` on ``mesh``: this
+    rank's weights drawn from the unsharded model's seeded draw, its shard
+    shapes (weights and cache) against the specs, a short warm-up, the
+    counted pass (prefill, then 31 decode steps fed the reference's
+    tokens; each decode step's all_reduce calls counted), and one pass
+    under each of its planted faults (``shard_faults_of``: a prefill, or
+    the counted pass's prefilled cache for a fault of the decode step, and
+    ``FAULT_STEPS`` decode steps). Each pass is held to the reference:
+
+    * every step's logits rel < 0.06; each token picked apart from the
+      reference's a near-tie (the reference's gap between the two within
+      twice the row's largest logit difference: bf16 logits near 5 are
+      2^-5 apart, and many rows' top two are within one or two of those
+      steps);
+    * with a K/V cache, this rank's span of the first and last layers' K/V
+      rel < 0.06, rows the reference had not written yet zeros;
+    * with an SSM cache, this rank's heads of the first and last layers'
+      state and their three conv tails (``conv_x`` every column) rel <
+      0.06, and layer 0's Mamba output at the prefill rel < 0.06;
+    * an MoE arch: each call's own routing (``record_routes``, counted pass
+      only) against the reference's (``routes_apart``): at most
+      ``APART_MAX`` of the choices apart, each a near-tie. Its own-routing
+      logits and K/V are printed, not held (ROADMAP C.2: a choice apart
+      moves its token's next layer, and the logits, by a whole expert's
+      output): the counted pass is followed by a pass fed the reference's
+      routing (``routed_as``), held to the logits and K/V rules and, on
+      the routing it computes beside the fed one, to ``routes_apart``'s
+      (gates within ``GATE_TOL``, router logits within ``ROUTER_TOL``); its
+      fault passes run fed."""
+    import repro_torch.models.lm as lm_mod
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model, init_params
     from repro_torch.models.param import tree_at, tree_items
     from repro_torch.runtime import serve_lib
     from repro_torch.sharding.rules import local_shape
     ref = torch.load(ref_path)
-    mesh = make_local_mesh(data, model)
-    cfg = dataclasses.replace(get_config(arch), q_chunk=SHARD_PROMPT // 2,
-                              kv_chunk=SHARD_PROMPT // 2,
-                              max_cache_len=SHARD_MAX_LEN)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=SHARD_LAYERS.get(
+        arch, full.n_layers), q_chunk=SHARD_PROMPT // 2,
+        kv_chunk=SHARD_PROMPT // 2, max_cache_len=SHARD_MAX_LEN)
+    family = cfg.family
     lm = build_model(cfg)
     B, S, T = SHARD_BATCH, SHARD_PROMPT, SHARD_MAX_LEN
     layout = serve_lib.shard_layout(lm, mesh, B, T)
@@ -3807,27 +4032,43 @@ def sharded_rank_run(torch, arch: str, data: int, model: int,
         want = local_shape(tree_at(specs, path), decls[path].shape, mesh)
         if tuple(a.shape) != want:
             shape_faults.append(("/".join(path), tuple(a.shape), want))
-    kv_spec = serve_lib.cache_specs(lm, mesh, B, T).kv.k
-    kv_shape = local_shape(kv_spec, (cfg.n_layers, B, T, cfg.n_kv_heads,
-                                     cfg.head_dim), mesh)
+    cache_specs = serve_lib.cache_specs(lm, mesh, B, T)
+    cache_shapes = {
+        path: local_shape(tree_at(cache_specs, path), tuple(a.shape), mesh)
+        for path, a in tree_items(serve_lib.abstract_cache(
+            lm, B, T, filled=False)) if a is not None}
     weights = sum(a.numel() * a.element_size() for _, a in tree_items(params))
-    prompts, tokens = ref["prompts"].cuda(), ref["tokens"].cuda()
-    span = layout.seq
+    prompts = ref["prompts"].cuda()
+    tokens = ref["tokens"].cuda()
+    span, b = layout.seq, layout.batch.slice()
+    d = mesh.coords["data"]
     counters = kernel_counters()
-
+    params0 = None
+    if family == "ssm":
+        # model rank 0's heads, for the planted heads fault
+        rank0 = Mesh(tuple(mesh.shape.values()), tuple(mesh.shape),
+                     coords={**mesh.coords, "model": 0})
+        params0 = {"rank": params, "rank0": init_params(
+            lm.param_decls(), torch.Generator(device="cuda").manual_seed(0),
+            "cuda", specs=specs, mesh=rank0)}
     snapshot = {}
 
     def run_pass(steps: int, prefill_first: bool = True,
-                 keep: bool = False, resume: bool = False):
+                 keep: bool = False, resume: bool = False,
+                 count: list | None = None):
         """``steps`` decode steps after a prefill (``prefill_first``), or
-        from the kept cache and prefill logits (``resume``); ``keep``
-        keeps them after this pass's prefill."""
+        from the kept K/V cache and prefill logits (``resume``); ``keep``
+        keeps them after this pass's prefill; ``count`` counts the decode
+        steps' all_reduce calls."""
         cache = serve_lib.init_cache_shards(lm, mesh, B, T, device="cuda")
-        if tuple(cache.kv.k.shape) != kv_shape:
-            shape_faults.append(("kv/k", tuple(cache.kv.k.shape), kv_shape))
+        for path, a in tree_items(cache):
+            if a is not None and tuple(a.shape) != cache_shapes[path]:
+                shape_faults.append(("/".join(path), tuple(a.shape),
+                                     cache_shapes[path]))
         prefill = serve_lib.build_prefill_step(lm, mesh, B, S, T)
         decode = serve_lib.build_decode_step(lm, mesh, B, T)
         torch.cuda.reset_peak_memory_stats()
+        mamba0 = {}
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3838,28 +4079,30 @@ def sharded_rank_run(torch, arch: str, data: int, model: int,
                 cache.kv.length.copy_(snapshot["length"])
                 out.append(snapshot["logits"])
             elif prefill_first:
-                logits, cache = prefill(params, prompts, cache)
+                with first_output(lm_mod, "mamba_block", mamba0):
+                    logits, cache = prefill(params, prompts, cache)
                 out.append(logits[:, -1])
-                if keep:
+                if keep and cache.kv is not None:
                     snapshot.update(k=cache.kv.k.clone(), v=cache.kv.v.clone(),
                                     length=cache.kv.length.clone(),
                                     logits=logits[:, -1].clone())
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            for i in range(steps):
-                logits, cache = decode(params, tokens[:, i:i + 1], cache)
-                out.append(logits[:, -1])
+            with counting_all_reduce(torch, count) if count is not None \
+                    else contextlib.nullcontext():
+                for i in range(steps):
+                    logits, cache = decode(params, tokens[:, i:i + 1], cache)
+                    out.append(logits[:, -1])
             torch.cuda.synchronize()
             t2 = time.perf_counter()
         times = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                  "decode_tok_per_s": B * steps / max(t2 - t1, 1e-9),
                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        return times, out, cache
+        return times, out, cache, mamba0.get("out")
 
-    def rules(out: list, cache, steps: int) -> dict:
-        """The logits of the pass's steps, and this rank's span of the
-        first and last layers' K/V, against the reference's after as many
-        steps (rows it had not written yet are zeros)."""
+    def rules(out: list, cache, steps: int, mamba0=None) -> dict:
+        """The pass's readings against the reference's after as many
+        steps, and the rules they break (``broken``)."""
         errs = [_rel(got.cpu(), want) for got, want in
                 zip(out, ref["logits"])]
         # picks apart: (step, row, the reference's gap between its top
@@ -3873,54 +4116,131 @@ def sharded_rank_run(torch, arch: str, data: int, model: int,
                 gap = float(want[row, top[row]] - want[row, pick[row]])
                 diff = float((got[row] - want[row]).abs().max())
                 apart.append((step, row, gap, diff))
-        b = layout.batch.slice()
-        kv_errs = []              # first layer, last layer
-        rows = S + steps          # rows written after the pass
-        for buf, want in ((cache.kv.k, ref["k"]), (cache.kv.v, ref["v"])):
-            full = torch.zeros(want.shape[:2] + (T,) + want.shape[3:],
-                               dtype=want.dtype)
-            full[:, :, :rows] = want[:, :, :rows]
-            got = buf[[0, -1]].cpu()
-            kv_errs.append([_rel(got[i], full[i, b, span.slice()])
-                            for i in (0, 1)])
-        kv_errs = [max(k, v) for k, v in zip(*kv_errs)]
-        near_ties = all(gap <= 2 * diff for _, _, gap, diff in apart)
-        picks = len(out) * B
-        ok = all(e < MODEL_TOL for e in errs + kv_errs) and near_ties
-        return {"ok": ok, "max_rel": max(errs), "apart": apart[:8],
-                "n_apart": len(apart), "picks": picks,
-                "kv_rel": kv_errs}
+        res = {"max_rel": max(errs), "apart": apart[:8],
+               "n_apart": len(apart), "picks": len(out) * B}
+        broken = []
+        if max(errs) >= MODEL_TOL:
+            broken.append("logits")
+        if not all(gap <= 2 * diff for _, _, gap, diff in apart):
+            broken.append("picks apart near-ties")
+        rows = S + steps          # K/V rows written after the pass
+        if cache.kv is not None:
+            kv_errs = []          # first layer, last layer
+            for buf, want in ((cache.kv.k, ref["k"]), (cache.kv.v, ref["v"])):
+                whole = torch.zeros(want.shape[:2] + (T,) + want.shape[3:],
+                                    dtype=want.dtype)
+                whole[:, :, :rows] = want[:, :, :rows]
+                got = buf[[0, -1]].cpu()
+                kv_errs.append([_rel(got[i], whole[i, b, span.slice()])
+                                for i in (0, 1)])
+            res["kv_rel"] = [max(k, v) for k, v in zip(*kv_errs)]
+            if max(res["kv_rel"]) >= MODEL_TOL:
+                broken.append("K/V")
+        else:
+            heads = layout.ssm_heads.slice()
+            want = ref["ssm"][steps]
+            got = _ssm_snapshot(cache)
+            res["ssm_rel"] = {
+                field: [_rel(got[field][i], want[field][i][b][
+                    (slice(None), heads) if field == "state" else ()])
+                        for i in (0, 1)] for field in got}
+            # numpy: a tensor would cross the queue by a handle into
+            # the rank's memory, gone once the rank exits
+            res["conv_x"] = got["conv_x"].numpy()
+            res["mamba0_rel"] = _rel(mamba0, ref["mamba0"][b])
+            if max(max(v) for v in res["ssm_rel"].values()) >= MODEL_TOL:
+                broken.append("SSM cache")
+            if res["mamba0_rel"] >= MODEL_TOL:
+                broken.append("layer 0's Mamba output")
+        res["broken"] = broken
+        return res
+
+    def routing_rules(res: dict, own: list, fed: bool) -> None:
+        """Each MoE call's routing against the reference's (its data
+        shard's), into ``res``; at most ``APART_MAX`` of the choices
+        apart, each a near-tie, and, fed, the gates and router logits
+        alike."""
+        want = ref["routes"][d]
+        if len(own) != len(want):
+            res["broken"].append(f"{len(own)} MoE calls, want {len(want)}")
+            return
+        calls = [routes_apart(a, g) for a, g in zip(want, own)]
+        apart = sum(c["apart"] for c in calls)
+        choices = sum(c["choices"] for c in calls)
+        res.update(routes_apart=apart, routes_choices=choices,
+                   routes_excess=max(c["excess"] for c in calls),
+                   gate_err=max(c["gate_err"] for c in calls),
+                   router_rel=max(_rel(g[2], a[2])
+                                  for a, g in zip(want, own)))
+        held = [("routes apart", apart <= APART_MAX * choices),
+                ("routes near-ties", res["routes_excess"] <= 0)]
+        if fed:
+            held += [("gates", res["gate_err"] < GATE_TOL),
+                     ("router logits", res["router_rel"] < ROUTER_TOL)]
+        res["broken"] += [name for name, ok in held if not ok]
+
+    fed_runs = family == "moe"
+
+    def feeding(own: list):
+        return routed_as(ref["routes"][d], own) if fed_runs \
+            else contextlib.nullcontext()
 
     # warm-up: two decode steps on an empty cache (the prefill's first
     # call is in its timed pass)
     run_pass(2, prefill_first=False)
     for k in counters.values():
         k.launches = 0
-    times, out, cache = run_pass(SHARD_GEN - 1, keep=True)
+    count = [0]
+    routes = {"cuda": []}
+    with record_routes(routes) if family == "moe" \
+            else contextlib.nullcontext():
+        times, out, cache, mamba0 = run_pass(SHARD_GEN - 1, keep=True,
+                                             count=count)
     launches = {name: k.launches for name, k in counters.items()}
-    result = {"coords": dict(mesh.coords), "span": (span.start, span.size),
+    counted = rules(out, cache, SHARD_GEN - 1, mamba0)
+    if family == "moe":
+        routing_rules(counted, routes["cuda"], fed=False)
+    if fed_runs:
+        # own-routing logits and K/V printed, not held: a choice apart at a
+        # near-tie moves its token's next layer by a whole expert's output
+        # (ROADMAP C.2); held fed the reference's routing below
+        counted["own_logits_broken"] = [r for r in counted["broken"]
+                                        if r in ("logits", "K/V",
+                                                 "picks apart near-ties")]
+        counted["broken"] = [r for r in counted["broken"]
+                             if r not in counted["own_logits_broken"]]
+    result = {"coords": dict(mesh.coords), "family": family,
+              "span": None if span is None else (span.start, span.size),
               "init_s": init_s, "weights_gib": weights / 2**30,
-              "launches": launches, **times,
-              **rules(out, cache, SHARD_GEN - 1)}
+              "launches": launches, "collectives_a_step":
+                  count[0] / (SHARD_GEN - 1), **times, **counted}
     del out, cache
+    if fed_runs:
+        own = []
+        with feeding(own):
+            _, out, cache, _ = run_pass(SHARD_GEN - 1)
+        fed = rules(out, cache, SHARD_GEN - 1)
+        routing_rules(fed, own, fed=True)
+        result["fed"] = fed
+        del out, cache
     faults = {}
-    for which in SHARD_FAULTS if model > 1 else SHARD_FAULTS[:1]:
-        owner, name, wrap = _shard_faults(torch, which)
-        with patched(owner, name, wrap):
-            _, out, cache = run_pass(FAULT_STEPS[which],
-                                     resume=which in DECODE_ONLY_FAULTS)
-            faults[which] = rules(out, cache, FAULT_STEPS[which])
+    for which in shard_faults_of(arch, family, tuple(mesh.shape.values())):
+        with _shard_faults(torch, which, params0), feeding([]):
+            _, out, cache, mamba0 = run_pass(
+                FAULT_STEPS, resume=which in DECODE_ONLY_FAULTS)
+            faults[which] = rules(out, cache, FAULT_STEPS, mamba0)
         del out, cache
     result["faults"] = faults
     result["shape_faults"] = shape_faults
     return result
 
 
-def _shard_rank(rank: int, arch: str, mesh_shape: tuple, backend: str,
-                init_file: str, ref_path: str, queue) -> None:
+def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
+                init_file: str, queue) -> None:
     """Entry of a spawned rank: its process group (``backend`` over a
-    ``file://`` rendezvous), its run, and ``(rank, result or the
-    traceback)`` on ``queue``."""
+    ``file://`` rendezvous), its mesh, each of ``runs`` ((arch, reference
+    path)) one after another, its card memory released between them, and
+    ``(rank, {arch: result} or the traceback)`` on ``queue``."""
     import datetime
     import traceback
     import torch
@@ -3931,8 +4251,14 @@ def _shard_rank(rank: int, arch: str, mesh_shape: tuple, backend: str,
         dist.init_process_group(backend, init_method=f"file://{init_file}",
                                 world_size=data * model, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
-        queue.put((rank, sharded_rank_run(torch, arch, data, model,
-                                          ref_path)))
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(data, model)
+        results = {}
+        for arch, ref_path in runs:
+            results[arch] = sharded_rank_run(torch, mesh, arch, ref_path)
+            gc.collect()
+            torch.cuda.empty_cache()
+        queue.put((rank, results))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
     finally:
@@ -3940,11 +4266,11 @@ def _shard_rank(rank: int, arch: str, mesh_shape: tuple, backend: str,
             dist.destroy_process_group()
 
 
-def spawn_ranks(arch: str, mesh_shape: tuple, backend: str,
-                ref_path: Path) -> dict:
+def spawn_ranks(mesh_shape: tuple, backend: str, runs: tuple) -> dict:
     """Each rank of the mesh in a process of its own (start method
-    ``spawn``), all on the one card; every rank joined with a timeout. A
-    rank that fails, hangs or exits nonzero fails the run."""
+    ``spawn``), all on the one card, serving ``runs`` one after another;
+    every rank joined with a timeout. A rank that fails, hangs or exits
+    nonzero fails the run."""
     import multiprocessing
     import queue as queue_mod
     import tempfile
@@ -3954,8 +4280,8 @@ def spawn_ranks(arch: str, mesh_shape: tuple, backend: str,
         out = ctx.Queue()
         n = mesh_shape[0] * mesh_shape[1]
         procs = [ctx.Process(target=_shard_rank, args=(
-            r, arch, mesh_shape, backend, os.path.join(tmp, "rendezvous"),
-            str(ref_path), out)) for r in range(n)]
+            r, runs, mesh_shape, backend, os.path.join(tmp, "rendezvous"),
+            out)) for r in range(n)]
         for p in procs:
             p.start()
         deadline = time.perf_counter() + SHARD_JOIN_S
@@ -3979,101 +4305,159 @@ def spawn_ranks(arch: str, mesh_shape: tuple, backend: str,
     failed = {r: res for r, res in results.items() if isinstance(res, str)}
     codes = [p.exitcode for p in procs]
     if failed or len(results) < n or any(codes):
-        raise AssertionError(f"{arch} on {mesh_shape} ({backend}): ranks "
-                             f"{sorted(results)} of {n} reported, exit codes "
-                             f"{codes}; failures: {failed}")
+        raise AssertionError(f"{[a for a, _ in runs]} on {mesh_shape} "
+                             f"({backend}): ranks {sorted(results)} of {n} "
+                             f"reported, exit codes {codes}; failures: "
+                             f"{failed}")
     return results
 
 
-def sharded_serve_check(torch) -> dict:
-    """``sharded_serve_check``: the dense family served over a (data,
-    model) mesh through ``runtime/serve_lib.py``, at full width and depth:
-    tinyllama-1.1b at (1, 1) under NCCL and at (1, 2) and (2, 2) under
-    gloo, starcoder2-15b at (1, 2) under gloo (G = 12, D = 128, 2 of its 4
-    KV heads and 24576 of its 49152 vocab rows a rank). Several ranks share
-    the one card: their times are of processes on one card over gloo's
-    host-staged transport, not a multi-card figure.
+def _rank_line(res: dict) -> str:
+    """One rank's readings of a counted pass, for the log."""
+    text = (f"logits max rel {res['max_rel']:.4f}, picks apart "
+            f"{res['n_apart']} of {res['picks']} (step, row, gap, largest "
+            f"difference: {res['apart']})")
+    if "kv_rel" in res:
+        text += f", K/V rel (first, last layer) {res['kv_rel']}"
+    if "ssm_rel" in res:
+        text += (f", SSM cache rel (first, last layer) {res['ssm_rel']}, "
+                 f"layer 0's Mamba output rel {res['mamba0_rel']:.4f}")
+    if "routes_apart" in res:
+        text += (f", routes apart {res['routes_apart']} of "
+                 f"{res['routes_choices']} (<= {APART_MAX}), excess "
+                 f"{res['routes_excess']:.3e} (<= 0), gates "
+                 f"{res['gate_err']:.3e}, router logits rel "
+                 f"{res['router_rel']:.4f}")
+    return text + f"; broken: {res['broken'] or 'none'}"
 
-    For each run the unsharded ``serve_loop`` first gives the reference,
-    with the attention weights at fan-in std on both sides (at the
-    reference's draw the softmax saturates and any other order of the
-    sums moves the logits, as ``model_check`` finds), then the ranks run
-    (``sharded_rank_run``): every step's logits rel < 0.06 on every rank,
-    picks apart only at near-ties, the shard shapes the specs give, each
-    rank's span of the cache; the counted pass's launches (flash once a
-    layer, the partial decode once a layer a step, nothing else); each
-    planted fault (``SHARD_FAULTS``) must break a rule on some rank. The
-    decode crosses rank 0's span into rank 1's at a model axis of 2.
-    Returns the partial decode's launches over every counted pass."""
+
+def sharded_serve_check(torch) -> dict:
+    """``sharded_serve_check``: the dense, vlm, MoE and SSM families served
+    over a (data, model) mesh through ``runtime/serve_lib.py``, at full
+    width (``SHARD_GROUPS``, one spawn a mesh): tinyllama-1.1b at (1, 1)
+    under NCCL and at (1, 2) and (2, 2) under gloo; under gloo at (1, 2),
+    starcoder2-15b at 8 of its 40 layers (G = 12, D = 128, 2 of its 4 KV
+    heads and 24576 of its 49152 vocab rows a rank), qwen2-vl-72b at 2 of
+    80 (its tokens path, 1-D RoPE; 32 q and 4 KV heads a rank),
+    qwen3-moe-235b-a22b at 2 of 94 (64 of 128 experts a rank; also at (2,
+    2)), kimi-k2-1t-a32b at 1 of 61 (192 of 384 experts and 1024 of the
+    shared expert's 2048 hidden units a rank) and mamba2-370m at 12 of 48
+    (16 of 32 heads a rank through ``ssd``; its tied head, 25140 of 50280
+    vocab rows a rank). Several ranks share the one card: their times are
+    of processes on one card over gloo's host-staged transport, not a
+    multi-card figure.
+
+    For each arch the unsharded ``serve_loop`` of the same cut model first
+    gives the reference (an MoE arch at a data axis of 2: each data
+    shard's rows served alone, as the reference's capacity is a data
+    shard's), with the attention weights at fan-in std on both sides (at
+    the reference's draw the softmax saturates and any other order of the
+    sums moves the logits, as ``model_check`` finds), written to disk and
+    its card memory released; then the ranks run (``sharded_rank_run``):
+    its rules on every rank, the shard shapes the specs give; the counted
+    pass's launches (flash once an attention layer, the partial decode
+    once an attention layer a step, ssd once a Mamba layer, nothing else);
+    each planted fault (``shard_faults_of``) must break a rule on some
+    rank. The decode crosses rank 0's span into rank 1's at a model axis
+    of 2; ``conv_x`` must be equal on the model ranks of a data shard.
+    Returns the partial decode's and ssd's launches over every counted
+    pass, in all and by arch (``"by_arch"``)."""
+    from repro_torch.configs import get_config
     t_phase = time.perf_counter()
-    partial = 0
+    launched = {"decode_attention_partial": 0, "ssd": 0, "by_arch": {}}
     refs = {}
-    for arch, mesh_shape, backend, vocab in SHARD_RUNS:
-        path = ROOT / "build" / f"sharded-reference-{arch}.pt"
-        if arch not in refs:
-            t0 = time.perf_counter()
-            sharded_reference(torch, arch, path)
-            refs[arch] = path
-            log(f"[sharded] {arch}: unsharded serve_loop reference in "
-                f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        results = spawn_ranks(arch, mesh_shape, backend, path)
-        wall = time.perf_counter() - t0
+    for mesh_shape, backend, archs in SHARD_GROUPS:
         data, model = mesh_shape
-        from repro_torch.configs import get_config
-        layers = get_config(arch).n_layers
+        runs = []
+        for arch in archs:
+            shards = data if get_config(arch).family == "moe" else 1
+            path = ROOT / "build" / f"sharded-reference-{arch}-{shards}.pt"
+            if path not in refs.values():
+                t0 = time.perf_counter()
+                sharded_reference(torch, arch, path, shards)
+                refs[arch, shards] = path
+                log(f"[sharded] {arch}: unsharded serve_loop reference "
+                    f"({shards} data shard{'s' if shards > 1 else ''}) in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            runs.append((arch, str(path)))
+        t0 = time.perf_counter()
+        results = spawn_ranks(mesh_shape, backend, tuple(runs))
+        wall = time.perf_counter() - t0
         label = ("one process, NCCL" if backend == "nccl" else
                  f"{data * model} processes sharing one card over gloo's "
                  f"host-staged transport, not a multi-card figure")
-        for rank, res in sorted(results.items()):
-            log(f"[sharded] {arch} mesh {mesh_shape} ({label}) rank {rank} "
-                f"{res['coords']} span {res['span']}: weights "
-                f"{res['weights_gib']:.2f} GiB (drawn in "
-                f"{res['init_s']:.1f} s), prefill {res['prefill_s']:.4f} s, "
-                f"decode {res['decode_s']:.4f} s "
-                f"({res['decode_tok_per_s']:.1f} tok/s), peak "
-                f"{res['peak_gib']:.2f} GiB; logits max rel "
-                f"{res['max_rel']:.4f}, picks apart {res['n_apart']} of "
-                f"{res['picks']} (step, row, gap, largest difference: "
-                f"{res['apart']}), K/V rel (first, last layer) "
-                f"{res['kv_rel']}; launches {res['launches']}")
-            want = {name: 0 for name in res["launches"]}
-            want.update(flash_attention=layers,
-                        decode_attention_partial=layers * (SHARD_GEN - 1))
-            if res["launches"] != want:
-                raise AssertionError(f"{arch} {mesh_shape} rank {rank} "
-                                     f"launches {res['launches']}: want "
-                                     f"{want}")
-            if not res["ok"] or res["shape_faults"]:
-                raise AssertionError(f"{arch} {mesh_shape} rank {rank}: "
-                                     f"rules {res} (rel < {MODEL_TOL}, "
-                                     f"equal argmax, shapes)")
-            partial += res["launches"]["decode_attention_partial"]
-        for which in results[0]["faults"]:
-            broke = [r for r, res in results.items()
-                     if not res["faults"][which]["ok"]]
-            log(f"[sharded] {arch} {mesh_shape} planted fault '{which}': "
-                f"breaks a rule on ranks {broke} ("
-                + ", ".join(f"rank {r}: rel {res['faults'][which]['max_rel']:.3g}"
-                            f", picks apart {res['faults'][which]['n_apart']}"
-                            f" of {res['faults'][which]['picks']}, K/V rel "
-                            f"{res['faults'][which]['kv_rel']}"
-                            for r, res in sorted(results.items())) + ")")
-            if not broke:
-                raise AssertionError(f"{arch} {mesh_shape}: the planted "
-                                     f"fault '{which}' broke no rule")
-        # the decode steps write rows 512-542: some span must start there
-        if model > 1 and not any(
-                SHARD_PROMPT < res["span"][0] <= SHARD_PROMPT + SHARD_GEN - 2
-                for res in results.values()):
-            raise AssertionError(f"{arch} {mesh_shape}: the decode crossed "
-                                 f"no span boundary")
-        log(f"[sharded] {arch} {mesh_shape} ({backend}) run in {wall:.1f} s")
+        for arch in archs:
+            layers = SHARD_LAYERS.get(arch, get_config(arch).n_layers)
+            for rank, res in sorted((r, res[arch])
+                                    for r, res in results.items()):
+                log(f"[sharded] {arch} ({layers} layers) mesh {mesh_shape} "
+                    f"({label}) rank {rank} {res['coords']} span "
+                    f"{res['span']}: weights {res['weights_gib']:.2f} GiB "
+                    f"(drawn in {res['init_s']:.1f} s), prefill "
+                    f"{res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} "
+                    f"s ({res['decode_tok_per_s']:.1f} tok/s, "
+                    f"{res['collectives_a_step']:.1f} all_reduce calls a "
+                    f"step), peak {res['peak_gib']:.2f} GiB; "
+                    f"{_rank_line(res)}; launches {res['launches']}")
+                if "own_logits_broken" in res:
+                    log(f"[sharded] {arch} rank {rank}: own-routing logits "
+                        f"and K/V printed, not held (ROADMAP C.2): break "
+                        f"{res['own_logits_broken'] or 'none'}; fed the "
+                        f"reference's routing: {_rank_line(res['fed'])}")
+                want = {name: 0 for name in res["launches"]}
+                if res["family"] == "ssm":
+                    want["ssd"] = layers
+                else:
+                    want.update(flash_attention=layers,
+                                decode_attention_partial=layers
+                                * (SHARD_GEN - 1))
+                if res["launches"] != want:
+                    raise AssertionError(f"{arch} {mesh_shape} rank {rank} "
+                                         f"launches {res['launches']}: want "
+                                         f"{want}")
+                broken = res["broken"] + res.get("fed", {}).get("broken", [])
+                if broken or res["shape_faults"]:
+                    raise AssertionError(
+                        f"{arch} {mesh_shape} rank {rank}: rules broken "
+                        f"{broken}, shapes {res['shape_faults']} ({res})")
+                for name in ("decode_attention_partial", "ssd"):
+                    launched[name] += res["launches"][name]
+                    by_arch = launched["by_arch"].setdefault(arch, {})
+                    by_arch[name] = by_arch.get(name, 0) \
+                        + res["launches"][name]
+            for which in results[0][arch]["faults"]:
+                got = {r: res[arch]["faults"][which]
+                       for r, res in results.items()}
+                broke = [r for r, f in got.items() if f["broken"]]
+                log(f"[sharded] {arch} {mesh_shape} planted fault '{which}': "
+                    f"breaks a rule on ranks {broke} ("
+                    + "; ".join(f"rank {r}: {_rank_line(f)}"
+                                for r, f in sorted(got.items())) + ")")
+                if not broke:
+                    raise AssertionError(f"{arch} {mesh_shape}: the planted "
+                                         f"fault '{which}' broke no rule")
+            spans = [res[arch]["span"] for res in results.values()]
+            # the decode steps write rows 512-542: some span must start there
+            if model > 1 and spans[0] is not None and not any(
+                    SHARD_PROMPT < s[0] <= SHARD_PROMPT + SHARD_GEN - 2
+                    for s in spans):
+                raise AssertionError(f"{arch} {mesh_shape}: the decode "
+                                     f"crossed no span boundary")
+            # conv_x: the same whole tail on the model ranks of a data shard
+            for r, res in results.items():
+                conv_x = res[arch].get("conv_x")
+                first = results[r - r % model][arch].get("conv_x")
+                if conv_x is not None and not (conv_x == first).all():
+                    raise AssertionError(f"{arch} {mesh_shape}: rank {r}'s "
+                                         f"conv_x differs from rank "
+                                         f"{r - r % model}'s")
+        log(f"[sharded] mesh {mesh_shape} ({backend}): {list(archs)} in one "
+            f"spawn, {wall:.1f} s")
     for path in refs.values():
         path.unlink(missing_ok=True)
     log(f"[sharded] sharded_serve_check phase in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {"decode_attention_partial": partial}
+    return launched
 
 
 def kernel_counters() -> dict:
@@ -4292,6 +4676,14 @@ def main() -> int:
 
     # the backward's G = 16 row: launched on the qwen3-moe training path
     flash_bwd["g16"]["launches"] = n_moe_bwd
+    # the sharded runs' rows, each with its arch's launches over the
+    # sharded counted passes: the partial decode at qwen3-moe's, qwen2-vl's
+    # and kimi-k2's heads, ssd at a mamba2 rank's 16 heads
+    for key, arch in (("g16_d128", MOE_ARCH), ("g8_d128", QWEN2VL_ARCH),
+                      ("g8_d112", KIMI_ARCH)):
+        decode_partial[key]["launches"] = \
+            sharded["by_arch"][arch]["decode_attention_partial"]
+    ssd["h16"]["launches"] = sharded["ssd"]
     # qwen2-vl's rows (G = 8, D = 128), each with the launches of its
     # counted serve_loop (flash: 40, one a layer; decode: 40 x 31) or of
     # its counted training run (the backward 4, the forward 8)

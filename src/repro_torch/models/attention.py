@@ -238,6 +238,10 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (:func:`_sharded_attention`; causal, 1-D RoPE, no ``kv_source``).
     """
     if shard is not None:
+        if mrope_positions is not None:
+            raise NotImplementedError(
+                "M-RoPE positions in a sharded call: not in the sharded "
+                "execution of the port yet (ROADMAP A.12)")
         return _sharded_attention(params, x, cfg, cache, shard)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim

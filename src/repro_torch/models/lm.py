@@ -209,13 +209,14 @@ class LM:
                mrope_positions=None, mark: bool = False, shard=None):
         """-> (x, aux, new_kv); aux is 0.0 for an MLP layer. ``mark`` names
         the MoE output "moe_out" for the "names" policy; ``shard`` runs this
-        rank's part of a sharded dense layer (see ``_apply_cached``)."""
+        rank's part of a sharded layer (see ``_apply_cached``)."""
         h, new_kv = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
                               mrope_positions=mrope_positions, cache=cache,
                               shard=shard)
         x = x + h
         if "moe" in lp:
-            y, aux = moe(lp["moe"], rms_norm(x, lp["ln2"]), self.cfg)
+            y, aux = moe(lp["moe"], rms_norm(x, lp["ln2"]), self.cfg,
+                         shard=shard)
             if mark:
                 y = checkpoint_name(y, "moe_out")
         else:
@@ -224,11 +225,12 @@ class LM:
         return x + y, aux, new_kv
 
     def _ssm_layer(self, lp: dict, x: torch.Tensor, *, cache=None,
-                   mrope_positions=None):
+                   mrope_positions=None, shard=None):
         """-> (x, aux 0.0, new_ssm); ``mrope_positions`` is unused (no
-        attention), taken for one layer signature across families."""
+        attention), taken for one layer signature across families;
+        ``shard`` as in ``_layer``."""
         h, new_ssm = mamba_block(lp["mamba"], rms_norm(x, lp["ln1"]),
-                                 self.cfg, cache=cache)
+                                 self.cfg, cache=cache, shard=shard)
         return x + h, 0.0, new_ssm
 
     def _hybrid_block(self, bp: dict, x: torch.Tensor, *, cache=None,
@@ -373,12 +375,14 @@ class LM:
     def _apply_cached(self, params, tokens: torch.Tensor, cache: Cache, *,
                       mrope_positions=None, shard=None):
         """With ``shard`` (a ``sharding.layout.ShardLayout``, given by
-        ``runtime/serve_lib.py``'s steps; family dense): this rank's part
-        of a (data, model) mesh. ``tokens`` are this rank's batch rows,
-        ``params`` and ``cache`` its shards; the embedding, the attention
-        and the MLP run their collectives over the model axis, and this
-        rank's logit columns are gathered to the full (B, S, vocab) logits
-        on every rank, as the reference's steps return them."""
+        ``runtime/serve_lib.py``'s steps; families dense, vlm (its tokens
+        path: 1-D RoPE), moe and ssm): this rank's part of a (data, model)
+        mesh. ``tokens`` are this rank's batch rows, ``params`` and
+        ``cache`` its shards; the embedding, the attention, the MLP, the
+        experts and the Mamba blocks run their collectives over the model
+        axis, and this rank's logit columns (with a tied head, its
+        embedding rows' transpose) are gathered to the full (B, S, vocab)
+        logits on every rank, as the reference's steps return them."""
         x = self._embed(params, tokens, shard)
         layer, kv, ssm = self._layer_fn(), cache.kv, cache.ssm
         if shard is not None:

@@ -1,24 +1,35 @@
-"""Mixture-of-Experts FFN on one device: port of ``repro/models/moe.py``.
+"""Mixture-of-Experts FFN: port of ``repro/models/moe.py``.
 
 The reference shards the experts over the ``model`` mesh axis inside a
-``shard_map`` and sums the ranks' outputs with a ``psum``; here every expert
-lives on the one device (the reference's ``n_model = 1``), so there is no
-drop row for experts of other ranks and no collective (expert parallelism
-is ROADMAP item A.12). What the layer computes is the reference's:
+``shard_map`` and sums the ranks' outputs with a ``psum``. Here a call
+without ``shard`` is the reference's ``n_model = 1``: every expert on the
+one device, no collective. With ``shard`` (a ``sharding.layout.
+ShardLayout``, one rank of a (data, model) mesh, ``runtime/serve_lib.py``'s
+steps) the rank serves the experts ``shard.experts`` and the shared
+experts' hidden units ``shard.shared``, over this data shard's rows, as the
+reference's ``_moe_local``: every other rank's expert is its drop row, the
+capacity comes from the rank's own tokens, and its fp32 output is summed
+over the model axis by one all_reduce. What the layer computes is the
+reference's:
 
 * routing: fp32 router logits, softmax, top-k (the lower expert first among
   equal probabilities, as ``jax.lax.top_k``), gates renormalised with a
-  ``1e-9`` floor, and the GShard load-balance aux loss;
+  ``1e-9`` floor, and the GShard load-balance aux loss; on a rank, over its
+  rows with the replicated router (the reference routes outside its
+  ``shard_map``; the aux loss is then over the rank's rows, which serving
+  does not read);
 * capacity ``C = max(ceil(T·k/E · capacity_factor), 4)`` from the T of the
-  call; a stable sort ranks each (token, k) choice within its expert in
-  arrival order, and choices ranked at C or later are dropped;
-* dispatch into an ``(E, C, M)`` buffer in the activations' dtype, by
+  call (a rank's: its data shard's tokens, with the global E); a stable
+  sort ranks each (token, k) choice within its expert in arrival order, and
+  choices ranked at C or later are dropped;
+* dispatch into an ``(E_local, C, M)`` buffer in the activations' dtype, by
   ``cfg.moe_dispatch``: "scatter" writes each kept (token, k) row into its
   slot; "gather" builds the slot -> (token, k) map once and gathers the
   buffer's rows;
 * the expert products (plain ``torch.matmul``, as the reference leaves them
   to XLA), then the combine in fp32 weighted by the gates, shared experts
-  added, and the output cast back to the activations' dtype.
+  added, and the output cast back to the activations' dtype (on a rank,
+  after the sum over the model axis).
 
 Nothing on the path reads a value on the host (no boolean-mask indexing,
 ``nonzero`` or ``.item()``): every shape follows from the input's, so a
@@ -107,9 +118,11 @@ def _route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _rank(topi: torch.Tensor, n_experts: int):
-    """Arrival-order rank of each (token, k) choice within its expert.
-    Returns ``order`` (the stable sort of the flat (T·k,) expert ids),
-    ``sorted_eid`` and ``pos_sorted``, the rank of each sorted entry."""
+    """Arrival-order rank of each (token, k) choice within its expert;
+    ``topi`` holds ids in [0, n_experts], ``n_experts`` the drop row of
+    another rank's experts. Returns ``order`` (the stable sort of the flat
+    (T·k,) expert ids), ``sorted_eid`` and ``pos_sorted``, the rank of each
+    sorted entry."""
     eid = topi.reshape(-1)
     order = torch.argsort(eid, stable=True)
     sorted_eid = eid[order]
@@ -122,11 +135,11 @@ def _rank(topi: torch.Tensor, n_experts: int):
 
 def _slots(topi: torch.Tensor, n_experts: int, C: int):
     """Scatter mode's plan: for each flat (token, k) choice in arrival
-    order, whether it is kept and its slot in its expert (C, the trash
-    slot, when dropped)."""
+    order, whether it is kept (within capacity, and not in the drop row)
+    and its slot in its expert (C, the trash slot, when not)."""
     order, _, pos_sorted = _rank(topi, n_experts)
     pos = torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)
-    keep = pos < C
+    keep = (pos < C) & (topi.reshape(-1) < n_experts)
     return keep, torch.where(keep, pos, C)
 
 
@@ -134,21 +147,21 @@ def _slot_map(topi: torch.Tensor, n_experts: int, C: int):
     """Gather mode's plan: ``grid`` (E, C), the flat (token, k) index each
     slot holds, ``valid`` (E, C), whether it holds one, and ``slot_of``
     (T·k,), the flat slot ``e * C + c`` each kept choice lands in (E·C,
-    past the last slot, when dropped)."""
+    past the last slot, when dropped or in the drop row E)."""
     order, sorted_eid, pos_sorted = _rank(topi, n_experts)
-    kept = pos_sorted < C
+    kept = (pos_sorted < C) & (sorted_eid < n_experts)
     Cp1 = C + 1
     flat = sorted_eid * Cp1 + torch.clamp(pos_sorted, max=C)
     # the kept entries' slots are distinct; every dropped entry lands on
-    # its expert's trash slot C, which the [:, :C] slice cuts away, so
-    # which of them a duplicate write leaves there never matters
-    n_flat = n_experts * Cp1
+    # its expert's trash slot C or in the drop row, which the slices cut
+    # away, so which of them a duplicate write leaves there never matters
+    n_flat = (n_experts + 1) * Cp1
     grid = torch.zeros(n_flat, dtype=order.dtype, device=order.device) \
         .index_put_((flat,), order)
     valid = torch.zeros(n_flat, dtype=torch.bool, device=order.device) \
         .index_put_((flat,), kept)
-    grid = grid.reshape(n_experts, Cp1)[:, :C]
-    valid = valid.reshape(n_experts, Cp1)[:, :C]
+    grid = grid.reshape(n_experts + 1, Cp1)[:n_experts, :C]
+    valid = valid.reshape(n_experts + 1, Cp1)[:n_experts, :C]
     # the inverse map; ``order`` is a permutation, so each entry is
     # written once
     slot_of = torch.empty_like(order).index_put_(
@@ -167,22 +180,23 @@ def _experts(buf: torch.Tensor, w_gate, w_up, w_down, act) -> torch.Tensor:
     return matmul(h, w_down)
 
 
-def _dispatch(t: torch.Tensor, topi: torch.Tensor, C: int,
+def _dispatch(t: torch.Tensor, lid: torch.Tensor, n_local: int, C: int,
               cfg: ModelConfig):
-    """t (T, M), routing (T, k) -> the (E, C, M) buffer in t's dtype and the
-    plan ``_combine`` reads."""
-    E, k = cfg.n_experts, cfg.top_k
+    """t (T, M), routing ``lid`` (T, k) in this device's expert ids (the
+    drop row ``n_local`` for another rank's) -> the (n_local, C, M) buffer
+    in t's dtype and the plan ``_combine`` reads."""
+    k = cfg.top_k
     if cfg.moe_dispatch == "gather":
-        grid, valid, slot_of = _slot_map(topi, E, C)
+        grid, valid, slot_of = _slot_map(lid, n_local, C)
         return torch.where(valid[..., None], t[grid // k], 0), (slot_of,)
-    keep, slot = _slots(topi, E, C)
-    eid = torch.where(keep, topi.reshape(-1), 0)
-    tok = torch.arange(topi.numel(), device=t.device) // k
+    keep, slot = _slots(lid, n_local, C)
+    eid = torch.where(keep, lid.reshape(-1), 0)
+    tok = torch.arange(lid.numel(), device=t.device) // k
     x_rep = torch.where(keep[:, None], t[tok], 0)
     # the reference adds each kept row into a zero buffer; the kept slots
     # are distinct and every dropped row (zeros) goes to expert 0's trash
     # slot C, so a plain write gives the same bits without atomics
-    buf = torch.zeros((E, C + 1, t.shape[1]), dtype=t.dtype,
+    buf = torch.zeros((n_local, C + 1, t.shape[1]), dtype=t.dtype,
                       device=t.device).index_put_((eid, slot), x_rep)
     return buf[:, :C], (keep, slot, eid)
 
@@ -213,32 +227,47 @@ def _combine(out_buf: torch.Tensor, plan, gates: torch.Tensor,
 
 
 def _moe_local(x, topi, gates, w_gate, w_up, w_down, shared, *,
-               cfg: ModelConfig) -> torch.Tensor:
-    """The reference's per-device block with every expert on this device:
-    x (B, S, M), routing (T, k) -> y (B, S, M) in x's dtype."""
+               cfg: ModelConfig, shard=None) -> torch.Tensor:
+    """The reference's per-device block: x (B, S, M), routing (T, k) ->
+    y (B, S, M) in x's dtype. Without ``shard`` every expert is on this
+    device; with it the weights are this rank's experts ``shard.experts``
+    (and its columns of ``shared_gate``/``shared_up``, rows of
+    ``shared_down``), the choices of other ranks' experts go to the drop
+    row, and the fp32 output is summed over the model axis before the
+    cast."""
     B, S, M = x.shape
     act = ACTIVATIONS[cfg.activation]
     t = x.reshape(B * S, M)
+    # capacity a (local) expert: expected load T·k/E tokens from this data
+    # shard's rows, padded by the capacity factor
     C = _capacity(B * S, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
-    buf, plan = _dispatch(t, topi, C, cfg)
-    out_buf = _experts(buf, w_gate, w_up, w_down, act)     # (E, C, M)
+    lid, n_local = topi, cfg.n_experts
+    if shard is not None:
+        n_local = shard.experts.size
+        local = topi - shard.experts.start
+        lid = torch.where((local >= 0) & (local < n_local), local, n_local)
+    buf, plan = _dispatch(t, lid, n_local, C, cfg)
+    out_buf = _experts(buf, w_gate, w_up, w_down, act)     # (E_loc, C, M)
     y = _combine(out_buf, plan, gates, cfg)
     if shared is not None:
         s_gate, s_up, s_down = shared
         g = matmul(t, s_gate)
         u = matmul(t, s_up)
         y = y + matmul(act(g) * u, s_down).float()
+    if shard is not None:
+        return shard.reduce_sum(y, x.dtype).reshape(B, S, M)
     return y.reshape(B, S, M).to(x.dtype)
 
 
-def moe(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *, shard=None):
     """MoE sublayer. x: (B, S, M) -> (y (B, S, M) in x's dtype, aux ()
-    fp32)."""
+    fp32). ``shard``: this rank's part of an expert-parallel layer
+    (:func:`_moe_local`)."""
     topi, gates, aux = _route(params["router"], x, cfg)
     shared = None
     if cfg.n_shared_experts:
         shared = (params["shared_gate"], params["shared_up"],
                   params["shared_down"])
     y = _moe_local(x, topi, gates, params.get("w_gate"), params["w_up"],
-                   params["w_down"], shared, cfg=cfg)
+                   params["w_down"], shared, cfg=cfg, shard=shard)
     return y, aux

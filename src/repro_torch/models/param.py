@@ -249,8 +249,10 @@ def init_params(decls, generator: torch.Generator,
     rank's shard (``sharding.rules.local_slices``), holding exactly the
     values of that shard of the unsharded call's leaf: every leaf is drawn
     whole, slice by slice, in the same order, and each slice's part in the
-    shard is kept. An initializer without a ``region`` attribute draws its
-    whole leaf and keeps the shard."""
+    shard is kept (a stacked expert leaf (L, E, M, F) cut on its experts
+    axis, a Mamba leaf on ``ssm_inner`` or ``ssm_heads``, as any other). An
+    initializer without a ``region`` attribute draws its whole leaf and
+    keeps the shard."""
     from ..sharding.rules import local_slices
 
     def make(path: tuple, d: ArrayDecl) -> torch.Tensor:

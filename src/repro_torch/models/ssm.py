@@ -17,6 +17,12 @@ The cache differs from the reference in one respect: JAX returns an updated
 copy; the port writes the state and the conv tails into the cache's buffers
 in place (prefill's kernel writes the final state straight into them), and
 returns a cache that holds the same buffers.
+
+With ``shard`` (a ``sharding.layout.ShardLayout``, one rank of a (data,
+model) mesh, ``runtime/serve_lib.py``'s steps) whose ``ssm_heads`` are cut
+over the model axis, the block is head parallel, as the reference's specs
+cut it (:func:`_sharded_mamba`): the rank runs its heads, the ssd kernel
+on them at the prefill, and two collectives a call.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from ..kernels.ssd import ssd
 from ..kernels.ssd.ref import segsum as _segsum, ssd_chunked
-from .common import matmul, rms_norm, silu, softplus
+from .common import matmul, matmul_f32, rms_norm, silu, softplus
 from .config import ModelConfig
 from .param import ArrayDecl, normal_init, ones_init
 
@@ -134,12 +140,16 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 # ----------------------------------------------------------------------
 def mamba_block(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
-                cache: SSMCache | None = None):
+                cache: SSMCache | None = None, shard=None):
     """Full Mamba-2 block. u: (B, S, M) -> (out, cache_or_None).
 
     Modes: no cache (forward); cache with S > 1 (prefill from the cache's
     state and conv tails); cache with S == 1 (decode). With a cache, its
-    buffers are updated in place and returned as the new cache."""
+    buffers are updated in place and returned as the new cache. ``shard``
+    with the heads cut: this rank's part of a cached call
+    (:func:`_sharded_mamba`)."""
+    if shard is not None and shard.ssm_heads.sharded:
+        return _sharded_mamba(params, u, cfg, cache, shard)
     Bb, S, M = u.shape
     H, P, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
     z = matmul(u, params["w_z"])
@@ -189,4 +199,92 @@ def mamba_block(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     y = y.to(u.dtype)
     y = rms_norm(y * silu(z), params["norm"])
     out = matmul(y, params["out_proj"])
+    return out.to(u.dtype), cache
+
+
+# ----------------------------------------------------------------------
+# one rank of a (data, model) mesh
+# ----------------------------------------------------------------------
+def _norm_and_tail(g: torch.Tensor, new_x: torch.Tensor,
+                   shard) -> tuple[torch.Tensor, torch.Tensor]:
+    """One all_reduce for two things: the gated norm's mean square over
+    the whole ``d_inner`` (g (B, S, local columns) fp32, the rank's sum of
+    squares summed over the model ranks, over the full width), and the
+    conv tail's new x columns (new_x (B, n, local columns)) gathered to
+    every column, in fp32 (exact for bf16). -> (mean square (B, S, 1),
+    x (B, n, d_inner) fp32)."""
+    total, (x_full,) = shard.sum_with(g.square().sum(dim=-1, keepdim=True),
+                                      (new_x, 2, shard.ssm_inner))
+    return total / shard.ssm_inner.total, x_full
+
+
+def _sharded_mamba(params: dict, u: torch.Tensor, cfg: ModelConfig,
+                   cache: SSMCache, shard):
+    """One rank's share of a cached Mamba-2 call (the reference's
+    ``mamba_block`` under its specs): params this rank's slices, its
+    ``shard.ssm_inner`` columns of ``w_z``, ``w_x``, ``conv_x`` and
+    ``norm``, its rows of ``out_proj``, its ``shard.ssm_heads`` of
+    ``w_dt``, ``dt_bias``, ``A_log`` and ``D``, and ``w_B``, ``w_C``,
+    ``conv_B``, ``conv_C`` whole (one group, shared by every head); cache
+    its heads' state (B, local heads, P, N) and every column of the conv
+    tails, which the reference's spec keeps alike on every model rank.
+
+    The prefill runs the ssd kernel on the rank's heads, from its state
+    shard into it; a decode step the recurrence on them. The gated
+    RMSNorm is over the whole ``d_inner``, and the rank's new x columns
+    go to every rank's conv tail, in one all_reduce
+    (:func:`_norm_and_tail`); ``out_proj`` is row parallel, its fp32
+    partials summed over the model axis and rounded once: two collectives
+    a call."""
+    Bb, S, M = u.shape
+    P, K = cfg.ssm_head_dim, cfg.ssm_conv
+    H, cols = shard.ssm_heads.size, shard.ssm_inner.slice()
+    z = matmul(u, params["w_z"])
+    x = matmul(u, params["w_x"])
+    Bm = matmul(u, params["w_B"])
+    Cm = matmul(u, params["w_C"])
+    dt = softplus(matmul(u, params["w_dt"]).float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    if S == 1:
+        cx = torch.cat([cache.conv_x[:, :, cols],
+                        x.to(cache.conv_x.dtype)], 1)
+        cB = torch.cat([cache.conv_B, Bm.to(cache.conv_B.dtype)], 1)
+        cC = torch.cat([cache.conv_C, Cm.to(cache.conv_C.dtype)], 1)
+        xc = torch.einsum("bkd,kd->bd", cx, params["conv_x"].to(cx.dtype))
+        Bc = torch.einsum("bkn,kn->bn", cB, params["conv_B"].to(cB.dtype))
+        Cc = torch.einsum("bkn,kn->bn", cC, params["conv_C"].to(cC.dtype))
+        xh = silu(xc).reshape(Bb, H, P)
+        y, new_state = ssd_decode_step(xh, dt[:, 0], A, silu(Bc), silu(Cc),
+                                       cache.state)
+        y = (y + params["D"][:, None] * xh.float()).reshape(Bb, 1, H * P)
+        cache.state.copy_(new_state)
+        cache.conv_B.copy_(cB[:, 1:])
+        cache.conv_C.copy_(cC[:, 1:])
+        new_x = x
+    else:
+        xa = silu(_causal_conv(x, params["conv_x"].to(x.dtype),
+                               cache.conv_x[:, :, cols]))
+        Ba = silu(_causal_conv(Bm, params["conv_B"].to(Bm.dtype),
+                               cache.conv_B))
+        Ca = silu(_causal_conv(Cm, params["conv_C"].to(Cm.dtype),
+                               cache.conv_C))
+        xh = xa.reshape(Bb, S, H, P)
+        y, _ = ssd(xh, dt, A, Ba, Ca, chunk=min(cfg.q_chunk, 256),
+                   state0=cache.state, state_out=cache.state)
+        y = (y + params["D"][None, None, :, None] * xh).reshape(Bb, S, H * P)
+        cache.conv_B.copy_(Bm[:, -(K - 1):])
+        cache.conv_C.copy_(Cm[:, -(K - 1):])
+        new_x = x[:, -(K - 1):]
+    g = y.to(u.dtype) * silu(z)
+    ms, x_full = _norm_and_tail(g.float(), new_x, shard)
+    if S == 1:
+        x_full = torch.cat([cache.conv_x[:, 1:],
+                            x_full.to(cache.conv_x.dtype)], 1)
+    cache.conv_x.copy_(x_full)
+    # common.rms_norm with the whole width's mean square
+    y = (g.float() * torch.rsqrt(ms + 1e-6)
+         * params["norm"].float()).to(g.dtype)
+    out = shard.reduce_sum(matmul_f32(y, params["out_proj"]),
+                           torch.promote_types(y.dtype,
+                                               params["out_proj"].dtype))
     return out.to(u.dtype), cache

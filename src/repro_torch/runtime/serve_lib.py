@@ -11,16 +11,23 @@ axis. SSM states cut their heads over the model axis.
 
 :func:`cache_specs` gives those specs for every family, as the reference's
 do. :func:`build_prefill_step` and :func:`build_decode_step` return
-callables over this rank's parameter and cache shards for the ``dense``
-family: ``(params, tokens, cache) -> (logits, cache)``, with ``tokens`` the
-whole batch (every rank takes its rows) and ``logits`` the whole batch's on
-every rank, as the reference's steps return them. The model's execution
-(``models/lm.py::_apply_cached`` with ``shard``) covers q heads, K/V heads,
-the MLP and the vocab cut over the model axis (or replicated where
-``rules._fits`` refuses), the batch over the data axes and the cache's
-sequence over the model axis. A spec it does not cover (the ``head_dim``
-fallback, ZeRO-3, sequence parallelism, a cache sequence over other axes)
-and the other families raise ``NotImplementedError`` naming ROADMAP A.12
+callables over this rank's parameter and cache shards for the ``dense``,
+``vlm`` (its tokens path, 1-D RoPE, as the reference's serve steps run
+it), ``moe`` and ``ssm`` families: ``(params, tokens, cache) -> (logits,
+cache)``, with ``tokens`` the whole batch (every rank takes its rows) and
+``logits`` the whole batch's on every rank, as the reference's steps
+return them. The model's execution (``models/lm.py::_apply_cached`` with
+``shard``) covers q heads, K/V heads, the MLP and the vocab cut over the
+model axis (or replicated where ``rules._fits`` refuses); the experts cut
+over the model axis (expert parallel, each data shard's capacity from its
+own tokens, as the reference's ``shard_map`` gives it) with the shared
+experts' hidden units; the Mamba heads and their ``d_inner`` columns (head
+parallel, the ssd kernel on each rank's heads); the batch over the data
+axes and the K/V cache's sequence over the model axis. A spec it does not
+cover (the ``head_dim`` fallback, ``expert_mlp`` cut where the experts do
+not divide, ``ssm_inner`` cut without ``ssm_heads``, ZeRO-3, sequence
+parallelism, a cache sequence over other axes) and the ``hybrid`` and
+``encdec`` families raise ``NotImplementedError`` naming ROADMAP A.12
 before anything is allocated.
 
 The steps need a mesh over a process group (``launch/mesh.py::
@@ -48,8 +55,11 @@ __all__ = ["cache_specs", "build_prefill_step", "build_decode_step",
            "abstract_cache", "param_specs", "shard_layout",
            "init_cache_shards"]
 
-# the logical axes the sharded execution cuts over the model axis
-_CUT_AXES = ("heads", "kv_heads", "mlp", "vocab")
+# the families the sharded execution serves, and the logical axes it cuts
+# over the model axis
+_FAMILIES = ("dense", "vlm", "moe", "ssm")
+_CUT_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_heads",
+             "ssm_inner")
 
 
 def _lead(axes):
@@ -145,19 +155,50 @@ def _unported(what: str) -> NotImplementedError:
 def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
                  zero3: bool = False) -> ShardLayout:
     """This rank's :class:`~repro_torch.sharding.layout.ShardLayout` of the
-    dense model under the reference's specs, or ``NotImplementedError``
-    naming ROADMAP A.12 for a spec the execution does not cover. Allocates
+    model under the reference's specs, or ``NotImplementedError`` naming
+    ROADMAP A.12 for a spec the execution does not cover. Allocates
     nothing."""
     cfg = model.cfg
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise _unported(f"sharded serving of the {cfg.family} family")
     if zero3:
         raise _unported("ZeRO-3 parameter specs (zero3=True)")
     if model_axis(mesh) is None:
         raise _unported(f"a mesh without a model axis ({mesh})")
-    decls = model.param_decls()
     specs = param_specs(model, mesh)
-    for path, d in tree_items(decls):
+    layers = specs["layers"]
+    kw = {"vocab": span_of(specs["embed"][0], cfg.vocab, mesh)}
+    if cfg.family == "ssm":
+        ssm = layers["mamba"]
+        heads = span_of(ssm["A_log"][1], cfg.ssm_heads, mesh)
+        inner = span_of(ssm["w_x"][2], cfg.d_inner, mesh)
+        if heads.sharded != inner.sharded:
+            raise _unported(
+                f"ssm_inner {'' if inner.sharded else 'not '}cut over the "
+                f"model axis of {mesh} while the {cfg.ssm_heads} ssm_heads "
+                f"are{'' if heads.sharded else ' not'} (a rank's inner "
+                f"columns must be its heads')")
+        state = cache_specs(model, mesh, batch, max_len).ssm.state
+        kw.update(batch=span_of(state[1], batch, mesh), ssm_heads=heads,
+                  ssm_inner=inner)
+    elif cfg.family == "moe":
+        moe = layers["moe"]
+        kw["experts"] = span_of(moe["w_up"][1], cfg.n_experts, mesh)
+        if not kw["experts"].sharded:
+            raise _unported(
+                f"the {cfg.n_experts} experts do not divide over the model "
+                f"axis of {mesh}, so the specs cut expert_mlp (the "
+                f"reference's shard_map cuts the experts all the same)")
+        if cfg.n_shared_experts:
+            kw["shared"] = span_of(moe["shared_up"][2],
+                                   cfg.d_ff * cfg.n_shared_experts, mesh)
+            if not kw["shared"].sharded:
+                raise _unported(f"the shared experts' {kw['shared'].total} "
+                                f"hidden units not cut over the model axis "
+                                f"of {mesh}")
+    else:
+        kw["mlp"] = span_of(layers["mlp"]["w_up"][2], cfg.d_ff, mesh)
+    for path, d in tree_items(model.param_decls()):
         spec = tree_at(specs, path)
         for name, part in zip(d.axes, spec):
             if part is not None and not (part == "model"
@@ -169,12 +210,14 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
                     if name == "head_dim" else
                     f"{'/'.join(path)}: spec {spec} cuts its {name!r} axis "
                     f"over {part!r}")
+    if cfg.family == "ssm":
+        return ShardLayout(mesh=mesh, **kw)
     kv = cache_specs(model, mesh, batch, max_len).kv.k
     if kv[2] != "model":
         raise _unported(f"a K/V cache spec {kv} whose sequence is not cut "
                         f"over the model axis alone (max_len {max_len} on "
                         f"{mesh})")
-    attn, layers = specs["layers"]["attn"], specs["layers"]
+    attn = layers["attn"]
     heads = span_of(attn["wq"][2], cfg.n_heads_eff, mesh)
     G = cfg.n_heads_eff // cfg.n_kv_heads
     if heads.size % G and G % heads.size:
@@ -182,23 +225,30 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
     return ShardLayout(
         mesh=mesh, heads=heads,
         kv_heads=span_of(attn["wk"][2], cfg.n_kv_heads, mesh),
-        mlp=span_of(layers["mlp"]["w_up"][2], cfg.d_ff, mesh),
-        vocab=span_of(specs["embed"][0], cfg.vocab, mesh),
         batch=span_of(kv[1], batch, mesh),
-        seq=span_of(kv[2], max_len, mesh))
+        seq=span_of(kv[2], max_len, mesh), **kw)
 
 
 def init_cache_shards(model, mesh: Mesh, batch: int, max_len: int, *,
                       device: str | torch.device = "cuda") -> Cache:
-    """This rank's zero K/V cache shards (dense family): (n_layers,
-    local batch, local rows, kv_heads, head_dim) under :func:`cache_specs`,
-    and the global ``length``, one int32 scalar."""
+    """This rank's zero cache shards under :func:`cache_specs`: the K/V
+    cache (n_layers, local batch, local rows, kv_heads, head_dim) with the
+    global ``length``, one int32 scalar (families dense, vlm, moe); or the
+    SSM cache (family ssm): ``state`` (n_layers, local batch, local heads,
+    P, N) fp32 and the conv tails (n_layers, local batch, K-1, channels),
+    ``conv_x`` with every ``d_inner`` column on every model rank, as the
+    reference's spec keeps it."""
     full = abstract_cache(model, batch, max_len, filled=False)
     specs = cache_specs(model, mesh, batch, max_len)
-    k_shape = local_shape(specs.kv.k, tuple(full.kv.k.shape), mesh)
+
+    def zeros(spec, like):
+        return torch.zeros(local_shape(spec, tuple(like.shape), mesh),
+                           dtype=like.dtype, device=device)
+    if model.cfg.family == "ssm":
+        return Cache(ssm=SSMCache(*(zeros(spec, like) for spec, like
+                                    in zip(specs.ssm, full.ssm))))
     return Cache(kv=KVCache(
-        k=torch.zeros(k_shape, dtype=full.kv.k.dtype, device=device),
-        v=torch.zeros(k_shape, dtype=full.kv.v.dtype, device=device),
+        k=zeros(specs.kv.k, full.kv.k), v=zeros(specs.kv.v, full.kv.v),
         length=torch.zeros((), dtype=torch.int32, device=device)))
 
 

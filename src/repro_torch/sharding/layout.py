@@ -2,18 +2,21 @@
 
 ``runtime/serve_lib.py`` reads the specs (``rules.spec_tree``,
 ``serve_lib.cache_specs``) into a :class:`ShardLayout`: for each dim that
-the dense model's execution cuts (q heads, KV heads, the MLP's hidden
-units, the vocab, the batch, the cache's sequence), the span of it that
+the model's execution cuts (q heads, KV heads, the MLP's hidden units, the
+experts, the shared experts' hidden units, the Mamba heads and their inner
+columns, the vocab, the batch, the cache's sequence), the span of it that
 this rank holds and the mesh axes it is cut over. The model's sharded code
-(``models/attention.py``, ``ffn.py``, ``lm.py``) takes the layout as its
-``shard`` argument and runs the collectives through it, over the mesh's
-process groups.
+(``models/attention.py``, ``ffn.py``, ``moe.py``, ``ssm.py``, ``lm.py``)
+takes the layout as its ``shard`` argument and runs the collectives
+through it, over the mesh's process groups.
 
 Every collective is an ``all_reduce``: a gather is a sum over a zero-filled
 full-size buffer into which each rank writes its own part (exact: each
-element has one nonzero term). Gloo takes CUDA tensors in ``broadcast`` and
-``all_reduce`` alone, which is what ranks that share one card run on; NCCL
-(one rank a card) takes the same calls.
+element has one nonzero term), and a sum and gathers can share one buffer
+(:meth:`ShardLayout.sum_with`, a Mamba layer's norm and conv tail). Gloo
+takes CUDA tensors in ``broadcast`` and ``all_reduce`` alone, which is what
+ranks that share one card run on; NCCL (one rank a card) takes the same
+calls.
 """
 
 from __future__ import annotations
@@ -59,20 +62,28 @@ def span_of(entry, total: int, mesh: Mesh) -> Span:
 
 @dataclasses.dataclass(frozen=True)
 class ShardLayout:
-    """One rank's part of a sharded dense model and of its serving cache.
+    """One rank's part of a sharded model and of its serving cache.
 
-    ``heads`` are the q heads (``wq``'s and ``wo``'s), ``kv_heads`` the K/V
-    projections' heads, ``mlp`` the MLP's hidden units, ``vocab`` the
-    embedding rows and logit columns, ``batch`` the sequences this rank
-    serves and ``seq`` its rows of the K/V cache."""
+    ``vocab`` are the embedding rows and logit columns and ``batch`` the
+    sequences this rank serves. A family's own dims, None where the family
+    has none: ``heads`` the q heads (``wq``'s and ``wo``'s), ``kv_heads``
+    the K/V projections' heads and ``seq`` this rank's rows of the K/V
+    cache (dense, vlm, moe); ``mlp`` the MLP's hidden units (dense, vlm);
+    ``experts`` the experts this rank serves and ``shared`` the shared
+    experts' hidden units (moe); ``ssm_heads`` the Mamba heads and
+    ``ssm_inner`` their ``d_inner`` columns, head-major (ssm)."""
 
     mesh: Mesh
-    heads: Span
-    kv_heads: Span
-    mlp: Span
     vocab: Span
     batch: Span
-    seq: Span
+    heads: Span | None = None
+    kv_heads: Span | None = None
+    seq: Span | None = None
+    mlp: Span | None = None
+    experts: Span | None = None
+    shared: Span | None = None
+    ssm_heads: Span | None = None
+    ssm_inner: Span | None = None
 
     @property
     def model_group(self):
@@ -105,26 +116,40 @@ class ShardLayout:
         for all of them: ``parts`` are (t, dim, span), this rank's ``t``
         holding ``span`` of dim ``dim``; each comes back full on every
         rank. A part whose span is not cut comes back as it is."""
+        return self.sum_with(None, *parts)[1]
+
+    def sum_with(self, partial: torch.Tensor | None,
+                 *parts: tuple) -> tuple[torch.Tensor | None,
+                                         list[torch.Tensor]]:
+        """``partial``'s sum over the model ranks and ``parts`` gathered as
+        :meth:`gather` does, in one all_reduce of one flat buffer in
+        ``partial``'s dtype (the parts' dtype without one; a bf16 part in
+        an fp32 buffer comes back exact). -> (the sum, the parts)."""
         cut = [(i, t, dim, span) for i, (t, dim, span) in enumerate(parts)
                if span.sharded]
         out = [t for t, _, _ in parts]
-        if not cut:
-            return out
+        if partial is None and not cut:
+            return None, out
         shapes = []
         for _, t, dim, span in cut:
             shape = list(t.shape)
             shape[dim] = span.total
             shapes.append(shape)
         sizes = [math.prod(shape) for shape in shapes]
-        flat = cut[0][1].new_zeros(sum(sizes))
-        offset = 0
+        head = 0 if partial is None else partial.numel()
+        like = cut[0][1] if partial is None else partial
+        flat = like.new_zeros(head + sum(sizes))
+        if partial is not None:
+            flat[:head].copy_(partial.reshape(-1))
+        offset = head
         for (i, t, dim, span), shape, size in zip(cut, shapes, sizes):
             full = flat[offset:offset + size].view(shape)
             full.narrow(dim, span.start, span.size).copy_(t)
             out[i] = full
             offset += size
-        self.sum_exact(flat)
-        return out
+        torch.distributed.all_reduce(flat, group=self.model_group)
+        total = None if partial is None else flat[:head].view(partial.shape)
+        return total, out
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """Full (B, S, vocab) logits on every rank from this rank's (batch
