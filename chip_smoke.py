@@ -44,10 +44,13 @@ Phases, each fatal on failure:
    and a ragged S; jamba's SSD at its prefill shape, 256 heads of P = 64,
    N = 128, state0 and state_out a slice of a zeroed stacked cache, timed;
    mamba2's prefill on one rank of a (1, 2) mesh, 16 of its 32 heads,
+   and jamba's, 128 of its 256, each timed; a seamless rank's decode step
+   over its 8 heads of the memory, a strided view of the cache's 16,
    timed), and the decode kernel's partial entry (one span of a
    sequence-cut cache: out and lse, at local lengths 0, 1, a mid value
    and the whole span, D = 64, 112, 128 and G = 1, 8, 12, 16, bf16 and
-   fp32; timed at each sharded run's span), to bf16
+   fp32; timed at each sharded run's span, seamless's over its fp32 self
+   cache with q cast from bf16), to bf16
    2e-2
    and fp32 2e-5 absolute (the JAX package's kernel tolerances; 5x those
    relative for ssd's output and 1e-4 relative for its final state and the
@@ -96,34 +99,42 @@ Phases, each fatal on failure:
    (the first call of each shape pays one-time library and module-loading
    costs) and once counted, its kernels' launch counts set to 0 just
    before and read just after: they must show every layer of the counted
-   run went through them; then ``sharded_serve_check``: the dense, vlm,
-   MoE and SSM families over a (data, model) mesh through
-   ``runtime/serve_lib.py``'s steps, at the same serving shape with the
-   K/V cache's 1056 rows cut on their sequence axis (at a model axis of 2
-   the decode crosses from rank 0's span into rank 1's), one spawn a mesh
-   (``SHARD_GROUPS``), each rank a process on the one card serving its
-   archs one after another, joined with a timeout: tinyllama-1.1b at
-   (1, 1) under NCCL and at (1, 2) and (2, 2) under gloo; under gloo at
-   (1, 2) starcoder2-15b cut to 8 layers, qwen2-vl-72b to 2 (its tokens
-   path), qwen3-moe-235b-a22b to 2 (also at (2, 2), each data shard
-   against the unsharded run on its rows alone), kimi-k2-1t-a32b to 1 and
-   mamba2-370m to 12 (``SHARD_LAYERS``); every rank's prefill and 31
+   run went through them; then ``sharded_serve_check``: every family
+   over a (data, model) mesh through ``runtime/serve_lib.py``'s steps, at
+   the same serving shape with the K/V cache's 1056 rows cut on their
+   sequence axis (at a model axis of 2 the decode crosses from rank 0's
+   span into rank 1's), one spawn a mesh (``SHARD_GROUPS``), each rank a
+   process on the one card serving its archs one after another, joined
+   with a timeout: tinyllama-1.1b cut to 8 layers at (1, 1) under NCCL
+   and at (1, 2) under gloo; under gloo at (1, 2) starcoder2-15b cut to 8
+   layers, qwen2-vl-72b to 2 (its tokens path), qwen3-moe-235b-a22b to 2
+   (also at (2, 2), each data shard against the unsharded run on its rows
+   alone), kimi-k2-1t-a32b to 1, mamba2-370m to 12, seamless-m4t-large-v2
+   to 12 + 12 over 1024 seeded frames (``SHARD_LAYERS``) and
+   jamba-1.5-large-398b's period-4 super-block; every rank's prefill and 31
    teacher-forced decode steps against the unsharded ``serve_loop`` of the
    same cut model on the same seed (rel < 0.06, picks apart only at
    near-ties; its span of the first and last layers' K/V cache alike; the
-   MoE routing at most 2% apart, each a near-tie, the MoE logits and K/V
-   held fed the reference's routing, its own printed; mamba2's state
-   shard, conv tails and layer 0's Mamba output alike, ``conv_x`` equal on
-   the model ranks), its shard
-   shapes against the specs, its launches (flash once an attention layer,
-   the decode kernel's partial entry once an attention layer a step, ssd
-   once a Mamba layer, nothing else), and planted faults, each of which
-   must break a rule on some rank: a merge that drops model rank 0's
-   partial, the new token's K/V written into every rank's span, a vocab
-   shard one shard off (tinyllama at (1, 1), the first alone, and (1,
-   2)); every rank serving experts 0..E_loc-1, the experts' sum skipped
-   (each multi-rank MoE run); a rank's dt_bias, A_log and D from heads
-   0..H_loc-1, the gated norm over a rank's own columns (mamba2);
+   MoE routing at most 2% apart, each a near-tie, the logits and caches
+   of an arch with MoE layers held fed the reference's routing, its own
+   printed; the SSM state shards, conv tails and the first Mamba block's
+   output alike, ``conv_x`` equal on the model ranks; seamless's fp32
+   self-cache span and its memory K/V, every head on every rank, alike),
+   its shard shapes against the specs, its launches
+   (``shard_launches``: flash once an attention at the prefill, the
+   decode kernel's partial entry once a cached self-attention a step, the
+   whole-cache decode once a cross-attention a step, ssd once a Mamba
+   block, nothing else) and all_reduce calls a decode step
+   (``shard_collectives``) as predicted, and planted faults, each of
+   which must break a rule on some rank: a merge that drops model rank
+   0's partial, the new token's K/V written into every rank's span, a
+   vocab shard one shard off (tinyllama at (1, 1), the first alone, and
+   (1, 2)); every rank serving experts 0..E_loc-1, the experts' sum
+   skipped (each multi-rank MoE run); a rank's dt_bias, A_log and D from
+   heads 0..H_loc-1, the gated norm over a rank's own columns (mamba2);
+   every Mamba sublayer of a block on SSM cache slice 0, and the experts
+   0..E_loc-1 (jamba); the memory K/V gather skipped, the encoder's
+   row-parallel ``wo`` sum skipped (seamless);
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
    40-layer qwen2-vl, the period-4 jamba block (its device time split
@@ -219,9 +230,12 @@ backward entries qwen2-vl's G = 8, D = 128 row, "qwen2vl", with the
 launches of its counted serve_loop or training run; the flash and decode
 entries jamba's launches, "jamba", at qwen2-vl's timed shape, and the ssd
 entry jamba's H = 256 row, "jamba", with its launches, and a mamba2 rank's
-H = 16 row, "h16", with the sharded runs' launches; the partial decode
-entry qwen3-moe's, qwen2-vl's and kimi-k2's spans, "g16_d128", "g8_d128"
-and "g8_d112", each with its arch's sharded launches); the last
+H = 16 row, "h16", and a jamba rank's H = 128 row, "h128", with the
+sharded runs' launches; the decode entry a seamless rank's row over the
+memory, "rank_cross", with its sharded launches; the partial decode
+entry qwen3-moe's, qwen2-vl's (and jamba's), kimi-k2's and seamless's
+spans, "g16_d128", "g8_d128", "g8_d112" and "g1_d64_f32", each with its
+archs' sharded launches); the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository around it, the script exits nonzero and prints no result.
 """
@@ -480,9 +494,11 @@ def check_decode(torch, timer, gen) -> dict:
     serving shape's lengths; qwen2-vl's G = 8 at D = 128 at the same
     lengths; seamless-m4t's G = 1, D = 64 step over its
     fp32 self cache (L = 544, the serving lengths) and over its bf16
-    memory (L = length = 1024). The serving shapes, kimi-k2's in both
-    dtypes, qwen2-vl's, seamless's two and the long cache are timed. Each row names
-    its record, as in ``check_flash``."""
+    memory (L = length = 1024), and a seamless rank's 8 q heads of a (1,
+    2) mesh over their 8 KV heads of that memory (a strided view of its
+    16, "rank_cross"). The serving shapes, kimi-k2's in both dtypes,
+    qwen2-vl's, seamless's three and the long cache are timed. Each row
+    names its record, as in ``check_flash``."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
     from repro_torch.kernels.decode_attention.kernel import keys_per_split
@@ -565,6 +581,35 @@ def check_decode(torch, timer, gen) -> dict:
                                       "library_ms": lib_ms, "bound_ms": b_ms,
                                       "bound_by": b_by})
 
+    # a seamless rank's step over the memory on a (1, 2) mesh: its 8 q heads
+    # over their 8 KV heads of the 1024-frame cache, which holds all 16 (a
+    # strided view, as models/attention.py's cross_attention reads it)
+    memory = torch.randn(2, 8, 1024, 16, 64, generator=gen,
+                         device="cuda").bfloat16()
+    k, v = memory[0, :, :, 8:], memory[1, :, :, 8:]
+    q = torch.randn(8, 1, 8, 64, generator=gen, device="cuda").bfloat16()
+    length = torch.tensor(1024, dtype=torch.int32, device="cuda")
+    err = max_err(decode_attention_cuda(q, k, v, length),
+                  decode_attention_plain(q, k, v, length))
+    log(f"[kernels] decode_attention seamless-rank bfloat16 B=8 L=1024 H=8 "
+        f"of 16 KV heads (strided) D=64 length=1024: max_abs_err={err:.3e} "
+        f"(tol {TOL['bfloat16']:g})")
+    if not err < TOL["bfloat16"]:
+        raise AssertionError(f"decode_attention seamless-rank: {err}")
+    ms = timer.ms(lambda: decode_attention_cuda(q, k, v, length))
+    plain_ms = timer.ms(lambda: decode_attention_plain(q, k, v, length))
+    lib_ms = sdpa_ms(torch, timer, q, k, v, causal=False)
+    b_ms, b_by = bound(4 * 8 * 8 * 1024 * 64,
+                       2 * (2 * 8 * 8 * 1024 * 64 + 2 * q.numel()),
+                       PEAK_BF16_FLOPS)
+    log(f"[kernels] decode_attention seamless-rank bfloat16 B=8 H=8 Hk=8 "
+        f"D=64 length=1024: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms} ms, bound {b_ms:.4f} ms by {b_by})")
+    rows["rank_cross"] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+    errs["rank_cross"] = err
+
     # stale tail: garbage past `length` must not reach the output
     k = torch.randn(B, L, Hk, D, generator=gen, device="cuda").bfloat16()
     v = torch.randn(B, L, Hk, D, generator=gen, device="cuda").bfloat16()
@@ -607,9 +652,11 @@ def check_decode_partial(torch, timer, gen) -> dict:
     out 0 and lse -inf. Timed at each sharded run's span of a (1, 2) mesh
     (528 rows, 512 valid: the first decode step's; every head's q, as the
     decode step gathers it): tinyllama's (the "" record), qwen3-moe's G =
-    16 at D = 128 ("g16_d128"), qwen2-vl's G = 8 at D = 128 ("g8_d128")
-    and kimi-k2's G = 8 at D = 112 ("g8_d112"); no single PyTorch call
-    returns the (out, lse) pair with GQA, so no library time."""
+    16 at D = 128 ("g16_d128"), qwen2-vl's (and jamba's) G = 8 at D = 128
+    ("g8_d128"), kimi-k2's G = 8 at D = 112 ("g8_d112") and seamless's
+    G = 1 at D = 64 over its fp32 self cache, q cast from bf16
+    ("g1_d64_f32"); no single PyTorch call returns the (out, lse) pair
+    with GQA, so no library time."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_partial_cuda, decode_attention_partial_plain)
     errs, rows = {}, {}
@@ -630,7 +677,10 @@ def check_decode_partial(torch, timer, gen) -> dict:
             ("g8-d128", "g8_d128", 2, 272, 64, 8, 128, f32, None),
             ("kimi-k2-span g8-d112", "g8_d112", 8, 528, 64, 8, 112, bf16,
              512),
-            ("g8-d112", "g8_d112", 2, 272, 64, 8, 112, f32, None)):
+            ("g8-d112", "g8_d112", 2, 272, 64, 8, 112, f32, None),
+            # seamless's fp32 self cache: every head's q, bf16 cast up
+            ("seamless-span g1-d64", "g1_d64_f32", 8, 528, 16, 16, 64, f32,
+             512)):
         name = str(dtype).split(".")[1]
         cache_k = torch.randn(2, Bc, Lc, Hkc, Dc, generator=gen,
                               device="cuda").to(dtype)
@@ -638,6 +688,10 @@ def check_decode_partial(torch, timer, gen) -> dict:
                               device="cuda").to(dtype)
         k, v = cache_k[1], cache_v[1]
         q = torch.randn(Bc, 1, Hc, Dc, generator=gen, device="cuda").to(dtype)
+        if key == "g1_d64_f32":
+            # the decoder's bf16 q, cast to the cache's fp32 as
+            # models/attention.py's sharded decode casts it
+            q = q.bfloat16().to(dtype)
         for n in (0, 1, Lc // 2 + 3, Lc):
             length = torch.tensor(n, dtype=torch.int32, device="cuda")
             out, lse = decode_attention_partial_cuda(q, k, v, length)
@@ -689,8 +743,8 @@ def check_ssd(torch, timer, gen) -> dict:
     tests/test_models.py holds chunk lengths 4-32 to). The serving shape,
     a batch-1 8192-token prompt, mamba2's prefill on one rank of a (1, 2)
     mesh (16 of its 32 heads: 128 blocks on the 132 SMs; its record under
-    "h16") and jamba's 256-head prefill ("jamba") are timed
-    (``ssd_row``)."""
+    "h16"), jamba's 256-head prefill ("jamba") and a jamba rank's 128
+    heads of a (1, 2) mesh ("h128") are timed (``ssd_row``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import kernel as ssd_k
     from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
@@ -824,6 +878,10 @@ def check_ssd(torch, timer, gen) -> dict:
     # cache, as models/ssm.py calls it there; the row's own record
     rec["jamba"] = ssd_row(torch, timer, randn, check, bound_of, plan_line,
                            "jamba", 8, 512, 256, JAMBA_PERIOD - 1)
+    # the same on one rank of a (1, 2) mesh: 128 of its 256 heads
+    rec["h128"] = ssd_row(torch, timer, randn, check, bound_of, plan_line,
+                          "jamba rank of (1, 2)", 8, 512, 128,
+                          JAMBA_PERIOD - 1)
     return rec
 
 
@@ -1600,7 +1658,14 @@ def routes_apart(cpu: tuple, card: tuple) -> dict:
       the logits' difference flips. A card that picks past its own top-k
       makes it positive;
     * ``gate_err``: the largest gate difference, expert by expert, over the
-      tokens whose choices agree."""
+      tokens whose choices agree;
+    * ``gate_excess``: the most by which such a token's gate difference
+      exceeds half the two devices' largest logit difference at its
+      chosen experts, less the slack above. The gates are the softmax of
+      the chosen experts' logits, whose Jacobian's rows sum to at most
+      1/2 in absolute value, so gates computed right from logits that
+      differ by d differ by at most d / 2: <= 0 unless the gates part
+      from their own logits."""
     (ti_c, g_c, l_c), (ti_g, g_g, l_g) = cpu, card
     only_c = ~(ti_c[:, :, None] == ti_g[:, None, :]).any(-1)    # (T, k)
     only_g = ~(ti_g[:, :, None] == ti_c[:, None, :]).any(-1)
@@ -1613,12 +1678,15 @@ def routes_apart(cpu: tuple, card: tuple) -> dict:
     alike = ~only_c.any(-1)
     gate_diff = g_g.gather(1, ti_g.argsort(-1)) \
         - g_c.gather(1, ti_c.argsort(-1))
+    gate_bound = 0.5 * diff.gather(1, ti_c).max(-1).values[:, None]
     return {"apart": int(only_c.sum()), "choices": only_c.numel(),
             "gap": float(gap[pairs].max()) if pairs.any() else 0.0,
             "excess": float((gap - allowed)[pairs].max()) - slack
             if pairs.any() else float("-inf"),
             "gate_err": float(gate_diff[alike].abs().max())
-            if alike.any() else 0.0}
+            if alike.any() else 0.0,
+            "gate_excess": float((gate_diff.abs() - gate_bound)[alike].max())
+            - slack if alike.any() else float("-inf")}
 
 
 def planted_faults(torch) -> dict:
@@ -2832,8 +2900,8 @@ def encdec_model_check(torch) -> None:
         crosses = []
 
         def recording(cross):
-            def wrapped(p, x, c, memory):
-                out = cross(p, x, c, memory)
+            def wrapped(p, x, c, memory, *rest):
+                out = cross(p, x, c, memory, *rest)
                 if x.shape[1] == 1:
                     crosses.append(out.float().cpu())
                 return out
@@ -3090,8 +3158,8 @@ def encdec_train_check(torch) -> None:
 
     def memory_detached():
         def wrap(encode):
-            def faulty(self, params, frames):
-                return encode(self, params, frames).detach()
+            def faulty(self, params, frames, *rest):
+                return encode(self, params, frames, *rest).detach()
             return faulty
         return patched(encdec_mod.EncDecLM, "encode", wrap)
 
@@ -3456,10 +3524,10 @@ def hybrid_faults(torch) -> dict:
         return faulty
 
     def state_zeroed(mamba_block):
-        def faulty(params, u, cfg, *, cache=None):
+        def faulty(params, u, cfg, *, cache=None, **kw):
             if u.is_cuda and cache is not None and u.shape[1] == 1:
                 cache.state.zero_()
-            return mamba_block(params, u, cfg, cache=cache)
+            return mamba_block(params, u, cfg, cache=cache, **kw)
         return faulty
 
     def last_chunk_zeroed(ssd):
@@ -3473,8 +3541,8 @@ def hybrid_faults(torch) -> dict:
     def first_output_dropped(mamba_block):
         decode_calls = [0]
 
-        def faulty(params, u, cfg, *, cache=None):
-            out, cache = mamba_block(params, u, cfg, cache=cache)
+        def faulty(params, u, cfg, *, cache=None, **kw):
+            out, cache = mamba_block(params, u, cfg, cache=cache, **kw)
             if u.is_cuda and u.shape[1] == 1:
                 decode_calls[0] += 1
                 if decode_calls[0] % (JAMBA_PERIOD - 1) == 1:
@@ -3679,19 +3747,27 @@ SHARD_BATCH, SHARD_PROMPT, SHARD_GEN = 8, 512, 32
 # 512-543) crosses into rank 1's at row 528
 SHARD_MAX_LEN = 1056
 # the layers a sharded run keeps, at full width (full depth where the arch
-# is not named): starcoder2-15b cut to fit the script's time; qwen2-vl,
-# qwen3-moe and kimi-k2 to what ranks that share the one card hold beside
-# the unsharded reference's run; mamba2 to a quarter of its 48
-SHARD_LAYERS = {"starcoder2-15b": 8, QWEN2VL_ARCH: 2, MOE_ARCH: 2,
-                KIMI_ARCH: 1, "mamba2-370m": 12}
+# is not named; jamba one super-block of period 4, ``one_block``, as the
+# card serves it unsharded): tinyllama-1.1b and starcoder2-15b cut to fit
+# the script's time, and seamless-m4t both stacks alike (with both at full
+# depth the whole script took 1067.3 s on an H100 80GB HBM3 at 700 W whose
+# gloo ranks decoded tinyllama at 13.8 tok/s, its 112 collectives a
+# step); qwen2-vl, qwen3-moe and kimi-k2 to what ranks that share the one
+# card hold beside the unsharded reference's run; mamba2 to a quarter of
+# its 48
+SHARD_LAYERS = {"tinyllama-1.1b": 8, "starcoder2-15b": 8, QWEN2VL_ARCH: 2,
+                MOE_ARCH: 2, KIMI_ARCH: 1, "mamba2-370m": 12,
+                SEAMLESS_ARCH: 12}
 # ((data, model), backend, archs): one spawn a mesh, its ranks serving the
 # archs one after another; NCCL at 1 x 1, gloo for ranks that share the one
-# card (NCCL refuses two ranks on one device)
+# card (NCCL refuses two ranks on one device). The data axis of 2 runs
+# qwen3-moe alone (tinyllama's (2, 2) run, which it covers, was cut for
+# the script's time)
 SHARD_GROUPS = (((1, 1), "nccl", ("tinyllama-1.1b",)),
                 ((1, 2), "gloo", ("tinyllama-1.1b", "starcoder2-15b",
                                   QWEN2VL_ARCH, MOE_ARCH, KIMI_ARCH,
-                                  "mamba2-370m")),
-                ((2, 2), "gloo", ("tinyllama-1.1b", MOE_ARCH)))
+                                  "mamba2-370m", JAMBA_ARCH, SEAMLESS_ARCH)),
+                ((2, 2), "gloo", (MOE_ARCH,)))
 SHARD_JOIN_S = 900
 MODEL_TOL = 0.06      # tests/test_archs.py's rule: rel, with equal argmax
 # the planted faults of the dense family, run at tinyllama's (1, 1) (the
@@ -3706,6 +3782,13 @@ MOE_FAULTS = ("every rank serves experts 0..E_loc-1",
 # the SSM family's, run in every multi-rank SSM run
 SSM_FAULTS = ("a rank's dt_bias, A_log and D from heads 0..H_loc-1",
               "gated norm over the rank's own columns")
+# the hybrid family's, run in every multi-rank hybrid run: its own, and
+# the MoE's first in its block
+HYBRID_FAULTS = ("every Mamba sublayer of a block on SSM cache slice 0",
+                 MOE_FAULTS[0])
+# the encoder-decoder's, run in every multi-rank encdec run
+ENCDEC_FAULTS = ("memory K/V gather skipped: a rank's own heads and zeros",
+                 "encoder's row-parallel wo sum skipped")
 # the faults planted in the decode step alone start from the counted pass's
 # cache after its prefill (and its prefill logits); every other fault runs
 # its own prefill; each fault's pass runs one decode step: the dropped
@@ -3721,27 +3804,85 @@ def shard_faults_of(arch: str, family: str, mesh_shape: tuple) -> tuple:
     data, model = mesh_shape
     if model == 1:
         return SHARD_FAULTS[:1] if arch == "tinyllama-1.1b" else ()
-    if family == "moe":
-        return MOE_FAULTS
-    if family == "ssm":
-        return SSM_FAULTS
+    by_family = {"moe": MOE_FAULTS, "ssm": SSM_FAULTS,
+                 "hybrid": HYBRID_FAULTS, "encdec": ENCDEC_FAULTS}
+    if family in by_family:
+        return by_family[family]
     return SHARD_FAULTS if arch == "tinyllama-1.1b" and data == 1 else ()
 
 
+def shard_cut(cfg):
+    """The config a sharded run serves: jamba one super-block of period 4
+    (``one_block``), an arch of ``SHARD_LAYERS`` cut to its layers (an
+    encoder-decoder's both stacks alike), the rest as they are."""
+    if cfg.family == "hybrid":
+        return one_block(cfg)
+    if cfg.name not in SHARD_LAYERS:
+        return cfg
+    layers = SHARD_LAYERS[cfg.name]
+    return dataclasses.replace(cfg, n_layers=layers, **(
+        {"n_encoder_layers": layers} if cfg.family == "encdec" else {}))
+
+
+def shard_collectives(cfg) -> int:
+    """all_reduce calls a decode step of a sharded run: the embedding and
+    the logits 2, and each layer's own: an attention 4 (the q and new K/V
+    gather, the lse max, the merge's sums, ``wo``), an MLP or MoE 1, a
+    Mamba block 2 (the norm with the conv tail, ``out_proj``); an
+    encoder-decoder's decoder layer adds its cross-attention's ``wo``,
+    1."""
+    fam = cfg.family
+    if fam == "ssm":
+        per = 2 * cfg.n_layers
+    elif fam == "hybrid":
+        per_block = 4 + cfg.hybrid_period + 2 * (cfg.hybrid_period - 1)
+        per = per_block * (cfg.n_layers // cfg.hybrid_period)
+    else:
+        per = (6 if fam == "encdec" else 5) * cfg.n_layers
+    return 2 + per
+
+
+def shard_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches a rank makes in a sharded run's counted
+    pass (a prefill, ``steps`` decode steps): flash once an attention at
+    the prefill (an encoder-decoder's encoder, decoder and
+    cross-attention), the partial decode once a cached self-attention a
+    step, the whole-cache decode once a cross-attention a step, ssd once
+    a Mamba block at the prefill."""
+    fam = cfg.family
+    if fam == "ssm":
+        return {"ssd": cfg.n_layers}
+    if fam == "hybrid":
+        nb = cfg.n_layers // cfg.hybrid_period
+        return {"flash_attention": nb, "decode_attention_partial": nb * steps,
+                "ssd": nb * (cfg.hybrid_period - 1)}
+    if fam == "encdec":
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
+                "decode_attention_partial": cfg.n_layers * steps,
+                "decode_attention": cfg.n_layers * steps}
+    return {"flash_attention": cfg.n_layers,
+            "decode_attention_partial": cfg.n_layers * steps}
+
+
 def attention_at_fan_in(params: dict, cfg) -> None:
-    """The dense model's wq, wk, wv and wo rescaled in place from the
-    reference's draw (std 1/sqrt(heads); wo 1/sqrt(D)) to std
-    1/sqrt(fan-in) (d_model; H * D for wo), as ``model_check`` draws them
+    """Every attention's wq, wk, wv and wo (the encoder-decoder's three
+    kinds) rescaled in place from the reference's draw (std
+    1/sqrt(heads); wo 1/sqrt(D)) to std 1/sqrt(fan-in) (d_model; H * D for
+    wo), as ``model_check`` draws them
     (``tools/attention_conditioning.py::fan_in_std``). Elementwise with the
     global head counts, so a rank's shards are rescaled exactly as the
     whole leaves. A model without attention is left as it is."""
     if not cfg.attends:
         return
-    attn = params["layers"]["attn"]
-    for name, heads in (("wq", cfg.n_heads_eff), ("wk", cfg.n_kv_heads),
-                        ("wv", cfg.n_kv_heads)):
-        attn[name].mul_((heads / cfg.d_model) ** 0.5)
-    attn["wo"].mul_(cfg.n_heads_eff ** -0.5)
+    roots = ((params["encoder"], "attn"), (params["decoder"], "self_attn"),
+             (params["decoder"], "cross_attn")) \
+        if cfg.family == "encdec" else ((params["layers"], "attn"),)
+    for outer, name in roots:
+        attn = outer[name]
+        for leaf, heads in (("wq", cfg.n_heads_eff), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)):
+            attn[leaf].mul_((heads / cfg.d_model) ** 0.5)
+        attn["wo"].mul_(cfg.n_heads_eff ** -0.5)
 
 
 @contextlib.contextmanager
@@ -3762,19 +3903,30 @@ def first_output(owner, name: str, kept: dict):
 
 
 def _ssm_snapshot(cache) -> dict:
-    """The first and last layers of an SSM cache on the host."""
-    return {field: a[[0, -1]].float().cpu()
+    """The first and last layers of an SSM cache on the host; of a
+    hybrid's (its leaves (blocks, Mamba sublayers, ...)), every Mamba
+    sublayer, block by block."""
+    hybrid = cache.ssm.state.dim() == 6
+    return {field: (a.flatten(0, 1) if hybrid else a[[0, -1]]).float().cpu()
             for field, a in zip(cache.ssm._fields, cache.ssm)}
+
+
+def _kv_of(cache):
+    """The K/V cache a sharded run cuts into spans: the decoder-only
+    families' ``kv``, an encoder-decoder's fp32 ``self_kv``."""
+    return cache.self_kv if hasattr(cache, "self_kv") else cache.kv
 
 
 def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
     """``serve_loop(arch)`` unsharded on the card (batch 8, 512-token
-    prompts, 32 new tokens, seed 0, cut to ``SHARD_LAYERS``) with a model
+    prompts, 32 new tokens, seed 0, cut by ``shard_cut``) with a model
     that keeps each step's logits on the host; saved to ``path`` for the
     ranks with its prompts, its tokens and the first and last layers of its
-    final K/V cache, or of its SSM cache after the first decode step and
-    after the last, with layer 0's Mamba output at the prefill; an MoE
-    arch's routing of every call too. ``shards`` > 1: the batch as as many
+    final K/V cache (an encoder-decoder's fp32 self cache, and its memory
+    K/V with the seeded frames its prefill took), or of its SSM cache after
+    the first decode step and after the last (a hybrid's every Mamba
+    sublayer), with the first Mamba block's output at the prefill; the
+    routing of every MoE call too. ``shards`` > 1: the batch as as many
     data shards, each served alone on its rows of the same prompts (the
     reference's MoE capacity is a data shard's), put back together along
     the batch; the routing a list a shard. The card's memory is released
@@ -3783,13 +3935,23 @@ def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
     import repro_torch.models.lm as lm_mod
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import LM
-    family = get_config(arch).family
+    from repro_torch.models import LM, EncDecLM
+    full = get_config(arch)
+    family = full.family
     prompts = np.random.default_rng(0).integers(
-        0, get_config(arch).vocab, size=(SHARD_BATCH, SHARD_PROMPT))
+        0, full.vocab, size=(SHARD_BATCH, SHARD_PROMPT))
     parts = []
     for rows in np.split(np.arange(SHARD_BATCH), shards):
         steps, kept, routes, mamba0 = [], {}, {"cuda": []}, {}
+
+        def keep(logits, cache):
+            steps.append(logits[:, -1].float().cpu())
+            if getattr(cache, "ssm", None) is not None and \
+                    len(steps) - 1 in (FAULT_STEPS, SHARD_GEN - 1):
+                kept[len(steps) - 1] = _ssm_snapshot(cache)
+            kept["kv"] = _kv_of(cache)
+            if family == "encdec":
+                kept["cross"] = (cache.cross_k, cache.cross_v)
 
         class Recording(LM):
             def _apply_cached(self, params, tokens, cache, **kw):
@@ -3798,11 +3960,18 @@ def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
                                              device=tokens.device)
                 logits, cache = super()._apply_cached(params, tokens, cache,
                                                       **kw)
-                steps.append(logits[:, -1].float().cpu())
-                if cache.ssm is not None and len(steps) - 1 in (
-                        FAULT_STEPS, SHARD_GEN - 1):
-                    kept[len(steps) - 1] = _ssm_snapshot(cache)
-                kept["kv"] = cache.kv
+                keep(logits, cache)
+                return logits, cache
+
+        class RecordingEncDec(EncDecLM):
+            def prefill(self, params, frames, tokens, cache, **kw):
+                kept["frames"] = frames.cpu()
+                return super().prefill(params, frames, tokens, cache, **kw)
+
+            def _run_decoder_cached(self, params, tokens, cache, shard=None):
+                logits, cache = super()._run_decoder_cached(params, tokens,
+                                                            cache, shard)
+                keep(logits, cache)
                 return logits, cache
 
         def drawn_at_fan_in(init):
@@ -3815,18 +3984,18 @@ def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
         def recording(build):
             def build_model(cfg):
                 kept["cfg"] = cfg
-                return Recording(cfg)
+                return (RecordingEncDec if family == "encdec"
+                        else Recording)(cfg)
             return build_model
 
         with contextlib.ExitStack() as stack:
             stack.enter_context(patched(serve_mod, "build_model", recording))
             stack.enter_context(patched(serve_mod, "init_params",
                                         drawn_at_fan_in))
-            if arch in SHARD_LAYERS:
-                stack.enter_context(cut_depth(serve_mod, SHARD_LAYERS[arch]))
-            if family == "moe":
+            stack.enter_context(cut_configs(serve_mod, shard_cut))
+            if full.n_experts:
                 stack.enter_context(record_routes(routes))
-            if family == "ssm":
+            if full.ssm_state:
                 stack.enter_context(first_output(lm_mod, "mamba_block",
                                                  mamba0))
             out = serve_mod.serve_loop(arch, batch=len(rows),
@@ -3838,7 +4007,13 @@ def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
                 "logits": torch.stack(steps), "routes": routes["cuda"]}
         if kv is not None:
             part.update(k=kv.k[[0, -1]].cpu(), v=kv.v[[0, -1]].cpu())
-        if family == "ssm":
+        if family == "encdec":
+            cross = kept.pop("cross")
+            part.update(frames=kept.pop("frames"),
+                        cross_k=cross[0][[0, -1]].cpu(),
+                        cross_v=cross[1][[0, -1]].cpu())
+            del cross
+        if full.ssm_state:
             part.update(mamba0=mamba0["out"], ssm={
                 n: kept[n] for n in (FAULT_STEPS, SHARD_GEN - 1)})
         parts.append(part)
@@ -3849,11 +4024,11 @@ def sharded_reference(torch, arch: str, path: Path, shards: int = 1) -> None:
              "tokens": torch.cat([p["tokens"] for p in parts]),
              "logits": torch.cat([p["logits"] for p in parts], dim=1),
              "routes": [p["routes"] for p in parts]}
-    if "k" in parts[0]:
-        saved.update({name: torch.cat([p[name] for p in parts], dim=1)
-                      for name in ("k", "v")})
-    if family == "ssm":
-        saved["mamba0"] = torch.cat([p["mamba0"] for p in parts])
+    for name, dim in (("k", 1), ("v", 1), ("cross_k", 1), ("cross_v", 1),
+                      ("frames", 0), ("mamba0", 0)):
+        if name in parts[0]:
+            saved[name] = torch.cat([p[name] for p in parts], dim=dim)
+    if full.ssm_state:
         saved["ssm"] = {n: {field: torch.cat([p["ssm"][n][field]
                                               for p in parts], dim=1)
                             for field in parts[0]["ssm"][n]}
@@ -3871,9 +4046,12 @@ def _rel(got, want) -> float:
     return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
 
 
-class _NoExpertSum:
+class _NoModelSum:
     """A layout whose ``reduce_sum`` skips the sum over the model axis (the
-    planted fault "experts' sum over the model axis skipped")."""
+    planted faults "experts' sum over the model axis skipped" and
+    "encoder's row-parallel wo sum skipped"), and whose ``gather`` puts
+    this rank's part into zeros with no collective (the planted fault
+    "memory K/V gather skipped")."""
 
     def __init__(self, layout):
         self.layout = layout
@@ -3884,6 +4062,16 @@ class _NoExpertSum:
     def reduce_sum(self, partial, dtype):
         return partial.to(dtype)
 
+    def gather(self, *parts):
+        out = []
+        for t, dim, span in parts:
+            shape = list(t.shape)
+            shape[dim] = span.total
+            full = t.new_zeros(shape)
+            full.narrow(dim, span.start, span.size).copy_(t)
+            out.append(full)
+        return out
+
 
 def _shard_faults(torch, which: str, params0: dict | None = None):
     """A context that plants one of the planted faults in this rank's
@@ -3892,6 +4080,8 @@ def _shard_faults(torch, which: str, params0: dict | None = None):
     the context lasts, for those of model rank 0 (heads 0..H_loc-1)."""
     import importlib
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models import lm as lm_mod
     from repro_torch.runtime import serve_lib
     moe_mod = importlib.import_module("repro_torch.models.moe")
     ssm_mod = importlib.import_module("repro_torch.models.ssm")
@@ -3924,7 +4114,30 @@ def _shard_faults(torch, which: str, params0: dict | None = None):
 
     def no_expert_sum(local):
         def faulty(*args, shard=None, **kw):
-            return local(*args, shard=_NoExpertSum(shard), **kw)
+            return local(*args, shard=_NoModelSum(shard), **kw)
+        return faulty
+
+    def slice_zero(block):
+        # every Mamba sublayer's cache slice a view of slice 0 (read and
+        # written in place there)
+        def faulty(self, bp, x, *, cache=None, **kw):
+            if cache is not None:
+                cache = cache._replace(ssm=type(cache.ssm)(
+                    *(a[:1].expand_as(a) for a in cache.ssm)))
+            return block(self, bp, x, cache=cache, **kw)
+        return faulty
+
+    def no_memory_gather(cross_kv):
+        def faulty(self, params, memory, cache, shard=None):
+            return cross_kv(self, params, memory, cache, _NoModelSum(shard))
+        return faulty
+
+    def no_encoder_sum(attention):
+        def faulty(params, x, cfg, *, causal=True, shard=None, **kw):
+            if not causal and shard is not None:
+                shard = _NoModelSum(shard)
+            return attention(params, x, cfg, causal=causal, shard=shard,
+                             **kw)
         return faulty
 
     def own_columns(norm_and_tail):
@@ -3953,7 +4166,11 @@ def _shard_faults(torch, which: str, params0: dict | None = None):
         MOE_FAULTS[0]: (serve_lib, "shard_layout", span_moved(
             "experts", lambda s: 0)),
         MOE_FAULTS[1]: (moe_mod, "_moe_local", no_expert_sum),
-        SSM_FAULTS[1]: (ssm_mod, "_norm_and_tail", own_columns)}
+        SSM_FAULTS[1]: (ssm_mod, "_norm_and_tail", own_columns),
+        HYBRID_FAULTS[0]: (lm_mod.LM, "_hybrid_block", slice_zero),
+        ENCDEC_FAULTS[0]: (encdec_mod.EncDecLM, "_cross_kv",
+                           no_memory_gather),
+        ENCDEC_FAULTS[1]: (encdec_mod, "attention", no_encoder_sum)}
     if which == SSM_FAULTS[0]:
         return heads_from_rank0()
     return patched(*patches[which])
@@ -3987,21 +4204,30 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
       twice the row's largest logit difference: bf16 logits near 5 are
       2^-5 apart, and many rows' top two are within one or two of those
       steps);
-    * with a K/V cache, this rank's span of the first and last layers' K/V
-      rel < 0.06, rows the reference had not written yet zeros;
+    * with a K/V cache (an encoder-decoder's fp32 self cache), this
+      rank's span of the first and last layers' K/V rel < 0.06, rows the
+      reference had not written yet zeros;
+    * an encoder-decoder's memory K/V of the first and last layers, every
+      KV head on every rank, rel < 0.06;
     * with an SSM cache, this rank's heads of the first and last layers'
-      state and their three conv tails (``conv_x`` every column) rel <
-      0.06, and layer 0's Mamba output at the prefill rel < 0.06;
-    * an MoE arch: each call's own routing (``record_routes``, counted pass
-      only) against the reference's (``routes_apart``): at most
+      state (a hybrid's every Mamba sublayer) and their three conv tails
+      (``conv_x`` every column) rel < 0.06, and the first Mamba block's
+      output at the prefill rel < 0.06;
+    * an arch with MoE layers: each call's own routing
+      (``record_routes``, counted pass only) against the reference's
+      (``routes_apart``): at most
       ``APART_MAX`` of the choices apart, each a near-tie. Its own-routing
       logits and K/V are printed, not held (ROADMAP C.2: a choice apart
       moves its token's next layer, and the logits, by a whole expert's
       output): the counted pass is followed by a pass fed the reference's
       routing (``routed_as``), held to the logits and K/V rules and, on
       the routing it computes beside the fed one, to ``routes_apart``'s
-      (gates within ``GATE_TOL``, router logits within ``ROUTER_TOL``); its
-      fault passes run fed."""
+      (router logits within ``ROUTER_TOL``; the gates of the tokens that
+      route alike within what their logits' difference accounts for,
+      ``gate_excess`` <= 0, and, for the MoE family, within ``GATE_TOL``;
+      a hybrid's absolute gate difference is printed: at jamba's router
+      logits, ~7 at most, the rounding that ``ROUTER_TOL`` admits moves a
+      gate by more than ``GATE_TOL``); its fault passes run fed."""
     import repro_torch.models.lm as lm_mod
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import Mesh
@@ -4009,12 +4235,14 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
     from repro_torch.models.param import tree_at, tree_items
     from repro_torch.runtime import serve_lib
     from repro_torch.sharding.rules import local_shape
+    from repro_torch.launch.serve import FRAMES_LEN
     ref = torch.load(ref_path)
-    full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=SHARD_LAYERS.get(
-        arch, full.n_layers), q_chunk=SHARD_PROMPT // 2,
-        kv_chunk=SHARD_PROMPT // 2, max_cache_len=SHARD_MAX_LEN)
+    cfg = dataclasses.replace(shard_cut(get_config(arch)),
+                              q_chunk=SHARD_PROMPT // 2,
+                              kv_chunk=SHARD_PROMPT // 2,
+                              max_cache_len=SHARD_MAX_LEN)
     family = cfg.family
+    memory_len = FRAMES_LEN if family == "encdec" else None
     lm = build_model(cfg)
     B, S, T = SHARD_BATCH, SHARD_PROMPT, SHARD_MAX_LEN
     layout = serve_lib.shard_layout(lm, mesh, B, T)
@@ -4036,10 +4264,12 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
     cache_shapes = {
         path: local_shape(tree_at(cache_specs, path), tuple(a.shape), mesh)
         for path, a in tree_items(serve_lib.abstract_cache(
-            lm, B, T, filled=False)) if a is not None}
+            lm, B, T, filled=False, memory_len=memory_len)) if a is not None}
     weights = sum(a.numel() * a.element_size() for _, a in tree_items(params))
     prompts = ref["prompts"].cuda()
     tokens = ref["tokens"].cuda()
+    # an encoder-decoder's prefill takes the reference's seeded frames
+    inputs = (ref["frames"].cuda(),) if family == "encdec" else ()
     span, b = layout.seq, layout.batch.slice()
     d = mesh.coords["data"]
     counters = kernel_counters()
@@ -4060,7 +4290,8 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
         from the kept K/V cache and prefill logits (``resume``); ``keep``
         keeps them after this pass's prefill; ``count`` counts the decode
         steps' all_reduce calls."""
-        cache = serve_lib.init_cache_shards(lm, mesh, B, T, device="cuda")
+        cache = serve_lib.init_cache_shards(lm, mesh, B, T, device="cuda",
+                                            memory_len=memory_len)
         for path, a in tree_items(cache):
             if a is not None and tuple(a.shape) != cache_shapes[path]:
                 shape_faults.append(("/".join(path), tuple(a.shape),
@@ -4080,9 +4311,9 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
                 out.append(snapshot["logits"])
             elif prefill_first:
                 with first_output(lm_mod, "mamba_block", mamba0):
-                    logits, cache = prefill(params, prompts, cache)
+                    logits, cache = prefill(params, *inputs, prompts, cache)
                 out.append(logits[:, -1])
-                if keep and cache.kv is not None:
+                if keep and getattr(cache, "kv", None) is not None:
                     snapshot.update(k=cache.kv.k.clone(), v=cache.kv.v.clone(),
                                     length=cache.kv.length.clone(),
                                     logits=logits[:, -1].clone())
@@ -4124,9 +4355,10 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
         if not all(gap <= 2 * diff for _, _, gap, diff in apart):
             broken.append("picks apart near-ties")
         rows = S + steps          # K/V rows written after the pass
-        if cache.kv is not None:
+        kv = _kv_of(cache)
+        if kv is not None:
             kv_errs = []          # first layer, last layer
-            for buf, want in ((cache.kv.k, ref["k"]), (cache.kv.v, ref["v"])):
+            for buf, want in ((kv.k, ref["k"]), (kv.v, ref["v"])):
                 whole = torch.zeros(want.shape[:2] + (T,) + want.shape[3:],
                                     dtype=want.dtype)
                 whole[:, :, :rows] = want[:, :, :rows]
@@ -4136,14 +4368,21 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
             res["kv_rel"] = [max(k, v) for k, v in zip(*kv_errs)]
             if max(res["kv_rel"]) >= MODEL_TOL:
                 broken.append("K/V")
-        else:
+        if family == "encdec":
+            res["cross_rel"] = [max(
+                _rel(cache.cross_k[i].cpu(), ref["cross_k"][j][b]),
+                _rel(cache.cross_v[i].cpu(), ref["cross_v"][j][b]))
+                for j, i in enumerate((0, -1))]
+            if max(res["cross_rel"]) >= MODEL_TOL:
+                broken.append("memory K/V")
+        if getattr(cache, "ssm", None) is not None:
             heads = layout.ssm_heads.slice()
             want = ref["ssm"][steps]
             got = _ssm_snapshot(cache)
             res["ssm_rel"] = {
                 field: [_rel(got[field][i], want[field][i][b][
                     (slice(None), heads) if field == "state" else ()])
-                        for i in (0, 1)] for field in got}
+                        for i in range(len(got[field]))] for field in got}
             # numpy: a tensor would cross the queue by a handle into
             # the rank's memory, gone once the rank exits
             res["conv_x"] = got["conv_x"].numpy()
@@ -4151,7 +4390,7 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
             if max(max(v) for v in res["ssm_rel"].values()) >= MODEL_TOL:
                 broken.append("SSM cache")
             if res["mamba0_rel"] >= MODEL_TOL:
-                broken.append("layer 0's Mamba output")
+                broken.append("the first Mamba block's output")
         res["broken"] = broken
         return res
 
@@ -4170,16 +4409,18 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
         res.update(routes_apart=apart, routes_choices=choices,
                    routes_excess=max(c["excess"] for c in calls),
                    gate_err=max(c["gate_err"] for c in calls),
+                   gate_excess=max(c["gate_excess"] for c in calls),
                    router_rel=max(_rel(g[2], a[2])
                                   for a, g in zip(want, own)))
         held = [("routes apart", apart <= APART_MAX * choices),
                 ("routes near-ties", res["routes_excess"] <= 0)]
         if fed:
-            held += [("gates", res["gate_err"] < GATE_TOL),
+            held += [("gates", res["gate_excess"] <= 0 and (
+                family == "hybrid" or res["gate_err"] < GATE_TOL)),
                      ("router logits", res["router_rel"] < ROUTER_TOL)]
         res["broken"] += [name for name, ok in held if not ok]
 
-    fed_runs = family == "moe"
+    fed_runs = bool(cfg.n_experts)
 
     def feeding(own: list):
         return routed_as(ref["routes"][d], own) if fed_runs \
@@ -4192,24 +4433,27 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
         k.launches = 0
     count = [0]
     routes = {"cuda": []}
-    with record_routes(routes) if family == "moe" \
-            else contextlib.nullcontext():
+    with record_routes(routes) if fed_runs else contextlib.nullcontext():
         times, out, cache, mamba0 = run_pass(SHARD_GEN - 1, keep=True,
                                              count=count)
     launches = {name: k.launches for name, k in counters.items()}
     counted = rules(out, cache, SHARD_GEN - 1, mamba0)
-    if family == "moe":
+    if fed_runs:
         routing_rules(counted, routes["cuda"], fed=False)
     if fed_runs:
         # own-routing logits and K/V printed, not held: a choice apart at a
         # near-tie moves its token's next layer by a whole expert's output
         # (ROADMAP C.2); held fed the reference's routing below
-        counted["own_logits_broken"] = [r for r in counted["broken"]
-                                        if r in ("logits", "K/V",
-                                                 "picks apart near-ties")]
+        counted["own_logits_broken"] = [
+            r for r in counted["broken"]
+            if r in ("logits", "K/V", "picks apart near-ties", "SSM cache",
+                     "the first Mamba block's output")]
         counted["broken"] = [r for r in counted["broken"]
                              if r not in counted["own_logits_broken"]]
     result = {"coords": dict(mesh.coords), "family": family,
+              "layers": cfg.n_layers, "want_launches": shard_launches(
+                  cfg, SHARD_GEN - 1),
+              "want_collectives": shard_collectives(cfg),
               "span": None if span is None else (span.start, span.size),
               "init_s": init_s, "weights_gib": weights / 2**30,
               "launches": launches, "collectives_a_step":
@@ -4218,8 +4462,8 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
     if fed_runs:
         own = []
         with feeding(own):
-            _, out, cache, _ = run_pass(SHARD_GEN - 1)
-        fed = rules(out, cache, SHARD_GEN - 1)
+            _, out, cache, mamba0 = run_pass(SHARD_GEN - 1)
+        fed = rules(out, cache, SHARD_GEN - 1, mamba0)
         routing_rules(fed, own, fed=True)
         result["fed"] = fed
         del out, cache
@@ -4319,23 +4563,27 @@ def _rank_line(res: dict) -> str:
             f"difference: {res['apart']})")
     if "kv_rel" in res:
         text += f", K/V rel (first, last layer) {res['kv_rel']}"
+    if "cross_rel" in res:
+        text += f", memory K/V rel (first, last layer) {res['cross_rel']}"
     if "ssm_rel" in res:
-        text += (f", SSM cache rel (first, last layer) {res['ssm_rel']}, "
-                 f"layer 0's Mamba output rel {res['mamba0_rel']:.4f}")
+        text += (f", SSM cache rel (first, last layer; a hybrid's each "
+                 f"Mamba sublayer) {res['ssm_rel']}, the first Mamba "
+                 f"block's output rel {res['mamba0_rel']:.4f}")
     if "routes_apart" in res:
         text += (f", routes apart {res['routes_apart']} of "
                  f"{res['routes_choices']} (<= {APART_MAX}), excess "
                  f"{res['routes_excess']:.3e} (<= 0), gates "
-                 f"{res['gate_err']:.3e}, router logits rel "
-                 f"{res['router_rel']:.4f}")
+                 f"{res['gate_err']:.3e} (excess over half the logits' "
+                 f"difference {res['gate_excess']:.3e}, <= 0), router "
+                 f"logits rel {res['router_rel']:.4f}")
     return text + f"; broken: {res['broken'] or 'none'}"
 
 
 def sharded_serve_check(torch) -> dict:
-    """``sharded_serve_check``: the dense, vlm, MoE and SSM families served
-    over a (data, model) mesh through ``runtime/serve_lib.py``, at full
-    width (``SHARD_GROUPS``, one spawn a mesh): tinyllama-1.1b at (1, 1)
-    under NCCL and at (1, 2) and (2, 2) under gloo; under gloo at (1, 2),
+    """``sharded_serve_check``: every family served over a (data, model)
+    mesh through ``runtime/serve_lib.py``, at full width (``SHARD_GROUPS``,
+    one spawn a mesh): tinyllama-1.1b at 8 of its 22 layers at (1, 1)
+    under NCCL and at (1, 2) under gloo; under gloo at (1, 2),
     starcoder2-15b at 8 of its 40 layers (G = 12, D = 128, 2 of its 4 KV
     heads and 24576 of its 49152 vocab rows a rank), qwen2-vl-72b at 2 of
     80 (its tokens path, 1-D RoPE; 32 q and 4 KV heads a rank),
@@ -4343,9 +4591,15 @@ def sharded_serve_check(torch) -> dict:
     2)), kimi-k2-1t-a32b at 1 of 61 (192 of 384 experts and 1024 of the
     shared expert's 2048 hidden units a rank) and mamba2-370m at 12 of 48
     (16 of 32 heads a rank through ``ssd``; its tied head, 25140 of 50280
-    vocab rows a rank). Several ranks share the one card: their times are
-    of processes on one card over gloo's host-staged transport, not a
-    multi-card figure.
+    vocab rows a rank), jamba-1.5-large-398b cut to one super-block of
+    period 4 (32 q and 4 KV heads, 8 of 16 experts, 128 of 256 SSM heads,
+    12288 of 24576 MLP units and 32768 of 65536 vocab rows a rank) and
+    seamless-m4t-large-v2 at 12 + 12 of its 24 + 24 layers over 1024
+    seeded frames (8 of 16
+    q and KV heads, 4096 of 8192 MLP units, 128103 of 256206 vocab rows a
+    rank; the memory K/V whole on each). Several ranks share the one card:
+    their times are of processes on one card over gloo's host-staged
+    transport, not a multi-card figure.
 
     For each arch the unsharded ``serve_loop`` of the same cut model first
     gives the reference (an MoE arch at a data axis of 2: each data
@@ -4355,13 +4609,13 @@ def sharded_serve_check(torch) -> dict:
     sums moves the logits, as ``model_check`` finds), written to disk and
     its card memory released; then the ranks run (``sharded_rank_run``):
     its rules on every rank, the shard shapes the specs give; the counted
-    pass's launches (flash once an attention layer, the partial decode
-    once an attention layer a step, ssd once a Mamba layer, nothing else);
-    each planted fault (``shard_faults_of``) must break a rule on some
-    rank. The decode crosses rank 0's span into rank 1's at a model axis
-    of 2; ``conv_x`` must be equal on the model ranks of a data shard.
-    Returns the partial decode's and ssd's launches over every counted
-    pass, in all and by arch (``"by_arch"``)."""
+    pass's launches (``shard_launches``) and all_reduce calls a decode
+    step (``shard_collectives``), each as predicted; each planted fault
+    (``shard_faults_of``) must break a rule on some rank. The decode
+    crosses rank 0's span into rank 1's at a model axis of 2; ``conv_x``
+    must be equal on the model ranks of a data shard. Returns the partial
+    decode's and ssd's launches over every counted pass, in all, and every
+    kernel's by arch (``"by_arch"``)."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     launched = {"decode_attention_partial": 0, "ssd": 0, "by_arch": {}}
@@ -4370,7 +4624,7 @@ def sharded_serve_check(torch) -> dict:
         data, model = mesh_shape
         runs = []
         for arch in archs:
-            shards = data if get_config(arch).family == "moe" else 1
+            shards = data if get_config(arch).n_experts else 1
             path = ROOT / "build" / f"sharded-reference-{arch}-{shards}.pt"
             if path not in refs.values():
                 t0 = time.perf_counter()
@@ -4387,10 +4641,10 @@ def sharded_serve_check(torch) -> dict:
                  f"{data * model} processes sharing one card over gloo's "
                  f"host-staged transport, not a multi-card figure")
         for arch in archs:
-            layers = SHARD_LAYERS.get(arch, get_config(arch).n_layers)
             for rank, res in sorted((r, res[arch])
                                     for r, res in results.items()):
-                log(f"[sharded] {arch} ({layers} layers) mesh {mesh_shape} "
+                log(f"[sharded] {arch} ({res['layers']} layers) mesh "
+                    f"{mesh_shape} "
                     f"({label}) rank {rank} {res['coords']} span "
                     f"{res['span']}: weights {res['weights_gib']:.2f} GiB "
                     f"(drawn in {res['init_s']:.1f} s), prefill "
@@ -4405,26 +4659,26 @@ def sharded_serve_check(torch) -> dict:
                         f"{res['own_logits_broken'] or 'none'}; fed the "
                         f"reference's routing: {_rank_line(res['fed'])}")
                 want = {name: 0 for name in res["launches"]}
-                if res["family"] == "ssm":
-                    want["ssd"] = layers
-                else:
-                    want.update(flash_attention=layers,
-                                decode_attention_partial=layers
-                                * (SHARD_GEN - 1))
+                want.update(res["want_launches"])
                 if res["launches"] != want:
                     raise AssertionError(f"{arch} {mesh_shape} rank {rank} "
                                          f"launches {res['launches']}: want "
                                          f"{want}")
+                if res["collectives_a_step"] != res["want_collectives"]:
+                    raise AssertionError(
+                        f"{arch} {mesh_shape} rank {rank}: "
+                        f"{res['collectives_a_step']} all_reduce calls a "
+                        f"decode step, want {res['want_collectives']}")
                 broken = res["broken"] + res.get("fed", {}).get("broken", [])
                 if broken or res["shape_faults"]:
                     raise AssertionError(
                         f"{arch} {mesh_shape} rank {rank}: rules broken "
                         f"{broken}, shapes {res['shape_faults']} ({res})")
+                by_arch = launched["by_arch"].setdefault(arch, {})
+                for name, n in res["launches"].items():
+                    by_arch[name] = by_arch.get(name, 0) + n
                 for name in ("decode_attention_partial", "ssd"):
                     launched[name] += res["launches"][name]
-                    by_arch = launched["by_arch"].setdefault(arch, {})
-                    by_arch[name] = by_arch.get(name, 0) \
-                        + res["launches"][name]
             for which in results[0][arch]["faults"]:
                 got = {r: res[arch]["faults"][which]
                        for r, res in results.items()}
@@ -4676,14 +4930,25 @@ def main() -> int:
 
     # the backward's G = 16 row: launched on the qwen3-moe training path
     flash_bwd["g16"]["launches"] = n_moe_bwd
-    # the sharded runs' rows, each with its arch's launches over the
+    # the sharded runs' rows, each with its archs' launches over the
     # sharded counted passes: the partial decode at qwen3-moe's, qwen2-vl's
-    # and kimi-k2's heads, ssd at a mamba2 rank's 16 heads
-    for key, arch in (("g16_d128", MOE_ARCH), ("g8_d128", QWEN2VL_ARCH),
-                      ("g8_d112", KIMI_ARCH)):
-        decode_partial[key]["launches"] = \
-            sharded["by_arch"][arch]["decode_attention_partial"]
-    ssd["h16"]["launches"] = sharded["ssd"]
+    # and jamba's (one shape), kimi-k2's heads and seamless's fp32 self
+    # cache, ssd at a mamba2 rank's 16 heads and a jamba rank's 128, the
+    # whole-cache decode at a seamless rank's heads of the memory
+    by_arch = sharded["by_arch"]
+    for rec, key, name, archs in (
+            (decode_partial, "g16_d128", "decode_attention_partial",
+             (MOE_ARCH,)),
+            (decode_partial, "g8_d128", "decode_attention_partial",
+             (QWEN2VL_ARCH, JAMBA_ARCH)),
+            (decode_partial, "g8_d112", "decode_attention_partial",
+             (KIMI_ARCH,)),
+            (decode_partial, "g1_d64_f32", "decode_attention_partial",
+             (SEAMLESS_ARCH,)),
+            (ssd, "h16", "ssd", ("mamba2-370m",)),
+            (ssd, "h128", "ssd", (JAMBA_ARCH,)),
+            (decode, "rank_cross", "decode_attention", (SEAMLESS_ARCH,))):
+        rec[key]["launches"] = sum(by_arch[a][name] for a in archs)
     # qwen2-vl's rows (G = 8, D = 128), each with the launches of its
     # counted serve_loop (flash: 40, one a layer; decode: 40 x 31) or of
     # its counted training run (the backward 4, the forward 8)

@@ -27,11 +27,13 @@ With ``shard`` (a ``sharding.layout.ShardLayout``, passed by
 (data, model) mesh, in the layout the reference's specs give: q heads,
 K/V heads and ``wo``'s heads cut over the model axis where they divide
 (else replicated), the cache cut on its sequence axis, each rank holding a
-contiguous span of rows (``_sharded_attention``). A prefill runs the flash
-kernel on this rank's heads over the whole prompt; a decode step is the
-reference's distributed flash-decode split-K pattern: each rank attends
-over its span with the decode kernel's partial entry, and the partials
-merge by their log-sum-exp (``_merge_partials``).
+contiguous span of rows (``_sharded_attention``). A prefill (and the
+encoder's uncached, non-causal call) runs the flash kernel on this rank's
+heads over the whole prompt; a decode step is the reference's distributed
+flash-decode split-K pattern: each rank attends over its span with the
+decode kernel's partial entry, and the partials merge by their
+log-sum-exp (``_merge_partials``). The cached ``cross_attention`` runs
+this rank's q heads over the memory K/V, which every rank holds whole.
 
 The cache differs from the reference in one respect: JAX writes it
 functionally (``dynamic_update_slice``); the port writes K/V at ``length``
@@ -234,15 +236,19 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (out, new_cache_or_None); the new cache shares the old one's
     K/V buffers, written in place. The cache rows are always ``length ..
     length + S - 1``, whatever positions rotate q and k.
-    ``shard`` runs this rank's part of a sharded cached call
-    (:func:`_sharded_attention`; causal, 1-D RoPE, no ``kv_source``).
+    ``shard`` runs this rank's part of a sharded call
+    (:func:`_sharded_attention`: cached, or uncached as the encoder's;
+    1-D RoPE, no ``kv_source``).
     """
     if shard is not None:
-        if mrope_positions is not None:
-            raise NotImplementedError(
-                "M-RoPE positions in a sharded call: not in the sharded "
-                "execution of the port yet (ROADMAP A.12)")
-        return _sharded_attention(params, x, cfg, cache, shard)
+        for given, what in ((mrope_positions, "M-RoPE positions"),
+                            (kv_source, "kv_source (uncached "
+                             "cross-attention)")):
+            if given is not None:
+                raise NotImplementedError(
+                    f"{what} in a sharded call: not in the sharded "
+                    f"execution of the port yet (ROADMAP A.12)")
+        return _sharded_attention(params, x, cfg, cache, shard, causal)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     is_cross = kv_source is not None
@@ -295,7 +301,7 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def cross_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                    memory: KVCache) -> torch.Tensor:
+                    memory: KVCache, shard=None) -> torch.Tensor:
     """Cached cross-attention of the encoder-decoder (reference
     ``encdec.py:103-108``): q from x, non-causal attention over the memory
     K/V projected at prefill, then ``wo``. memory.k/v: (B, T, Hk, D);
@@ -311,10 +317,19 @@ def cross_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     On the card a prefill (S > 1) runs the flash kernel with S queries over
     T keys, and a decode step (S == 1) the decode kernel with ``length``
     = T; on the CPU both are the blockwise plain path over all T keys.
+
+    With ``shard`` (one rank of a mesh) ``wq`` and ``wo`` are this rank's
+    q heads, and the memory, which holds every KV head on every rank (the
+    reference's spec), is read at the KV heads they use (:func:`_kv_range`;
+    a strided view at decode, copied whole at the prefill); ``wo``'s
+    partial products are summed over the model axis (:func:`_out_proj`).
     """
     B, S, M = x.shape
     H, D = cfg.n_heads_eff, cfg.head_dim
     k, v = memory.k, memory.v
+    if shard is not None:
+        H, kv = shard.heads.size, _kv_range(shard)
+        k, v = k[:, :, kv], v[:, :, kv]
     q = matmul(x, params["wq"].reshape(M, H * D)).view(B, S, H, D)
     if not q.is_cuda:
         out = blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
@@ -322,9 +337,11 @@ def cross_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     elif S == 1:
         out = decode_kernel(q, k, v, memory.length, block_k=k.shape[1])
     else:
-        out = flash_attention(q, k, v, causal=False, block_q=cfg.q_chunk,
+        out = flash_attention(q, k.contiguous(), v.contiguous(),
+                              causal=False, block_q=cfg.q_chunk,
                               block_k=cfg.kv_chunk)
-    return matmul(out.reshape(B, S, H * D), params["wo"].reshape(H * D, M))
+    return _out_proj(out.reshape(B, S, H * D),
+                     params["wo"].reshape(H * D, M), shard)
 
 
 # ----------------------------------------------------------------------
@@ -336,7 +353,11 @@ def _decode_partial_core(q, k, v, length) -> tuple[torch.Tensor,
     ``length`` rows (0 <= length <= rows): the decode kernel's partial
     entry on the card; on the CPU the plain path of ``decode_attention``
     (q scaled in its dtype, p rounded to the cache's before P.V), with
-    out = 0 and lse = -inf over no valid key."""
+    out = 0 and lse = -inf over no valid key. q takes the cache's dtype on
+    both devices, as the kernel's entries do (one entry a dtype)."""
+    if q.dtype != k.dtype:
+        raise ValueError(f"q {q.dtype} over a {k.dtype} cache: the partial "
+                         f"entry takes one dtype (cast q to the cache's)")
     if q.is_cuda:
         return decode_attention_partial(q, k, v, length)
     B, Sq, H, D = q.shape
@@ -382,13 +403,34 @@ def _write_token(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
         buf.index_copy_(1, index, torch.where(inside, new.to(buf.dtype), old))
 
 
-def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                       cache: KVCache, shard):
-    """One rank's share of a cached attention call: x (B_local, S, M),
-    params this rank's shards (q heads ``shard.heads``, K/V heads
-    ``shard.kv_heads``), cache its span ``shard.seq`` of rows (B_local,
-    rows, Hk, D) with the global ``length``.
+def _kv_range(shard) -> slice:
+    """The KV heads that this rank's q heads read (one, or whole groups),
+    in the full head order."""
+    G = shard.heads.total // shard.kv_heads.total
+    return slice(shard.heads.start // G, (shard.heads.stop - 1) // G + 1)
 
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, shard) -> torch.Tensor:
+    """``out @ wo``; over this rank's rows of ``wo`` (its heads cut over
+    the model axis) the fp32 partials are summed over the model axis and
+    rounded once."""
+    if shard is not None and shard.heads.sharded:
+        return shard.reduce_sum(matmul_f32(out, wo),
+                                torch.promote_types(out.dtype, wo.dtype))
+    return matmul(out, wo)
+
+
+def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                       cache: KVCache | None, shard, causal: bool = True):
+    """One rank's share of an attention call: x (B_local, S, M), params
+    this rank's shards (q heads ``shard.heads``, K/V heads
+    ``shard.kv_heads``), cache None (the encoder's uncached call, causal
+    or not) or its span ``shard.seq`` of rows (B_local, rows, Hk, D) with
+    the global ``length``.
+
+    * Uncached: the flash kernel on this rank's q heads and the KV heads
+      they read, which are among its own (the KV heads are cut as the q
+      heads' groups, or whole on every rank); no collective but ``wo``'s.
     * Prefill (S > 1; the cache is empty before it, as in the reference):
       the flash kernel runs on this rank's q heads and the K/V heads they
       read, over the whole prompt; the prompt's K/V for every KV head
@@ -396,16 +438,17 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
       rows of this rank's span.
     * Decode (S == 1): the new token's K/V goes into global row
       ``length`` (:func:`_write_token`); q for every head goes to every
-      rank; each rank attends over its span's valid rows, ``clamp(length +
-      1 - start, 0, rows)`` made on the device, with the decode kernel's
+      rank, in the cache's dtype (the encoder-decoder's fp32 self cache
+      takes a bf16 q cast up, exact, as ``_decode_core`` casts it); each
+      rank attends over its span's valid rows, ``clamp(length + 1 -
+      start, 0, rows)`` made on the device, with the decode kernel's
       partial entry; the partials merge by their log-sum-exp.
 
     This rank's heads of the output go through its rows of ``wo``, summed
     in fp32 over the model axis where the heads are cut and rounded once.
-    Returns (y, new cache)."""
+    Returns (y, new cache or None)."""
     B, S, M = x.shape
     D = cfg.head_dim
-    H, Hk = shard.heads.total, shard.kv_heads.total
     Hl, Hkl = shard.heads.size, shard.kv_heads.size
     q = matmul(x, params["wq"].reshape(M, Hl * D)).view(B, S, Hl, D)
     k = matmul(x, params["wk"].reshape(M, Hkl * D)).view(B, S, Hkl, D)
@@ -413,12 +456,19 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    rows = cache.length + torch.arange(S, device=x.device)
+    rows = torch.arange(S, device=x.device)
+    if cache is not None:
+        rows = cache.length + rows
     cos, sin = rope_table(rows, D, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    span = shard.seq
-    if S == 1:
+    span, kv = shard.seq, _kv_range(shard)
+    if cache is None:
+        own = slice(kv.start - shard.kv_heads.start,
+                    kv.stop - shard.kv_heads.start)
+        out = _prefill_core(q, k[:, :, own].contiguous(),
+                            v[:, :, own].contiguous(), cfg, causal)
+    elif S == 1:
         # every KV head's K/V (the cache holds them all) and every head's
         # q, in one gather
         q_all, k, v = shard.gather((q, 2, shard.heads), (k, 2, shard.kv_heads),
@@ -426,7 +476,8 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         _write_token(cache, k, v, shard)
         local_len = (cache.length + 1 - span.start).clamp(0, span.size) \
             .to(torch.int32)
-        out, lse = _decode_partial_core(q_all, cache.k, cache.v, local_len)
+        out, lse = _decode_partial_core(q_all.to(cache.k.dtype), cache.k,
+                                        cache.v, local_len)
         out = _merge_partials(out, lse, shard)[:, :, shard.heads.slice()]
         out = out.to(q.dtype)
     else:
@@ -436,20 +487,14 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
         if n:
             cache.k[:, :n] = k[:, span.start:span.start + n]
             cache.v[:, :n] = v[:, span.start:span.start + n]
-        # the KV heads this rank's q heads read (one, or whole groups)
-        G = H // Hk
-        lo = shard.heads.start // G
-        hi = (shard.heads.stop - 1) // G + 1
-        out = _prefill_core(q, k[:, :, lo:hi].contiguous(),
-                            v[:, :, lo:hi].contiguous(), cfg, True)
+        out = _prefill_core(q, k[:, :, kv].contiguous(),
+                            v[:, :, kv].contiguous(), cfg, causal)
     if cfg.pad_heads_to:
         mask = torch.arange(shard.heads.start, shard.heads.stop,
                             device=out.device) < cfg.n_heads
         out = out * mask.to(out.dtype)[None, None, :, None]
-    o, wo = out.reshape(B, S, Hl * D), params["wo"].reshape(Hl * D, M)
-    if shard.heads.sharded:
-        y = shard.reduce_sum(matmul_f32(o, wo),
-                             torch.promote_types(o.dtype, wo.dtype))
-    else:
-        y = matmul(o, wo)
+    y = _out_proj(out.reshape(B, S, Hl * D),
+                  params["wo"].reshape(Hl * D, M), shard)
+    if cache is None:
+        return y, None
     return y, KVCache(cache.k, cache.v, cache.length + S)

@@ -13,9 +13,9 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
-__all__ = ["matmul", "rms_norm", "silu", "gelu", "squared_relu", "softplus",
-           "ACTIVATIONS", "rope_table", "apply_rope", "apply_mrope",
-           "cross_entropy_loss", "remat_layer"]
+__all__ = ["matmul", "embed_tokens", "rms_norm", "silu", "gelu",
+           "squared_relu", "softplus", "ACTIVATIONS", "rope_table",
+           "apply_rope", "apply_mrope", "cross_entropy_loss", "remat_layer"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -40,6 +40,23 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.view(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 shard=None) -> torch.Tensor:
+    """Token embeddings in bf16. With ``shard`` (a
+    ``sharding.layout.ShardLayout``) whose ``vocab`` is cut over the model
+    axis, ``table`` holds this rank's rows: a token outside them gives 0
+    here, and the sum over the model axis gives every rank the embedding
+    (vocab-parallel lookup, exact: one rank's term is nonzero)."""
+    if shard is None or not shard.vocab.sharded:
+        return table[tokens].to(torch.bfloat16)
+    row = tokens - shard.vocab.start
+    inside = (row >= 0) & (row < shard.vocab.size)
+    x = table[row.clamp(0, shard.vocab.size - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return shard.sum_exact(x).to(torch.bfloat16)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -24,6 +24,19 @@ cached cross-attention's prefill through the flash kernel with the prompt's
 queries over the memory's keys, and a decode step's self- and
 cross-attention through the decode kernel (fp32 and bf16).
 
+With ``shard`` (a ``sharding.layout.ShardLayout``, given by
+``runtime/serve_lib.py``'s steps) ``prefill`` and ``decode_step`` run one
+rank of a (data, model) mesh: its batch rows; the vocab-parallel
+embedding and this rank's columns of the untied ``head``, gathered to the
+full logits; every attention on this rank's q heads (the encoder's
+uncached and non-causal, the decoder's self-attention over this rank's
+span of the fp32 self cache, the cross-attention over the memory K/V,
+which every rank holds whole) and the MLP on its hidden units, each
+row-parallel product summed over the model axis. At the prefill each rank
+projects the memory through its ``wk``/``wv`` heads of every layer, and
+the heads are gathered, in one all_reduce, into the whole cross cache
+(``_cross_kv``), as the reference's spec keeps it.
+
 Parameters are the reference's tree (same paths and shapes), with leading
 stacked layer axes; a Python loop over them takes the place of
 ``lax.scan``. The caches are written in place (``attention.py``). Under
@@ -41,7 +54,8 @@ import torch
 
 from .attention import (KVCache, attention, attention_decls,
                         cross_attention, init_cache)
-from .common import cross_entropy_loss, matmul, remat_layer, rms_norm
+from .common import (cross_entropy_loss, embed_tokens, matmul, remat_layer,
+                     rms_norm)
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .param import ArrayDecl, normal_init, ones_init, unstack_layers
@@ -109,40 +123,48 @@ class EncDecLM:
         return body(lp, *args)
 
     # -- encoder -----------------------------------------------------------
-    def _encoder_layer(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    def _encoder_layer(self, lp: dict, x: torch.Tensor,
+                       shard=None) -> torch.Tensor:
         h, _ = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
-                         causal=False)
+                         causal=False, shard=shard)
         x = x + h
-        return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg)
+        return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"]), self.cfg,
+                       shard=shard)
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, T, M) precomputed embeddings -> memory (B, T, M)."""
+    def encode(self, params, frames: torch.Tensor,
+               shard=None) -> torch.Tensor:
+        """frames: (B, T, M) precomputed embeddings -> memory (B, T, M);
+        ``shard``: this rank's part of a sharded call (every rank returns
+        the memory of its rows)."""
         x = frames.to(torch.bfloat16)
         for lp in unstack_layers(params["encoder"], self.cfg.n_encoder_layers):
-            x = self._run(self._encoder_layer, lp, x)
+            x = self._run(self._encoder_layer, lp, x, shard)
         return rms_norm(x, params["enc_final_norm"])
 
     # -- decoder -----------------------------------------------------------
     def _decoder_layer(self, lp: dict, x: torch.Tensor,
                        memory: torch.Tensor | None, *, self_cache=None,
-                       cross_kv: KVCache | None = None):
+                       cross_kv: KVCache | None = None, shard=None):
         """-> (x, new self cache or None). Cross-attention over ``cross_kv``
-        (the cached memory K/V) when given, else over ``memory``."""
+        (the cached memory K/V) when given, else over ``memory``;
+        ``shard`` as in ``_run_decoder_cached``."""
         cfg = self.cfg
         h, new_kv = attention(lp["self_attn"], rms_norm(x, lp["ln1"]), cfg,
-                              cache=self_cache)
+                              cache=self_cache, shard=shard)
         x = x + h
         xn = rms_norm(x, lp["ln2"])
         if cross_kv is not None:
-            h = cross_attention(lp["cross_attn"], xn, cfg, cross_kv)
+            h = cross_attention(lp["cross_attn"], xn, cfg, cross_kv, shard)
         else:
-            h, _ = attention(lp["cross_attn"], xn, cfg, kv_source=memory)
+            h, _ = attention(lp["cross_attn"], xn, cfg, kv_source=memory,
+                             shard=shard)
         x = x + h
-        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln3"]), cfg)
+        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln3"]), cfg, shard=shard)
         return x, new_kv
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(torch.bfloat16)
+    def _embed(self, params, tokens: torch.Tensor,
+               shard=None) -> torch.Tensor:
+        return embed_tokens(params["embed"], tokens, shard)
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"])
@@ -191,38 +213,67 @@ class EncDecLM:
             cross_length=torch.tensor(memory_len, dtype=torch.int32,
                                       device=device))
 
+    def _cross_kv(self, params, memory: torch.Tensor, cache: EncDecCache,
+                  shard=None) -> None:
+        """Every decoder layer's K/V of the memory (B, T, M), projected
+        once into ``cache.cross_k``/``cross_v``. With ``shard`` this rank
+        projects its KV heads of every layer (its ``wk``/``wv`` shards),
+        and the heads are gathered over the model axis in one all_reduce
+        for every layer's K and V, so that each rank's cache holds every
+        KV head."""
+        cfg = self.cfg
+        cross = params["decoder"]["cross_attn"]
+        M, Hk, D = memory.shape[-1], cross["wk"].shape[2], cfg.head_dim
+        if shard is None:
+            k, v = cache.cross_k, cache.cross_v
+        else:
+            k = memory.new_empty((cfg.n_layers,) + memory.shape[:2]
+                                 + (Hk, D))
+            v = torch.empty_like(k)
+        for i in range(cfg.n_layers):
+            k[i].copy_(matmul(memory, cross["wk"][i].reshape(M, Hk * D))
+                       .view(k.shape[1:]))
+            v[i].copy_(matmul(memory, cross["wv"][i].reshape(M, Hk * D))
+                       .view(v.shape[1:]))
+        if shard is not None:
+            k, v = shard.gather((k, 3, shard.kv_heads),
+                                (v, 3, shard.kv_heads))
+            cache.cross_k.copy_(k)
+            cache.cross_v.copy_(v)
+
     def prefill(self, params, frames: torch.Tensor, tokens: torch.Tensor,
-                cache: EncDecCache):
+                cache: EncDecCache, *, shard=None):
         """Encode, project every layer's memory K/V once into the cache,
         run the decoder over the prompt. Returns (last-token logits
-        (B, 1, V), cache)."""
-        cfg = self.cfg
-        memory = self.encode(params, frames)
-        B, T, M = memory.shape
-        HkD = cfg.n_kv_heads * cfg.head_dim
-        cross = params["decoder"]["cross_attn"]
-        for i in range(cfg.n_layers):
-            cache.cross_k[i].copy_(matmul(memory, cross["wk"][i].reshape(
-                M, HkD)).view(cache.cross_k.shape[1:]))
-            cache.cross_v[i].copy_(matmul(memory, cross["wv"][i].reshape(
-                M, HkD)).view(cache.cross_v.shape[1:]))
-        return self._run_decoder_cached(params, tokens, cache)
+        (B, 1, V), cache). ``shard``: as in ``_run_decoder_cached``."""
+        memory = self.encode(params, frames, shard)
+        self._cross_kv(params, memory, cache, shard)
+        return self._run_decoder_cached(params, tokens, cache, shard)
 
-    def decode_step(self, params, token: torch.Tensor, cache: EncDecCache):
+    def decode_step(self, params, token: torch.Tensor, cache: EncDecCache,
+                    *, shard=None):
         """token: (B, 1). Returns (logits (B, 1, V), cache)."""
-        return self._run_decoder_cached(params, token, cache)
+        return self._run_decoder_cached(params, token, cache, shard)
 
     def _run_decoder_cached(self, params, tokens: torch.Tensor,
-                            cache: EncDecCache):
+                            cache: EncDecCache, shard=None):
+        """The decoder over ``tokens`` with the caches. With ``shard`` (a
+        ``sharding.layout.ShardLayout``, ``runtime/serve_lib.py``'s steps)
+        this rank's part of a (data, model) mesh: ``tokens`` its batch
+        rows, ``params`` and ``cache`` its shards; this rank's logit
+        columns are gathered to the full (B, S, vocab) logits on every
+        rank, as the reference's steps return them."""
         kv = cache.self_kv
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, shard)
         new_len = kv.length
         layers = unstack_layers(params["decoder"], self.cfg.n_layers)
         for i, lp in enumerate(layers):
             x, new_kv = self._decoder_layer(
                 lp, x, None, self_cache=KVCache(kv.k[i], kv.v[i], kv.length),
                 cross_kv=KVCache(cache.cross_k[i], cache.cross_v[i],
-                                 cache.cross_length))
+                                 cache.cross_length), shard=shard)
             new_len = new_kv.length
         logits = self._head(params, x[:, -1:])
+        if shard is not None:
+            logits = shard.gather_logits(logits)
         return logits, cache._replace(self_kv=KVCache(kv.k, kv.v, new_len))

@@ -58,7 +58,8 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from .attention import KVCache, attention, attention_decls, init_cache
-from .common import cross_entropy_loss, matmul, remat_layer, rms_norm
+from .common import (cross_entropy_loss, embed_tokens, matmul, remat_layer,
+                     rms_norm)
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .moe import moe, moe_decls
@@ -234,7 +235,7 @@ class LM:
         return x + h, 0.0, new_ssm
 
     def _hybrid_block(self, bp: dict, x: torch.Tensor, *, cache=None,
-                      mrope_positions=None):
+                      mrope_positions=None, shard=None):
         """One super-block, the reference's sublayers in its order: the
         attention at ``hybrid_attn_index`` (cache ``cache.kv``), a Mamba
         block elsewhere (the ``mi``-th, cache ``cache.ssm``'s ``mi``-th
@@ -243,7 +244,11 @@ class LM:
         the MoE sublayers' summed aux, new_kv). ``mrope_positions`` is
         unused (the reference's block takes none), taken for one layer
         signature across families. The reference marks no MoE output
-        here, so the "names" policy saves nothing in a hybrid block."""
+        here, so the "names" policy saves nothing in a hybrid block.
+        ``shard`` goes to every sublayer, each cut as in its own family
+        (the attention over the block's K/V span, Mamba-2 head parallel
+        over the ``mi``-th SSM cache slice, the MoE expert parallel, the
+        MLP row parallel; see ``_apply_cached``)."""
         cfg = self.cfg
         per = cfg.hybrid_period
         n_moe = per // cfg.hybrid_moe_every
@@ -257,20 +262,21 @@ class LM:
             xn = rms_norm(x, ln_mix[i])
             if i == cfg.hybrid_attn_index:
                 h, new_kv = attention(bp["attn"], xn, cfg, cache=None
-                                      if cache is None else cache.kv)
+                                      if cache is None else cache.kv,
+                                      shard=shard)
             else:
                 sc = None if cache is None else \
                     SSMCache(*(a[mi] for a in cache.ssm))
-                h, _ = mamba_block(mamba[mi], xn, cfg, cache=sc)
+                h, _ = mamba_block(mamba[mi], xn, cfg, cache=sc, shard=shard)
                 mi += 1
             x = x + h
             xn = rms_norm(x, ln_ffn[i])
             if i % cfg.hybrid_moe_every == 1:
-                y, layer_aux = moe(moes[fi_moe], xn, cfg)
+                y, layer_aux = moe(moes[fi_moe], xn, cfg, shard=shard)
                 aux = aux + layer_aux
                 fi_moe += 1
             else:
-                y = mlp(mlps[fi_mlp], xn, cfg)
+                y = mlp(mlps[fi_mlp], xn, cfg, shard=shard)
                 fi_mlp += 1
             x = x + y
         return x, aux, new_kv
@@ -287,18 +293,9 @@ class LM:
 
     def _embed(self, params, tokens: torch.Tensor,
                shard=None) -> torch.Tensor:
-        """Token embeddings. With ``shard`` whose ``vocab`` is cut over the
-        model axis, ``params["embed"]`` holds this rank's rows: a token
-        outside them gives 0 here, and the sum over the model axis gives
-        every rank the embedding (vocab-parallel lookup)."""
-        if shard is None or not shard.vocab.sharded:
-            return params["embed"][tokens].to(torch.bfloat16)
-        row = tokens - shard.vocab.start
-        inside = (row >= 0) & (row < shard.vocab.size)
-        x = params["embed"][row.clamp(0, shard.vocab.size - 1)]
-        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
-        return shard.sum_exact(x).to(torch.bfloat16)
+        """Token embeddings; with ``shard``, the vocab-parallel lookup
+        (``common.embed_tokens``)."""
+        return embed_tokens(params["embed"], tokens, shard)
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"])
@@ -376,13 +373,14 @@ class LM:
                       mrope_positions=None, shard=None):
         """With ``shard`` (a ``sharding.layout.ShardLayout``, given by
         ``runtime/serve_lib.py``'s steps; families dense, vlm (its tokens
-        path: 1-D RoPE), moe and ssm): this rank's part of a (data, model)
-        mesh. ``tokens`` are this rank's batch rows, ``params`` and
-        ``cache`` its shards; the embedding, the attention, the MLP, the
-        experts and the Mamba blocks run their collectives over the model
-        axis, and this rank's logit columns (with a tied head, its
-        embedding rows' transpose) are gathered to the full (B, S, vocab)
-        logits on every rank, as the reference's steps return them."""
+        path: 1-D RoPE), moe, ssm and hybrid): this rank's part of a
+        (data, model) mesh. ``tokens`` are this rank's batch rows,
+        ``params`` and ``cache`` its shards; the embedding, the attention,
+        the MLP, the experts and the Mamba blocks run their collectives
+        over the model axis, and this rank's logit columns (with a tied
+        head, its embedding rows' transpose) are gathered to the full (B,
+        S, vocab) logits on every rank, as the reference's steps return
+        them."""
         x = self._embed(params, tokens, shard)
         layer, kv, ssm = self._layer_fn(), cache.kv, cache.ssm
         if shard is not None:

@@ -11,24 +11,29 @@ axis. SSM states cut their heads over the model axis.
 
 :func:`cache_specs` gives those specs for every family, as the reference's
 do. :func:`build_prefill_step` and :func:`build_decode_step` return
-callables over this rank's parameter and cache shards for the ``dense``,
-``vlm`` (its tokens path, 1-D RoPE, as the reference's serve steps run
-it), ``moe`` and ``ssm`` families: ``(params, tokens, cache) -> (logits,
-cache)``, with ``tokens`` the whole batch (every rank takes its rows) and
+callables over this rank's parameter and cache shards for every family:
+``dense``, ``vlm`` (its tokens path, 1-D RoPE, as the reference's serve
+steps run it), ``moe``, ``ssm``, ``hybrid`` and ``encdec``: ``(params,
+tokens, cache) -> (logits, cache)`` (the encoder-decoder's prefill
+``(params, frames, tokens, cache)``, as the reference's), with ``tokens``
+(and ``frames``) the whole batch (every rank takes its rows) and
 ``logits`` the whole batch's on every rank, as the reference's steps
-return them. The model's execution (``models/lm.py::_apply_cached`` with
-``shard``) covers q heads, K/V heads, the MLP and the vocab cut over the
-model axis (or replicated where ``rules._fits`` refuses); the experts cut
-over the model axis (expert parallel, each data shard's capacity from its
-own tokens, as the reference's ``shard_map`` gives it) with the shared
-experts' hidden units; the Mamba heads and their ``d_inner`` columns (head
-parallel, the ssd kernel on each rank's heads); the batch over the data
-axes and the K/V cache's sequence over the model axis. A spec it does not
-cover (the ``head_dim`` fallback, ``expert_mlp`` cut where the experts do
-not divide, ``ssm_inner`` cut without ``ssm_heads``, ZeRO-3, sequence
-parallelism, a cache sequence over other axes) and the ``hybrid`` and
-``encdec`` families raise ``NotImplementedError`` naming ROADMAP A.12
-before anything is allocated.
+return them. The model's execution (``models/lm.py::_apply_cached`` and
+``models/encdec.py`` with ``shard``) covers q heads, K/V heads, the MLP
+and the vocab cut over the model axis (or replicated where
+``rules._fits`` refuses); the experts cut over the model axis (expert
+parallel, each data shard's capacity from its own tokens, as the
+reference's ``shard_map`` gives it) with the shared experts' hidden
+units; the Mamba heads and their ``d_inner`` columns (head parallel, the
+ssd kernel on each rank's heads); a hybrid super-block's sublayers, each
+cut as its own family's; the encoder (non-causal, uncached) and the
+cross-attention over a memory K/V cache that holds every KV head; the
+batch over the data axes and the K/V cache's sequence over the model
+axis. A spec it does not cover (the ``head_dim`` fallback, ``expert_mlp``
+cut where the experts do not divide, ``ssm_inner`` cut without
+``ssm_heads``, ZeRO-3, sequence parallelism, a cache sequence over other
+axes) raises ``NotImplementedError`` naming ROADMAP A.12 before anything
+is allocated.
 
 The steps need a mesh over a process group (``launch/mesh.py::
 make_local_mesh``): NCCL with one rank a card, gloo for ranks that share
@@ -44,10 +49,11 @@ import torch
 from ..launch.mesh import Mesh
 from ..models.attention import KVCache
 from ..models.lm import Cache
+from ..models.encdec import EncDecCache
 from ..models.param import tree_at, tree_items
 from ..models.ssm import SSMCache
 from ..sharding.context import data_axes, mesh_context, model_axis
-from ..sharding.layout import ShardLayout, span_of
+from ..sharding.layout import ShardLayout, Span, span_of
 from ..sharding.rules import (PartitionSpec as P, local_shape, make_rules,
                               spec_tree)
 
@@ -57,7 +63,7 @@ __all__ = ["cache_specs", "build_prefill_step", "build_decode_step",
 
 # the families the sharded execution serves, and the logical axes it cuts
 # over the model axis
-_FAMILIES = ("dense", "vlm", "moe", "ssm")
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 _CUT_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_heads",
              "ssm_inner")
 
@@ -120,7 +126,6 @@ def cache_specs(model, mesh: Mesh, batch: int, max_len: int):
                          conv_B=P(None, None, b_ax, None, None),
                          conv_C=P(None, None, b_ax, None, None)))
     if fam == "encdec":
-        from ..models.encdec import EncDecCache
         return EncDecCache(
             self_kv=KVCache(k=kv_spec(), v=kv_spec(), length=P(None)),
             cross_k=P(None, b_ax, None, None, None),
@@ -157,48 +162,67 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
     """This rank's :class:`~repro_torch.sharding.layout.ShardLayout` of the
     model under the reference's specs, or ``NotImplementedError`` naming
     ROADMAP A.12 for a spec the execution does not cover. Allocates
-    nothing."""
+    nothing. A hybrid's layout holds every span (its block composes the
+    attention, the MLP, the MoE and Mamba-2); an encoder-decoder's takes
+    its attention spans from the encoder's, the decoder's self- and its
+    cross-attention, and its MLP's from both stacks, each required
+    alike."""
     cfg = model.cfg
-    if cfg.family not in _FAMILIES:
-        raise _unported(f"sharded serving of the {cfg.family} family")
+    fam = cfg.family
+    if fam not in _FAMILIES:
+        raise _unported(f"sharded serving of the {fam} family")
     if zero3:
         raise _unported("ZeRO-3 parameter specs (zero3=True)")
     if model_axis(mesh) is None:
         raise _unported(f"a mesh without a model axis ({mesh})")
-    specs = param_specs(model, mesh)
-    layers = specs["layers"]
-    kw = {"vocab": span_of(specs["embed"][0], cfg.vocab, mesh)}
-    if cfg.family == "ssm":
-        ssm = layers["mamba"]
-        heads = span_of(ssm["A_log"][1], cfg.ssm_heads, mesh)
-        inner = span_of(ssm["w_x"][2], cfg.d_inner, mesh)
-        if heads.sharded != inner.sharded:
-            raise _unported(
-                f"ssm_inner {'' if inner.sharded else 'not '}cut over the "
-                f"model axis of {mesh} while the {cfg.ssm_heads} ssm_heads "
-                f"are{'' if heads.sharded else ' not'} (a rank's inner "
-                f"columns must be its heads')")
-        state = cache_specs(model, mesh, batch, max_len).ssm.state
-        kw.update(batch=span_of(state[1], batch, mesh), ssm_heads=heads,
-                  ssm_inner=inner)
-    elif cfg.family == "moe":
-        moe = layers["moe"]
-        kw["experts"] = span_of(moe["w_up"][1], cfg.n_experts, mesh)
+    decls, specs = model.param_decls(), param_specs(model, mesh)
+
+    def span(paths, axis: str, total: int) -> Span:
+        """This rank's span of the dim named ``axis`` of the parameter at
+        ``paths`` ("layers/attn/wq"; or several, which must agree), its
+        position read from the leaf's declared axis names, so that more
+        leading stacked axes (a hybrid block's leaves sit under two)
+        cannot shift it."""
+        found = set()
+        for path in (paths,) if isinstance(paths, str) else paths:
+            keys = tuple(path.split("/"))
+            index = tree_at(decls, keys).axes.index(axis)
+            found.add(span_of(tree_at(specs, keys)[index], total, mesh))
+        if len(found) > 1:
+            raise _unported(f"the {axis} axis cut unlike across {paths}: "
+                            f"{sorted(found, key=lambda s: s.size)}")
+        return found.pop()
+    kw = {"vocab": span("embed", "vocab", cfg.vocab)}
+    if fam in ("moe", "hybrid"):
+        kw["experts"] = span("layers/moe/w_up", "experts", cfg.n_experts)
         if not kw["experts"].sharded:
             raise _unported(
                 f"the {cfg.n_experts} experts do not divide over the model "
                 f"axis of {mesh}, so the specs cut expert_mlp (the "
                 f"reference's shard_map cuts the experts all the same)")
         if cfg.n_shared_experts:
-            kw["shared"] = span_of(moe["shared_up"][2],
-                                   cfg.d_ff * cfg.n_shared_experts, mesh)
+            kw["shared"] = span("layers/moe/shared_up", "mlp",
+                                cfg.d_ff * cfg.n_shared_experts)
             if not kw["shared"].sharded:
                 raise _unported(f"the shared experts' {kw['shared'].total} "
                                 f"hidden units not cut over the model axis "
                                 f"of {mesh}")
-    else:
-        kw["mlp"] = span_of(layers["mlp"]["w_up"][2], cfg.d_ff, mesh)
-    for path, d in tree_items(model.param_decls()):
+    if fam in ("ssm", "hybrid"):
+        heads = span("layers/mamba/A_log", "ssm_heads", cfg.ssm_heads)
+        inner = span("layers/mamba/w_x", "ssm_inner", cfg.d_inner)
+        if heads.sharded != inner.sharded:
+            raise _unported(
+                f"ssm_inner {'' if inner.sharded else 'not '}cut over the "
+                f"model axis of {mesh} while the {cfg.ssm_heads} ssm_heads "
+                f"are{'' if heads.sharded else ' not'} (a rank's inner "
+                f"columns must be its heads')")
+        kw.update(ssm_heads=heads, ssm_inner=inner)
+    if fam in ("dense", "vlm", "hybrid"):
+        kw["mlp"] = span("layers/mlp/w_up", "mlp", cfg.d_ff)
+    elif fam == "encdec":
+        kw["mlp"] = span(("encoder/mlp/w_up", "decoder/mlp/w_up"), "mlp",
+                         cfg.d_ff)
+    for path, d in tree_items(decls):
         spec = tree_at(specs, path)
         for name, part in zip(d.axes, spec):
             if part is not None and not (part == "model"
@@ -210,61 +234,92 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
                     if name == "head_dim" else
                     f"{'/'.join(path)}: spec {spec} cuts its {name!r} axis "
                     f"over {part!r}")
-    if cfg.family == "ssm":
-        return ShardLayout(mesh=mesh, **kw)
-    kv = cache_specs(model, mesh, batch, max_len).kv.k
+    cspecs = cache_specs(model, mesh, batch, max_len)
+    if fam == "ssm":
+        return ShardLayout(mesh=mesh, batch=span_of(cspecs.ssm.state[1],
+                                                    batch, mesh), **kw)
+    kv = (cspecs.self_kv if fam == "encdec" else cspecs.kv).k
     if kv[2] != "model":
         raise _unported(f"a K/V cache spec {kv} whose sequence is not cut "
                         f"over the model axis alone (max_len {max_len} on "
                         f"{mesh})")
-    attn = layers["attn"]
-    heads = span_of(attn["wq"][2], cfg.n_heads_eff, mesh)
+    attn = ("encoder/attn", "decoder/self_attn", "decoder/cross_attn") \
+        if fam == "encdec" else ("layers/attn",)
+    heads = span(tuple(f"{a}/wq" for a in attn), "heads", cfg.n_heads_eff)
     G = cfg.n_heads_eff // cfg.n_kv_heads
     if heads.size % G and G % heads.size:
         raise _unported(f"{heads.size} q heads a rank with groups of {G}")
     return ShardLayout(
         mesh=mesh, heads=heads,
-        kv_heads=span_of(attn["wk"][2], cfg.n_kv_heads, mesh),
+        kv_heads=span(tuple(f"{a}/wk" for a in attn), "kv_heads",
+                      cfg.n_kv_heads),
         batch=span_of(kv[1], batch, mesh),
         seq=span_of(kv[2], max_len, mesh), **kw)
 
 
 def init_cache_shards(model, mesh: Mesh, batch: int, max_len: int, *,
-                      device: str | torch.device = "cuda") -> Cache:
-    """This rank's zero cache shards under :func:`cache_specs`: the K/V
-    cache (n_layers, local batch, local rows, kv_heads, head_dim) with the
-    global ``length``, one int32 scalar (families dense, vlm, moe); or the
-    SSM cache (family ssm): ``state`` (n_layers, local batch, local heads,
-    P, N) fp32 and the conv tails (n_layers, local batch, K-1, channels),
-    ``conv_x`` with every ``d_inner`` column on every model rank, as the
-    reference's spec keeps it."""
-    full = abstract_cache(model, batch, max_len, filled=False)
+                      memory_len: int | None = None,
+                      device: str | torch.device = "cuda"):
+    """This rank's zero cache shards under :func:`cache_specs`, each
+    ``length`` the global one, an int32 scalar: the K/V cache
+    (n_layers, local batch, local rows, kv_heads, head_dim) (families
+    dense, vlm, moe; a hybrid's a block); the SSM cache (family ssm:
+    ``state`` (n_layers, local batch, local heads, P, N) fp32 and the conv
+    tails (n_layers, local batch, K-1, channels); a hybrid's each with
+    (blocks, Mamba sublayers) in front), ``conv_x`` with every ``d_inner``
+    column on every model rank, as the reference's spec keeps it; the
+    encoder-decoder's fp32 self K/V over the local rows, and its bf16
+    ``cross_k``/``cross_v`` (n_layers, local batch, ``memory_len``,
+    kv_heads, head_dim) with every KV head, the spec's, and
+    ``cross_length`` = ``memory_len`` (the reference's 128 when None, as
+    :func:`abstract_cache`)."""
+    full = abstract_cache(model, batch, max_len, filled=False,
+                          memory_len=memory_len)
     specs = cache_specs(model, mesh, batch, max_len)
 
     def zeros(spec, like):
         return torch.zeros(local_shape(spec, tuple(like.shape), mesh),
                            dtype=like.dtype, device=device)
-    if model.cfg.family == "ssm":
-        return Cache(ssm=SSMCache(*(zeros(spec, like) for spec, like
-                                    in zip(specs.ssm, full.ssm))))
-    return Cache(kv=KVCache(
-        k=zeros(specs.kv.k, full.kv.k), v=zeros(specs.kv.v, full.kv.v),
-        length=torch.zeros((), dtype=torch.int32, device=device)))
+
+    def kv(spec, like):
+        return None if like is None else KVCache(
+            k=zeros(spec.k, like.k), v=zeros(spec.v, like.v),
+            length=torch.zeros((), dtype=torch.int32, device=device))
+    if model.cfg.family == "encdec":
+        return EncDecCache(
+            self_kv=kv(specs.self_kv, full.self_kv),
+            cross_k=zeros(specs.cross_k, full.cross_k),
+            cross_v=zeros(specs.cross_v, full.cross_v),
+            cross_length=torch.tensor(full.cross_k.shape[2],
+                                      dtype=torch.int32, device=device))
+    ssm = None if full.ssm is None else SSMCache(
+        *(zeros(spec, like) for spec, like in zip(specs.ssm, full.ssm)))
+    return Cache(kv=kv(specs.kv, full.kv), ssm=ssm)
 
 
-def _step(model, mesh: Mesh, layout: ShardLayout, method: str, seq: int):
+def _step(model, mesh: Mesh, layout: ShardLayout, method: str, seq: int,
+          n_inputs: int = 1):
     if not mesh.is_live:
         raise ValueError(f"the serving steps run on a mesh over a process "
                          f"group (make_local_mesh), not {mesh}")
     run = getattr(model, method)
     batch = layout.batch
 
-    def step(params, tokens: torch.Tensor, cache: Cache):
-        if tuple(tokens.shape) != (batch.total, seq):
-            raise ValueError(f"tokens {tuple(tokens.shape)}: the step was "
-                             f"built for ({batch.total}, {seq})")
+    def step(params, *args):
+        """``args``: the ``n_inputs`` whole-batch inputs (the tokens last),
+        then the cache."""
+        if len(args) != n_inputs + 1:
+            raise TypeError(f"the step takes {n_inputs} input(s) and the "
+                            f"cache, got {len(args)} arguments")
+        *inputs, cache = args
+        if tuple(inputs[-1].shape) != (batch.total, seq) or any(
+                t.shape[0] != batch.total for t in inputs):
+            raise ValueError(f"inputs {[tuple(t.shape) for t in inputs]}: "
+                             f"the step was built for tokens "
+                             f"({batch.total}, {seq})")
         with mesh_context(mesh):
-            return run(params, tokens[batch.slice()], cache, shard=layout)
+            return run(params, *(t[batch.slice()] for t in inputs), cache,
+                       shard=layout)
     return step
 
 
@@ -272,9 +327,12 @@ def build_prefill_step(model, mesh: Mesh, batch: int, seq: int,
                        max_len: int | None = None, *, zero3: bool = False):
     """``prefill(params, tokens (batch, seq), cache) -> (last-token logits
     (batch, 1, vocab), cache)`` on this rank's shards; the cache is empty
-    before it."""
+    before it. The encoder-decoder's is ``prefill(params, frames (batch,
+    T, M), tokens (batch, seq), cache)``, as the reference's, with a cache
+    made for T frames (``init_cache_shards(..., memory_len=T)``)."""
     layout = shard_layout(model, mesh, batch, max_len or seq, zero3=zero3)
-    return _step(model, mesh, layout, "prefill", seq)
+    return _step(model, mesh, layout, "prefill", seq,
+                 2 if model.cfg.family == "encdec" else 1)
 
 
 def build_decode_step(model, mesh: Mesh, batch: int, max_len: int, *,

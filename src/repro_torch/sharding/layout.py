@@ -68,10 +68,11 @@ class ShardLayout:
     sequences this rank serves. A family's own dims, None where the family
     has none: ``heads`` the q heads (``wq``'s and ``wo``'s), ``kv_heads``
     the K/V projections' heads and ``seq`` this rank's rows of the K/V
-    cache (dense, vlm, moe); ``mlp`` the MLP's hidden units (dense, vlm);
-    ``experts`` the experts this rank serves and ``shared`` the shared
-    experts' hidden units (moe); ``ssm_heads`` the Mamba heads and
-    ``ssm_inner`` their ``d_inner`` columns, head-major (ssm)."""
+    cache (dense, vlm, moe, hybrid, encdec: its self cache); ``mlp`` the
+    MLP's hidden units (dense, vlm, hybrid, encdec); ``experts`` the
+    experts this rank serves and ``shared`` the shared experts' hidden
+    units (moe, hybrid); ``ssm_heads`` the Mamba heads and ``ssm_inner``
+    their ``d_inner`` columns, head-major (ssm, hybrid)."""
 
     mesh: Mesh
     vocab: Span

@@ -267,9 +267,9 @@ def test_serve_loop_matches_jax(monkeypatch):
     steps = []
 
     class Recording(EncDecLM):
-        def _run_decoder_cached(self, params, tokens, cache):
+        def _run_decoder_cached(self, params, tokens, cache, shard=None):
             logits, cache = super()._run_decoder_cached(params, tokens,
-                                                        cache)
+                                                        cache, shard)
             steps.append(logits[:, -1].float())
             return logits, cache
 

@@ -533,12 +533,14 @@ def test_sharded_init_and_shard_params_hold_the_unsharded_model(
 
 
 @pytest.mark.parametrize("arch,mesh,kw,match", [
-    ("seamless-m4t-large-v2", (1, 2), {}, "encdec family"),
+    # 4 q heads do not divide over 8: the reference shards head_dim instead
+    ("seamless-m4t-large-v2", (1, 8), {}, "head_dim fallback"),
     # 8 experts do not divide over 16: the specs cut expert_mlp instead
     ("qwen3-moe-235b-a22b", (1, 16), {}, "expert_mlp"),
     # 8 heads do not divide over 16, their 128 inner columns do
     ("mamba2-370m", (1, 16), {}, "ssm_inner"),
-    ("jamba-1.5-large-398b", (1, 2), {}, "hybrid family"),
+    # 8 experts do not divide over 16: the specs cut expert_mlp instead
+    ("jamba-1.5-large-398b", (1, 16), {}, "expert_mlp"),
     # 4 q heads do not divide over 8: the reference shards head_dim instead
     ("tinyllama-1.1b", (1, 8), {}, "head_dim fallback"),
     ("tinyllama-1.1b", (2, 2), {"zero3": True}, "ZeRO-3"),

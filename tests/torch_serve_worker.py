@@ -1,9 +1,12 @@
 """One rank of a sharded serving group on the CPU, for
-``tests/test_torch_serve_lib.py``: a gloo process group over a ``file://``
-rendezvous, the port's (data, model) mesh, and for each case the sharded
-prefill and teacher-forced decode steps of ``runtime/serve_lib.py`` (an
-MoE case also fed a routing). It imports no JAX, so a spawned rank starts
-with torch alone."""
+``tests/test_torch_serve_lib.py`` and
+``tests/test_torch_serve_lib_families.py``: a gloo process group over a
+``file://`` rendezvous, the port's (data, model) mesh, and for each case
+the sharded prefill (an encoder-decoder's over the case's frames) and
+teacher-forced decode steps of ``runtime/serve_lib.py`` (a case with MoE
+layers also fed a routing), or a case's own function of the rank's mesh
+(``"run"``). It imports no JAX, so a spawned rank starts with torch
+alone."""
 
 from __future__ import annotations
 
@@ -21,20 +24,23 @@ def _shapes(tree) -> dict:
 
 
 def _steps(model, mesh, params, tokens, prompt: int, max_len: int,
-           span=None) -> tuple:
-    """The sharded prefill of ``tokens[:, :prompt]`` and a decode step fed
-    each of ``tokens[:, prompt:]``: (each step's logits, fp32 numpy, the
-    whole batch; the cache after; each decode step's valid keys in
-    ``span``, this rank's rows of the K/V cache)."""
+           span=None, frames=None) -> tuple:
+    """The sharded prefill of ``tokens[:, :prompt]`` (over ``frames``, an
+    encoder-decoder's) and a decode step fed each of ``tokens[:,
+    prompt:]``: (each step's logits, fp32 numpy, the whole batch; the
+    cache after; each decode step's valid keys in ``span``, this rank's
+    rows of the K/V cache)."""
     from repro_torch.runtime import serve_lib
     B, T = tokens.shape
-    cache = serve_lib.init_cache_shards(model, mesh, B, max_len,
-                                        device="cpu")
+    inputs = () if frames is None else (frames,)
+    cache = serve_lib.init_cache_shards(
+        model, mesh, B, max_len, device="cpu",
+        memory_len=None if frames is None else frames.shape[1])
     prefill = serve_lib.build_prefill_step(model, mesh, B, prompt, max_len)
     decode = serve_lib.build_decode_step(model, mesh, B, max_len)
     out, keys = [], []
     with torch.inference_mode():
-        logits, cache = prefill(params, tokens[:, :prompt], cache)
+        logits, cache = prefill(params, *inputs, tokens[:, :prompt], cache)
         out.append(logits.float().numpy())
         for t in range(prompt, T):
             if span is not None:
@@ -76,18 +82,26 @@ def _routing(rows: slice, batch: int, fed: list | None, own: list):
 
 def serve_case(mesh, case: dict) -> dict:
     """The sharded prefill and teacher-forced decode steps (``_steps``) on
-    ``case["params"]`` cut to this rank's shards. Returns the logits of
-    each step (fp32 numpy, the whole batch), this rank's parameter and
-    cache shapes, and its cache after the steps: with a K/V cache, each
-    decode step's valid keys in this rank's span; with an SSM cache, its
-    heads. An MoE case also returns its routing of each call (``routes``)
-    and runs again fed the case's ``routes`` of its data axis's size
-    (``logits_fed``; its K/V cache is the fed run's)."""
+    ``case["params"]`` cut to this rank's shards (over ``case["frames"]``,
+    an encoder-decoder's). Returns the logits of each step (fp32 numpy,
+    the whole batch), this rank's parameter and cache shapes, and its
+    cache after the steps: with a K/V cache (an encoder-decoder's self
+    cache), each decode step's valid keys in this rank's span; with an SSM
+    cache, its heads; an encoder-decoder's memory K/V (``cross``). A case
+    with MoE layers also returns its routing of each call (``routes``) and
+    runs again fed the case's ``routes`` of its data axis's size
+    (``logits_fed``; its caches are the fed run's). A case with ``"run"``
+    returns ``run(mesh, case)`` alone."""
+    if "run" in case:
+        return case["run"](mesh, case)
     from repro_torch.models import build_model
     from repro_torch.models.param import shard_params
     from repro_torch.runtime import serve_lib
     model = build_model(case["cfg"])
     tokens = torch.as_tensor(case["tokens"])
+    frames = case.get("frames")
+    if frames is not None:
+        frames = torch.as_tensor(frames)
     B = tokens.shape[0]
     S, max_len = case["prompt"], case["max_len"]
     layout = serve_lib.shard_layout(model, mesh, B, max_len)
@@ -96,26 +110,92 @@ def serve_case(mesh, case: dict) -> dict:
     span = layout.seq
     out = {"params": _shapes(params),
            "cache": _shapes(serve_lib.init_cache_shards(
-               model, mesh, B, max_len, device="cpu"))}
+               model, mesh, B, max_len, device="cpu",
+               memory_len=None if frames is None else frames.shape[1]))}
     own = []
     with _routing(layout.batch.slice(), B, None, own):
         out["logits"], cache, keys = _steps(model, mesh, params, tokens, S,
-                                            max_len, span)
+                                            max_len, span, frames)
     if "routes" in case:
         out["routes"] = own
         fed = case["routes"][mesh.shape["data"]]
         with _routing(layout.batch.slice(), B, fed, []):
             out["logits_fed"], cache, _ = _steps(model, mesh, params, tokens,
-                                                 S, max_len, span)
-    if span is None:
+                                                 S, max_len, span, frames)
+    if getattr(cache, "ssm", None) is not None:
         out["heads"] = (layout.ssm_heads.start, layout.ssm_heads.size)
         out["ssm"] = tuple(a.numpy() for a in cache.ssm)
-    else:
+    kv = cache.self_kv if frames is not None else cache.kv
+    if kv is not None:
         out.update(span_keys=keys, span=(span.start, span.size),
-                   length=int(cache.kv.length),
-                   kv=(cache.kv.k.float().numpy(),
-                       cache.kv.v.float().numpy()))
+                   length=int(kv.length),
+                   kv=(kv.k.float().numpy(), kv.v.float().numpy()))
+    if frames is not None:
+        out["cross"] = (cache.cross_k.float().numpy(),
+                        cache.cross_v.float().numpy())
     return out
+
+
+def decoder_layer_case(mesh, case: dict) -> dict:
+    """A reduced encoder-decoder's decoder layer 0 on this rank, sharded,
+    against the same layer unsharded (the whole batch, every weight): a
+    prefill over ``case["x"][:, :prompt]`` (hidden states, bf16) that fills
+    the fp32 self cache, then a decode step fed each further position, the
+    cross-attention over ``case["cross"]``'s memory K/V (every head, as
+    each rank's cache holds it). Returns each step's output of this rank's
+    rows on both paths (fp32 numpy) and the (q, cache) dtypes of every
+    call of the partial decode entry."""
+    import importlib
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.param import shard_params, unstack_layers
+    from repro_torch.runtime import serve_lib
+    from repro_torch.sharding.context import mesh_context
+    attn_mod = importlib.import_module("repro_torch.models.attention")
+    model = build_model(case["cfg"])
+    x = torch.as_tensor(case["x"])
+    cross_k, cross_v = (torch.as_tensor(a) for a in case["cross"])
+    B, T, _ = x.shape
+    S, max_len, L = case["prompt"], case["max_len"], model.cfg.n_layers
+    layout = serve_lib.shard_layout(model, mesh, B, max_len)
+    rows = layout.batch.slice()
+    specs = serve_lib.param_specs(model, mesh)
+    lp = unstack_layers(shard_params(case["params"], specs, mesh)["decoder"],
+                        L)[0]
+    lp_full = unstack_layers(case["params"]["decoder"], L)[0]
+    cross_len = torch.tensor(cross_k.shape[2], dtype=torch.int32)
+    # the partial entry's (q, cache) dtypes, call by call
+    seen = []
+    partial = attn_mod._decode_partial_core
+
+    def recording(q, k, v, n):
+        seen.append((str(q.dtype), str(k.dtype)))
+        return partial(q, k, v, n)
+    runs = {"rows": (rows.start, rows.stop), "partial_dtypes": seen}
+    for name, shard, params, b in (("sharded", layout, lp, rows),
+                                   ("unsharded", None, lp_full, slice(None))):
+        if shard is None:
+            kv = model.init_cache(B, max_len, cross_k.shape[2],
+                                  device="cpu").self_kv
+        else:
+            kv = serve_lib.init_cache_shards(
+                model, mesh, B, max_len, memory_len=cross_k.shape[2],
+                device="cpu").self_kv
+        self_kv = KVCache(kv.k[0], kv.v[0], kv.length)
+        cross = KVCache(cross_k[0, b], cross_v[0, b], cross_len)
+        out = []
+        attn_mod._decode_partial_core = recording
+        try:
+            with torch.inference_mode(), mesh_context(mesh):
+                for t0, t1 in [(0, S)] + [(t, t + 1) for t in range(S, T)]:
+                    y, self_kv = model._decoder_layer(
+                        params, x[b, t0:t1], None, self_cache=self_kv,
+                        cross_kv=cross, shard=shard)
+                    out.append(y[:, -1].float().numpy())
+        finally:
+            attn_mod._decode_partial_core = partial
+        runs[name] = out
+    return runs
 
 
 def run_rank(rank: int, data: int, model: int, init_file: str,
