@@ -106,11 +106,11 @@ Phases, each fatal on failure:
    span into rank 1's), one spawn a mesh (``SHARD_GROUPS``), each rank a
    process on the one card serving its archs one after another, joined
    with a timeout: tinyllama-1.1b cut to 8 layers at (1, 1) under NCCL
-   and at (1, 2) under gloo; under gloo at (1, 2) starcoder2-15b cut to 8
-   layers, qwen2-vl-72b to 2 (its tokens path), qwen3-moe-235b-a22b to 2
+   and at (1, 2) under gloo; under gloo at (1, 2) starcoder2-15b cut to 4
+   layers, qwen2-vl-72b to 2 (its tokens path), qwen3-moe-235b-a22b to 1
    (also at (2, 2), each data shard against the unsharded run on its rows
-   alone), kimi-k2-1t-a32b to 1, mamba2-370m to 12, seamless-m4t-large-v2
-   to 12 + 12 over 1024 seeded frames (``SHARD_LAYERS``) and
+   alone), kimi-k2-1t-a32b to 1, mamba2-370m to 6, seamless-m4t-large-v2
+   to 6 + 6 over 1024 seeded frames (``SHARD_LAYERS``) and
    jamba-1.5-large-398b's period-4 super-block; every rank's prefill and 31
    teacher-forced decode steps against the unsharded ``serve_loop`` of the
    same cut model on the same seed (rel < 0.06, picks apart only at
@@ -134,7 +134,18 @@ Phases, each fatal on failure:
    heads 0..H_loc-1, the gated norm over a rank's own columns (mamba2);
    every Mamba sublayer of a block on SSM cache slice 0, and the experts
    0..E_loc-1 (jamba); the memory K/V gather skipped, the encoder's
-   row-parallel ``wo`` sum skipped (seamless);
+   row-parallel ``wo`` sum skipped (seamless); and in the (1, 2) and
+   (2, 2) spawns ``sharded_train_check``: tinyllama-1.1b cut to 8 layers
+   trained over the mesh (``build_train_step(..., mesh=)``, batch 8 x
+   512, remat "full", ZeRO-1 at (2, 2)) against the unsharded step on the
+   card (loss and norm rel 1e-2, each gradient shard within 3e-2 of its
+   slice's norm, each leaf's update by ``update_rule``, the sharded AdamW
+   fed the reference's gradients within 1e-5), its all_reduce calls
+   (``train_collectives``) and flash launches as derived, and four
+   planted faults (``TRAIN_FAULTS``), each breaking a rule on every
+   rank: ``enter``'s sum skipped at the attention input, the norm over a
+   rank's own shards (at (1, 2)), the data-axis sum skipped, ZeRO-1's
+   gather skipped (at (2, 2));
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
    40-layer qwen2-vl, the period-4 jamba block (its device time split
@@ -192,8 +203,9 @@ Phases, each fatal on failure:
    each gradient within 3e-2 of its norm, each layer's backward-kernel
    gradients against the plain backward on the same captured tensors
    within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
-   gradient within 3e-2 of its norm); the same step of a depth-2
-   qwen3-moe (``moe_train_check``: 2 x 256 tokens, the CPU's experts fed
+   gradient within 3e-2 of its norm); the same step of qwen3-moe
+   (``moe_train_check``, at 1 layer, ``MOE_CHECK_LAYERS``: 2 x
+   256 tokens, the CPU's experts fed
    to the card's MoE layers, in both dispatch modes, remat off and under
    "full", "dots" and "names"; its own-routing step printed, not held);
    one depth-1 qwen3-moe step at 8 x 512 tokens under each remat policy
@@ -203,10 +215,11 @@ Phases, each fatal on failure:
    the uninterrupted losses (tinyllama rtol 2e-2, mamba2 bit for bit);
 7. orchestrate (``orchestrate_check``): tinyllama's train step under the
    port's DFlow engine (``runtime/orchestrator.py::run_training``). At
-   depth 2 and full width, with a checkpoint every 2 steps, its losses and
+   1 layer (``ORCH_CHECK_LAYERS``) and full width, with a checkpoint every
+   2 steps, its losses and
    checkpoints against ``train_loop``'s (rtol 2e-2), also with a save that
    waits for the next step before it snapshots; at full depth and width
-   (batch 8 x 512, remat, 6 steps) ``train_loop`` and the DAG under
+   (batch 8 x 512, remat, 4 steps) ``train_loop`` and the DAG under
    "dataflow" and "controlflow": ms a step, 44 flash forward and 22
    backward launches a step in the DAG's threads (set to 0 before each
    run, read after), the engine's per-function times, and each peak
@@ -231,7 +244,10 @@ launches of its counted serve_loop or training run; the flash and decode
 entries jamba's launches, "jamba", at qwen2-vl's timed shape, and the ssd
 entry jamba's H = 256 row, "jamba", with its launches, and a mamba2 rank's
 H = 16 row, "h16", and a jamba rank's H = 128 row, "h128", with the
-sharded runs' launches; the decode entry a seamless rank's row over the
+sharded runs' launches; the flash and backward entries a rank's heads
+of the sharded training, "rank_train" (H = 16 over Hk = 2, D = 64), with
+the launches of every rank's checked step; the decode entry a seamless
+rank's row over the
 memory, "rank_cross", with its sharded launches; the partial decode
 entry qwen3-moe's, qwen2-vl's (and jamba's), kimi-k2's and seamless's
 spans, "g16_d128", "g8_d128", "g8_d112" and "g1_d64_f32", each with its
@@ -402,6 +418,11 @@ def check_flash(torch, timer, gen) -> dict:
             ("ragged-qwen2vl", 2, 100, 64, 8, 128, bf16, False, False,
              "qwen2vl"),
             ("ragged-qwen2vl", 2, 100, 64, 8, 128, f32, False, False, None),
+            # a rank's heads of tinyllama's sharded training at a model
+            # axis of 2 (sharded_train_check): 16 q and 2 KV heads, G = 8
+            # at D = 64, the training forward (timed with and without lse)
+            ("rank-train", 8, 512, 16, 2, 64, bf16, True, True,
+             "rank_train"),
             # seamless-m4t's heads, H = Hk = 16 at D = 64 (G = 1): the
             # encoder's non-causal self-attention over 1024 frames, the
             # decoder's causal prefill, the cross-attention of the 512
@@ -1054,6 +1075,10 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             ("qwen2vl", 8, 512, 64, 8, 128, bf16, True, True, "qwen2vl"),
             ("ragged-qwen2vl", 2, 100, 64, 8, 128, bf16, True, False,
              "qwen2vl"),
+            # a rank's heads of tinyllama's sharded training at a model
+            # axis of 2 (sharded_train_check): G = 8 at D = 64
+            ("rank-train", 8, 512, 16, 2, 64, bf16, True, True,
+             "rank_train"),
             # seamless-m4t's training path, H = Hk = 16 at D = 64: the
             # encoder's self-attention over 1024 frames, the
             # cross-attention of 512 tokens over the 1024-frame memory, the
@@ -2224,9 +2249,12 @@ def train_check_ssm(torch) -> None:
 # 1.245 B of embedding and head take 44.8 GB of training state (derived);
 # at 2 layers, 74.7 GB
 MOE_TRAIN_LAYERS = 1
-# the train check against the CPU: 2 layers, 6.22 B parameters (12.4 GB in
-# bf16, derived), whose CPU copy and gradients the host holds
-MOE_CHECK_LAYERS = 2
+# the train check against the CPU: 1 layer, 3.73 B parameters (7.5 GB in
+# bf16, derived), whose CPU copy and gradients the host holds; cut from 2
+# layers (6.22 B) for the script's time when sharded_train_check came in:
+# its eight steps (the CPU's and the card's seven) at half the depth, every
+# rule kept (the MoE backward still feeds the layer's flash backward)
+MOE_CHECK_LAYERS = 1
 POLICIES = ("full", "dots", "names")
 
 
@@ -2474,6 +2502,14 @@ def resume_check(torch, arch: str, exact: bool = False) -> None:
 
 # ----------------------------------------------------------- orchestration
 ORCH_ARCH = "tinyllama-1.1b"
+# the layers of orchestrate_check's runs with checkpoints against
+# train_loop's: 1 (1.75 GB of parameters and moments a checkpoint, derived),
+# cut from 2 (2.19 GB) for the script's time when sharded_train_check came
+# in; every rule kept
+ORCH_CHECK_LAYERS = 1
+# the steps of each full-depth orchestrated run, cut from 6 for the same
+# reason (ms a step, launches a step and peaks kept)
+ORCH_STEPS = 4
 
 
 def run_orchestrated(torch, train_mod, pattern: str, kw: dict, *,
@@ -2702,12 +2738,14 @@ def orchestrate_check(torch, counters: dict) -> None:
     """The port's train step under its DFlow engine (``runtime/
     orchestrator.py``), on the card.
 
-    Depth 2, full width (batch 4 x 256, 4 steps, a checkpoint every 2):
+    At ``ORCH_CHECK_LAYERS`` layers, full width (batch 4 x 256, 4 steps, a
+    checkpoint every 2):
     ``run_training`` under "dataflow" against ``train_loop``, losses and
     every leaf of the checkpoints at steps 2 and 4 within 2e-2 (the
     tinyllama resume rule; leaves relative to their largest magnitude),
     then again with a save that waits for the next step before it
-    snapshots. Full depth and width (batch 8 x 512, remat, 6 steps):
+    snapshots. Full depth and width (batch 8 x 512, remat, ``ORCH_STEPS``
+    steps):
     ``train_loop``, then ``run_training`` under "dataflow" and
     "controlflow": ms a step, the flash kernels' launches a step (44 and
     22, so the kernels ran in the DAG's threads), the engine's per-function
@@ -2719,7 +2757,7 @@ def orchestrate_check(torch, counters: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
     kw = dict(steps=4, batch=4, seq=256, seed=3)
     try:
-        with cut_depth(train_mod):
+        with cut_depth(train_mod, ORCH_CHECK_LAYERS):
             loop = train_mod.train_loop(ORCH_ARCH, ckpt_dir=str(root / "loop"),
                                         ckpt_every=2, log_every=0,
                                         device="cuda", **kw)
@@ -2732,7 +2770,8 @@ def orchestrate_check(torch, counters: dict) -> None:
                           for a, b in zip(out["losses"], loop["losses"]))
                 worst, same = _ckpts_agree(root / "dag", root / "loop",
                                            (2, 4))
-                log(f"[orchestrate] depth-2 {ORCH_ARCH} run_training "
+                log(f"[orchestrate] depth-{ORCH_CHECK_LAYERS} {ORCH_ARCH} "
+                    f"run_training "
                     f"({label}), 4 steps: losses {out['losses']} vs "
                     f"train_loop {loop['losses']} (max rel {rel:.2e}, tol "
                     f"2e-2; identical={out['losses'] == loop['losses']}); "
@@ -2743,14 +2782,15 @@ def orchestrate_check(torch, counters: dict) -> None:
                     + (f"; the next step ran during the wait: "
                        f"{out['waited']}" if late else ""))
                 if not (rel < 2e-2 and worst < 2e-2) or any(out["waited"]):
-                    raise AssertionError(f"orchestrated depth-2 run "
+                    raise AssertionError(f"orchestrated depth-"
+                                         f"{ORCH_CHECK_LAYERS} run "
                                          f"({label}) disagrees with "
                                          f"train_loop")
                 shutil.rmtree(root / "dag")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    kw = dict(steps=6, batch=8, seq=512, seed=0)
+    kw = dict(steps=ORCH_STEPS, batch=8, seq=512, seed=0)
     layers, steps = 22, kw["steps"]
     runs = {}
     for how in ("train_loop", "dataflow", "controlflow", "dataflow, traced"):
@@ -3748,16 +3788,18 @@ SHARD_BATCH, SHARD_PROMPT, SHARD_GEN = 8, 512, 32
 SHARD_MAX_LEN = 1056
 # the layers a sharded run keeps, at full width (full depth where the arch
 # is not named; jamba one super-block of period 4, ``one_block``, as the
-# card serves it unsharded): tinyllama-1.1b and starcoder2-15b cut to fit
-# the script's time, and seamless-m4t both stacks alike (with both at full
-# depth the whole script took 1067.3 s on an H100 80GB HBM3 at 700 W whose
-# gloo ranks decoded tinyllama at 13.8 tok/s, its 112 collectives a
-# step); qwen2-vl, qwen3-moe and kimi-k2 to what ranks that share the one
-# card hold beside the unsharded reference's run; mamba2 to a quarter of
-# its 48
-SHARD_LAYERS = {"tinyllama-1.1b": 8, "starcoder2-15b": 8, QWEN2VL_ARCH: 2,
-                MOE_ARCH: 2, KIMI_ARCH: 1, "mamba2-370m": 12,
-                SEAMLESS_ARCH: 12}
+# card serves it unsharded): tinyllama-1.1b cut to fit the script's time
+# (at full depth the whole script took 1067.3 s on an H100 80GB HBM3 at
+# 700 W whose gloo ranks decoded tinyllama at 13.8 tok/s, its 112
+# collectives a step), also for sharded_train_check; qwen2-vl and kimi-k2
+# to what ranks that share the one card hold beside the unsharded
+# reference's run; starcoder2-15b, qwen3-moe, mamba2 and seamless-m4t (both
+# stacks alike) cut again, to 4, 1, 6 and 6 + 6 layers, for the script's
+# time when sharded_train_check came in (the whole script took 1101.4 s
+# on a slower host of the same card with them at 8, 2, 12 and 12 + 12)
+SHARD_LAYERS = {"tinyllama-1.1b": 8, "starcoder2-15b": 4, QWEN2VL_ARCH: 2,
+                MOE_ARCH: 1, KIMI_ARCH: 1, "mamba2-370m": 6,
+                SEAMLESS_ARCH: 6}
 # ((data, model), backend, archs): one spawn a mesh, its ranks serving the
 # archs one after another; NCCL at 1 x 1, gloo for ranks that share the one
 # card (NCCL refuses two ranks on one device). The data axis of 2 runs
@@ -4483,7 +4525,8 @@ def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
                 init_file: str, queue) -> None:
     """Entry of a spawned rank: its process group (``backend`` over a
     ``file://`` rendezvous), its mesh, each of ``runs`` ((arch, reference
-    path)) one after another, its card memory released between them, and
+    path); ``TRAIN_RUN`` for the sharded training run of the mesh) one
+    after another, its card memory released between them, and
     ``(rank, {arch: result} or the traceback)`` on ``queue``."""
     import datetime
     import traceback
@@ -4499,7 +4542,10 @@ def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
         mesh = make_local_mesh(data, model)
         results = {}
         for arch, ref_path in runs:
-            results[arch] = sharded_rank_run(torch, mesh, arch, ref_path)
+            results[arch] = sharded_train_rank_run(
+                torch, mesh, ref_path, SHARD_TRAIN[mesh_shape]) \
+                if arch == TRAIN_RUN else \
+                sharded_rank_run(torch, mesh, arch, ref_path)
             gc.collect()
             torch.cuda.empty_cache()
         queue.put((rank, results))
@@ -4584,17 +4630,17 @@ def sharded_serve_check(torch) -> dict:
     mesh through ``runtime/serve_lib.py``, at full width (``SHARD_GROUPS``,
     one spawn a mesh): tinyllama-1.1b at 8 of its 22 layers at (1, 1)
     under NCCL and at (1, 2) under gloo; under gloo at (1, 2),
-    starcoder2-15b at 8 of its 40 layers (G = 12, D = 128, 2 of its 4 KV
+    starcoder2-15b at 4 of its 40 layers (G = 12, D = 128, 2 of its 4 KV
     heads and 24576 of its 49152 vocab rows a rank), qwen2-vl-72b at 2 of
     80 (its tokens path, 1-D RoPE; 32 q and 4 KV heads a rank),
-    qwen3-moe-235b-a22b at 2 of 94 (64 of 128 experts a rank; also at (2,
+    qwen3-moe-235b-a22b at 1 of 94 (64 of 128 experts a rank; also at (2,
     2)), kimi-k2-1t-a32b at 1 of 61 (192 of 384 experts and 1024 of the
-    shared expert's 2048 hidden units a rank) and mamba2-370m at 12 of 48
+    shared expert's 2048 hidden units a rank) and mamba2-370m at 6 of 48
     (16 of 32 heads a rank through ``ssd``; its tied head, 25140 of 50280
     vocab rows a rank), jamba-1.5-large-398b cut to one super-block of
     period 4 (32 q and 4 KV heads, 8 of 16 experts, 128 of 256 SSM heads,
     12288 of 24576 MLP units and 32768 of 65536 vocab rows a rank) and
-    seamless-m4t-large-v2 at 12 + 12 of its 24 + 24 layers over 1024
+    seamless-m4t-large-v2 at 6 + 6 of its 24 + 24 layers over 1024
     seeded frames (8 of 16
     q and KV heads, 4096 of 8192 MLP units, 128103 of 256206 vocab rows a
     rank; the memory K/V whole on each). Several ranks share the one card:
@@ -4615,11 +4661,20 @@ def sharded_serve_check(torch) -> dict:
     crosses rank 0's span into rank 1's at a model axis of 2; ``conv_x``
     must be equal on the model ranks of a data shard. Returns the partial
     decode's and ssd's launches over every counted pass, in all, and every
-    kernel's by arch (``"by_arch"``)."""
+    kernel's by arch (``"by_arch"``).
+
+    A mesh of ``SHARD_TRAIN`` also runs the sharded training in its spawn,
+    after its serving runs: the unsharded step's reference first
+    (``sharded_train_reference``, once), then each rank's run
+    (``sharded_train_rank_run``), held by ``sharded_train_check``; its
+    flash launches over every rank go under ``"train"``."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
-    launched = {"decode_attention_partial": 0, "ssd": 0, "by_arch": {}}
+    launched = {"decode_attention_partial": 0, "ssd": 0, "by_arch": {},
+                "train": {"flash_attention": 0, "flash_attention_bwd": 0}}
     refs = {}
+    train_path = ROOT / "build" / "sharded-train-reference.pt"
+    train_path.unlink(missing_ok=True)
     for mesh_shape, backend, archs in SHARD_GROUPS:
         data, model = mesh_shape
         runs = []
@@ -4634,6 +4689,13 @@ def sharded_serve_check(torch) -> dict:
                     f"({shards} data shard{'s' if shards > 1 else ''}) in "
                     f"{time.perf_counter() - t0:.1f} s")
             runs.append((arch, str(path)))
+        if mesh_shape in SHARD_TRAIN:
+            if not train_path.exists():
+                t0 = time.perf_counter()
+                sharded_train_reference(torch, train_path)
+                log(f"[sharded-train] unsharded train step reference in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            runs.append((TRAIN_RUN, str(train_path)))
         t0 = time.perf_counter()
         results = spawn_ranks(mesh_shape, backend, tuple(runs))
         wall = time.perf_counter() - t0
@@ -4705,12 +4767,413 @@ def sharded_serve_check(torch) -> dict:
                     raise AssertionError(f"{arch} {mesh_shape}: rank {r}'s "
                                          f"conv_x differs from rank "
                                          f"{r - r % model}'s")
-        log(f"[sharded] mesh {mesh_shape} ({backend}): {list(archs)} in one "
-            f"spawn, {wall:.1f} s")
-    for path in refs.values():
+        if mesh_shape in SHARD_TRAIN:
+            counts = sharded_train_check(torch, mesh_shape, {
+                r: res[TRAIN_RUN] for r, res in results.items()})
+            for name, n in counts.items():
+                launched["train"][name] += n
+        log(f"[sharded] mesh {mesh_shape} ({backend}): "
+            f"{[a for a, _ in runs]} in one spawn, {wall:.1f} s")
+    for path in list(refs.values()) + [train_path]:
         path.unlink(missing_ok=True)
     log(f"[sharded] sharded_serve_check phase in "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+# ------------------------------------------------------ sharded training
+# tinyllama-1.1b at full width, cut to its sharded serving depth
+# (``SHARD_LAYERS``), trained over a (data, model) mesh through
+# ``build_train_step(..., mesh=)``: one batch of 8 x 512 tokens, remat
+# "full", the attention weights at fan-in std (``attention_at_fan_in``)
+SHARD_TRAIN_ARCH = "tinyllama-1.1b"
+SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 8, 512
+SHARD_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+# (data, model) -> zero1: each run goes into its mesh's spawn of
+# ``SHARD_GROUPS`` under the name ``TRAIN_RUN``
+SHARD_TRAIN = {(1, 2): False, (2, 2): True}
+TRAIN_RUN = "train"
+# steps timed after the checked one, on the state it leaves (the checked
+# step's time holds each rank's first-call costs)
+TRAIN_TIMED_STEPS = 1
+TRAIN_FAULTS = ("enter's backward sum skipped at the attention input",
+                "global norm over the rank's own shards",
+                "data-axis gradient sum skipped",
+                "ZeRO-1 gather of the updated slices skipped")
+# the planted faults of each mesh's run: the model axis's two at (1, 2),
+# the data axis's two at (2, 2)
+TRAIN_FAULTS_AT = {(1, 2): TRAIN_FAULTS[:2], (2, 2): TRAIN_FAULTS[2:]}
+# Adam's first step moves each weight by lr g / (|g| + eps) of its clipped
+# gradient g: +-lr wherever |g| >> eps, whatever its size. So an element
+# whose gradient is off the reference's by more than half its size (its
+# sign flipped, among them), or whose clipped gradient is within
+# UPDATE_EPS_FLOOR eps of 0 (where the move is short of lr and follows the
+# gradient's rounding), moves otherwise under a rounding of the gradient
+# that the gradient rule admits: a tie. The update rule holds the other
+# elements of each leaf within TRAIN_GRAD_TOL of their norm, and the ties
+# to the elements that the gradient rule lets tie: those whose reference
+# gradient is under twice the rule's error an element
+# (TRAIN_GRAD_TOL ||g|| / sqrt(n)), or under the eps floor
+UPDATE_EPS_FLOOR = 100
+# the sharded AdamW fed the reference's gradients: its update against the
+# reference's, each leaf relative to the reference's update norm
+FED_TOL = 1e-5
+
+
+def update_rule(torch, got, want, grad, ref_grad,
+                floor: float = 0.0) -> tuple[float, int, int]:
+    """A leaf's update ``got`` against the reference's ``want``, their
+    gradients ``grad`` and ``ref_grad``: (||got - want|| / ||want|| over
+    the elements that are not ties, the number of ties, the number the
+    gradient rule admits). A tie is an element whose gradient is off the
+    reference's by more than half the reference's, or whose reference
+    gradient is under ``floor`` (``update_floor``) and not equal to its
+    own; the rule admits the elements whose reference gradient is under
+    twice ``TRAIN_GRAD_TOL`` ||ref_grad|| / sqrt(n), or under ``floor``."""
+    grad, ref_grad = grad.float(), ref_grad.float()
+    diff, size = (grad - ref_grad).abs(), ref_grad.abs()
+    tie = (diff > size / 2) | ((size < floor) & (diff > 0))
+    keep = ~tie
+    den = float((want.float() * keep).norm())
+    num = float(((got.float() - want.float()) * keep).norm())
+    per = 2 * TRAIN_GRAD_TOL * float(ref_grad.norm()) / size.numel() ** 0.5
+    admitted = int(((size < per) | (size < floor)).sum())
+    return (num / den if den else (0.0 if num == 0 else float("inf"))), \
+        int(tie.sum()), admitted
+
+
+def update_floor(opt_cfg, grad_norm: float) -> float:
+    """The gradient under which Adam's first move follows the gradient's
+    rounding: the clipped gradient within ``UPDATE_EPS_FLOOR`` eps of 0,
+    in the gradient's units (the clip scales it by min(1, clip_norm /
+    grad_norm))."""
+    return UPDATE_EPS_FLOOR * opt_cfg.eps / min(1.0, opt_cfg.clip_norm
+                                                / grad_norm)
+
+
+def train_collectives(cfg, mesh_shape: tuple, zero1: bool) -> int:
+    """all_reduce calls of one sharded train step of a dense ``cfg`` on a
+    (data, model) mesh whose model axis cuts the heads, the MLP and the
+    vocab (under ``dp_only`` nothing): a microbatch's forward takes the
+    embedding's sum, each layer's two row-parallel sums (``wo``, the MLP)
+    and the loss's max and ``sum_with``; its backward the head's
+    ``enter``, each layer's two and, under remat, the layer's ``wo`` sum
+    recomputed: ``torch.utils.checkpoint`` stops recomputing a layer once
+    it has remade the tensors the backward needs, and the MLP's sum, the
+    layer's last op, is not among them. Then one sum of the leaves whose
+    gradient is a part (qk-norm; ``wk``/``wv`` where the KV heads do not
+    divide), the global norm's one, and where the batch is cut over more
+    than one rank: the gradients' sum, the loss metric's and, with
+    ``zero1``, the gather of the updated slices."""
+    data, model = mesh_shape
+    L, mu = cfg.n_layers, max(cfg.microbatches, 1)
+    if cfg.dp_only:
+        per_microbatch = extra = 0
+        batch_ranks = data * model
+    else:
+        per_microbatch = (1 + 2 * L + 2) + (1 + 2 * L) \
+            + (L if cfg.remat else 0)
+        extra = 1 + int(cfg.qk_norm or cfg.n_kv_heads % model != 0)
+        batch_ranks = data
+    return mu * per_microbatch + extra + (
+        2 + int(zero1) if batch_ranks > 1 else 0)
+
+
+class _NoEnter:
+    """A layout whose ``enter`` is the identity under grad too (the planted
+    fault "enter's backward sum skipped at the attention input")."""
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def __getattr__(self, name):
+        return getattr(self.layout, name)
+
+    def enter(self, x):
+        return x
+
+
+def train_faults(torch, which: str, mesh):
+    """A context that plants one of ``TRAIN_FAULTS`` in this rank's
+    modules (``mesh`` the rank's: its model axis's group tells the
+    partial leaves' sum from the data axes')."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.runtime import train_lib
+
+    def no_enter(sharded):
+        def faulty(params, x, cfg, cache, shard, causal=True):
+            return sharded(params, x, cfg, cache, _NoEnter(shard), causal)
+        return faulty
+
+    def own_norm(norm):
+        def faulty(leaves, model_cut, group):
+            return adamw_mod.global_norm(leaves)
+        return faulty
+
+    def no_data_sum(flat_sum):
+        def faulty(grads, group):
+            if group is mesh.group("model"):
+                return flat_sum(grads, group)
+            return [g.float() for g in grads]
+        return faulty
+
+    def no_gather(gather):
+        return lambda parts, group: None
+    owner, name, wrap = {
+        TRAIN_FAULTS[0]: (attn_mod, "_sharded_attention", no_enter),
+        TRAIN_FAULTS[1]: (adamw_mod, "sharded_norm", own_norm),
+        TRAIN_FAULTS[2]: (train_lib, "flat_sum", no_data_sum),
+        TRAIN_FAULTS[3]: (adamw_mod, "gather_updated", no_gather)}[which]
+    return patched(owner, name, wrap)
+
+
+def sharded_train_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config(SHARD_TRAIN_ARCH), n_layers=SHARD_LAYERS[SHARD_TRAIN_ARCH],
+        q_chunk=SHARD_TRAIN_SEQ // 2, kv_chunk=SHARD_TRAIN_SEQ // 2,
+        remat=True, remat_policy="full", microbatches=1)
+
+
+def sharded_train_reference(torch, path: Path) -> None:
+    """The unsharded train step (``build_train_step(model, opt)``) on the
+    card of ``sharded_train_config``'s model, seed 0 with the attention at
+    fan-in std, on 8 seeded sequences of 513 tokens: saved to ``path`` with
+    the tokens, the loss, the norm, every leaf's gradient and the updated
+    parameters; the card's memory released after."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_items
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import train_lib
+    cfg = sharded_train_config()
+    model = build_model(cfg)
+    opt = AdamWConfig(**SHARD_TRAIN_OPT)
+    state = train_lib.init_train_state(model, opt, seed=0, device="cuda")
+    attention_at_fan_in(state.params, cfg)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ + 1)))
+    kept = {}
+
+    def capture(update):
+        def recording(params, grads, opt_state, opt_cfg):
+            kept.update({"/".join(p): g.cpu() for p, g in tree_items(grads)})
+            return update(params, grads, opt_state, opt_cfg)
+        return recording
+    with patched(train_lib, "adamw_update", capture):
+        state, metrics = train_lib.build_train_step(model, opt)(
+            state, {"tokens": tokens.cuda()})
+    torch.save({"tokens": tokens, "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]), "grads": kept,
+                "p1": {"/".join(p): a.cpu()
+                       for p, a in tree_items(state.params)}}, path)
+    del state, metrics, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
+    """One rank's sharded training of ``sharded_train_config``'s model on
+    ``mesh``: its shards of the seeded state, the checked step on the
+    reference's tokens (its all_reduce calls and kernel launches
+    counted), the sharded AdamW fed the reference's gradients on a fresh
+    state, ``TRAIN_TIMED_STEPS`` timed steps, and one fresh step under
+    each planted fault of ``TRAIN_FAULTS_AT``. Each step is held to the
+    reference (``sharded_train_reference``): the loss rel 1e-2, each
+    gradient shard within ``TRAIN_GRAD_TOL`` of its slice's norm, the norm
+    rel 1e-2, each leaf's update by ``update_rule`` (``TRAIN_GRAD_TOL``,
+    the ties within the admitted); the fed AdamW's update within
+    ``FED_TOL``."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import (tree_at, tree_items,
+                                          tree_map_with_path)
+    from repro_torch.optim import AdamWConfig, adamw as adamw_mod
+    from repro_torch.runtime import train_lib
+    from repro_torch.sharding.rules import local_slices
+    ref = torch.load(ref_path, mmap=True)
+    cfg = sharded_train_config()
+    model = build_model(cfg)
+    opt = AdamWConfig(**SHARD_TRAIN_OPT)
+    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
+    paths = [p for p, _ in tree_items(model.param_decls())]
+    region = {p: local_slices(tree_at(specs.params, p), d.shape, mesh)
+              for p, d in tree_items(model.param_decls())}
+    ref_g = {p: ref["grads"]["/".join(p)][region[p]].cuda() for p in paths}
+    n_params = sum(t.numel() for t in ref_g.values())
+    batch = {"tokens": ref["tokens"].cuda()}
+    step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
+    mesh_shape = tuple(mesh.shape.values())
+
+    def fresh():
+        state = train_lib.init_train_state(model, opt, seed=0, device="cuda",
+                                           mesh=mesh, zero1=zero1)
+        attention_at_fan_in(state.params, cfg)
+        return state
+
+    state = fresh()
+    p0 = {p: a.clone() for p, a in tree_items(state.params)}
+    ref_upd = {p: ref["p1"]["/".join(p)][region[p]].cuda().float()
+               - p0[p].float() for p in paths}
+    want_loss, want_gn = ref["loss"], ref["grad_norm"]
+    floor = update_floor(opt, want_gn)
+    del ref
+
+    def run(state, count=None):
+        seen = {}
+
+        def capture(update):
+            def recording(params, grads, opt_state, opt_cfg, plan):
+                seen.update(tree_items(grads))
+                return update(params, grads, opt_state, opt_cfg, plan)
+            return recording
+        with patched(train_lib, "adamw_update_sharded", capture), \
+                counting_all_reduce(torch, count) if count is not None \
+                else contextlib.nullcontext():
+            state, metrics = step(state, batch)
+        return state, metrics, seen
+
+    def rules(start: dict, state, metrics, grads) -> dict:
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        grad_errs = {"/".join(p): leaf_err(grads[p], ref_g[p])
+                     for p in paths}
+        upd = {"/".join(p): update_rule(
+            torch, a.float() - start[p].float(), ref_upd[p], grads[p],
+            ref_g[p], floor) for p, a in tree_items(state.params)}
+        res = {"loss": loss, "loss_rel": abs(loss - want_loss) / want_loss,
+               "grad_norm": gn, "gn_rel": abs(gn - want_gn) / want_gn,
+               "grad_err": max(grad_errs.values()),
+               "grad_worst": sorted(grad_errs, key=grad_errs.get)[-3:],
+               "update_err": max(e for e, _, _ in upd.values()),
+               "update_ties": sum(n for _, n, _ in upd.values()) / n_params,
+               "ties_admitted": sum(a for _, _, a in upd.values())
+               / n_params}
+        res["broken"] = [name for name, ok in (
+            ("loss", res["loss_rel"] < 1e-2),
+            ("gradients", res["grad_err"] <= TRAIN_GRAD_TOL),
+            ("grad_norm", res["gn_rel"] < 1e-2),
+            ("update", res["update_err"] <= TRAIN_GRAD_TOL
+             and res["update_ties"] <= res["ties_admitted"])) if not ok]
+        return res
+
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    count = [0]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics, grads = run(state, count)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    result = {"coords": dict(mesh.coords), "zero1": zero1,
+              "collectives": count[0],
+              "want_collectives": train_collectives(cfg, mesh_shape, zero1),
+              "launches": launches, "first_s": first_s,
+              **rules(p0, state, metrics, grads)}
+    del grads
+    state_bytes = sum(a.numel() * a.element_size() for tree in (
+        state.params, state.opt.m, state.opt.v) for _, a in tree_items(tree))
+    # the sharded AdamW fed the reference's gradients, on a fresh state
+    fed = fresh()
+    plan = train_lib.shard_plan(model, mesh, zero1)
+    params, _, _ = adamw_mod.adamw_update_sharded(
+        fed.params, tree_map_with_path(lambda p, _: ref_g[p], fed.params),
+        fed.opt, opt, plan)
+    result["fed_err"] = max(update_rule(
+        torch, a.float() - p0[p].float(), ref_upd[p], ref_g[p], ref_g[p])[0]
+                            for p, a in tree_items(params))
+    if not result["fed_err"] <= FED_TOL:
+        result["broken"].append("fed AdamW")
+    del fed, params
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times) / len(times)
+    result.update(ms_a_step=step_s * 1e3,
+                  tokens_per_s=SHARD_TRAIN_BATCH * SHARD_TRAIN_SEQ / step_s,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  state_gb=state_bytes / 1e9)
+    del state, metrics
+    faults = {}
+    for which in TRAIN_FAULTS_AT[mesh_shape]:
+        state = fresh()
+        start = {p: a.clone() for p, a in tree_items(state.params)}
+        with train_faults(torch, which, mesh):
+            state, metrics, grads = run(state)
+        faults[which] = rules(start, state, metrics, grads)
+        del state, metrics, grads, start
+    result["faults"] = faults
+    return result
+
+
+def _train_line(res: dict) -> str:
+    return (f"loss {res['loss']:.6f} (rel {res['loss_rel']:.2e}, tol 1e-2), "
+            f"grad_norm {res['grad_norm']:.4f} (rel {res['gn_rel']:.2e}, "
+            f"tol 1e-2), worst gradient shard {res['grad_err']:.3e} of its "
+            f"slice's norm (tol {TRAIN_GRAD_TOL:g}; worst leaves "
+            f"{res['grad_worst']}), update {res['update_err']:.3e} on the "
+            f"elements that are not ties (tol {TRAIN_GRAD_TOL:g}), ties' "
+            f"share {res['update_ties']:.2e} (tol: the admitted share "
+            f"{res['ties_admitted']:.2e}); "
+            f"broken: {res['broken'] or 'none'}")
+
+
+def sharded_train_check(torch, mesh_shape: tuple, results: dict) -> dict:
+    """``sharded_train_check``: one mesh's ranks of the sharded training
+    run (``sharded_train_rank_run``, in the spawn of the mesh's serving
+    group), logged and held: every rule on every rank; the all_reduce
+    calls of the checked step equal to ``train_collectives``; the flash
+    kernels' launches 2 x the layers forward (remat recomputes each) and
+    the layers backward, no other kernel; each planted fault of
+    ``TRAIN_FAULTS_AT`` breaking a rule on every rank. Ranks that share
+    the one card over gloo: their times are not a multi-card figure.
+    Returns the flash launches summed over the ranks."""
+    layers = sharded_train_config().n_layers
+    launched = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for rank, res in sorted(results.items()):
+        log(f"[sharded-train] {SHARD_TRAIN_ARCH} ({layers} layers, batch "
+            f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ}, zero1 "
+            f"{res['zero1']}) mesh {mesh_shape} rank {rank} "
+            f"{res['coords']} (processes sharing one card over gloo, not a "
+            f"multi-card figure): {res['ms_a_step']:.1f} ms a step, "
+            f"{res['tokens_per_s']:.0f} tokens/s, first step "
+            f"{res['first_s']:.2f} s, peak {res['peak_gib']:.2f} GiB, state "
+            f"{res['state_gb']:.3f} GB; all_reduce calls {res['collectives']}"
+            f" (want {res['want_collectives']}); launches {res['launches']};"
+            f" fed AdamW's update {res['fed_err']:.2e} of the reference's "
+            f"(tol {FED_TOL:g}); {_train_line(res)}")
+        want = dict.fromkeys(res["launches"], 0)
+        want.update(flash_attention=2 * layers, flash_attention_bwd=layers)
+        if res["launches"] != want:
+            raise AssertionError(f"sharded training {mesh_shape} rank "
+                                 f"{rank}: launches {res['launches']}, want "
+                                 f"{want}")
+        if res["collectives"] != res["want_collectives"]:
+            raise AssertionError(f"sharded training {mesh_shape} rank "
+                                 f"{rank}: {res['collectives']} all_reduce "
+                                 f"calls, want {res['want_collectives']}")
+        if res["broken"]:
+            raise AssertionError(f"sharded training {mesh_shape} rank "
+                                 f"{rank}: rules broken {res['broken']}")
+        for name in launched:
+            launched[name] += res["launches"][name]
+    for which in TRAIN_FAULTS_AT[mesh_shape]:
+        got = {r: res["faults"][which] for r, res in results.items()}
+        broke = sorted(r for r, f in got.items() if f["broken"])
+        log(f"[sharded-train] {mesh_shape} planted fault '{which}': breaks a "
+            f"rule on ranks {broke} (" + "; ".join(
+                f"rank {r}: {_train_line(f)}" for r, f in sorted(got.items()))
+            + ")")
+        if broke != sorted(results):
+            raise AssertionError(f"sharded training {mesh_shape}: the "
+                                 f"planted fault '{which}' broke no rule on "
+                                 f"ranks {sorted(set(results) - set(broke))}")
     return launched
 
 
@@ -4949,6 +5412,12 @@ def main() -> int:
             (ssd, "h128", "ssd", (JAMBA_ARCH,)),
             (decode, "rank_cross", "decode_attention", (SEAMLESS_ARCH,))):
         rec[key]["launches"] = sum(by_arch[a][name] for a in archs)
+    # the sharded training's rows (a rank's heads at a model axis of 2),
+    # each with the launches of every rank's checked step at (1, 2) and
+    # (2, 2)
+    for rec, name in ((flash, "flash_attention"),
+                      (flash_bwd, "flash_attention_bwd")):
+        rec["rank_train"]["launches"] = sharded["train"][name]
     # qwen2-vl's rows (G = 8, D = 128), each with the launches of its
     # counted serve_loop (flash: 40, one a layer; decode: 40 x 31) or of
     # its counted training run (the backward 4, the forward 8)

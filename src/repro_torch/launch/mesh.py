@@ -56,7 +56,15 @@ class Mesh:
         """True when a process group stands behind the mesh."""
         return self.device_mesh is not None
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group of ``axis``; of a tuple of axes, one axis's,
+        or the whole group where they are every axis of the mesh."""
+        if isinstance(axis, tuple):
+            if len(axis) == 1:
+                axis = axis[0]
+            elif self.is_live and sorted(axis) == sorted(self.axis_names):
+                import torch.distributed as dist
+                return dist.group.WORLD
         if axis not in self.groups:
             raise ValueError(f"no process group for axis {axis!r} on "
                              f"{'a live' if self.is_live else 'an abstract'}"

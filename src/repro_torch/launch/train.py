@@ -10,9 +10,13 @@ plain versions; without CUDA and without ``device="cpu"`` it raises.
 
 On one card it trains what fits: the parameters, their gradients and
 AdamW's two fp32 moments take ~12 bytes a parameter, ~190 GB for a 15 B
-arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so those train at full
-depth only across devices (ROADMAP A.12) and a full-depth run of one on a
-single card raises ``ValueError``; a cut depth of them trains. So does
+arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so a full-depth run of
+one on a single card raises ``ValueError``; a cut depth of them trains.
+The dense family also trains over a (data, model) mesh (``data=``,
+``model=``; every rank of a live process group calls :func:`train_loop`):
+each rank holds its shards of the state and its rows of the batch, and
+the refusal counts those shards; the other families, checkpoints of a
+sharded state and ZeRO-3 wait for ROADMAP A.12. So does
 qwen2-vl-72b (872 GB of state at its 80 layers; at 1 layer, 40 GB), which
 trains as the reference's ``train_loop`` trains it: on the synthetic
 tokens alone, so its attention takes the 1-D RoPE (``loss_fn`` reads
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -61,26 +66,35 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.data import DataConfig, SyntheticLM, make_pipeline
 from repro_torch.kernels import _build
 from repro_torch.launch import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.serve import FRAMES_LEN
 from repro_torch.models import build_model
-from repro_torch.models.param import tree_items
+from repro_torch.models.param import tree_at, tree_items
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import (TrainState, build_train_step,
-                                 init_train_state)
+                                 init_train_state, make_train_state_specs)
+from repro_torch.sharding.rules import local_shape
 
 __all__ = ["TrainSetup", "batch_at", "main", "setup_training",
            "train_loop"]
 
 
-def _state_bytes(model, opt_cfg: AdamWConfig) -> int:
+def _state_bytes(model, opt_cfg: AdamWConfig, mesh=None) -> int:
     """Bytes of a training state: each parameter, its gradient (both in the
     parameter's dtype) and AdamW's two moments; with more than one
-    microbatch also the step's fp32 gradient accumulator."""
+    microbatch also the step's fp32 gradient accumulator. With ``mesh``,
+    this rank's shards of them (``make_train_state_specs``)."""
     moment = torch.empty((), dtype=opt_cfg.state_dtype).element_size()
     accumulator = 4 if model.cfg.microbatches > 1 else 0
-    return sum(d.size * (2 * torch.empty((), dtype=d.dtype).element_size()
-                         + 2 * moment + accumulator)
-               for _, d in tree_items(model.param_decls()))
+    specs = None if mesh is None else make_train_state_specs(model,
+                                                             mesh).params
+    total = 0
+    for path, d in tree_items(model.param_decls()):
+        n = d.size if specs is None else math.prod(
+            local_shape(tree_at(specs, path), d.shape, mesh))
+        total += n * (2 * torch.empty((), dtype=d.dtype).element_size()
+                      + 2 * moment + accumulator)
+    return total
 
 
 class TrainSetup(NamedTuple):
@@ -97,14 +111,17 @@ class TrainSetup(NamedTuple):
 def setup_training(arch: str, *, steps: int, batch: int, seq: int,
                    reduced: bool = False, seed: int = 0,
                    microbatches: int | None = None,
-                   device: str | torch.device = "cuda") -> TrainSetup:
+                   device: str | torch.device = "cuda",
+                   mesh=None) -> TrainSetup:
     """The model of ``arch`` for ``seq``-token sequences, AdamW scheduled
     over ``steps`` steps, the train step, the seeded initial state on
     ``device`` and the data config of ``batch`` x ``seq`` tokens (for the
     encoder-decoder also ``frames_len``, the frames a sequence:
     ``FRAMES_LEN``, 16 reduced). On the card it first refuses a state
     larger than the card and builds the kernels, so no kernel builds inside
-    a step."""
+    a step. With ``mesh`` (a live mesh, family dense), this rank's step and
+    shards of the state (``build_train_step(..., mesh=)``), the refusal
+    counting those shards."""
     device = resolve_device(device, "train_loop")
     cfg = get_config(arch, reduced=reduced)
     cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
@@ -113,24 +130,27 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
                           total_steps=steps)
+    step_fn = build_train_step(model, opt_cfg, mesh=mesh)
     if device.type == "cuda":
-        need = _state_bytes(model, opt_cfg)
+        need = _state_bytes(model, opt_cfg, mesh)
         have = torch.cuda.get_device_properties(device).total_memory
         if need > have:
             acc = " with the microbatches' fp32 gradient accumulator" \
                 if cfg.microbatches > 1 else ""
+            shards = " (this rank's shards)" if mesh is not None else ""
             raise ValueError(
                 f"{cfg.name} at {cfg.n_layers} layers: its training state"
-                f"{acc} takes {need / 1e9:.0f} GB, more than the card's "
-                f"{have / 1e9:.0f} GB; training it needs several devices "
-                f"(ROADMAP item A.12), or a cut depth")
+                f"{acc}{shards} takes {need / 1e9:.0f} GB, more than the "
+                f"card's {have / 1e9:.0f} GB; training it needs more "
+                f"devices (ROADMAP item A.12), or a cut depth")
         _build.build()               # set-up, outside the timed loop
     frames_len = 0
     if cfg.family == "encdec":
         frames_len = 16 if reduced else FRAMES_LEN
     return TrainSetup(
-        model, opt_cfg, build_train_step(model, opt_cfg),
-        init_train_state(model, opt_cfg, seed=seed, device=device),
+        model, opt_cfg, step_fn,
+        init_train_state(model, opt_cfg, seed=seed, device=device,
+                         mesh=mesh),
         DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                    seed=seed),
         device, frames_len)
@@ -158,12 +178,30 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
                ckpt_every: int = 0, resume: bool = False,
                simulate_failure: int | None = None, seed: int = 0,
                log_every: int = 1, microbatches: int | None = None,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", data: int = 1,
+               model: int = 1) -> dict:
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens.
 
-    Returns ``losses`` (one a step run), ``wall_s``, ``tokens_per_s``,
-    ``final_loss`` and ``start_step`` (nonzero after a resume)."""
+    With ``data * model > 1`` every rank of a live process group calls it
+    (one rank a card under NCCL, or ranks that share one under gloo, each
+    with its device set): the step runs over ``make_local_mesh(data,
+    model)``, each rank on its rows of the pipeline's global batch and its
+    shards of the state (the dense family; the reference's signature).
+    With no process group up it raises ``RuntimeError``, as
+    ``make_local_mesh`` does; ``ckpt_dir`` with more than one rank raises
+    ``NotImplementedError`` naming ROADMAP A.12 (sharded checkpoints).
+
+    Returns ``losses`` (one a step run, the global batch's), ``wall_s``,
+    ``tokens_per_s`` (the global batch's tokens), ``final_loss`` and
+    ``start_step`` (nonzero after a resume)."""
     cfg = get_config(arch, reduced=reduced)
+    mesh = None
+    if data * model > 1:
+        if ckpt_dir:
+            raise NotImplementedError(
+                "checkpoints of a sharded state (ckpt_dir with data * model "
+                "> 1): not in the port yet (ROADMAP A.12)")
+        mesh = make_local_mesh(data, model)
     if cfg.family == "encdec":
         # refused before anything is allocated, as the reference's
         # train_loop refuses this family
@@ -175,7 +213,8 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
             "{'frames', 'tokens'} batch")
     setup = setup_training(arch, steps=steps, batch=batch, seq=seq,
                            reduced=reduced, seed=seed,
-                           microbatches=microbatches, device=device)
+                           microbatches=microbatches, device=device,
+                           mesh=mesh)
     device, step_fn, state = setup.device, setup.step_fn, setup.state
     on_card = device.type == "cuda"
 

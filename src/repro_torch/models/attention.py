@@ -23,8 +23,9 @@ GQA stays ungrouped on both paths: Q is viewed as (kv_heads, group) and K/V
 are never repeated. Head h maps to (h // G, h % G), as in the reference.
 
 With ``shard`` (a ``sharding.layout.ShardLayout``, passed by
-``runtime/serve_lib.py``'s steps) the sublayer runs on one rank of a
-(data, model) mesh, in the layout the reference's specs give: q heads,
+``runtime/serve_lib.py``'s steps and ``runtime/train_lib.py``'s sharded
+train step) the sublayer runs on one rank of a (data, model) mesh, in the
+layout the reference's specs give: q heads,
 K/V heads and ``wo``'s heads cut over the model axis where they divide
 (else replicated), the cache cut on its sequence axis, each rank holding a
 contiguous span of rows (``_sharded_attention``). A prefill (and the
@@ -446,10 +447,15 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     This rank's heads of the output go through its rows of ``wo``, summed
     in fp32 over the model axis where the heads are cut and rounded once.
-    Returns (y, new cache or None)."""
+    Where the heads are cut, ``x`` enters through ``shard.enter``: under
+    grad (training, uncached) the gradient of ``x``, each rank's heads'
+    part, is summed over the model axis; ``wo``'s sum passes the gradient
+    whole to every rank. Returns (y, new cache or None)."""
     B, S, M = x.shape
     D = cfg.head_dim
     Hl, Hkl = shard.heads.size, shard.kv_heads.size
+    if shard.heads.sharded:
+        x = shard.enter(x)
     q = matmul(x, params["wq"].reshape(M, Hl * D)).view(B, S, Hl, D)
     k = matmul(x, params["wk"].reshape(M, Hkl * D)).view(B, S, Hkl, D)
     v = matmul(x, params["wv"].reshape(M, Hkl * D)).view(B, S, Hkl, D)

@@ -1,5 +1,6 @@
 """Shared layer primitives: RMS norm, SiLU, softplus, rotary embeddings,
-the cross-entropy loss and the per-layer remat wrapper.
+the cross-entropy loss (also vocab-parallel, :func:`token_nll`) and the
+per-layer remat wrapper.
 
 Same conventions as the JAX package's ``models/common.py``: compute in the
 activation dtype, normalise, rotate and take the loss in fp32. The rest of
@@ -15,7 +16,8 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 __all__ = ["matmul", "embed_tokens", "rms_norm", "silu", "gelu",
            "squared_relu", "softplus", "ACTIVATIONS", "rope_table",
-           "apply_rope", "apply_mrope", "cross_entropy_loss", "remat_layer"]
+           "apply_rope", "apply_mrope", "cross_entropy_loss", "token_nll",
+           "remat_layer"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -37,9 +39,33 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if dtype == torch.float32:
         return x @ w
     if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _MatmulF32.apply(x, w)
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.view(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's fp32-output product under grad (``torch.mm``'s
+    ``out_dtype`` has no derivative): its backward takes the operands'
+    dtype, as the product rounded once does, ``grad`` (the gradient of a
+    sum rounded to that dtype) exact in it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gx = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1]) \
+            if ctx.needs_input_grad[1] else None
+        return gx, gw
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
@@ -162,17 +188,63 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, head_dim: int,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor | None = None) -> torch.Tensor:
+                       mask: torch.Tensor | None = None,
+                       shard=None) -> torch.Tensor:
     """Mean token-level cross entropy in fp32. logits: (..., V); labels:
-    (...) int; with ``mask`` (...), sum(nll * mask) / max(sum(mask), 1)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    (...) int; with ``mask`` (...), sum(nll * mask) / max(sum(mask), 1).
+    ``shard``: ``logits`` are a rank's vocab columns (:func:`token_nll`)."""
+    nll = token_nll(logits, labels, shard)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              shard=None) -> torch.Tensor:
+    """Each token's cross entropy in fp32, ``logz - gold``, as
+    :func:`cross_entropy_loss` takes it. With ``shard`` whose ``vocab`` is
+    cut over the model axis, ``logits`` are this rank's vocab columns
+    (:class:`_VocabParallelNLL`)."""
+    if shard is not None and shard.vocab.sharded:
+        return _VocabParallelNLL.apply(logits, labels, shard)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Vocab-parallel cross entropy of this rank's logit columns (B, S,
+    V_local), in fp32, with no gather of the logits: the max over the
+    model axis in one all_reduce, then the sum of exponentials and the
+    gold logit (nonzero on the rank that owns the label) in one
+    ``sum_with``; logz = max + log(sum). The backward is local: softmax
+    minus one-hot on the rank's own columns, times the gradient, in the
+    logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, shard):
+        span = shard.vocab
+        l32 = logits.float()
+        m = shard.max_(l32.amax(dim=-1))
+        sumexp = torch.exp(l32 - m[..., None]).sum(dim=-1)
+        row = labels.long() - span.start
+        inside = (row >= 0) & (row < span.size)
+        row = row.clamp(0, span.size - 1)
+        gold = torch.gather(l32, -1, row[..., None])[..., 0]
+        gold = torch.where(inside, gold, torch.zeros((), device=gold.device))
+        total, _ = shard.sum_with(torch.stack([sumexp, gold]))
+        logz = m + torch.log(total[0])
+        ctx.save_for_backward(logits, logz, row, inside)
+        return logz - total[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, logz, row, inside = ctx.saved_tensors
+        d = torch.exp(logits.float() - logz[..., None])
+        d.scatter_add_(-1, row[..., None], -inside.float()[..., None])
+        return (d * grad[..., None]).to(logits.dtype), None, None
 
 
 def remat_layer(body, context_fn=noop_context_fn):

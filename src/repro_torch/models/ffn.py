@@ -42,14 +42,19 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     over the model axis, the params are this rank's columns of ``w_gate``
     and ``w_up`` and rows of ``w_down``, and the partial products are
     summed in fp32 over the model axis and rounded once; with ``mlp``
-    replicated no collective runs."""
+    replicated no collective runs. ``x`` enters the cut units through
+    ``shard.enter``, whose backward (under grad) sums its gradient over
+    the model axis."""
     act = ACTIVATIONS[cfg.activation]
+    cut = shard is not None and shard.mlp.sharded
+    if cut:
+        x = shard.enter(x)
     up = matmul(x, params["w_up"])
     if cfg.glu:
         h = act(matmul(x, params["w_gate"])) * up
     else:
         h = act(up)
-    if shard is not None and shard.mlp.sharded:
+    if cut:
         return shard.reduce_sum(
             matmul_f32(h, params["w_down"]),
             torch.promote_types(h.dtype, params["w_down"].dtype))

@@ -34,6 +34,10 @@ Entry points, as in the reference:
   ``AUX_COEF`` times the aux loss (train);
 * ``forward(params, tokens, *, vision_embeds=None, mrope_positions=None)``
                                         -> (logits (B, S, V), aux);
+
+both also take ``shard``, one rank's part of a (data, model) mesh under
+autograd (family dense; ``runtime/train_lib.py``'s sharded step), and
+``loss_fn`` per-token ``weights``;
 * ``prefill(params, tokens, cache, **kw)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache, **kw)`` -> (logits (B, 1, V), cache);
   ``kw`` is ``mrope_positions``, as in the reference.
@@ -59,7 +63,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from .attention import KVCache, attention, attention_decls, init_cache
 from .common import (cross_entropy_loss, embed_tokens, matmul, remat_layer,
-                     rms_norm)
+                     rms_norm, token_nll)
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .moe import moe, moe_decls
@@ -297,22 +301,43 @@ class LM:
         (``common.embed_tokens``)."""
         return embed_tokens(params["embed"], tokens, shard)
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """The logits of the normed ``x``; with ``shard`` whose vocab is
+        cut, this rank's columns (a tied head: its embedding rows'
+        transpose), ``x`` entering through ``shard.enter``."""
         x = rms_norm(x, params["final_norm"])
+        if shard is not None and shard.vocab.sharded:
+            x = shard.enter(x)
         head = params["embed"].T if self.cfg.tie_embeddings \
             else params["head"]
         return matmul(x, head.to(x.dtype))
 
     def forward(self, params, tokens: torch.Tensor, *,
                 vision_embeds: torch.Tensor | None = None,
-                mrope_positions: torch.Tensor | None = None):
+                mrope_positions: torch.Tensor | None = None, shard=None):
         """tokens: (B, S) -> logits (B, S, V); also returns the aux loss,
         summed over the layers (0.0 without MoE layers). ``vision_embeds``
         (B, nv, M) go in front of the token embeddings, whose last nv are
         dropped, and the sequence is cut to S; ``mrope_positions`` (3, B,
-        S) reach every layer's attention."""
+        S) reach every layer's attention.
+
+        With ``shard`` (a training ``ShardLayout`` from
+        ``runtime/serve_lib.py::shard_layout``; family dense): this rank's
+        part of a (data, model) mesh under autograd. ``tokens`` are this
+        rank's rows and ``params`` its shards; the vocab-parallel
+        embedding, each layer's column- and row-parallel attention and MLP
+        (under remat), and the logits at this rank's vocab columns (B, S,
+        V_local). Under grad another family raises
+        ``NotImplementedError`` naming ROADMAP A.12: its collectives carry
+        no gradient."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        if shard is not None and torch.is_grad_enabled() \
+                and cfg.family != "dense":
+            raise NotImplementedError(
+                f"sharded training of the {cfg.family} family: not in the "
+                f"sharded execution of the port yet (ROADMAP A.12)")
+        x = self._embed(params, tokens) if shard is None \
+            else self._embed(params, tokens, shard)
         if vision_embeds is not None:
             nv = vision_embeds.shape[1]
             if nv:
@@ -321,6 +346,8 @@ class LM:
         remat = cfg.remat and torch.is_grad_enabled()
         policy = _POLICIES.get(cfg.remat_policy) if remat else None
         layer = self._layer_fn(mark=policy is _save_names)
+        if shard is not None:
+            layer = functools.partial(layer, shard=shard)
 
         def body(lp, x, positions):
             return layer(lp, x, mrope_positions=positions)[:2]
@@ -336,18 +363,30 @@ class LM:
         for lp in unstack_layers(params["layers"], self._n_stacked()):
             x, layer_aux = run(lp, x, mrope_positions)
             aux = aux + layer_aux
-        return self._head(params, x), aux
+        return self._head(params, x, shard), aux
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
+    def loss_fn(self, params, batch, *, shard=None,
+                weights: torch.Tensor | None = None) -> torch.Tensor:
         """batch: {'tokens': (B, S+1), optional 'vision_embeds' (B, nv, M),
         'mrope_positions' (3, B, S), 'mask' (B, S)} -> scalar fp32
         next-token cross entropy plus ``AUX_COEF`` times the aux loss (0
-        without MoE layers)."""
+        without MoE layers).
+
+        ``shard``: this rank's part of a mesh (:meth:`forward`), the batch
+        its rows; the cross entropy is vocab-parallel
+        (``common.token_nll``), the same on every model rank. ``weights``
+        (B, S) fp32: the cross entropy is sum(nll * weights) in place of
+        the masked mean (the sharded train step's share of the global
+        batch's loss; ``mask`` is then unused)."""
         tokens = batch["tokens"]
         logits, aux = self.forward(
             params, tokens[:, :-1], vision_embeds=batch.get("vision_embeds"),
-            mrope_positions=batch.get("mrope_positions"))
-        ce = cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
+            mrope_positions=batch.get("mrope_positions"), shard=shard)
+        if weights is None:
+            ce = cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"),
+                                    shard)
+        else:
+            ce = (token_nll(logits, tokens[:, 1:], shard) * weights).sum()
         return ce + AUX_COEF * aux
 
     # ------------------------------------------------------------------
@@ -397,7 +436,7 @@ class LM:
                 cache_i = ssm_i if kv is None else kv_i
             x, _, new = layer(lp, x, cache=cache_i,
                               mrope_positions=mrope_positions)
-        logits = self._head(params, x[:, -1:])
+        logits = self._head(params, x[:, -1:], shard)
         if shard is not None:
             logits = shard.gather_logits(logits)
         if kv is None:

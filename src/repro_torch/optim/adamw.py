@@ -14,8 +14,13 @@ Two differences, both for memory on the card:
 * the step count is a 0-d int32 tensor on the parameters' device, so the
   schedule and the bias correction never wait for the host.
 
-Gradient compression (``optim/compress.py``) comes with multi-device
-training (ROADMAP A.12).
+On a (data, model) mesh (``runtime/train_lib.py``'s sharded step),
+:func:`adamw_update_sharded` runs the same arithmetic on this rank's
+shards, with the global norm taken over the mesh (:func:`sharded_norm`)
+and, under ZeRO-1, each rank updating the slice of each parameter that its
+moment shard covers before the slices are gathered over the batch axes
+(:func:`gather_updated`). Gradient compression (``optim/compress.py``)
+comes later (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import torch
 
 from ..models.param import tree_items, tree_map
 
-__all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "global_norm", "warmup_cosine"]
+__all__ = ["AdamWConfig", "OptState", "ShardPlan", "adamw_init",
+           "adamw_update", "adamw_update_sharded", "clip_by_global_norm",
+           "gather_updated", "global_norm", "sharded_norm", "warmup_cosine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,14 +104,16 @@ def _no_decay(path: tuple) -> bool:
                                    "A_log", "D"))
 
 
-def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
-    """One AdamW step, written into ``params`` and the moments of ``state``
-    in place; returns (params, new state, metrics) with the same tensors."""
+def _update(params, grads, state: OptState, cfg: AdamWConfig,
+            gn: torch.Tensor, regions=None):
+    """The AdamW arithmetic on each leaf (or, with ``regions``, on the
+    region of each parameter that its moments cover; None: the whole
+    leaf), in place, scaled by the clip of global norm ``gn``."""
     p_items = tree_items(params)
     g_leaves = [g for _, g in tree_items(grads)]
     m_leaves = [m for _, m in tree_items(state.m)]
     v_leaves = [v for _, v in tree_items(state.v)]
-    gn = global_norm(g_leaves)
+    regions = regions or [None] * len(p_items)
     scale = _clip_scale(gn, cfg.clip_norm)
     step = state.step + 1
     lr = warmup_cosine(cfg, step)
@@ -113,7 +121,10 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
     with torch.no_grad():
-        for (path, p), g, m, v in zip(p_items, g_leaves, m_leaves, v_leaves):
+        for (path, p), g, m, v, region in zip(p_items, g_leaves, m_leaves,
+                                              v_leaves, regions):
+            if region is not None:
+                p, g = p[region], g[region]
             # op for op as the reference, each op rounded to fp32
             g32 = g.float() * scale
             m32 = m.float() * b1 + g32 * (1 - b1)
@@ -124,5 +135,87 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
             p.copy_(p.float() - lr * upd)
             m.copy_(m32)
             v.copy_(v32)
-    return params, OptState(step=step, m=state.m, v=state.v), \
-        {"grad_norm": gn, "lr": lr}
+    return OptState(step=step, m=state.m, v=state.v), lr
+
+
+def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
+    """One AdamW step, written into ``params`` and the moments of ``state``
+    in place; returns (params, new state, metrics) with the same tensors."""
+    gn = global_norm(g for _, g in tree_items(grads))
+    state, lr = _update(params, grads, state, cfg, gn)
+    return params, state, {"grad_norm": gn, "lr": lr}
+
+
+class ShardPlan(NamedTuple):
+    """How a rank's shards enter the sharded update, leaf by leaf in
+    ``tree_items`` order: ``model_cut``, whether the parameter is cut over
+    the model axis (its squares are summed over it for the global norm;
+    a replicated leaf's are counted once); ``regions``, the slices of the
+    parameter shard that the moment shard covers (ZeRO-1: cut over the
+    batch axes), None where it covers the whole shard. ``model_group``
+    and ``batch_group`` are the process groups of the model axis and of
+    the axes that cut the batch (None: not cut)."""
+    model_cut: tuple
+    regions: tuple
+    model_group: Any
+    batch_group: Any
+
+
+def sharded_norm(leaves, model_cut, group) -> torch.Tensor:
+    """The global norm of gradient shards: the squares of the leaves cut
+    over the model axis summed over it (one all_reduce, where any leaf is
+    cut), plus the replicated leaves' squares counted once."""
+    cut, rep = [], []
+    for g, is_cut in zip(leaves, model_cut):
+        (cut if is_cut else rep).append(torch.square(
+            torch.linalg.vector_norm(g, dtype=torch.float32)))
+    total = sum(rep) if rep else 0.0
+    if cut:
+        sq = sum(cut).reshape(1)
+        torch.distributed.all_reduce(sq, group=group)
+        total = total + sq[0]
+    return torch.sqrt(torch.as_tensor(total))
+
+
+def gather_updated(parts, group) -> None:
+    """ZeRO-1's gather: ``parts`` are (parameter shard, the region this
+    rank updated); every rank's regions come back into every shard, in one
+    all_reduce a dtype of a zero-filled buffer into which each rank writes
+    its own region (exact: one nonzero term an element)."""
+    by_dtype: dict = {}
+    for p, region in parts:
+        by_dtype.setdefault(p.dtype, []).append((p, region))
+    for dtype, items in by_dtype.items():
+        flat = torch.zeros(sum(p.numel() for p, _ in items), dtype=dtype,
+                           device=items[0][0].device)
+        views, offset = [], 0
+        for p, region in items:
+            view = flat[offset:offset + p.numel()].view(p.shape)
+            view[region] = p[region]
+            views.append(view)
+            offset += p.numel()
+        torch.distributed.all_reduce(flat, group=group)
+        for (p, _), view in zip(items, views):
+            p.copy_(view)
+
+
+def adamw_update_sharded(params, grads, state: OptState, cfg: AdamWConfig,
+                         plan: ShardPlan):
+    """One AdamW step on this rank's shards: ``grads`` are the whole
+    gradient of each parameter shard (already summed over the batch
+    axes); ``state``'s moments are shards of ``plan.regions``. The global
+    norm is :func:`sharded_norm`'s; each rank updates its regions, op for
+    op as :func:`adamw_update`, and the updated regions are gathered over
+    the batch axes (:func:`gather_updated`); a leaf whose moments cover
+    its whole shard is updated alike on every rank and not gathered.
+    Returns (params, new state, metrics), written in place."""
+    g_leaves = [g for _, g in tree_items(grads)]
+    gn = sharded_norm(g_leaves, plan.model_cut, plan.model_group)
+    state, lr = _update(params, grads, state, cfg, gn, plan.regions)
+    parts = [(p, region) for (_, p), region in zip(tree_items(params),
+                                                    plan.regions)
+             if region is not None]
+    if parts:
+        with torch.no_grad():
+            gather_updated(parts, plan.batch_group)
+    return params, state, {"grad_norm": gn, "lr": lr}

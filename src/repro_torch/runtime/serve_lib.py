@@ -157,8 +157,8 @@ def _unported(what: str) -> NotImplementedError:
                                f"the port yet (ROADMAP A.12)")
 
 
-def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
-                 zero3: bool = False) -> ShardLayout:
+def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
+                 *, zero3: bool = False) -> ShardLayout:
     """This rank's :class:`~repro_torch.sharding.layout.ShardLayout` of the
     model under the reference's specs, or ``NotImplementedError`` naming
     ROADMAP A.12 for a spec the execution does not cover. Allocates
@@ -166,16 +166,27 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
     attention, the MLP, the MoE and Mamba-2); an encoder-decoder's takes
     its attention spans from the encoder's, the decoder's self- and its
     cross-attention, and its MLP's from both stacks, each required
-    alike."""
+    alike.
+
+    ``max_len`` None gives a training layout (``runtime/train_lib.py``'s
+    sharded step): no cache and no ``seq`` span, the parameter specs
+    under ``cfg.dp_only`` as ``make_train_state_specs`` takes them, and
+    ``batch`` this rank's rows under ``train_lib.batch_sharding``. Only
+    the dense family trains sharded; another raises."""
     cfg = model.cfg
     fam = cfg.family
+    train = max_len is None
     if fam not in _FAMILIES:
         raise _unported(f"sharded serving of the {fam} family")
+    if train and fam != "dense":
+        raise _unported(f"sharded training of the {fam} family")
     if zero3:
         raise _unported("ZeRO-3 parameter specs (zero3=True)")
     if model_axis(mesh) is None:
         raise _unported(f"a mesh without a model axis ({mesh})")
-    decls, specs = model.param_decls(), param_specs(model, mesh)
+    decls = model.param_decls()
+    specs = spec_tree(decls, mesh, make_rules(mesh, dp_only=cfg.dp_only)) \
+        if train else param_specs(model, mesh)
 
     def span(paths, axis: str, total: int) -> Span:
         """This rank's span of the dim named ``axis`` of the parameter at
@@ -234,15 +245,25 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
                     if name == "head_dim" else
                     f"{'/'.join(path)}: spec {spec} cuts its {name!r} axis "
                     f"over {part!r}")
-    cspecs = cache_specs(model, mesh, batch, max_len)
+    if train:
+        from .train_lib import batch_sharding
+        entry = batch_sharding(mesh, {"tokens": torch.empty(
+            (batch, 1), device="meta")}, dp_only=cfg.dp_only)["tokens"][0]
+        cut = {"batch": span_of(entry, batch, mesh), "seq": None}
+    else:
+        cut = None
+        cspecs = cache_specs(model, mesh, batch, max_len)
     if fam == "ssm":
         return ShardLayout(mesh=mesh, batch=span_of(cspecs.ssm.state[1],
                                                     batch, mesh), **kw)
-    kv = (cspecs.self_kv if fam == "encdec" else cspecs.kv).k
-    if kv[2] != "model":
-        raise _unported(f"a K/V cache spec {kv} whose sequence is not cut "
-                        f"over the model axis alone (max_len {max_len} on "
-                        f"{mesh})")
+    if cut is None:
+        kv = (cspecs.self_kv if fam == "encdec" else cspecs.kv).k
+        if kv[2] != "model":
+            raise _unported(f"a K/V cache spec {kv} whose sequence is not "
+                            f"cut over the model axis alone (max_len "
+                            f"{max_len} on {mesh})")
+        cut = {"batch": span_of(kv[1], batch, mesh),
+               "seq": span_of(kv[2], max_len, mesh)}
     attn = ("encoder/attn", "decoder/self_attn", "decoder/cross_attn") \
         if fam == "encdec" else ("layers/attn",)
     heads = span(tuple(f"{a}/wq" for a in attn), "heads", cfg.n_heads_eff)
@@ -252,9 +273,7 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int, *,
     return ShardLayout(
         mesh=mesh, heads=heads,
         kv_heads=span(tuple(f"{a}/wk" for a in attn), "kv_heads",
-                      cfg.n_kv_heads),
-        batch=span_of(kv[1], batch, mesh),
-        seq=span_of(kv[2], max_len, mesh), **kw)
+                      cfg.n_kv_heads), **cut, **kw)
 
 
 def init_cache_shards(model, mesh: Mesh, batch: int, max_len: int, *,

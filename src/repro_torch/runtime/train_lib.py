@@ -1,4 +1,5 @@
-"""Train step: microbatched gradient accumulation + AdamW, on one device.
+"""Train step: microbatched gradient accumulation + AdamW, on one device or
+on one rank of a (data, model) mesh.
 
 Port of ``repro/runtime/train_lib.py``. ``train_step(state, batch)`` takes
 the loss and its gradient by autograd through ``model.loss_fn`` (the
@@ -8,22 +9,38 @@ over the microbatches, and applies ``adamw_update``. The step writes the
 new parameters and moments into the state's tensors (the reference donates
 its state to XLA, which updates it in place as well).
 
-Meshes, ``make_train_state_specs``, ``batch_sharding`` and ZeRO shard the
-reference's state over many devices; they come with multi-device training
+Over a mesh (``build_train_step(..., mesh=)``, the dense family), each rank
+holds its shards of the state under :func:`make_train_state_specs` (AdamW's
+moments like the parameters, or with ``zero1`` also cut over the batch
+axes) and takes its rows of the global batch (:func:`batch_sharding`). Its
+loss and gradients run through ``loss_fn(..., shard=)``: the serving path's
+column- and row-parallel layers under autograd, whose collectives carry
+their gradients (``sharding/layout.py``), and a vocab-parallel cross
+entropy. The reference's step is one XLA program over the global batch;
+here each rank weights its tokens as the reference's global microbatches
+weight them, so that the sums over the mesh are the reference's loss and
+gradient. The other families, ZeRO-3 and sharded checkpoints come later
 (ROADMAP A.12).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..models.param import init_params, tree_items, tree_map
-from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update
+from ..models.param import (init_params, tree_at, tree_items, tree_map,
+                            tree_map_with_path)
+from ..optim.adamw import (AdamWConfig, OptState, ShardPlan, adamw_init,
+                           adamw_update, adamw_update_sharded)
+from ..sharding.context import data_axes, mesh_context
+from ..sharding.rules import (PartitionSpec as P, local_shape, local_slices,
+                              make_rules, spec_axes, spec_tree)
 
-__all__ = ["TrainState", "build_train_step", "init_train_state",
-           "split_microbatches"]
+__all__ = ["TrainState", "abstract_train_state", "batch_sharding",
+           "build_train_step", "init_train_state", "make_train_state_specs",
+           "shard_plan", "split_microbatches"]
 
 
 class TrainState(NamedTuple):
@@ -31,20 +48,93 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
+def make_train_state_specs(model, mesh, *, zero1: bool = False,
+                           zero3: bool = False) -> TrainState:
+    """PartitionSpec trees for TrainState: the parameters under
+    ``make_rules(mesh, zero3=, dp_only=cfg.dp_only)``; the moments like
+    them or, with ``zero1``, under the ZeRO-3 rules (also cut over the
+    batch axes); the step count P()."""
+    decls = model.param_decls()
+    dp_only = getattr(model.cfg, "dp_only", False)
+    pspecs = spec_tree(decls, mesh, make_rules(mesh, zero3=zero3,
+                                               dp_only=dp_only))
+    mspecs = spec_tree(decls, mesh, make_rules(mesh, zero3=True,
+                                               dp_only=dp_only)) \
+        if zero1 else pspecs
+    return TrainState(params=pspecs, opt=OptState(step=P(), m=mspecs,
+                                                  v=mspecs))
+
+
+def batch_sharding(mesh, batch_tree, dp_only: bool = False):
+    """A PartitionSpec for each leaf of ``batch_tree`` (dicts of anything
+    with a ``shape``): the leading dim over the data axes, with
+    ``dp_only`` the model axis joining them; a ``mrope_positions`` leaf,
+    (3, B, S), cut on axis 1.
+
+    One deliberate departure: the reference tells the positions apart by
+    a leading axis of 3 and an int dtype, so it would cut a token batch of
+    B = 3 on its second axis; this goes by the leaf's name, as
+    :func:`split_microbatches` does. The two agree at every B other than
+    3."""
+    d = data_axes(mesh)
+    if dp_only and "model" in mesh.axis_names:
+        d = d + ("model",)
+    lead = tuple(d) if len(d) > 1 else (d[0] if d else None)
+
+    def spec_for(path, x):
+        ndim = len(x.shape)
+        if path and path[-1] == "mrope_positions":
+            return P(None, lead, *([None] * (ndim - 2)))
+        return P(lead, *([None] * (ndim - 1)))
+    return tree_map_with_path(spec_for, batch_tree)
+
+
+def abstract_train_state(model, opt_cfg: AdamWConfig) -> TrainState:
+    """The whole TrainState on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``ShapeDtypeStruct`` tree)."""
+    def meta(d, dtype=None):
+        return torch.empty(d.shape, dtype=dtype or d.dtype, device="meta")
+    decls = model.param_decls()
+    return TrainState(
+        params=tree_map(meta, decls),
+        opt=OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                     m=tree_map(lambda d: meta(d, opt_cfg.state_dtype),
+                                decls),
+                     v=tree_map(lambda d: meta(d, opt_cfg.state_dtype),
+                                decls)))
+
+
 def init_train_state(model, opt_cfg: AdamWConfig, seed: int = 0,
-                     device: str | torch.device = "cuda") -> TrainState:
+                     device: str | torch.device = "cuda", *, mesh=None,
+                     zero1: bool = False) -> TrainState:
     """Seeded random parameters (drawn on ``device``) and a zero optimizer
-    state."""
+    state. With ``mesh``, this rank's shards under
+    :func:`make_train_state_specs`: each leaf is drawn whole in slices, as
+    the unsharded call draws it, and only this rank's part is kept
+    (``init_params`` with specs), so no rank holds a whole leaf that it
+    holds a part of; the moments are zeros of their shards' shapes."""
     device = torch.device(device)
-    params = init_params(model.param_decls(),
-                         torch.Generator(device=device).manual_seed(seed),
-                         device)
-    return TrainState(params, adamw_init(params, opt_cfg))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    decls = model.param_decls()
+    if mesh is None:
+        params = init_params(decls, gen, device)
+        return TrainState(params, adamw_init(params, opt_cfg))
+    specs = make_train_state_specs(model, mesh, zero1=zero1)
+    params = init_params(decls, gen, device, specs=specs.params, mesh=mesh)
+
+    def zeros(path, d):
+        return torch.zeros(local_shape(tree_at(specs.opt.m, path), d.shape,
+                                       mesh),
+                           dtype=opt_cfg.state_dtype, device=device)
+    return TrainState(params, OptState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        m=tree_map_with_path(zeros, decls),
+        v=tree_map_with_path(zeros, decls)))
 
 
-def _loss_and_grads(model, params, batch):
+def _loss_and_grads(model, params, batch, **kw):
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = model.loss_fn(leaves, batch)
+    loss = model.loss_fn(leaves, batch, **kw)
     loss.backward()
     return loss.detach(), tree_map(lambda t: t.grad, leaves)
 
@@ -70,11 +160,30 @@ def split_microbatches(batch: dict, mu: int) -> list[dict]:
             for i in range(mu)]
 
 
-def build_train_step(model, opt_cfg: AdamWConfig) -> Callable:
+def build_train_step(model, opt_cfg: AdamWConfig, *, mesh=None,
+                     zero1: bool = False, zero3: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics hold
     ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the device. The
     global batch, divisible by ``cfg.microbatches``, is split by
-    :func:`split_microbatches`."""
+    :func:`split_microbatches`.
+
+    With ``mesh`` (a mesh over a process group, ``launch/mesh.py::
+    make_local_mesh``), the step of one rank (:func:`_sharded_step`):
+    ``state`` is this rank's shards (:func:`init_train_state` with the
+    same ``mesh`` and ``zero1``), ``batch`` the whole global batch, and the
+    metrics the global loss and norm on every rank. ``zero3`` raises
+    ``NotImplementedError`` naming ROADMAP A.12 item 2 before anything is
+    allocated, as does a family other than dense over a mesh."""
+    if zero3:
+        raise NotImplementedError(
+            "ZeRO-3 (zero3=True): the parameters cut over the data axes "
+            "and gathered before use are not in the port yet (ROADMAP A.12 "
+            "item 2)")
+    if mesh is not None:
+        return _sharded_step(model, opt_cfg, mesh, zero1)
+    if zero1:
+        raise ValueError("zero1 shards the moments over a mesh's data axes; "
+                         "pass the mesh")
     mu = max(model.cfg.microbatches, 1)
 
     def train_step(state: TrainState, batch):
@@ -101,3 +210,166 @@ def build_train_step(model, opt_cfg: AdamWConfig) -> Callable:
         return TrainState(params, opt), metrics
 
     return train_step
+
+
+# ----------------------------------------------------------------------
+# one rank of a (data, model) mesh
+# ----------------------------------------------------------------------
+def loss_weights(batch: dict, mu: int) -> torch.Tensor:
+    """Each token's weight (B, S) fp32 in the reference's loss of the
+    global ``batch`` with ``mu`` microbatches: the mean over the global
+    microbatches (consecutive rows) of each one's masked mean, so
+    ``mask / (mu * max(its microbatch's mask count, 1))``; without a mask,
+    1 / (B S). A rank's share of the loss is sum(nll * weights) over its
+    rows, whichever of its rows it puts together in its own
+    microbatches."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    if B % mu:
+        raise ValueError(f"batch {B} is not divisible by {mu} microbatches")
+    mask = batch.get("mask")
+    if mask is None:
+        return torch.full((B, S), 1.0 / (B * S), dtype=torch.float32,
+                          device=tokens.device)
+    mask = mask.float()
+    counts = mask.reshape(mu, -1).sum(dim=1).clamp(min=1.0)
+    return mask / (mu * counts.repeat_interleave(B // mu))[:, None]
+
+
+def model_partial_leaves(model, layout) -> set:
+    """Paths of the parameters whose gradient on a rank is a part: those
+    that the specs keep whole over the model axis while the code uses them
+    on this rank's part alone. In the dense family that is the attention's
+    leaves that are not cut where its q heads are (qwen3's ``q_norm`` and
+    ``k_norm``, on the rank's heads; ``wk``/``wv`` where the KV heads do
+    not divide, each rank reading the KV heads its q heads use). The
+    norms, the embedding and the head are used before ``enter`` (or all of
+    them on every rank) and get the whole gradient on every rank."""
+    if not layout.heads.sharded:
+        return set()
+    specs = spec_tree(model.param_decls(), layout.mesh,
+                      make_rules(layout.mesh, dp_only=model.cfg.dp_only))
+    return {("layers", "attn") + path
+            for path, spec in tree_items(specs["layers"]["attn"])
+            if "model" not in _axes_of(spec)}
+
+
+def _axes_of(spec) -> set:
+    return {axis for part in spec for axis in spec_axes(part)}
+
+
+def flat_sum(grads: list, group) -> list:
+    """The gradient shards summed over ``group`` in fp32, in one all_reduce
+    of one flat buffer; each comes back an fp32 view of it."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+    return out
+
+
+def shard_plan(model, mesh, zero1: bool = False) -> ShardPlan:
+    """This rank's :class:`~repro_torch.optim.adamw.ShardPlan` under
+    :func:`make_train_state_specs`: which parameters are cut over the model
+    axis, the region of each parameter shard that its moments cover (with
+    ``zero1``, the moments' cut over the batch axes; None where they cover
+    the whole shard), and the model and batch axes' process groups. Needs
+    a live mesh; raises ``NotImplementedError`` naming ROADMAP A.12 for
+    what the sharded step does not cover (``serve_lib.shard_layout``)."""
+    from .serve_lib import shard_layout
+    layout = shard_layout(model, mesh, _batch_ranks(mesh, model.cfg))
+    if not mesh.is_live:
+        raise ValueError(f"the sharded train step runs on a mesh over a "
+                         f"process group (make_local_mesh), not {mesh}")
+    specs = make_train_state_specs(model, mesh, zero1=zero1)
+    model_cut, regions = [], []
+    for path, d in tree_items(model.param_decls()):
+        pspec, mspec = tree_at(specs.params, path), tree_at(specs.opt.m,
+                                                            path)
+        model_cut.append("model" in _axes_of(pspec))
+        psl = local_slices(pspec, d.shape, mesh)
+        msl = local_slices(mspec, d.shape, mesh)
+        # a cut over axes that hold one rank leaves the whole shard
+        regions.append(None if psl == msl else tuple(
+            slice(m.start - p.start, m.stop - p.start)
+            for p, m in zip(psl, msl)))
+    return ShardPlan(tuple(model_cut), tuple(regions), layout.model_group,
+                     layout.batch_group)
+
+
+def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
+    """One rank's ``train_step(state, batch)`` on ``mesh``.
+
+    The rank takes its rows of the global batch (:func:`batch_sharding`),
+    cuts them into ``cfg.microbatches`` microbatches of its own and runs
+    each through ``loss_fn(..., shard=, weights=)`` with the tokens'
+    weights in the reference's global loss (:func:`loss_weights`),
+    accumulating the gradient in fp32 (without microbatches, in the
+    parameters' dtype). After the backward: the leaves of
+    :func:`model_partial_leaves` summed over the model axis (one flat
+    all_reduce, :func:`flat_sum`), every gradient summed over the batch
+    axes in fp32 (one), the loss summed over them (one), and
+    ``adamw_update_sharded`` (the global norm over the mesh; with
+    ``zero1`` the updated regions gathered over the batch axes)."""
+    from .serve_lib import shard_layout
+    cfg = model.cfg
+    mu = max(cfg.microbatches, 1)
+    plan = shard_plan(model, mesh, zero1)
+    n_batch = _batch_ranks(mesh, cfg)
+    cut = model_partial_leaves(model, shard_layout(model, mesh, n_batch))
+    paths = [path for path, _ in tree_items(model.param_decls())]
+    partial = [path in cut for path in paths]
+
+    def train_step(state: TrainState, batch):
+        B = batch["tokens"].shape[0]
+        if B % (n_batch * mu):
+            raise ValueError(f"batch {B} does not divide into {n_batch} "
+                             f"ranks' rows of {mu} microbatches each")
+        layout = shard_layout(model, mesh, B)
+        rows = layout.batch.slice()
+        local = {k: x[:, rows] if k == "mrope_positions" else x[rows]
+                 for k, x in batch.items()}
+        local["weights"] = loss_weights(batch, mu)[rows]
+        with mesh_context(mesh):
+            loss, grads = 0.0, None
+            for mb in split_microbatches(local, mu):
+                weights = mb.pop("weights")
+                l, g = _loss_and_grads(model, state.params, mb,
+                                       shard=layout, weights=weights)
+                loss = loss + l
+                g = [t for _, t in tree_items(g)]
+                if grads is None:
+                    grads = [t.float() for t in g] if mu > 1 else g
+                else:
+                    for acc, t in zip(grads, g):
+                        acc.add_(t.float())
+            if any(partial):
+                summed = iter(flat_sum(
+                    [g for g, p in zip(grads, partial) if p],
+                    plan.model_group))
+                grads = [next(summed) if p else g
+                         for g, p in zip(grads, partial)]
+            if plan.batch_group is not None:
+                grads = flat_sum(grads, plan.batch_group)
+                loss = loss.reshape(1).clone()
+                torch.distributed.all_reduce(loss, group=plan.batch_group)
+                loss = loss[0]
+            by_path = dict(zip(paths, grads))
+            grads = tree_map_with_path(lambda path, _: by_path[path],
+                                       state.params)
+            params, opt, metrics = adamw_update_sharded(
+                state.params, grads, state.opt, opt_cfg, plan)
+        metrics["loss"] = loss
+        return TrainState(params, opt), metrics
+
+    return train_step
+
+
+def _batch_ranks(mesh, cfg) -> int:
+    """The ranks that :func:`batch_sharding` cuts the batch over."""
+    entry = batch_sharding(mesh, {"tokens": torch.empty((1, 1),
+                                                        device="meta")},
+                           dp_only=cfg.dp_only)["tokens"][0]
+    return math.prod(mesh.shape[axis] for axis in spec_axes(entry))

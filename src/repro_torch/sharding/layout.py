@@ -1,14 +1,15 @@
-"""What a rank of a sharded serving step holds, and its collectives.
+"""What a rank of a sharded step holds, and its collectives.
 
 ``runtime/serve_lib.py`` reads the specs (``rules.spec_tree``,
-``serve_lib.cache_specs``) into a :class:`ShardLayout`: for each dim that
-the model's execution cuts (q heads, KV heads, the MLP's hidden units, the
-experts, the shared experts' hidden units, the Mamba heads and their inner
-columns, the vocab, the batch, the cache's sequence), the span of it that
-this rank holds and the mesh axes it is cut over. The model's sharded code
-(``models/attention.py``, ``ffn.py``, ``moe.py``, ``ssm.py``, ``lm.py``)
-takes the layout as its ``shard`` argument and runs the collectives
-through it, over the mesh's process groups.
+``serve_lib.cache_specs``; for training ``train_lib.batch_sharding``) into
+a :class:`ShardLayout`: for each dim that the model's execution cuts (q
+heads, KV heads, the MLP's hidden units, the experts, the shared experts'
+hidden units, the Mamba heads and their inner columns, the vocab, the
+batch, the cache's sequence), the span of it that this rank holds and the
+mesh axes it is cut over. The model's sharded code (``models/attention.py``,
+``ffn.py``, ``moe.py``, ``ssm.py``, ``lm.py``, ``common.py``) takes the
+layout as its ``shard`` argument and runs the collectives through it, over
+the mesh's process groups.
 
 Every collective is an ``all_reduce``: a gather is a sum over a zero-filled
 full-size buffer into which each rank writes its own part (exact: each
@@ -17,6 +18,28 @@ element has one nonzero term), and a sum and gathers can share one buffer
 takes CUDA tensors in ``broadcast`` and ``all_reduce`` alone, which is what
 ranks that share one card run on; NCCL (one rank a card) takes the same
 calls.
+
+Under grad (training, dense family) three collectives carry their
+gradients, each a ``torch.autograd.Function`` whose forward is the
+serving path's call:
+
+* :meth:`ShardLayout.enter`, the entry to a model-parallel region (the
+  normed input of the column-parallel ``wq``/``wk``/``wv``, ``w_up``/
+  ``w_gate`` and the head's vocab columns): the identity forward, the sum
+  of the input's gradient over the model axis backward (each rank's
+  gradient is its own heads', units' or columns' part). Without grad it
+  returns its input and runs nothing;
+* :meth:`ShardLayout.reduce_sum`, the row-parallel exit: the sum forward,
+  the identity backward (every rank's partial takes the whole output's
+  gradient);
+* :meth:`ShardLayout.sum_exact`, the vocab-parallel lookup: the sum
+  forward, the identity backward (a rank's rows take the gradient of the
+  tokens they hold).
+
+The vocab-parallel cross entropy (``models/common.py::token_nll``) is the
+fourth: its forward takes ``max_`` and ``sum_with``, its backward is
+local. The rest (``gather``, ``gather_logits``, the decode step's merges)
+serve only.
 """
 
 from __future__ import annotations
@@ -30,6 +53,47 @@ from ..launch.mesh import Mesh
 from .rules import local_slices, spec_axes, PartitionSpec
 
 __all__ = ["Span", "ShardLayout", "span_of"]
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over ``group`` in
+    fp32 and rounded once to its dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.to(torch.float32, memory_format=torch.contiguous_format,
+                        copy=True)
+        torch.distributed.all_reduce(total, group=ctx.group)
+        return total.to(grad.dtype), None
+
+
+class _Sum(torch.autograd.Function):
+    """``t`` summed over ``group`` (the serving path's call, on a copy:
+    ``t`` may be a view that another Function made); backward, the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group``, in place; under grad through :class:`_Sum`."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Sum.apply(t, group)
+    torch.distributed.all_reduce(t, group=group)
+    return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,17 +126,18 @@ def span_of(entry, total: int, mesh: Mesh) -> Span:
 
 @dataclasses.dataclass(frozen=True)
 class ShardLayout:
-    """One rank's part of a sharded model and of its serving cache.
+    """One rank's part of a sharded model and of its serving cache (a
+    training layout has no cache: ``seq`` None).
 
     ``vocab`` are the embedding rows and logit columns and ``batch`` the
-    sequences this rank serves. A family's own dims, None where the family
-    has none: ``heads`` the q heads (``wq``'s and ``wo``'s), ``kv_heads``
-    the K/V projections' heads and ``seq`` this rank's rows of the K/V
-    cache (dense, vlm, moe, hybrid, encdec: its self cache); ``mlp`` the
-    MLP's hidden units (dense, vlm, hybrid, encdec); ``experts`` the
-    experts this rank serves and ``shared`` the shared experts' hidden
-    units (moe, hybrid); ``ssm_heads`` the Mamba heads and ``ssm_inner``
-    their ``d_inner`` columns, head-major (ssm, hybrid)."""
+    sequences this rank serves or trains on. A family's own dims, None
+    where the family has none: ``heads`` the q heads (``wq``'s and
+    ``wo``'s), ``kv_heads`` the K/V projections' heads and ``seq`` this
+    rank's rows of the K/V cache (dense, vlm, moe, hybrid, encdec: its self
+    cache); ``mlp`` the MLP's hidden units (dense, vlm, hybrid, encdec);
+    ``experts`` the experts this rank serves and ``shared`` the shared
+    experts' hidden units (moe, hybrid); ``ssm_heads`` the Mamba heads and
+    ``ssm_inner`` their ``d_inner`` columns, head-major (ssm, hybrid)."""
 
     mesh: Mesh
     vocab: Span
@@ -92,19 +157,38 @@ class ShardLayout:
         but the logits' runs over it."""
         return self.mesh.group("model")
 
+    @property
+    def batch_group(self):
+        """The process group of the mesh axes that cut the batch (the data
+        axes; under ``dp_only`` the model axis too), None where they hold
+        one rank: the ranks that hold the same parameter shards and sum
+        their gradients."""
+        if self.batch.size == self.batch.total:
+            return None
+        return self.mesh.group(self.batch.axes)
+
     def reduce_sum(self, partial: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:
         """Sum of every model rank's fp32 ``partial`` (a row-parallel
-        product, ``common.matmul_f32``), rounded once to ``dtype``."""
-        torch.distributed.all_reduce(partial, group=self.model_group)
-        return partial.to(dtype)
+        product, ``common.matmul_f32``), rounded once to ``dtype``. Under
+        grad the sum's backward is the identity."""
+        return _sum(partial, self.model_group).to(dtype)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, replicated over the model axis, entering a region where
+        each model rank computes its part: the identity; under grad the
+        backward sums ``x``'s gradient over the model axis. Without grad,
+        ``x`` itself and no collective."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Enter.apply(x, self.model_group)
+        return x
 
     def sum_exact(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the model ranks where at most one rank's term is
         nonzero at each element (a vocab-parallel lookup, a gather): exact
-        in any dtype, so taken in ``t``'s. In place."""
-        torch.distributed.all_reduce(t, group=self.model_group)
-        return t
+        in any dtype, so taken in ``t``'s. In place (under grad on a copy,
+        whose backward is the identity)."""
+        return _sum(t, self.model_group)
 
     def max_(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise max over the model ranks, in place."""

@@ -228,3 +228,183 @@ def test_sharding_tree_is_each_specs_local_slices(arch, mesh):
     for path, spec in tree_items(specs):
         cut = sum(part == "model" for part in spec)
         assert len(starts[path]) == (shape[1] if cut else 1), path
+
+
+# ------------------------------------------------------- sharded training
+from repro.runtime import train_lib as jax_train_lib        # noqa: E402
+from repro.optim.adamw import AdamWConfig as JaxAdamWConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig                   # noqa: E402
+from repro_torch.runtime import train_lib                   # noqa: E402
+
+TRAIN_MESHES = ["1x2", "2x2", "1x4", "16x16", "2x16x16"]
+TRAIN_OPTIONS = {"default": {}, "zero1": {"zero1": True},
+                 "zero3": {"zero3": True},
+                 "zero1+zero3": {"zero1": True, "zero3": True}}
+
+
+def _dp_only(arch: str, dp_only: bool):
+    """(JAX model, port model) of ``arch`` at full width, ``dp_only`` set
+    on both by ``dataclasses.replace``."""
+    import dataclasses
+    return (jax_build_model(dataclasses.replace(jax_get_config(arch),
+                                                dp_only=dp_only)),
+            build_model(dataclasses.replace(get_config(arch),
+                                            dp_only=dp_only)))
+
+
+@pytest.mark.parametrize("dp_only", [False, True], ids=["", "dp_only"])
+@pytest.mark.parametrize("option", TRAIN_OPTIONS)
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_make_train_state_specs(arch, mesh, option, dp_only):
+    """The TrainState's specs, parameters and both moments (ZeRO-1's under
+    the ZeRO-3 rules) and the step's P(), leaf for leaf by field name."""
+    jmesh, tmesh = meshes(mesh)
+    jmodel, model = _dp_only(arch, dp_only)
+    want = jax_train_lib.make_train_state_specs(jmodel, jmesh,
+                                                **TRAIN_OPTIONS[option])
+    got = train_lib.make_train_state_specs(model, tmesh,
+                                           **TRAIN_OPTIONS[option])
+    assert port_leaves(got) == jax_leaves(want)
+
+
+def _batch_trees(B: int):
+    """One training batch of every kind the reference's steps take:
+    tokens, a mask, a vlm's vision embeddings and M-RoPE positions, an
+    encoder-decoder's frames: (JAX ShapeDtypeStruct tree, port meta
+    tree)."""
+    import torch
+    shapes = {"tokens": ((B, 17), "int32"), "mask": ((B, 16), "float32"),
+              "vision_embeds": ((B, 4, 64), "bfloat16"),
+              "mrope_positions": ((3, B, 16), "int32"),
+              "frames": ((B, 32, 64), "bfloat16")}
+    jtree = {k: jax.ShapeDtypeStruct(s, getattr(jax.numpy, d))
+             for k, (s, d) in shapes.items()}
+    ttree = {k: torch.empty(s, dtype=getattr(torch, d), device="meta")
+             for k, (s, d) in shapes.items()}
+    return jtree, ttree
+
+
+@pytest.mark.parametrize("dp_only", [False, True], ids=["", "dp_only"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_batch_sharding(mesh, dp_only):
+    """Every leaf's spec equals the reference's at B = 8 (the leading dim
+    over the data axes, with ``dp_only`` the model axis too; the M-RoPE
+    positions (3, B, S) on axis 1)."""
+    jmesh, tmesh = meshes(mesh)
+    jtree, ttree = _batch_trees(8)
+    want = jax_train_lib.batch_sharding(jmesh, jtree, dp_only=dp_only)
+    got = train_lib.batch_sharding(tmesh, ttree, dp_only=dp_only)
+    assert {k: tuple(v) for k, v in got.items()} == \
+        {k: tuple(v) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2", "16x16"])
+def test_batch_sharding_goes_by_name_at_a_batch_of_3(mesh):
+    """The one departure, pinned: at B = 3 the reference takes an int
+    leaf with a leading 3 for M-RoPE positions and cuts a token batch on
+    its sequence axis; the port cuts it on its batch axis (by the leaf's
+    name), and the positions' (3, 3, S) on axis 1 as the reference
+    does."""
+    jmesh, tmesh = meshes(mesh)
+    jtree, ttree = _batch_trees(3)
+    want = jax_train_lib.batch_sharding(jmesh, jtree)
+    got = train_lib.batch_sharding(tmesh, ttree)
+    lead = tuple(want["mask"])[0]
+    assert tuple(want["tokens"]) == (None, lead)
+    assert tuple(got["tokens"]) == (lead, None)
+    for k in ("mask", "vision_embeds", "mrope_positions", "frames"):
+        assert tuple(got[k]) == tuple(want[k]), k
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_abstract_train_state_matches_the_reference(arch):
+    """Every leaf's shape and dtype equals the reference's
+    ``ShapeDtypeStruct``, on the meta device."""
+    jmodel = jax_build_model(jax_get_config(arch))
+    model = build_model(get_config(arch))
+    want = jax_train_lib.abstract_train_state(
+        jmodel, AbstractMesh((1, 2), ("data", "model")), JaxAdamWConfig())
+    got = train_lib.abstract_train_state(model, AdamWConfig())
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    want = {tuple(getattr(k, "key", getattr(k, "name", None))
+                  for k in path): (tuple(a.shape), str(a.dtype))
+            for path, a in flat}
+    got_items = tree_items(got)
+    assert len(got_items) == len(want)
+    for path, a in got_items:
+        assert a.device.type == "meta"
+        assert (tuple(a.shape), str(a.dtype).split(".")[1]) == want[path], \
+            path
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "qwen3-moe-235b-a22b",
+                                  "mamba2-370m", "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2"])
+def test_sharded_training_refuses_other_families(monkeypatch, arch):
+    """Every family but dense raises ``NotImplementedError`` naming A.12
+    when its step is built over a mesh, before anything is allocated."""
+    model = build_model(get_config(arch, reduced=True))
+    monkeypatch.setattr(train_lib, "init_params", _no_allocation)
+    with pytest.raises(NotImplementedError, match="(?s)training.*A.12"):
+        train_lib.build_train_step(model, AdamWConfig(),
+                                   mesh=abstract_mesh((1, 2)))
+
+
+def _no_allocation(*args, **kw):
+    raise AssertionError("allocated before the refusal")
+
+
+@pytest.mark.parametrize("mesh", [None, (2, 2)])
+def test_zero3_raises_before_allocating(monkeypatch, mesh):
+    model = build_model(get_config("tinyllama-1.1b", reduced=True))
+    monkeypatch.setattr(train_lib, "init_params", _no_allocation)
+    with pytest.raises(NotImplementedError, match="ZeRO-3.*A.12 item 2"):
+        train_lib.build_train_step(
+            model, AdamWConfig(), zero3=True,
+            mesh=None if mesh is None else abstract_mesh(mesh))
+
+
+def test_the_sharded_step_needs_a_live_mesh():
+    model = build_model(get_config("tinyllama-1.1b", reduced=True))
+    with pytest.raises(ValueError, match="process group"):
+        train_lib.build_train_step(model, AdamWConfig(),
+                                   mesh=abstract_mesh((1, 2)))
+
+
+def test_a_sharded_checkpoint_raises_before_allocating(monkeypatch,
+                                                       tmp_path):
+    """``train_loop`` over more than one rank with ``ckpt_dir`` raises
+    naming A.12 before it sets anything up (or needs a process group);
+    without ``ckpt_dir`` and no group up, ``make_local_mesh`` raises."""
+    from repro_torch.launch import train as train_mod
+    monkeypatch.setattr(train_mod, "setup_training", _no_allocation)
+    with pytest.raises(NotImplementedError, match="(?s)checkpoint.*A.12"):
+        train_mod.train_loop("tinyllama-1.1b", reduced=True, device="cpu",
+                             data=1, model=2, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="process group"):
+        train_mod.train_loop("tinyllama-1.1b", reduced=True, device="cpu",
+                             data=2, model=1)
+
+
+def test_enter_without_grad_runs_no_collective(monkeypatch):
+    """``ShardLayout.enter`` under ``no_grad`` (and on a tensor that needs
+    no gradient) returns its input and calls no collective, so the serving
+    steps keep their all_reduce calls."""
+    import torch
+    from repro_torch.sharding.layout import ShardLayout, Span
+    calls = []
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda *a, **k: calls.append(a))
+    layout = ShardLayout(mesh=abstract_mesh((1, 2)),
+                         vocab=Span(0, 128, 256, ("model",)),
+                         batch=Span(0, 8, 8), heads=Span(0, 2, 4, ("model",)))
+    x = torch.randn(2, 3, requires_grad=True)
+    with torch.no_grad():
+        assert layout.enter(x) is x
+    with torch.inference_mode():
+        y = torch.randn(2, 3)
+        assert layout.enter(y) is y
+    z = torch.randn(2, 3)
+    assert layout.enter(z) is z
+    assert calls == []

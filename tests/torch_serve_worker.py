@@ -5,12 +5,14 @@
 the sharded prefill (an encoder-decoder's over the case's frames) and
 teacher-forced decode steps of ``runtime/serve_lib.py`` (a case with MoE
 layers also fed a routing), or a case's own function of the rank's mesh
-(``"run"``). It imports no JAX, so a spawned rank starts with torch
-alone."""
+(``"run"``: the decoder layer of ``decoder_layer_case``, or the sharded
+train step of ``train_case`` for ``tests/test_torch_train_sharded.py``).
+It imports no JAX, so a spawned rank starts with torch alone."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import traceback
 
 import torch
@@ -196,6 +198,71 @@ def decoder_layer_case(mesh, case: dict) -> dict:
             attn_mod._decode_partial_core = partial
         runs[name] = out
     return runs
+
+
+@functools.lru_cache(maxsize=None)
+def chip_smoke():
+    """``chip_smoke.py`` as a module: the planted faults and the rules of
+    its sharded training check, the same code on the CPU and the card."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def train_case(mesh, case: dict) -> dict:
+    """One sharded train step (``build_train_step(..., mesh=)``) of
+    ``case["cfg"]`` on this rank: the state's shards cut from
+    ``case["params"]`` (the whole tree; its dtype is the case's) with zero
+    moments, the step on ``case["batch"]`` (numpy, the global batch) with
+    ``case["zero1"]``, under the planted fault ``case["fault"]`` (one of
+    ``chip_smoke.TRAIN_FAULTS``) when given. Returns, fp32 numpy by path:
+    the gradient shards the sharded AdamW took, the parameter shards
+    before and after, the moment shards after; the loss, the norm, the
+    coordinates and the step's all_reduce calls."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import shard_params, tree_items
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import train_lib
+    smoke = chip_smoke()
+    model = build_model(case["cfg"])
+    opt = AdamWConfig(**case["opt"])
+    zero1 = case["zero1"]
+    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
+    state = train_lib.init_train_state(model, opt, device="cpu", mesh=mesh,
+                                       zero1=zero1)
+    state = train_lib.TrainState(
+        shard_params(case["params"], specs.params, mesh), state.opt)
+    # copies: an fp32 leaf's .float() is the leaf, stepped in place
+    p0 = {"/".join(p): a.float().numpy().copy()
+          for p, a in tree_items(state.params)}
+    seen = {}
+
+    def capture(update):
+        def recording(params, grads, opt_state, opt_cfg, plan):
+            seen.update({"/".join(p): g.float().numpy().copy()
+                         for p, g in tree_items(grads)})
+            return update(params, grads, opt_state, opt_cfg, plan)
+        return recording
+    step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
+    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    count = [0]
+    fault = case.get("fault")
+    with smoke.patched(train_lib, "adamw_update_sharded", capture), \
+            smoke.counting_all_reduce(torch, count), \
+            smoke.train_faults(torch, fault, mesh) if fault \
+            else contextlib.nullcontext():
+        state, metrics = step(state, batch)
+
+    def flat(tree):
+        return {"/".join(p): a.float().numpy() for p, a in tree_items(tree)}
+    return {"coords": dict(mesh.coords), "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "grads": seen,
+            "p0": p0, "p1": flat(state.params), "m": flat(state.opt.m),
+            "v": flat(state.opt.v), "collectives": count[0]}
 
 
 def run_rank(rank: int, data: int, model: int, init_file: str,
