@@ -44,7 +44,11 @@ Phases, each fatal on failure:
    and a ragged S; jamba's SSD at its prefill shape, 256 heads of P = 64,
    N = 128, state0 and state_out a slice of a zeroed stacked cache, timed;
    mamba2's prefill on one rank of a (1, 2) mesh, 16 of its 32 heads,
-   and jamba's, 128 of its 256, each timed; a seamless rank's decode step
+   and jamba's, 128 of its 256, each timed; a rank's heads of the sharded
+   training at a model axis of 2, timed: flash and its backward at
+   tinyllama's 16 over 2 KV heads, qwen2-vl's 32 over 4 and qwen3-moe's 32
+   over 2, the ssd forward with its chunk states and the ssd backward at
+   mamba2's 16 heads; a seamless rank's decode step
    over its 8 heads of the memory, a strided view of the cache's 16,
    timed), and the decode kernel's partial entry (one span of a
    sequence-cut cache: out and lse, at local lengths 0, 1, a mid value
@@ -136,16 +140,22 @@ Phases, each fatal on failure:
    0..E_loc-1 (jamba); the memory K/V gather skipped, the encoder's
    row-parallel ``wo`` sum skipped (seamless); and in the (1, 2) and
    (2, 2) spawns ``sharded_train_check``: tinyllama-1.1b cut to 8 layers
-   trained over the mesh (``build_train_step(..., mesh=)``, batch 8 x
-   512, remat "full", ZeRO-1 at (2, 2)) against the unsharded step on the
-   card (loss and norm rel 1e-2, each gradient shard within 3e-2 of its
-   slice's norm, each leaf's update by ``update_rule``, the sharded AdamW
-   fed the reference's gradients within 1e-5), its all_reduce calls
-   (``train_collectives``) and flash launches as derived, and four
-   planted faults (``TRAIN_FAULTS``), each breaking a rule on every
-   rank: ``enter``'s sum skipped at the attention input, the norm over a
-   rank's own shards (at (1, 2)), the data-axis sum skipped, ZeRO-1's
-   gather skipped (at (2, 2));
+   and mamba2-370m to 6 trained over both meshes, qwen2-vl-72b (with 16
+   vision embeddings a row and 3-D positions) and qwen3-moe-235b-a22b (fed
+   the unsharded step's experts; its own routing printed, not held) at 1
+   layer over (1, 2) (``build_train_step(..., mesh=)``, full width, batch
+   8 x 512, remat "full", ZeRO-1 at (2, 2)) against the unsharded step on
+   the card (loss and norm rel 1e-2, each gradient shard within 3e-2 of
+   its slice's norm, each leaf's update by ``update_rule``, the sharded
+   AdamW fed the reference's gradients within 1e-5), its all_reduce calls
+   (``train_collectives``) and flash or ssd launches as derived, and
+   planted faults, each breaking a rule on every rank: tinyllama's four
+   (``TRAIN_FAULTS``: ``enter``'s sum skipped at the attention input, the
+   norm over a rank's own shards (at (1, 2)), the data-axis sum skipped,
+   ZeRO-1's gather skipped (at (2, 2))), qwen3-moe's gates and tokens
+   each without their model-axis sum, mamba2's norm sum with an identity
+   backward and ``w_B``/``w_C`` left out of the partial leaves (at (1,
+   2); ``FAMILY_TRAIN_FAULTS_AT``);
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
    40-layer qwen2-vl, the period-4 jamba block (its device time split
@@ -198,13 +208,15 @@ Phases, each fatal on failure:
    ms (``moe_graph_check``); a bf16 train step of tinyllama and qwen3-14b
    at depth 2, of starcoder2 and nemotron at depth 1
    (``TRAIN_CHECK_15B_DEPTH``) and of qwen2-vl at depth 1 (with 16
-   vision embeddings and 3-D positions) on the card against the CPU (loss
+   vision embeddings and 3-D positions), one sequence of 128 tokens
+   (``TRAIN_CHECK_BATCH``, ``TRAIN_CHECK_SEQ``), on the card against the
+   CPU (loss
    1e-2 relative,
    each gradient within 3e-2 of its norm, each layer's backward-kernel
    gradients against the plain backward on the same captured tensors
    within 1e-2 of their norm); the same step of a depth-2 mamba2 (each
    gradient within 3e-2 of its norm); the same step of qwen3-moe
-   (``moe_train_check``, at 1 layer, ``MOE_CHECK_LAYERS``: 2 x
+   (``moe_train_check``, at 1 layer, ``MOE_CHECK_LAYERS``: 1 x
    256 tokens, the CPU's experts fed
    to the card's MoE layers, in both dispatch modes, remat off and under
    "full", "dots" and "names"; its own-routing step printed, not held);
@@ -245,8 +257,12 @@ entries jamba's launches, "jamba", at qwen2-vl's timed shape, and the ssd
 entry jamba's H = 256 row, "jamba", with its launches, and a mamba2 rank's
 H = 16 row, "h16", and a jamba rank's H = 128 row, "h128", with the
 sharded runs' launches; the flash and backward entries a rank's heads
-of the sharded training, "rank_train" (H = 16 over Hk = 2, D = 64), with
-the launches of every rank's checked step; the decode entry a seamless
+of the sharded training, "rank_train" (tinyllama's, H = 16 over Hk = 2,
+D = 64), "rank_train_g8_d128" (qwen2-vl's, H = 32 over 4) and
+"rank_train_g16_d128" (qwen3-moe's, H = 32 over 2), and the ssd and ssd
+backward entries "rank_train_h16" (mamba2's 16 heads, the forward with
+its chunk states), each with the launches of every rank's checked step
+of its arch; the decode entry a seamless
 rank's row over the
 memory, "rank_cross", with its sharded launches; the partial decode
 entry qwen3-moe's, qwen2-vl's (and jamba's), kimi-k2's and seamless's
@@ -423,6 +439,13 @@ def check_flash(torch, timer, gen) -> dict:
             # at D = 64, the training forward (timed with and without lse)
             ("rank-train", 8, 512, 16, 2, 64, bf16, True, True,
              "rank_train"),
+            # a rank's heads of the families' sharded training at a model
+            # axis of 2: qwen2-vl's 32 q over 4 KV heads (G = 8) and
+            # qwen3-moe's 32 over 2 (G = 16), D = 128
+            ("rank-train-g8-d128", 8, 512, 32, 4, 128, bf16, True, True,
+             "rank_train_g8_d128"),
+            ("rank-train-g16-d128", 8, 512, 32, 2, 128, bf16, True, True,
+             "rank_train_g16_d128"),
             # seamless-m4t's heads, H = Hk = 16 at D = 64 (G = 1): the
             # encoder's non-causal self-attention over 1024 frames, the
             # decoder's causal prefill, the cross-attention of the 512
@@ -804,16 +827,18 @@ def check_ssd(torch, timer, gen) -> dict:
                                  f"{err_s}, finite {finite}")
         return max_err(y, y_ref)
 
-    def bound_of(B, S, Hc, P, x, dt, A, Bm, Cm, st):
+    def bound_of(B, S, Hc, P, x, dt, A, Bm, Cm, st, parts=False):
         # the work of the kernel's chunks (Q = 64), lower triangle of each
         # chunk's Q x Q products only; each input read and output written
-        # once
+        # once (with ``parts``, the operations and bytes themselves)
         Q = 64
         tri = Q * (Q + 1) // 2
         flops = B * Hc * -(-S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
         nbytes = (2 * x.element_size() * x.numel() + dt.element_size()
                   * dt.numel() + 4 * A.numel() + Bm.element_size()
                   * (Bm.numel() + Cm.numel()) + 2 * 4 * st.numel())
+        if parts:
+            return flops, nbytes
         return bound(flops, nbytes, PEAK_BF16_FLOPS)
 
     rec, worst = None, 0.0
@@ -893,6 +918,11 @@ def check_ssd(torch, timer, gen) -> dict:
     # state shard, as models/ssm.py's sharded block calls it; its record
     rec["h16"] = ssd_row(torch, timer, randn, check, bound_of, plan_line,
                          "mamba2 rank of (1, 2)", 8, 512, H // 2, 12)
+    # mamba2's training forward on one rank of a (1, 2) mesh: its 16 heads
+    # from a zero state, writing the chunk-entry states its backward reads
+    # (sharded_train_check); its record
+    rec["rank_train_h16"] = ssd_states_row(torch, timer, randn, check,
+                                           bound_of, 8, 512, H // 2)
 
     # jamba-1.5-large-398b's prefill: 256 heads, state0 and state_out one
     # Mamba sublayer's slice of the block's zeroed (period - 1, B, H, P, N)
@@ -937,6 +967,48 @@ def ssd_row(torch, timer, randn, check, bound_of, plan_line, label: str,
     log(f"[kernels] ssd {label} bf16 B={B} S={S} H={H}: {ms:.4f} ms (plain "
         f"{plain_ms:.4f} ms, no library call computes SSD, bound "
         f"{b_ms:.4f} ms by {b_by}, {plan_line(B, H, P)})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
+def ssd_states_row(torch, timer, randn, check, bound_of, B: int, S: int,
+                   H: int) -> dict:
+    """One timed ssd row of ``check_ssd`` at a training forward's shape (P =
+    64, N = 128, bf16, dt fp32, a zero state), the kernel asked for its
+    chunk-entry states as ``kernels/ssd/ops.py`` asks under grad: y and the
+    final state checked as ``check`` does, the chunk states within 1e-4 of
+    the fp64 recurrence (``ssd_bwd_tolerance.chunk_states``); timed, its
+    bound counting the chunk states written; its record."""
+    from ssd_bwd_tolerance import chunk_states, grad_err
+    from repro_torch.kernels.ssd import kernel as ssd_k
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+    F = torch.nn.functional
+    P, N = 64, 128
+    x = randn(B, S, H, P, dtype=torch.bfloat16)
+    dt, A = F.softplus(randn(B, S, H)), -torch.exp(randn(H))
+    Bm = randn(B, S, N, dtype=torch.bfloat16)
+    Cm = randn(B, S, N, dtype=torch.bfloat16)
+    y, final, states = ssd_cuda(x, dt, A, Bm, Cm, return_states=True)
+    label = f"training forward with chunk states B={B} S={S} H={H}"
+    err = check(f"{label} x=bfloat16 dt=float32 P={P} N={N} state0=zero",
+                (y, final), ssd_plain(x, dt, A, Bm, Cm, chunk=256),
+                "bfloat16")
+    st_err = grad_err(states[:, :, 1:], chunk_states(x, dt, A, Bm, Cm,
+                                                     None)[:, :, 1:])
+    log(f"[kernels] ssd {label}: chunk states {st_err:.3e} (tol 1e-4)")
+    if not st_err <= 1e-4:
+        raise AssertionError(f"ssd {label}: chunk states {st_err}")
+    launches = ssd_k.launches
+    ms = timer.ms(lambda: ssd_cuda(x, dt, A, Bm, Cm, return_states=True))
+    plain_ms = timer.ms(lambda: ssd_plain(x, dt, A, Bm, Cm, chunk=256),
+                        iters=10)
+    ssd_k.launches = launches         # timing launches are not the path's
+    flops, nbytes = bound_of(B, S, H, P, x, dt, A, Bm, Cm, final,
+                             parts=True)
+    b_ms, b_by = bound(flops, nbytes + 4 * states.numel(), PEAK_BF16_FLOPS)
+    log(f"[kernels] ssd {label} bf16: {ms:.4f} ms (plain {plain_ms:.4f} "
+        f"ms, no library call computes SSD, bound {b_ms:.4f} ms by {b_by}, "
+        f"the chunk states' {4 * states.numel() / 1e6:.1f} MB counted)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
@@ -1079,6 +1151,12 @@ def check_flash_bwd(torch, timer, gen) -> dict:
             # axis of 2 (sharded_train_check): G = 8 at D = 64
             ("rank-train", 8, 512, 16, 2, 64, bf16, True, True,
              "rank_train"),
+            # a rank's heads of qwen2-vl's (G = 8) and qwen3-moe's (G =
+            # 16) sharded training at a model axis of 2, D = 128
+            ("rank-train-g8-d128", 8, 512, 32, 4, 128, bf16, True, True,
+             "rank_train_g8_d128"),
+            ("rank-train-g16-d128", 8, 512, 32, 2, 128, bf16, True, True,
+             "rank_train_g16_d128"),
             # seamless-m4t's training path, H = Hk = 16 at D = 64: the
             # encoder's self-attention over 1024 frames, the
             # cross-attention of 512 tokens over the 1024-frame memory, the
@@ -1253,7 +1331,11 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
             ("p8", 2, 512, 32, 8, 128, torch.bfloat16, 256, True, False),
             ("small", 2, 100, 3, 8, 16, torch.float32, 50, True, False),
             ("long", 1, 2048, 32, 64, 128, torch.bfloat16, 256, False,
-             True)):
+             True),
+            # mamba2's training backward on one rank of a (1, 2) mesh (16
+            # of its 32 heads; sharded_train_check), its own record
+            ("rank-train-h16", 8, 512, 16, 64, 128, torch.bfloat16, 256,
+             False, True)):
         x, dy = randn(B, S, H, P, dtype=dtype), randn(B, S, H, P, dtype=dtype)
         dt, A = F.softplus(randn(B, S, H)), -torch.exp(randn(H))
         Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
@@ -1337,10 +1419,15 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
             f"{lib.ssd_bwd_tc_smem_bytes(P, N)} B shared memory each); "
             f"the forward {fwd_ms:.4f} ms, with its chunk states "
             f"{fwd_st_ms:.4f} ms")
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by}
         if label == "training":
-            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            rec = row
+        elif label == "rank-train-h16":
+            rank_row = dict(row, max_abs_err=max(
+                max_err(a, b) for a, b in zip(got, want) if b is not None))
     rec["max_abs_err"] = worst
+    rec["rank_train_h16"] = rank_row
     return rec
 
 
@@ -1594,8 +1681,8 @@ def record_routes(routes: dict):
     moe_mod = importlib.import_module("repro_torch.models.moe")
 
     def wrap(route):
-        def recording(router, x, cfg):
-            topi, gates, aux = route(router, x, cfg)
+        def recording(router, x, cfg, **kw):
+            topi, gates, aux = route(router, x, cfg, **kw)
             routes[x.device.type].append(
                 (topi.cpu(), gates.detach().cpu(),
                  _router_logits(router, x).detach()))
@@ -1615,8 +1702,8 @@ def routed_as(recorded: list, own: list):
     calls = iter(recorded)
 
     def wrap(route):
-        def forced(router, x, cfg):
-            topi, gates, aux = route(router, x, cfg)
+        def forced(router, x, cfg, **kw):
+            topi, gates, aux = route(router, x, cfg, **kw)
             own.append((topi.cpu(), gates.cpu(), _router_logits(router, x)))
             topi, gates, _ = next(calls)
             return topi.to(x.device), gates.to(x.device), aux
@@ -1634,17 +1721,18 @@ def experts_as(recorded: list):
     router's address: the forward a remat policy recomputes calls it
     again, takes the same experts and runs the same ops (the policy's
     selective checkpoint pairs the recomputed ops with the saved ones in
-    order)."""
+    order). A sharded rank's call (``shard``) forms them as ``_route``
+    does there."""
     import importlib
     moe_mod = importlib.import_module("repro_torch.models.moe")
     calls, fed = iter(recorded), {}
 
-    def forced(router, x, cfg):
+    def forced(router, x, cfg, shard=None):
         if router.data_ptr() not in fed:
             fed[router.data_ptr()] = next(calls)[0]
         topi = fed[router.data_ptr()].to(x.device)
         probs = moe_mod._router_probs(router, x)
-        return (topi,) + moe_mod._gates_and_aux(probs, topi, cfg)
+        return (topi,) + moe_mod._gates_and_aux(probs, topi, cfg, shard)
     return patched(moe_mod, "_route", lambda route: forced)
 
 
@@ -1729,8 +1817,8 @@ def planted_faults(torch) -> dict:
 
     def routing(change):
         def wrap(route):
-            def faulty(router, x, cfg):
-                topi, gates, aux = route(router, x, cfg)
+            def faulty(router, x, cfg, **kw):
+                topi, gates, aux = route(router, x, cfg, **kw)
                 if x.is_cuda:
                     probs = torch.softmax(matmul(
                         x.float().reshape(-1, x.shape[-1]), router), -1)
@@ -2066,6 +2154,15 @@ def _loss_and_grads(model, params, toks, dev: str, **extra):
 
 
 TRAIN_GRAD_TOL = 3e-2
+# the batch of ``train_check`` (and of ``moe_train_check``'s CPU step):
+# once 2 x 256 tokens, cut to 1 sequence, and ``train_check``'s to 128
+# tokens, for the script's time when the families' sharded training came in
+# (on an H100 80GB HBM3 at 700 W, the CPU references of nemotron-4-15b and
+# qwen2-vl-72b at depth 1 and qwen3-14b at depth 2 took 50.2, 60.0 and
+# 40.6 s of a 960.9 s script at 2 x 256; at 1 x 256, 41.4, 39.5 and 28.0 s
+# of a 1099.8 s script on a slower host)
+TRAIN_CHECK_BATCH = 1
+TRAIN_CHECK_SEQ = 128
 # the 15 B archs' train-check depths. qwen3-14b runs two layers: its G = 6
 # backward calls (padded heads, qk-norm) get dO through an upper layer's
 # backward, and each leaf's gradient below the top layer passes through
@@ -2129,8 +2226,9 @@ def train_check(torch, arch: str, depth: int = 2) -> None:
     """Full-width ``arch`` (dense or vlm) cut to ``depth`` layers, in bf16:
     the loss and every leaf's gradient of one train step on the card (the
     flash kernels) against the CPU (the plain path), same weights and batch
-    (2 x 256 tokens; for the vlm family also 16 vision embeddings and the
-    3-D positions of ``qwen2vl_positions``), remat off
+    (``TRAIN_CHECK_BATCH`` x ``TRAIN_CHECK_SEQ`` tokens; for the vlm family
+    also 16 vision embeddings and the 3-D positions of
+    ``qwen2vl_positions``), remat off
     (the launch counts of ``train_loop`` cover remat). Held: the loss within
     1e-2 relative; each leaf within ``TRAIN_GRAD_TOL`` (3e-2) of the CPU's,
     ||card - cpu|| / ||cpu||; and each layer's attention gradient as the
@@ -2156,7 +2254,7 @@ def train_check(torch, arch: str, depth: int = 2) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, init_params
     from repro_torch.models.param import tree_map
-    seq = 256
+    seq = TRAIN_CHECK_SEQ
     model = build_model(dataclasses.replace(
         get_config(arch), n_layers=depth, remat=False,
         q_chunk=seq // 2, kv_chunk=seq // 2))
@@ -2168,15 +2266,17 @@ def train_check(torch, arch: str, depth: int = 2) -> None:
     cfg = model.cfg
     params["layers"]["attn"] = fan_in_std(params["layers"]["attn"],
                                           cfg.d_model)
+    rows = TRAIN_CHECK_BATCH
     toks = torch.as_tensor(SyntheticLM(DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
+        vocab=cfg.vocab, seq_len=seq, global_batch=rows)).batch_at(0)[
+            "tokens"])
     extra, what = {}, ""
     if cfg.family == "vlm":
         n_vis = QWEN2VL_GRID[0] * QWEN2VL_GRID[1]
         extra = {"vision_embeds": torch.randn(
-            2, n_vis, cfg.d_model, generator=torch.Generator().manual_seed(
-                2)).bfloat16(),
-            "mrope_positions": qwen2vl_positions(torch, seq, 2)}
+            rows, n_vis, cfg.d_model,
+            generator=torch.Generator().manual_seed(2)).bfloat16(),
+            "mrope_positions": qwen2vl_positions(torch, seq, rows)}
         what = f", {n_vis} vision embeddings and 3-D positions"
 
     seen = []
@@ -2274,8 +2374,9 @@ def moe_train_check(torch) -> None:
     """Full-width qwen3-moe-235b-a22b cut to ``MOE_CHECK_LAYERS`` layers,
     in bf16: one train step's loss and every leaf's gradient on
     the card (the flash kernels, the MoE in plain torch) against the CPU
-    (the plain path), same weights and batch (2 x 256 tokens), the
-    attention weights at std 1/sqrt(fan-in) as ``train_check`` draws them.
+    (the plain path), same weights and batch (``TRAIN_CHECK_BATCH`` x 256
+    tokens), the attention weights at std 1/sqrt(fan-in) as
+    ``train_check`` draws them.
     The CPU runs once, remat off, "scatter" dispatch, its routing recorded;
     the gradients are compared on the card, leaf by leaf. The card runs:
 
@@ -2313,7 +2414,8 @@ def moe_train_check(torch) -> None:
     params["layers"]["attn"] = fan_in_std(params["layers"]["attn"],
                                           cfg.d_model)
     toks = torch.as_tensor(SyntheticLM(DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)["tokens"])
+        vocab=cfg.vocab, seq_len=seq, global_batch=TRAIN_CHECK_BATCH))
+        .batch_at(0)["tokens"])
 
     def step(dev: str, **changes):
         """The loss and each leaf's gradient (in its dtype, on ``dev``)."""
@@ -3691,23 +3793,34 @@ def cut_serve_check(torch, counters: dict, arch: str = MOE_ARCH,
     return counts
 
 
-# fp32 temporaries of one leaf that ``optim/adamw.py::adamw_update`` holds
-# at once, at its last line: g32, m32, v32, upd, p.float(), lr * upd and
-# their difference
+# fp32 temporaries of one slice of a leaf that ``optim/adamw.py``'s update
+# holds at once, at its last line: g32, m32, v32, upd, p.float(), lr * upd
+# and their difference
 ADAMW_TEMPORARIES = 7
 # the held peak's margin over the optimizer's derived peak
 PEAK_MARGIN = 1.05
 
 
+def largest_slice(model) -> int:
+    """Elements of the largest row slice that ``optim/adamw.py`` updates at
+    once (``_pieces``, at most ``SLICE_ELEMENTS``), over every leaf."""
+    import torch
+    from repro_torch.models.param import tree_items
+    from repro_torch.optim.adamw import _pieces
+    return max(torch.empty(d.shape, device="meta")[piece].numel()
+               for _, d in tree_items(model.param_decls())
+               for piece in _pieces(tuple(d.shape)))
+
+
 def optimizer_peak(model) -> int:
     """Derived bytes at AdamW's peak: the training state
     (``launch/train.py::_state_bytes``) plus ``ADAMW_TEMPORARIES`` fp32
-    copies of the largest leaf."""
+    copies of the largest slice it updates at once (``largest_slice``;
+    when each leaf was updated whole, the largest leaf set it)."""
     from repro_torch.launch.train import _state_bytes
-    from repro_torch.models.param import tree_items
     from repro_torch.optim import AdamWConfig
-    largest = max(d.size for _, d in tree_items(model.param_decls()))
-    return _state_bytes(model, AdamWConfig()) + ADAMW_TEMPORARIES * 4 * largest
+    return _state_bytes(model, AdamWConfig()) \
+        + ADAMW_TEMPORARIES * 4 * largest_slice(model)
 
 
 def train_counted(torch, counters: dict, arch: str, layers: int,
@@ -3718,9 +3831,10 @@ def train_counted(torch, counters: dict, arch: str, layers: int,
     ``launch/train.py``'s ``get_config`` gives (``cut_depth`` cuts it).
     Held: the forward kernel twice a layer a step (remat recomputes it),
     the backward once, no other kernel; finite losses; with
-    ``optimizer_bound`` (an arch whose peak the optimizer sets, not the
-    activations), the peak within ``PEAK_MARGIN`` of ``optimizer_peak``.
-    The peak and the derived peak are printed for every arch."""
+    ``optimizer_bound`` (an arch of ~40 GB of state), AdamW's own peak
+    (its calls' ``max_memory_allocated``, the peak counter reset as each
+    begins) within ``PEAK_MARGIN`` of ``optimizer_peak``. The step's peak,
+    AdamW's and the derived peak are printed for every arch."""
     from repro_torch.launch.train import _state_bytes, train_loop
     from repro_torch.models import param_count
     from repro_torch.optim import AdamWConfig
@@ -3733,7 +3847,20 @@ def train_counted(torch, counters: dict, arch: str, layers: int,
     for k in counters.values():
         k.launches = 0
     steps = 4
-    out = train_loop(arch, steps=steps, **train)
+    peaks = {"run": 0, "adamw": 0}
+
+    def measured(update):
+        def run(*args, **kw):
+            peaks["run"] = max(peaks["run"], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = update(*args, **kw)
+            peaks["adamw"] = max(peaks["adamw"],
+                                 torch.cuda.max_memory_allocated())
+            return out
+        return run
+    from repro_torch.runtime import train_lib
+    with patched(train_lib, "adamw_update", measured):
+        out = train_loop(arch, steps=steps, **train)
     counts = {name: k.launches for name, k in counters.items()}
     model = _train_model(arch)
     n_params = param_count(model.param_decls())
@@ -3746,21 +3873,24 @@ def train_counted(torch, counters: dict, arch: str, layers: int,
                    f"experts, head)")
     else:
         derived = f"6 * N * tokens/s / 989 TFLOP/s = {6 * n_params * rate:.3f}"
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks["run"], torch.cuda.max_memory_allocated())
     card = torch.cuda.get_device_properties(0).total_memory
     log(f"[train] {arch} batch=8 seq=512 ({n_params / 1e9:.3f} B "
         f"params, {layers} layers, remat) {steps} steps: "
         f"{out['wall_s'] / steps * 1e3:.1f} ms/step, "
         f"{out['tokens_per_s']:.0f} tokens/s; losses {out['losses']}; "
         f"launches {counts}; peak memory {peak / 2**30:.2f} GiB of the "
-        f"card's {card / 2**30:.2f} (training state "
+        f"card's {card / 2**30:.2f}, AdamW's own "
+        f"{peaks['adamw'] / 2**30:.2f} GiB (training state "
         f"{_state_bytes(model, AdamWConfig()) / 1e9:.1f} GB, AdamW's peak "
-        f"{optimizer_peak(model) / 2**30:.2f} GiB, derived); "
+        f"{optimizer_peak(model) / 2**30:.2f} GiB, derived: slices of "
+        f"{largest_slice(model)} elements at most); "
         f"derived: {derived}; both calls in "
         f"{time.perf_counter() - t_arch:.1f} s")
-    if optimizer_bound and peak > PEAK_MARGIN * optimizer_peak(model):
-        raise AssertionError(f"{arch}: peak {peak} bytes over "
-                             f"{PEAK_MARGIN} x the optimizer's derived "
+    if optimizer_bound and \
+            peaks["adamw"] > PEAK_MARGIN * optimizer_peak(model):
+        raise AssertionError(f"{arch}: AdamW's peak {peaks['adamw']} bytes "
+                             f"over {PEAK_MARGIN} x its derived "
                              f"{optimizer_peak(model)}")
     # the forward kernel twice a layer a step (remat recomputes it), its
     # backward once
@@ -4525,7 +4655,7 @@ def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
                 init_file: str, queue) -> None:
     """Entry of a spawned rank: its process group (``backend`` over a
     ``file://`` rendezvous), its mesh, each of ``runs`` ((arch, reference
-    path); ``TRAIN_RUN`` for the sharded training run of the mesh) one
+    path); ``TRAIN_RUN``:arch for an arch's sharded training run) one
     after another, its card memory released between them, and
     ``(rank, {arch: result} or the traceback)`` on ``queue``."""
     import datetime
@@ -4542,9 +4672,11 @@ def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
         mesh = make_local_mesh(data, model)
         results = {}
         for arch, ref_path in runs:
+            kind, _, trained = arch.partition(":")
             results[arch] = sharded_train_rank_run(
-                torch, mesh, ref_path, SHARD_TRAIN[mesh_shape]) \
-                if arch == TRAIN_RUN else \
+                torch, mesh, trained, ref_path,
+                dict(SHARD_TRAIN[mesh_shape])[trained]) \
+                if kind == TRAIN_RUN and trained else \
                 sharded_rank_run(torch, mesh, arch, ref_path)
             gc.collect()
             torch.cuda.empty_cache()
@@ -4663,18 +4795,21 @@ def sharded_serve_check(torch) -> dict:
     decode's and ssd's launches over every counted pass, in all, and every
     kernel's by arch (``"by_arch"``).
 
-    A mesh of ``SHARD_TRAIN`` also runs the sharded training in its spawn,
-    after its serving runs: the unsharded step's reference first
-    (``sharded_train_reference``, once), then each rank's run
-    (``sharded_train_rank_run``), held by ``sharded_train_check``; its
-    flash launches over every rank go under ``"train"``."""
+    A mesh of ``SHARD_TRAIN`` also runs its archs' sharded training in its
+    spawn, after its serving runs: each arch's unsharded step's reference
+    first (``sharded_train_reference``, once an arch), then each rank's
+    run (``sharded_train_rank_run``), held by ``sharded_train_check``; the
+    kernels' launches over every rank and mesh go under ``"train"``, by
+    arch."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     launched = {"decode_attention_partial": 0, "ssd": 0, "by_arch": {},
-                "train": {"flash_attention": 0, "flash_attention_bwd": 0}}
+                "train": {}}
     refs = {}
-    train_path = ROOT / "build" / "sharded-train-reference.pt"
-    train_path.unlink(missing_ok=True)
+    train_paths = {arch: ROOT / "build" / f"sharded-train-reference-{arch}.pt"
+                   for runs in SHARD_TRAIN.values() for arch, _ in runs}
+    for path in train_paths.values():
+        path.unlink(missing_ok=True)
     for mesh_shape, backend, archs in SHARD_GROUPS:
         data, model = mesh_shape
         runs = []
@@ -4689,13 +4824,15 @@ def sharded_serve_check(torch) -> dict:
                     f"({shards} data shard{'s' if shards > 1 else ''}) in "
                     f"{time.perf_counter() - t0:.1f} s")
             runs.append((arch, str(path)))
-        if mesh_shape in SHARD_TRAIN:
-            if not train_path.exists():
+        for arch, _ in SHARD_TRAIN.get(mesh_shape, ()):
+            path = train_paths[arch]
+            if not path.exists():
                 t0 = time.perf_counter()
-                sharded_train_reference(torch, train_path)
-                log(f"[sharded-train] unsharded train step reference in "
-                    f"{time.perf_counter() - t0:.1f} s")
-            runs.append((TRAIN_RUN, str(train_path)))
+                sharded_train_reference(torch, arch, path)
+                log(f"[sharded-train] {arch}: unsharded train step "
+                    f"reference in {time.perf_counter() - t0:.1f} s, "
+                    f"{path.stat().st_size / 1e9:.2f} GB on disk")
+            runs.append((f"{TRAIN_RUN}:{arch}", str(path)))
         t0 = time.perf_counter()
         results = spawn_ranks(mesh_shape, backend, tuple(runs))
         wall = time.perf_counter() - t0
@@ -4767,14 +4904,22 @@ def sharded_serve_check(torch) -> dict:
                     raise AssertionError(f"{arch} {mesh_shape}: rank {r}'s "
                                          f"conv_x differs from rank "
                                          f"{r - r % model}'s")
-        if mesh_shape in SHARD_TRAIN:
-            counts = sharded_train_check(torch, mesh_shape, {
-                r: res[TRAIN_RUN] for r, res in results.items()})
+        for arch, _ in SHARD_TRAIN.get(mesh_shape, ()):
+            counts = sharded_train_check(torch, mesh_shape, arch, {
+                r: res[f"{TRAIN_RUN}:{arch}"] for r, res in results.items()})
+            mine = launched["train"].setdefault(arch, {})
             for name, n in counts.items():
-                launched["train"][name] += n
+                mine[name] = mine.get(name, 0) + n
         log(f"[sharded] mesh {mesh_shape} ({backend}): "
             f"{[a for a, _ in runs]} in one spawn, {wall:.1f} s")
-    for path in list(refs.values()) + [train_path]:
+        # a training reference no later mesh reads leaves the disk
+        later = {arch for m, _, _ in SHARD_GROUPS[
+            [g[0] for g in SHARD_GROUPS].index(mesh_shape) + 1:]
+            for arch, _ in SHARD_TRAIN.get(m, ())}
+        for arch, path in train_paths.items():
+            if arch not in later:
+                path.unlink(missing_ok=True)
+    for path in list(refs.values()) + list(train_paths.values()):
         path.unlink(missing_ok=True)
     log(f"[sharded] sharded_serve_check phase in "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -4782,16 +4927,29 @@ def sharded_serve_check(torch) -> dict:
 
 
 # ------------------------------------------------------ sharded training
-# tinyllama-1.1b at full width, cut to its sharded serving depth
-# (``SHARD_LAYERS``), trained over a (data, model) mesh through
-# ``build_train_step(..., mesh=)``: one batch of 8 x 512 tokens, remat
-# "full", the attention weights at fan-in std (``attention_at_fan_in``)
+# Each arch at full width, cut to ``SHARD_TRAIN_LAYERS``, trained over a
+# (data, model) mesh through ``build_train_step(..., mesh=)``: one batch of
+# 8 x 512 tokens, remat "full", the attention weights at fan-in std
+# (``attention_at_fan_in``): tinyllama-1.1b (dense) and mamba2-370m at
+# their sharded serving depth (``SHARD_LAYERS``); qwen2-vl-72b (16 vision
+# embeddings a row and Qwen2-VL's 3-D positions, ``qwen2vl_positions``)
+# and qwen3-moe-235b-a22b (fed the unsharded step's experts,
+# ``experts_as``) at one layer: a rank of (1, 2) holds 16.8 or 18.7 GB of
+# state, 3.4 or 3.7 GB of gradients and ~5 GB of activations (derived), so
+# two share the card; a qwen3-moe rank of (2, 2) would add the gradients'
+# 7.5 GB fp32 sum over the data axis to its 11.2 GB of ZeRO-1 state, ~27 GB,
+# and four would not fit it
 SHARD_TRAIN_ARCH = "tinyllama-1.1b"
 SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 8, 512
 SHARD_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
-# (data, model) -> zero1: each run goes into its mesh's spawn of
-# ``SHARD_GROUPS`` under the name ``TRAIN_RUN``
-SHARD_TRAIN = {(1, 2): False, (2, 2): True}
+SHARD_TRAIN_LAYERS = {SHARD_TRAIN_ARCH: SHARD_LAYERS[SHARD_TRAIN_ARCH],
+                      QWEN2VL_ARCH: 1, MOE_ARCH: 1,
+                      "mamba2-370m": SHARD_LAYERS["mamba2-370m"]}
+# (data, model) -> its runs, (arch, zero1), each in the mesh's spawn of
+# ``SHARD_GROUPS`` under the name ``TRAIN_RUN``:arch
+SHARD_TRAIN = {(1, 2): ((SHARD_TRAIN_ARCH, False), (QWEN2VL_ARCH, False),
+                        (MOE_ARCH, False), ("mamba2-370m", False)),
+               (2, 2): ((SHARD_TRAIN_ARCH, True), ("mamba2-370m", True))}
 TRAIN_RUN = "train"
 # steps timed after the checked one, on the state it leaves (the checked
 # step's time holds each rank's first-call costs)
@@ -4803,6 +4961,29 @@ TRAIN_FAULTS = ("enter's backward sum skipped at the attention input",
 # the planted faults of each mesh's run: the model axis's two at (1, 2),
 # the data axis's two at (2, 2)
 TRAIN_FAULTS_AT = {(1, 2): TRAIN_FAULTS[:2], (2, 2): TRAIN_FAULTS[2:]}
+# the vlm, MoE and SSM families' planted faults in sharded training; the
+# card plants the MoE's first and last and the SSM's two at (1, 2), the
+# CPU tests every one (the aux loss's at a data axis of 2)
+MOE_TRAIN_FAULTS = ("gates enter the experts' region without their "
+                    "model-axis sum",
+                    "aux loss over the rank's own rows",
+                    "tokens enter the experts' region without their "
+                    "model-axis sum")
+SSM_TRAIN_FAULTS = ("gated norm's mean square with an identity backward",
+                    "w_B and w_C left out of the partial leaves")
+VLM_TRAIN_FAULTS = ("mrope_positions cut on axis 0, as a (B, 3, S) leaf",)
+FAMILY_TRAIN_FAULTS = MOE_TRAIN_FAULTS + SSM_TRAIN_FAULTS + VLM_TRAIN_FAULTS
+FAMILY_TRAIN_FAULTS_AT = {(MOE_ARCH, (1, 2)): (MOE_TRAIN_FAULTS[0],
+                                               MOE_TRAIN_FAULTS[2]),
+                          ("mamba2-370m", (1, 2)): SSM_TRAIN_FAULTS}
+
+
+def train_faults_of(arch: str, mesh_shape: tuple) -> tuple:
+    """The planted faults of ``arch``'s sharded training run on the card at
+    ``mesh_shape``."""
+    if arch == SHARD_TRAIN_ARCH:
+        return TRAIN_FAULTS_AT[mesh_shape]
+    return FAMILY_TRAIN_FAULTS_AT.get((arch, mesh_shape), ())
 # Adam's first step moves each weight by lr g / (|g| + eps) of its clipped
 # gradient g: +-lr wherever |g| >> eps, whatever its size. So an element
 # whose gradient is off the reference's by more than half its size (its
@@ -4816,8 +4997,14 @@ TRAIN_FAULTS_AT = {(1, 2): TRAIN_FAULTS[:2], (2, 2): TRAIN_FAULTS[2:]}
 # (TRAIN_GRAD_TOL ||g|| / sqrt(n)), or under the eps floor
 UPDATE_EPS_FLOOR = 100
 # the sharded AdamW fed the reference's gradients: its update against the
-# reference's, each leaf relative to the reference's update norm
+# reference's arithmetic at the norm the sharded AdamW took, each leaf
+# relative to the reference's update norm; that norm against the
+# reference's within FED_NORM_TOL. (Held against the unsharded step's own
+# update, whose norm sums the squares in another order, a qwen3-moe rank's
+# 1.87 B parameters read over FED_TOL: that norm's last bit moves a few
+# hundred bf16 weights across a rounding boundary.)
 FED_TOL = 1e-5
+FED_NORM_TOL = 1e-6
 
 
 def update_rule(torch, got, want, grad, ref_grad,
@@ -4830,16 +5017,29 @@ def update_rule(torch, got, want, grad, ref_grad,
     gradient is under ``floor`` (``update_floor``) and not equal to its
     own; the rule admits the elements whose reference gradient is under
     twice ``TRAIN_GRAD_TOL`` ||ref_grad|| / sqrt(n), or under ``floor``."""
+    per = 2 * TRAIN_GRAD_TOL * float(ref_grad.float().norm()) \
+        / ref_grad.numel() ** 0.5
+    num, den, ties, admitted = update_sums(torch, got, want, grad, ref_grad,
+                                           floor, per)
+    num, den = num ** 0.5, den ** 0.5
+    return (num / den if den else (0.0 if num == 0 else float("inf"))), \
+        ties, admitted
+
+
+def update_sums(torch, got, want, grad, ref_grad, floor: float,
+                per: float) -> tuple[float, float, int, int]:
+    """``update_rule``'s sums over a leaf or a slice of one: ||got -
+    want||^2 and ||want||^2 over the elements that are not ties, the ties,
+    and the elements admitted, ``per`` the admitted bound of the whole
+    leaf (2 ``TRAIN_GRAD_TOL`` ||ref_grad|| / sqrt(n))."""
     grad, ref_grad = grad.float(), ref_grad.float()
     diff, size = (grad - ref_grad).abs(), ref_grad.abs()
     tie = (diff > size / 2) | ((size < floor) & (diff > 0))
     keep = ~tie
-    den = float((want.float() * keep).norm())
-    num = float(((got.float() - want.float()) * keep).norm())
-    per = 2 * TRAIN_GRAD_TOL * float(ref_grad.norm()) / size.numel() ** 0.5
+    den = float((want.float() * keep).square().sum())
+    num = float(((got.float() - want.float()) * keep).square().sum())
     admitted = int(((size < per) | (size < floor)).sum())
-    return (num / den if den else (0.0 if num == 0 else float("inf"))), \
-        int(tie.sum()), admitted
+    return num, den, int(tie.sum()), admitted
 
 
 def update_floor(opt_cfg, grad_norm: float) -> float:
@@ -4852,58 +5052,78 @@ def update_floor(opt_cfg, grad_norm: float) -> float:
 
 
 def train_collectives(cfg, mesh_shape: tuple, zero1: bool) -> int:
-    """all_reduce calls of one sharded train step of a dense ``cfg`` on a
-    (data, model) mesh whose model axis cuts the heads, the MLP and the
-    vocab (under ``dp_only`` nothing): a microbatch's forward takes the
-    embedding's sum, each layer's two row-parallel sums (``wo``, the MLP)
-    and the loss's max and ``sum_with``; its backward the head's
-    ``enter``, each layer's two and, under remat, the layer's ``wo`` sum
-    recomputed: ``torch.utils.checkpoint`` stops recomputing a layer once
-    it has remade the tensors the backward needs, and the MLP's sum, the
-    layer's last op, is not among them. Then one sum of the leaves whose
-    gradient is a part (qk-norm; ``wk``/``wv`` where the KV heads do not
-    divide), the global norm's one, and where the batch is cut over more
-    than one rank: the gradients' sum, the loss metric's and, with
-    ``zero1``, the gather of the updated slices."""
+    """all_reduce calls of one sharded train step of ``cfg`` (families
+    dense, vlm, moe, ssm) on a (data, model) mesh whose model axis cuts the
+    heads, the MLP or the experts, the Mamba heads and the vocab (under
+    ``dp_only`` nothing): a microbatch's forward takes the embedding's sum,
+    each layer's two (an attention layer's row-parallel ``wo`` and its MLP
+    or MoE sum; a Mamba block's norm sum and ``out_proj``; an MoE's aux
+    sums over the batch ranks too, where they are more than one) and the
+    loss's max and ``sum_with``; its backward the head's ``enter``, each
+    layer's two (the attention's and the MLP's ``enter``, or the MoE's one
+    ``enter`` of its tokens and gates; the Mamba block's ``enter`` and its
+    norm sum's backward) and, under remat, the sums before the layer's
+    last op recomputed (``wo``, or the norm's, and the MoE's aux):
+    ``torch.utils.checkpoint`` stops recomputing a layer once it has
+    remade the tensors the backward needs, and the layer's last sum is
+    not among them. Then one sum of the leaves whose gradient is a part
+    (qk-norm; ``wk``/``wv`` where the KV heads do not divide; a Mamba
+    block's ``w_B``, ``w_C``, ``conv_B``, ``conv_C``), the global norm's
+    one, and where the batch is cut over more than one rank: the
+    gradients' sum, the loss metric's and, with ``zero1``, the gather of
+    the updated slices."""
     data, model = mesh_shape
     L, mu = cfg.n_layers, max(cfg.microbatches, 1)
     if cfg.dp_only:
         per_microbatch = extra = 0
         batch_ranks = data * model
     else:
-        per_microbatch = (1 + 2 * L + 2) + (1 + 2 * L) \
-            + (L if cfg.remat else 0)
-        extra = 1 + int(cfg.qk_norm or cfg.n_kv_heads % model != 0)
         batch_ranks = data
+        aux = int(cfg.family == "moe" and batch_ranks > 1)
+        per_microbatch = (1 + (2 + aux) * L + 2) + (1 + 2 * L) \
+            + ((1 + aux) * L if cfg.remat else 0)
+        extra = 1 + int(cfg.family == "ssm" or cfg.qk_norm
+                        or cfg.n_kv_heads % model != 0)
     return mu * per_microbatch + extra + (
         2 + int(zero1) if batch_ranks > 1 else 0)
 
 
-class _NoEnter:
-    """A layout whose ``enter`` is the identity under grad too (the planted
-    fault "enter's backward sum skipped at the attention input")."""
+class _EnterSome:
+    """A layout whose ``enter`` passes on through the layout's own only its
+    inputs at ``keep`` (their gradients summed over the model axis) and
+    returns the others as they are, under grad too (the planted faults that
+    skip that sum at the attention input, ``keep`` empty, or leave the
+    MoE's gates or tokens without it)."""
 
-    def __init__(self, layout):
-        self.layout = layout
+    def __init__(self, layout, keep: tuple):
+        self.layout, self.keep = layout, keep
 
     def __getattr__(self, name):
         return getattr(self.layout, name)
 
-    def enter(self, x):
-        return x
+    def enter(self, *xs):
+        out = tuple(self.layout.enter(x) if i in self.keep else x
+                    for i, x in enumerate(xs))
+        return out[0] if len(out) == 1 else out
 
 
 def train_faults(torch, which: str, mesh):
-    """A context that plants one of ``TRAIN_FAULTS`` in this rank's
-    modules (``mesh`` the rank's: its model axis's group tells the
-    partial leaves' sum from the data axes')."""
+    """A context that plants one of ``TRAIN_FAULTS`` or
+    ``FAMILY_TRAIN_FAULTS`` in this rank's modules (``mesh`` the rank's:
+    its model axis's group tells the partial leaves' sum from the data
+    axes'). "w_B and w_C left out of the partial leaves" acts where the
+    step is built, the others where it runs."""
+    import importlib
     from repro_torch.models import attention as attn_mod
     from repro_torch.optim import adamw as adamw_mod
     from repro_torch.runtime import train_lib
+    from repro_torch.sharding import layout as layout_mod
+    moe_mod = importlib.import_module("repro_torch.models.moe")
 
     def no_enter(sharded):
-        def faulty(params, x, cfg, cache, shard, causal=True):
-            return sharded(params, x, cfg, cache, _NoEnter(shard), causal)
+        def faulty(params, x, cfg, cache, shard, *rest):
+            return sharded(params, x, cfg, cache, _EnterSome(shard, ()),
+                           *rest)
         return faulty
 
     def own_norm(norm):
@@ -4920,71 +5140,193 @@ def train_faults(torch, which: str, mesh):
 
     def no_gather(gather):
         return lambda parts, group: None
+
+    def entering(keep):
+        # the MoE enters (tokens, gates) in that order
+        def wrap(local):
+            def faulty(*args, shard=None, **kw):
+                return local(*args, shard=_EnterSome(shard, keep), **kw)
+            return faulty
+        return wrap
+
+    def own_rows(global_means):
+        return lambda probs, top1, shard: (probs.mean(dim=0),
+                                           top1.mean(dim=0))
+
+    def identity_backward(sum_partials):
+        return lambda self, t: layout_mod._sum(t, self.model_group)
+
+    def without_b_c(partial_leaves):
+        def faulty(model, layout):
+            return {p for p in partial_leaves(model, layout)
+                    if p[-1] not in ("w_B", "w_C")}
+        return faulty
+
+    def positions_on_axis_0(take_rows):
+        def faulty(batch, rows):
+            out = take_rows(batch, rows)
+            pos = batch.get("mrope_positions")
+            if pos is not None:
+                _, B, S = pos.shape
+                out["mrope_positions"] = pos.reshape(B, 3, S)[rows] \
+                    .reshape(3, -1, S)
+            return out
+        return faulty
     owner, name, wrap = {
         TRAIN_FAULTS[0]: (attn_mod, "_sharded_attention", no_enter),
         TRAIN_FAULTS[1]: (adamw_mod, "sharded_norm", own_norm),
         TRAIN_FAULTS[2]: (train_lib, "flat_sum", no_data_sum),
-        TRAIN_FAULTS[3]: (adamw_mod, "gather_updated", no_gather)}[which]
+        TRAIN_FAULTS[3]: (adamw_mod, "gather_updated", no_gather),
+        MOE_TRAIN_FAULTS[0]: (moe_mod, "_moe_local", entering((0,))),
+        MOE_TRAIN_FAULTS[1]: (moe_mod, "_global_means", own_rows),
+        MOE_TRAIN_FAULTS[2]: (moe_mod, "_moe_local", entering((1,))),
+        SSM_TRAIN_FAULTS[0]: (layout_mod.ShardLayout, "sum_partials",
+                              identity_backward),
+        SSM_TRAIN_FAULTS[1]: (train_lib, "model_partial_leaves",
+                              without_b_c),
+        VLM_TRAIN_FAULTS[0]: (train_lib, "take_rows",
+                              positions_on_axis_0)}[which]
     return patched(owner, name, wrap)
 
 
-def sharded_train_config():
+def sharded_train_config(arch: str = SHARD_TRAIN_ARCH):
     from repro_torch.configs import get_config
     return dataclasses.replace(
-        get_config(SHARD_TRAIN_ARCH), n_layers=SHARD_LAYERS[SHARD_TRAIN_ARCH],
+        get_config(arch), n_layers=SHARD_TRAIN_LAYERS[arch],
         q_chunk=SHARD_TRAIN_SEQ // 2, kv_chunk=SHARD_TRAIN_SEQ // 2,
         remat=True, remat_policy="full", microbatches=1)
 
 
-def sharded_train_reference(torch, path: Path) -> None:
-    """The unsharded train step (``build_train_step(model, opt)``) on the
-    card of ``sharded_train_config``'s model, seed 0 with the attention at
-    fan-in std, on 8 seeded sequences of 513 tokens: saved to ``path`` with
-    the tokens, the loss, the norm, every leaf's gradient and the updated
-    parameters; the card's memory released after."""
+def sharded_train_batch(torch, cfg) -> dict:
+    """The global batch of ``cfg``'s sharded training on the host: 8
+    seeded sequences of 513 tokens; for the vlm also 16 seeded bf16 vision
+    embeddings a row and ``qwen2vl_positions`` (as the single-card qwen2-vl
+    train check feeds them)."""
     import numpy as np
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ + 1)))}
+    if cfg.family == "vlm":
+        n_vis = QWEN2VL_GRID[0] * QWEN2VL_GRID[1]
+        batch["vision_embeds"] = torch.randn(
+            SHARD_TRAIN_BATCH, n_vis, cfg.d_model,
+            generator=torch.Generator().manual_seed(2)).bfloat16()
+        batch["mrope_positions"] = qwen2vl_positions(
+            torch, SHARD_TRAIN_SEQ, SHARD_TRAIN_BATCH)
+    return batch
+
+
+def sharded_train_reference(torch, arch: str, path: Path) -> None:
+    """The unsharded train step (``build_train_step(model, opt)``) on the
+    card of ``sharded_train_config(arch)``'s model, seed 0 with the
+    attention at fan-in std, on ``sharded_train_batch``: saved to ``path``
+    with the batch, the loss, the norm and every leaf's gradient in its
+    parameter's dtype (an MoE's also its layers' top-k experts, which the
+    ranks are fed); the card's memory released after. The updated
+    parameters are not kept: the update is elementwise in the parameter,
+    its gradient and the norm, so each rank remakes its shards' from the
+    same seeded parameters (``reference_update``)."""
     from repro_torch.models import build_model
     from repro_torch.models.param import tree_items
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import train_lib
-    cfg = sharded_train_config()
+    cfg = sharded_train_config(arch)
     model = build_model(cfg)
     opt = AdamWConfig(**SHARD_TRAIN_OPT)
     state = train_lib.init_train_state(model, opt, seed=0, device="cuda")
     attention_at_fan_in(state.params, cfg)
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, size=(SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ + 1)))
-    kept = {}
+    batch = sharded_train_batch(torch, cfg)
+    kept, routes = {}, {"cuda": [], "cpu": []}
 
     def capture(update):
         def recording(params, grads, opt_state, opt_cfg):
             kept.update({"/".join(p): g.cpu() for p, g in tree_items(grads)})
             return update(params, grads, opt_state, opt_cfg)
         return recording
-    with patched(train_lib, "adamw_update", capture):
+    with patched(train_lib, "adamw_update", capture), \
+            record_routes(routes) if cfg.n_experts \
+            else contextlib.nullcontext():
         state, metrics = train_lib.build_train_step(model, opt)(
-            state, {"tokens": tokens.cuda()})
-    torch.save({"tokens": tokens, "loss": float(metrics["loss"]),
+            state, {k: t.cuda() for k, t in batch.items()})
+    # the forward's calls, one a layer (remat's recompute calls them again)
+    torch.save({"batch": batch, "loss": float(metrics["loss"]),
                 "grad_norm": float(metrics["grad_norm"]), "grads": kept,
-                "p1": {"/".join(p): a.cpu()
-                       for p, a in tree_items(state.params)}}, path)
+                "routes": [t for t, _, _ in (routes["cuda"] + routes["cpu"])[
+                    :cfg.n_layers]]},
+               path)
     del state, metrics, kept
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
-    """One rank's sharded training of ``sharded_train_config``'s model on
-    ``mesh``: its shards of the seeded state, the checked step on the
-    reference's tokens (its all_reduce calls and kernel launches
-    counted), the sharded AdamW fed the reference's gradients on a fresh
-    state, ``TRAIN_TIMED_STEPS`` timed steps, and one fresh step under
-    each planted fault of ``TRAIN_FAULTS_AT``. Each step is held to the
-    reference (``sharded_train_reference``): the loss rel 1e-2, each
-    gradient shard within ``TRAIN_GRAD_TOL`` of its slice's norm, the norm
-    rel 1e-2, each leaf's update by ``update_rule`` (``TRAIN_GRAD_TOL``,
-    the ties within the admitted); the fed AdamW's update within
-    ``FED_TOL``."""
+def reference_update(torch, path: tuple, p0, grad, opt_cfg, grad_norm):
+    """The unsharded step's update of one slice of a parameter: AdamW's
+    first step (``optim/adamw.py::_update``) on ``p0`` (the seeded value)
+    with the reference's gradient ``grad`` and global norm, from zero
+    moments, as the unsharded step made it; fp32, on the card."""
+    from repro_torch.optim import adamw as adamw_mod
+    p = p0.cuda().clone()
+    m = torch.zeros(p.shape, device="cuda")
+
+    def tree(t):
+        # the leaf under its path, which names its weight decay
+        for key in reversed(path):
+            t = {key: t}
+        return t
+    adamw_mod._update(tree(p), tree(grad.cuda()), adamw_mod.OptState(
+        step=torch.zeros((), dtype=torch.int32, device="cuda"),
+        m=tree(m), v=tree(m.clone())), opt_cfg,
+        torch.tensor(grad_norm, device="cuda"))
+    return p.float() - p0.cuda().float()
+
+
+def shard_leaf_rules(torch, path: tuple, new, p0, grad, ref_grad, opt_cfg,
+                     grad_norm: float, floor: float) -> tuple:
+    """One leaf of a rank's step against the reference, a row slice at a
+    time (``optim/adamw.py::_pieces``, bounding the fp32 temporaries):
+    (||grad - ref_grad||^2, ||ref_grad||^2, and ``update_rule``'s sums of
+    the update ``new - p0`` against the reference's,
+    ``reference_update``)."""
+    from repro_torch.optim.adamw import _pieces
+    pieces = list(_pieces(tuple(grad.shape)))
+    d2 = r2 = 0.0
+    for pc in pieces:
+        rg = ref_grad[pc].cuda().float()
+        d2 += float((grad[pc].float() - rg).square().sum())
+        r2 += float(rg.square().sum())
+    per = 2 * TRAIN_GRAD_TOL * r2 ** 0.5 / grad.numel() ** 0.5
+    sums = [0.0, 0.0, 0, 0]
+    for pc in pieces:
+        start = p0[pc].cuda().float()
+        want = reference_update(torch, path, p0[pc], ref_grad[pc], opt_cfg,
+                                grad_norm)
+        for i, v in enumerate(update_sums(
+                torch, new[pc].float() - start, want, grad[pc],
+                ref_grad[pc].cuda(), floor, per)):
+            sums[i] += v
+    return d2, r2, sums
+
+
+def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
+                           zero1: bool) -> dict:
+    """One rank's sharded training of ``sharded_train_config(arch)``'s
+    model on ``mesh``: its shards of the seeded state, the checked step on
+    the reference's batch (an MoE fed the reference's experts,
+    ``experts_as``; its all_reduce calls and kernel launches counted),
+    ``TRAIN_TIMED_STEPS`` timed steps on the state it leaves, an MoE's step
+    on its own routing (printed, not held: ROADMAP C.2), the sharded AdamW
+    fed the reference's gradients, and one step under each planted fault
+    of ``train_faults_of`` (its step built under the fault), each from the
+    seeded state again (the parameters copied back from the host, the
+    moments zeroed). Each step is held to the reference
+    (``sharded_train_reference``): the loss rel 1e-2, each gradient shard
+    within ``TRAIN_GRAD_TOL`` of its slice's norm, the norm rel 1e-2, each
+    leaf's update by ``update_rule`` (``TRAIN_GRAD_TOL``, the ties within
+    the admitted; the reference's update remade by ``reference_update``);
+    the fed AdamW's update within ``FED_TOL`` of the reference's arithmetic
+    at the norm it took, that norm within ``FED_NORM_TOL`` of the
+    reference's. One state lives at a time, beside the seeded parameters
+    and the reference's gradient shards on the card (a qwen3-moe rank's
+    3.7 GB each)."""
     from repro_torch.models import build_model
     from repro_torch.models.param import (tree_at, tree_items,
                                           tree_map_with_path)
@@ -4992,7 +5334,7 @@ def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
     from repro_torch.runtime import train_lib
     from repro_torch.sharding.rules import local_slices
     ref = torch.load(ref_path, mmap=True)
-    cfg = sharded_train_config()
+    cfg = sharded_train_config(arch)
     model = build_model(cfg)
     opt = AdamWConfig(**SHARD_TRAIN_OPT)
     specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
@@ -5001,25 +5343,34 @@ def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
               for p, d in tree_items(model.param_decls())}
     ref_g = {p: ref["grads"]["/".join(p)][region[p]].cuda() for p in paths}
     n_params = sum(t.numel() for t in ref_g.values())
-    batch = {"tokens": ref["tokens"].cuda()}
-    step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
-    mesh_shape = tuple(mesh.shape.values())
-
-    def fresh():
-        state = train_lib.init_train_state(model, opt, seed=0, device="cuda",
-                                           mesh=mesh, zero1=zero1)
-        attention_at_fan_in(state.params, cfg)
-        return state
-
-    state = fresh()
-    p0 = {p: a.clone() for p, a in tree_items(state.params)}
-    ref_upd = {p: ref["p1"]["/".join(p)][region[p]].cuda().float()
-               - p0[p].float() for p in paths}
+    batch = {k: t.cuda() for k, t in ref["batch"].items()}
+    routes = [(t,) for t in ref["routes"]]
     want_loss, want_gn = ref["loss"], ref["grad_norm"]
     floor = update_floor(opt, want_gn)
-    del ref
+    mesh_shape = tuple(mesh.shape.values())
 
-    def run(state, count=None):
+    def fed():
+        return experts_as(routes) if routes else contextlib.nullcontext()
+
+    def build():
+        return train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
+
+    state = train_lib.init_train_state(model, opt, seed=0, device="cuda",
+                                       mesh=mesh, zero1=zero1)
+    attention_at_fan_in(state.params, cfg)
+    p0 = {p: a.detach().clone() for p, a in tree_items(state.params)}
+
+    def reset(state):
+        """The seeded state again, in place: the steps write into it."""
+        with torch.no_grad():
+            for p, a in tree_items(state.params):
+                a.copy_(p0[p])
+            for tree in (state.opt.m, state.opt.v):
+                for _, a in tree_items(tree):
+                    a.zero_()
+            state.opt.step.zero_()
+
+    def run(state, step, routing, count=None):
         seen = {}
 
         def capture(update):
@@ -5029,25 +5380,29 @@ def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
             return recording
         with patched(train_lib, "adamw_update_sharded", capture), \
                 counting_all_reduce(torch, count) if count is not None \
-                else contextlib.nullcontext():
+                else contextlib.nullcontext(), routing:
             state, metrics = step(state, batch)
         return state, metrics, seen
 
-    def rules(start: dict, state, metrics, grads) -> dict:
+    def rules(state, metrics, grads) -> dict:
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
-        grad_errs = {"/".join(p): leaf_err(grads[p], ref_g[p])
-                     for p in paths}
-        upd = {"/".join(p): update_rule(
-            torch, a.float() - start[p].float(), ref_upd[p], grads[p],
-            ref_g[p], floor) for p, a in tree_items(state.params)}
+        grad_errs, upd, ties, admitted = {}, {}, 0, 0
+        for p, a in tree_items(state.params):
+            d2, r2, (num2, den2, n_tie, ok) = shard_leaf_rules(
+                torch, p, a, p0[p], grads[p], ref_g[p], opt, want_gn, floor)
+            name = "/".join(p)
+            grad_errs[name] = (d2 / r2) ** 0.5 if r2 else (
+                0.0 if d2 == 0 else float("inf"))
+            upd[name] = (num2 / den2) ** 0.5 if den2 else (
+                0.0 if num2 == 0 else float("inf"))
+            ties, admitted = ties + n_tie, admitted + ok
         res = {"loss": loss, "loss_rel": abs(loss - want_loss) / want_loss,
                "grad_norm": gn, "gn_rel": abs(gn - want_gn) / want_gn,
                "grad_err": max(grad_errs.values()),
                "grad_worst": sorted(grad_errs, key=grad_errs.get)[-3:],
-               "update_err": max(e for e, _, _ in upd.values()),
-               "update_ties": sum(n for _, n, _ in upd.values()) / n_params,
-               "ties_admitted": sum(a for _, _, a in upd.values())
-               / n_params}
+               "update_err": max(upd.values()),
+               "update_ties": ties / n_params,
+               "ties_admitted": admitted / n_params}
         res["broken"] = [name for name, ok in (
             ("loss", res["loss_rel"] < 1e-2),
             ("gradients", res["grad_err"] <= TRAIN_GRAD_TOL),
@@ -5060,33 +5415,22 @@ def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
     for k in counters.values():
         k.launches = 0
     count = [0]
+    step = build()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, metrics, grads = run(state, count)
+    state, metrics, grads = run(state, step, fed(), count)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in counters.items()}
-    result = {"coords": dict(mesh.coords), "zero1": zero1,
-              "collectives": count[0],
+    result = {"coords": dict(mesh.coords), "zero1": zero1, "arch": arch,
+              "layers": cfg.n_layers, "collectives": count[0],
               "want_collectives": train_collectives(cfg, mesh_shape, zero1),
               "launches": launches, "first_s": first_s,
-              **rules(p0, state, metrics, grads)}
+              **rules(state, metrics, grads)}
     del grads
     state_bytes = sum(a.numel() * a.element_size() for tree in (
         state.params, state.opt.m, state.opt.v) for _, a in tree_items(tree))
-    # the sharded AdamW fed the reference's gradients, on a fresh state
-    fed = fresh()
-    plan = train_lib.shard_plan(model, mesh, zero1)
-    params, _, _ = adamw_mod.adamw_update_sharded(
-        fed.params, tree_map_with_path(lambda p, _: ref_g[p], fed.params),
-        fed.opt, opt, plan)
-    result["fed_err"] = max(update_rule(
-        torch, a.float() - p0[p].float(), ref_upd[p], ref_g[p], ref_g[p])[0]
-                            for p, a in tree_items(params))
-    if not result["fed_err"] <= FED_TOL:
-        result["broken"].append("fed AdamW")
-    del fed, params
     times = []
     for _ in range(TRAIN_TIMED_STEPS):
         torch.cuda.synchronize()
@@ -5099,16 +5443,41 @@ def sharded_train_rank_run(torch, mesh, ref_path: str, zero1: bool) -> dict:
                   tokens_per_s=SHARD_TRAIN_BATCH * SHARD_TRAIN_SEQ / step_s,
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                   state_gb=state_bytes / 1e9)
-    del state, metrics
+    if routes:
+        # its own routing, from the seeded state: printed, not held
+        reset(state)
+        state, metrics, grads = run(state, step, contextlib.nullcontext())
+        result["own"] = rules(state, metrics, grads)
+        del grads
+    # the sharded AdamW fed the reference's gradients, on the seeded state
+    reset(state)
+    plan = train_lib.shard_plan(model, mesh, zero1)
+    params, _, fed_metrics = adamw_mod.adamw_update_sharded(
+        state.params, tree_map_with_path(lambda p, _: ref_g[p].cuda(),
+                                         state.params),
+        state.opt, opt, plan)
+    fed_gn = float(fed_metrics["grad_norm"])
+    fed_errs = []
+    for p, a in tree_items(params):
+        _, _, (num2, den2, _, _) = shard_leaf_rules(
+            torch, p, a, p0[p], ref_g[p].cuda(), ref_g[p], opt, fed_gn, 0.0)
+        fed_errs.append((num2 / den2) ** 0.5 if den2 else (
+            0.0 if num2 == 0 else float("inf")))
+    result["fed_err"] = max(fed_errs)
+    result["fed_gn_rel"] = abs(fed_gn - want_gn) / want_gn
+    if not (result["fed_err"] <= FED_TOL
+            and result["fed_gn_rel"] <= FED_NORM_TOL):
+        result["broken"].append("fed AdamW")
+    del params
     faults = {}
-    for which in TRAIN_FAULTS_AT[mesh_shape]:
-        state = fresh()
-        start = {p: a.clone() for p, a in tree_items(state.params)}
+    for which in train_faults_of(arch, mesh_shape):
+        reset(state)
         with train_faults(torch, which, mesh):
-            state, metrics, grads = run(state)
-        faults[which] = rules(start, state, metrics, grads)
-        del state, metrics, grads, start
+            state, metrics, grads = run(state, build(), fed())
+        faults[which] = rules(state, metrics, grads)
+        del grads
     result["faults"] = faults
+    del state, metrics
     return result
 
 
@@ -5124,21 +5493,35 @@ def _train_line(res: dict) -> str:
             f"broken: {res['broken'] or 'none'}")
 
 
-def sharded_train_check(torch, mesh_shape: tuple, results: dict) -> dict:
-    """``sharded_train_check``: one mesh's ranks of the sharded training
-    run (``sharded_train_rank_run``, in the spawn of the mesh's serving
-    group), logged and held: every rule on every rank; the all_reduce
-    calls of the checked step equal to ``train_collectives``; the flash
-    kernels' launches 2 x the layers forward (remat recomputes each) and
-    the layers backward, no other kernel; each planted fault of
-    ``TRAIN_FAULTS_AT`` breaking a rule on every rank. Ranks that share
-    the one card over gloo: their times are not a multi-card figure.
-    Returns the flash launches summed over the ranks."""
-    layers = sharded_train_config().n_layers
-    launched = {"flash_attention": 0, "flash_attention_bwd": 0}
+def train_kernels(cfg) -> dict:
+    """The kernel launches of one sharded train step a rank: the flash
+    forward twice a layer (remat recomputes it) and its backward once, or
+    the ssd forward twice and its backward once; no other kernel."""
+    if cfg.family == "ssm":
+        return {"ssd": 2 * cfg.n_layers, "ssd_bwd": cfg.n_layers}
+    return {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def sharded_train_check(torch, mesh_shape: tuple, arch: str,
+                        results: dict) -> dict:
+    """``sharded_train_check``: one mesh's ranks of ``arch``'s sharded
+    training run (``sharded_train_rank_run``, in the spawn of the mesh's
+    serving group), logged and held: every rule on every rank; the
+    all_reduce calls of the checked step equal to ``train_collectives``;
+    the kernels' launches of ``train_kernels``; each planted fault of
+    ``train_faults_of`` breaking a rule on every rank. An MoE's step on its
+    own routing is printed, not held (ROADMAP C.2). Ranks that share the
+    one card over gloo: their times are not a multi-card figure. Returns
+    the kernels' launches summed over the ranks."""
+    cfg = sharded_train_config(arch)
+    launched = {}
+    extra = f", {QWEN2VL_GRID[0] * QWEN2VL_GRID[1]} vision embeddings a " \
+        f"row and 3-D positions" if cfg.family == "vlm" else (
+            ", fed the unsharded step's experts" if cfg.n_experts else "")
     for rank, res in sorted(results.items()):
-        log(f"[sharded-train] {SHARD_TRAIN_ARCH} ({layers} layers, batch "
-            f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ}, zero1 "
+        log(f"[sharded-train] {arch} ({cfg.n_layers} layers, batch "
+            f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ}{extra}, zero1 "
             f"{res['zero1']}) mesh {mesh_shape} rank {rank} "
             f"{res['coords']} (processes sharing one card over gloo, not a "
             f"multi-card figure): {res['ms_a_step']:.1f} ms a step, "
@@ -5147,33 +5530,40 @@ def sharded_train_check(torch, mesh_shape: tuple, results: dict) -> dict:
             f"{res['state_gb']:.3f} GB; all_reduce calls {res['collectives']}"
             f" (want {res['want_collectives']}); launches {res['launches']};"
             f" fed AdamW's update {res['fed_err']:.2e} of the reference's "
-            f"(tol {FED_TOL:g}); {_train_line(res)}")
+            f"at its norm (tol {FED_TOL:g}), that norm {res['fed_gn_rel']:.2e}"
+            f" from the reference's (tol {FED_NORM_TOL:g}); "
+            f"{_train_line(res)}")
+        if "own" in res:
+            log(f"[sharded-train] {arch} rank {rank}, its own routing "
+                f"(printed, not held: ROADMAP C.2): {_train_line(res['own'])}")
         want = dict.fromkeys(res["launches"], 0)
-        want.update(flash_attention=2 * layers, flash_attention_bwd=layers)
+        want.update(train_kernels(cfg))
         if res["launches"] != want:
-            raise AssertionError(f"sharded training {mesh_shape} rank "
-                                 f"{rank}: launches {res['launches']}, want "
-                                 f"{want}")
+            raise AssertionError(f"sharded training {arch} {mesh_shape} "
+                                 f"rank {rank}: launches {res['launches']}, "
+                                 f"want {want}")
         if res["collectives"] != res["want_collectives"]:
-            raise AssertionError(f"sharded training {mesh_shape} rank "
-                                 f"{rank}: {res['collectives']} all_reduce "
-                                 f"calls, want {res['want_collectives']}")
+            raise AssertionError(f"sharded training {arch} {mesh_shape} "
+                                 f"rank {rank}: {res['collectives']} "
+                                 f"all_reduce calls, want "
+                                 f"{res['want_collectives']}")
         if res["broken"]:
-            raise AssertionError(f"sharded training {mesh_shape} rank "
-                                 f"{rank}: rules broken {res['broken']}")
-        for name in launched:
-            launched[name] += res["launches"][name]
-    for which in TRAIN_FAULTS_AT[mesh_shape]:
+            raise AssertionError(f"sharded training {arch} {mesh_shape} "
+                                 f"rank {rank}: rules broken {res['broken']}")
+        for name, n in res["launches"].items():
+            launched[name] = launched.get(name, 0) + n
+    for which in train_faults_of(arch, mesh_shape):
         got = {r: res["faults"][which] for r, res in results.items()}
         broke = sorted(r for r, f in got.items() if f["broken"])
-        log(f"[sharded-train] {mesh_shape} planted fault '{which}': breaks a "
-            f"rule on ranks {broke} (" + "; ".join(
+        log(f"[sharded-train] {arch} {mesh_shape} planted fault '{which}': "
+            f"breaks a rule on ranks {broke} (" + "; ".join(
                 f"rank {r}: {_train_line(f)}" for r, f in sorted(got.items()))
             + ")")
         if broke != sorted(results):
-            raise AssertionError(f"sharded training {mesh_shape}: the "
-                                 f"planted fault '{which}' broke no rule on "
-                                 f"ranks {sorted(set(results) - set(broke))}")
+            raise AssertionError(f"sharded training {arch} {mesh_shape}: "
+                                 f"the planted fault '{which}' broke no rule "
+                                 f"on ranks "
+                                 f"{sorted(set(results) - set(broke))}")
     return launched
 
 
@@ -5413,11 +5803,23 @@ def main() -> int:
             (decode, "rank_cross", "decode_attention", (SEAMLESS_ARCH,))):
         rec[key]["launches"] = sum(by_arch[a][name] for a in archs)
     # the sharded training's rows (a rank's heads at a model axis of 2),
-    # each with the launches of every rank's checked step at (1, 2) and
-    # (2, 2)
-    for rec, name in ((flash, "flash_attention"),
-                      (flash_bwd, "flash_attention_bwd")):
-        rec["rank_train"]["launches"] = sharded["train"][name]
+    # each with the launches of every rank's checked step of its arch at
+    # (1, 2) and (2, 2): tinyllama's G = 8 at D = 64, qwen2-vl's G = 8 and
+    # qwen3-moe's G = 16 at D = 128, mamba2's 16 ssd heads
+    train = sharded["train"]
+    for rec, key, arch, name in (
+            (flash, "rank_train", SHARD_TRAIN_ARCH, "flash_attention"),
+            (flash_bwd, "rank_train", SHARD_TRAIN_ARCH,
+             "flash_attention_bwd"),
+            (flash, "rank_train_g8_d128", QWEN2VL_ARCH, "flash_attention"),
+            (flash_bwd, "rank_train_g8_d128", QWEN2VL_ARCH,
+             "flash_attention_bwd"),
+            (flash, "rank_train_g16_d128", MOE_ARCH, "flash_attention"),
+            (flash_bwd, "rank_train_g16_d128", MOE_ARCH,
+             "flash_attention_bwd"),
+            (ssd, "rank_train_h16", "mamba2-370m", "ssd"),
+            (ssd_bwd, "rank_train_h16", "mamba2-370m", "ssd_bwd")):
+        rec[key]["launches"] = train[arch][name]
     # qwen2-vl's rows (G = 8, D = 128), each with the launches of its
     # counted serve_loop (flash: 40, one a layer; decode: 40 x 31) or of
     # its counted training run (the backward 4, the forward 8)

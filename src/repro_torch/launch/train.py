@@ -12,11 +12,12 @@ On one card it trains what fits: the parameters, their gradients and
 AdamW's two fp32 moments take ~12 bytes a parameter, ~190 GB for a 15 B
 arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so a full-depth run of
 one on a single card raises ``ValueError``; a cut depth of them trains.
-The dense family also trains over a (data, model) mesh (``data=``,
-``model=``; every rank of a live process group calls :func:`train_loop`):
-each rank holds its shards of the state and its rows of the batch, and
-the refusal counts those shards; the other families, checkpoints of a
-sharded state and ZeRO-3 wait for ROADMAP A.12. So does
+The dense, vlm, moe and ssm families also train over a (data, model) mesh
+(``data=``, ``model=``; every rank of a live process group calls
+:func:`train_loop`): each rank holds its shards of the state and its rows
+of each global microbatch, and the refusal counts those shards; the
+hybrid and encoder-decoder families, checkpoints of a sharded state and
+ZeRO-3 wait for ROADMAP A.12. So does
 qwen2-vl-72b (872 GB of state at its 80 layers; at 1 layer, 40 GB), which
 trains as the reference's ``train_loop`` trains it: on the synthetic
 tokens alone, so its attention takes the 1-D RoPE (``loss_fn`` reads
@@ -119,9 +120,9 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
     encoder-decoder also ``frames_len``, the frames a sequence:
     ``FRAMES_LEN``, 16 reduced). On the card it first refuses a state
     larger than the card and builds the kernels, so no kernel builds inside
-    a step. With ``mesh`` (a live mesh, family dense), this rank's step and
-    shards of the state (``build_train_step(..., mesh=)``), the refusal
-    counting those shards."""
+    a step. With ``mesh`` (a live mesh; families dense, vlm, moe and ssm),
+    this rank's step and shards of the state (``build_train_step(...,
+    mesh=)``), the refusal counting those shards."""
     device = resolve_device(device, "train_loop")
     cfg = get_config(arch, reduced=reduced)
     cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
@@ -186,7 +187,8 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     (one rank a card under NCCL, or ranks that share one under gloo, each
     with its device set): the step runs over ``make_local_mesh(data,
     model)``, each rank on its rows of the pipeline's global batch and its
-    shards of the state (the dense family; the reference's signature).
+    shards of the state (families dense, vlm, moe and ssm, on tokens alone
+    as the reference's loop feeds them; the reference's signature).
     With no process group up it raises ``RuntimeError``, as
     ``make_local_mesh`` does; ``ckpt_dir`` with more than one rank raises
     ``NotImplementedError`` naming ROADMAP A.12 (sharded checkpoints).

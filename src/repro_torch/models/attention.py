@@ -238,18 +238,17 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     K/V buffers, written in place. The cache rows are always ``length ..
     length + S - 1``, whatever positions rotate q and k.
     ``shard`` runs this rank's part of a sharded call
-    (:func:`_sharded_attention`: cached, or uncached as the encoder's;
-    1-D RoPE, no ``kv_source``).
+    (:func:`_sharded_attention`: cached, or uncached as the encoder's and
+    training's; M-RoPE at ``mrope_positions``, this rank's rows, as here;
+    no ``kv_source``).
     """
     if shard is not None:
-        for given, what in ((mrope_positions, "M-RoPE positions"),
-                            (kv_source, "kv_source (uncached "
-                             "cross-attention)")):
-            if given is not None:
-                raise NotImplementedError(
-                    f"{what} in a sharded call: not in the sharded "
-                    f"execution of the port yet (ROADMAP A.12)")
-        return _sharded_attention(params, x, cfg, cache, shard, causal)
+        if kv_source is not None:
+            raise NotImplementedError(
+                "kv_source (uncached cross-attention) in a sharded call: not "
+                "in the sharded execution of the port yet (ROADMAP A.12)")
+        return _sharded_attention(params, x, cfg, cache, shard, causal,
+                                  mrope_positions)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     is_cross = kv_source is not None
@@ -422,7 +421,8 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, shard) -> torch.Tensor:
 
 
 def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                       cache: KVCache | None, shard, causal: bool = True):
+                       cache: KVCache | None, shard, causal: bool = True,
+                       mrope_positions: torch.Tensor | None = None):
     """One rank's share of an attention call: x (B_local, S, M), params
     this rank's shards (q heads ``shard.heads``, K/V heads
     ``shard.kv_heads``), cache None (the encoder's uncached call, causal
@@ -450,7 +450,10 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     Where the heads are cut, ``x`` enters through ``shard.enter``: under
     grad (training, uncached) the gradient of ``x``, each rank's heads'
     part, is summed over the model axis; ``wo``'s sum passes the gradient
-    whole to every rank. Returns (y, new cache or None)."""
+    whole to every rank. q and k rotate by M-RoPE at ``mrope_positions``
+    (3, B_local, S) where the config uses it and they are given (each
+    rank's heads at its rows' positions), else by the 1-D RoPE at the
+    cache rows. Returns (y, new cache or None)."""
     B, S, M = x.shape
     D = cfg.head_dim
     Hl, Hkl = shard.heads.size, shard.kv_heads.size
@@ -465,9 +468,13 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     rows = torch.arange(S, device=x.device)
     if cache is not None:
         rows = cache.length + rows
-    cos, sin = rope_table(rows, D, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.use_mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, D, theta=cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, D, theta=cfg.rope_theta)
+    else:
+        cos, sin = rope_table(rows, D, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     span, kv = shard.seq, _kv_range(shard)
     if cache is None:
         own = slice(kv.start - shard.kv_heads.start,

@@ -36,8 +36,9 @@ Entry points, as in the reference:
                                         -> (logits (B, S, V), aux);
 
 both also take ``shard``, one rank's part of a (data, model) mesh under
-autograd (family dense; ``runtime/train_lib.py``'s sharded step), and
-``loss_fn`` per-token ``weights``;
+autograd (families dense, vlm, moe and ssm; ``runtime/train_lib.py``'s
+sharded step), and ``loss_fn`` per-token ``weights`` and the aux term's
+``aux_weight``;
 * ``prefill(params, tokens, cache, **kw)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache, **kw)`` -> (logits (B, 1, V), cache);
   ``kw`` is ``mrope_positions``, as in the reference.
@@ -322,17 +323,20 @@ class LM:
         S) reach every layer's attention.
 
         With ``shard`` (a training ``ShardLayout`` from
-        ``runtime/serve_lib.py::shard_layout``; family dense): this rank's
-        part of a (data, model) mesh under autograd. ``tokens`` are this
+        ``runtime/serve_lib.py::shard_layout``; families dense, vlm, moe
+        and ssm): this rank's part of a (data, model) mesh under autograd.
+        ``tokens``, ``vision_embeds`` and ``mrope_positions`` are this
         rank's rows and ``params`` its shards; the vocab-parallel
-        embedding, each layer's column- and row-parallel attention and MLP
+        embedding (the rank's ``vision_embeds`` spliced in after it), each
+        layer's column- and row-parallel attention (M-RoPE on the rank's
+        heads) and MLP, expert-parallel MoE or head-parallel Mamba block
         (under remat), and the logits at this rank's vocab columns (B, S,
-        V_local). Under grad another family raises
-        ``NotImplementedError`` naming ROADMAP A.12: its collectives carry
-        no gradient."""
+        V_local). Under grad the hybrid family raises
+        ``NotImplementedError`` naming ROADMAP A.12, whose sharded training
+        comes later."""
         cfg = self.cfg
         if shard is not None and torch.is_grad_enabled() \
-                and cfg.family != "dense":
+                and cfg.family == "hybrid":
             raise NotImplementedError(
                 f"sharded training of the {cfg.family} family: not in the "
                 f"sharded execution of the port yet (ROADMAP A.12)")
@@ -366,7 +370,8 @@ class LM:
         return self._head(params, x, shard), aux
 
     def loss_fn(self, params, batch, *, shard=None,
-                weights: torch.Tensor | None = None) -> torch.Tensor:
+                weights: torch.Tensor | None = None,
+                aux_weight: float = 1.0) -> torch.Tensor:
         """batch: {'tokens': (B, S+1), optional 'vision_embeds' (B, nv, M),
         'mrope_positions' (3, B, S), 'mask' (B, S)} -> scalar fp32
         next-token cross entropy plus ``AUX_COEF`` times the aux loss (0
@@ -377,7 +382,10 @@ class LM:
         (``common.token_nll``), the same on every model rank. ``weights``
         (B, S) fp32: the cross entropy is sum(nll * weights) in place of
         the masked mean (the sharded train step's share of the global
-        batch's loss; ``mask`` is then unused)."""
+        batch's loss; ``mask`` is then unused), and the aux loss enters
+        times ``aux_weight`` (the step's 1 / microbatches), counted once
+        over the batch ranks (``ShardLayout.counted_once``: every batch
+        rank computes the same aux over the global microbatch)."""
         tokens = batch["tokens"]
         logits, aux = self.forward(
             params, tokens[:, :-1], vision_embeds=batch.get("vision_embeds"),
@@ -385,9 +393,11 @@ class LM:
         if weights is None:
             ce = cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"),
                                     shard)
-        else:
-            ce = (token_nll(logits, tokens[:, 1:], shard) * weights).sum()
-        return ce + AUX_COEF * aux
+            return ce + AUX_COEF * aux
+        ce = (token_nll(logits, tokens[:, 1:], shard) * weights).sum()
+        if shard is not None and torch.is_tensor(aux):
+            aux = shard.counted_once(aux)
+        return ce + AUX_COEF * aux_weight * aux
 
     # ------------------------------------------------------------------
     # serving

@@ -16,8 +16,11 @@ reference's:
   equal probabilities, as ``jax.lax.top_k``), gates renormalised with a
   ``1e-9`` floor, and the GShard load-balance aux loss; on a rank, over its
   rows with the replicated router (the reference routes outside its
-  ``shard_map``; the aux loss is then over the rank's rows, which serving
-  does not read);
+  ``shard_map``). Serving's aux loss is over the rank's rows, which no
+  one reads; a training layout's is the reference's, over the global
+  microbatch: the per-expert sums of the probabilities and of the top-1
+  choices summed over the batch ranks in one fp32 all_reduce
+  (``ShardLayout.batch_sum``);
 * capacity ``C = max(ceil(T·k/E · capacity_factor), 4)`` from the T of the
   call (a rank's: its data shard's tokens, with the global E); a stable
   sort ranks each (token, k) choice within its expert in arrival order, and
@@ -30,6 +33,14 @@ reference's:
   to XLA), then the combine in fp32 weighted by the gates, shared experts
   added, and the output cast back to the activations' dtype (on a rank,
   after the sum over the model axis).
+
+Under grad on a rank (training) the tokens and the gates enter the
+expert-parallel region through ``ShardLayout.enter``: a rank's dispatch,
+shared experts and combine read its own experts' and hidden units' part,
+so the gradients of the tokens and of the gates are parts, summed over the
+model axis in one all_reduce, while the router's own backward (the
+softmax, the aux loss) runs whole and alike on every rank, where the
+reference leaves it to XLA outside its ``shard_map``.
 
 Nothing on the path reads a value on the host (no boolean-mask indexing,
 ``nonzero`` or ``.item()``): every shape follows from the input's, so a
@@ -94,26 +105,43 @@ def _router_probs(router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _gates_and_aux(probs: torch.Tensor, topi: torch.Tensor,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, shard=None):
     """The chosen experts' probabilities renormalised into gates (T, k)
-    fp32, and the GShard load-balance aux () fp32."""
+    fp32, and the GShard load-balance aux () fp32. With a training
+    ``shard``, the aux over every batch rank's tokens of the microbatch
+    (:func:`_global_means`)."""
     topv = probs.gather(1, topi)
     gates = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
     # importance x top-1 load over the tokens
-    me = probs.mean(dim=0)
     experts = torch.arange(cfg.n_experts, device=probs.device)
-    ce = (topi[:, :1] == experts).float().mean(dim=0)
+    top1 = (topi[:, :1] == experts).float()
+    if shard is not None and shard.training and shard.batch_ranks > 1:
+        me, ce = _global_means(probs, top1, shard)
+    else:
+        me, ce = probs.mean(dim=0), top1.mean(dim=0)
     return gates, cfg.n_experts * torch.sum(me * ce)
 
 
-def _route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, M) -> topi (T, k) int64, gates (T, k) fp32, aux () fp32."""
+def _global_means(probs: torch.Tensor, top1: torch.Tensor, shard):
+    """The means over the global microbatch of the probabilities and of
+    the top-1 one-hot (E,) fp32: each rank's per-expert sums over its own
+    tokens, summed over the batch ranks in one all_reduce, over every
+    rank's tokens (each rank holds as many)."""
+    sums = shard.batch_sum(torch.stack([probs.sum(dim=0), top1.sum(dim=0)]))
+    me, ce = sums / (probs.shape[0] * shard.batch_ranks)
+    return me, ce
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+           shard=None):
+    """x (B, S, M) -> topi (T, k) int64, gates (T, k) fp32, aux () fp32;
+    ``shard`` reaches the aux loss (:func:`_gates_and_aux`)."""
     probs = _router_probs(router, x)
     # jax.lax.top_k puts the lower index first among equal values; a
     # stable descending sort does too, where torch.topk promises no order
     topi = torch.sort(probs.detach(), dim=-1, descending=True,
                       stable=True)[1][:, :cfg.top_k]
-    gates, aux = _gates_and_aux(probs, topi, cfg)
+    gates, aux = _gates_and_aux(probs, topi, cfg, shard)
     return topi, gates, aux
 
 
@@ -234,10 +262,13 @@ def _moe_local(x, topi, gates, w_gate, w_up, w_down, shared, *,
     (and its columns of ``shared_gate``/``shared_up``, rows of
     ``shared_down``), the choices of other ranks' experts go to the drop
     row, and the fp32 output is summed over the model axis before the
-    cast."""
+    cast; the tokens and the gates enter the region through
+    ``shard.enter``."""
     B, S, M = x.shape
     act = ACTIVATIONS[cfg.activation]
     t = x.reshape(B * S, M)
+    if shard is not None:
+        t, gates = shard.enter(t, gates)
     # capacity a (local) expert: expected load T·k/E tokens from this data
     # shard's rows, padded by the capacity factor
     C = _capacity(B * S, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
@@ -262,8 +293,10 @@ def _moe_local(x, topi, gates, w_gate, w_up, w_down, shared, *,
 def moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *, shard=None):
     """MoE sublayer. x: (B, S, M) -> (y (B, S, M) in x's dtype, aux ()
     fp32). ``shard``: this rank's part of an expert-parallel layer
-    (:func:`_moe_local`)."""
-    topi, gates, aux = _route(params["router"], x, cfg)
+    (:func:`_moe_local`; a training layout's aux loss over the global
+    microbatch, :func:`_gates_and_aux`)."""
+    topi, gates, aux = _route(params["router"], x, cfg) if shard is None \
+        else _route(params["router"], x, cfg, shard=shard)
     shared = None
     if cfg.n_shared_experts:
         shared = (params["shared_gate"], params["shared_up"],

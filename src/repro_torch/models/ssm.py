@@ -22,7 +22,7 @@ With ``shard`` (a ``sharding.layout.ShardLayout``, one rank of a (data,
 model) mesh, ``runtime/serve_lib.py``'s steps) whose ``ssm_heads`` are cut
 over the model axis, the block is head parallel, as the reference's specs
 cut it (:func:`_sharded_mamba`): the rank runs its heads, the ssd kernel
-on them at the prefill, and two collectives a call.
+on them at the prefill and in training, and two collectives a call.
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def mamba_block(params: dict, u: torch.Tensor, cfg: ModelConfig, *,
     Modes: no cache (forward); cache with S > 1 (prefill from the cache's
     state and conv tails); cache with S == 1 (decode). With a cache, its
     buffers are updated in place and returned as the new cache. ``shard``
-    with the heads cut: this rank's part of a cached call
+    with the heads cut: this rank's part of the call, cached or not
     (:func:`_sharded_mamba`)."""
     if shard is not None and shard.ssm_heads.sharded:
         return _sharded_mamba(params, u, cfg, cache, shard)
@@ -219,8 +219,8 @@ def _norm_and_tail(g: torch.Tensor, new_x: torch.Tensor,
 
 
 def _sharded_mamba(params: dict, u: torch.Tensor, cfg: ModelConfig,
-                   cache: SSMCache, shard):
-    """One rank's share of a cached Mamba-2 call (the reference's
+                   cache: SSMCache | None, shard):
+    """One rank's share of a Mamba-2 call (the reference's
     ``mamba_block`` under its specs): params this rank's slices, its
     ``shard.ssm_inner`` columns of ``w_z``, ``w_x``, ``conv_x`` and
     ``norm``, its rows of ``out_proj``, its ``shard.ssm_heads`` of
@@ -235,16 +235,38 @@ def _sharded_mamba(params: dict, u: torch.Tensor, cfg: ModelConfig,
     go to every rank's conv tail, in one all_reduce
     (:func:`_norm_and_tail`); ``out_proj`` is row parallel, its fp32
     partials summed over the model axis and rounded once: two collectives
-    a call."""
+    a call.
+
+    Without a cache (training, under grad) the conv starts from zeros and
+    the ssd kernel from a zero state, keeping its chunk states for its
+    backward; the norm's sum of squares is summed over the model axis by
+    ``shard.sum_partials``, whose backward is that sum too (each rank
+    normalises its own columns by the total), and ``u`` enters through
+    ``shard.enter``: every projection reads it, and the rank's heads use
+    ``w_B``/``w_C`` and their convs, whole on every rank, for their own
+    part, so those weights' gradients are parts as well (the sharded train
+    step sums them over the model axis)."""
     Bb, S, M = u.shape
     P, K = cfg.ssm_head_dim, cfg.ssm_conv
     H, cols = shard.ssm_heads.size, shard.ssm_inner.slice()
+    u = shard.enter(u)
     z = matmul(u, params["w_z"])
     x = matmul(u, params["w_x"])
     Bm = matmul(u, params["w_B"])
     Cm = matmul(u, params["w_C"])
     dt = softplus(matmul(u, params["w_dt"]).float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
+    if cache is None:
+        xh = silu(_causal_conv(x, params["conv_x"].to(x.dtype))).reshape(
+            Bb, S, H, P)
+        Ba = silu(_causal_conv(Bm, params["conv_B"].to(Bm.dtype)))
+        Ca = silu(_causal_conv(Cm, params["conv_C"].to(Cm.dtype)))
+        y, _ = ssd(xh, dt, A, Ba, Ca, chunk=min(cfg.q_chunk, 256))
+        y = (y + params["D"][None, None, :, None] * xh).reshape(Bb, S, H * P)
+        g = y.to(u.dtype) * silu(z)
+        ms = shard.sum_partials(g.float().square().sum(dim=-1, keepdim=True)) \
+            / shard.ssm_inner.total
+        return _gated_out(g, ms, params, shard).to(u.dtype), None
     if S == 1:
         cx = torch.cat([cache.conv_x[:, :, cols],
                         x.to(cache.conv_x.dtype)], 1)
@@ -281,10 +303,16 @@ def _sharded_mamba(params: dict, u: torch.Tensor, cfg: ModelConfig,
         x_full = torch.cat([cache.conv_x[:, 1:],
                             x_full.to(cache.conv_x.dtype)], 1)
     cache.conv_x.copy_(x_full)
-    # common.rms_norm with the whole width's mean square
+    return _gated_out(g, ms, params, shard).to(u.dtype), cache
+
+
+def _gated_out(g: torch.Tensor, ms: torch.Tensor, params: dict,
+               shard) -> torch.Tensor:
+    """``common.rms_norm`` of the rank's gated columns ``g`` with the whole
+    width's mean square ``ms``, then the row-parallel ``out_proj``: its
+    fp32 partials summed over the model axis and rounded once."""
     y = (g.float() * torch.rsqrt(ms + 1e-6)
          * params["norm"].float()).to(g.dtype)
-    out = shard.reduce_sum(matmul_f32(y, params["out_proj"]),
-                           torch.promote_types(y.dtype,
-                                               params["out_proj"].dtype))
-    return out.to(u.dtype), cache
+    return shard.reduce_sum(matmul_f32(y, params["out_proj"]),
+                            torch.promote_types(y.dtype,
+                                                params["out_proj"].dtype))

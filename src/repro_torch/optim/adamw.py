@@ -9,8 +9,11 @@ Two differences, both for memory on the card:
 
 * ``adamw_update`` writes the new parameters and moments into the tensors it
   is given and returns them (the reference's train step donates its state,
-  so XLA updates in place too); each leaf's fp32 temporaries live only while
-  that leaf is updated;
+  so XLA updates in place too); a leaf is updated in row slices of at most
+  ``SLICE_ELEMENTS`` elements (:func:`_pieces`), so its fp32 temporaries
+  take at most ~7 x 256 MB whatever the leaf's size (an embedding of 1.25 B
+  elements would take 7 x 5 GB whole), bit for bit the whole-leaf update:
+  every op is elementwise;
 * the step count is a 0-d int32 tensor on the parameters' device, so the
   schedule and the bias correction never wait for the host.
 
@@ -104,11 +107,37 @@ def _no_decay(path: tuple) -> bool:
                                    "A_log", "D"))
 
 
+# the elements of one slice of a leaf's update: its fp32 temporaries take
+# 256 MB each
+SLICE_ELEMENTS = 1 << 26
+
+
+def _pieces(shape: tuple, limit: int | None = None):
+    """Index tuples that cover a tensor of ``shape`` in row slices of at
+    most ``limit`` elements (``SLICE_ELEMENTS`` by default): slices of the
+    leading dim whole rows at a time, or, where one row holds more, each
+    row cut along the next dim the same way. Each index gives a view."""
+    limit = limit or SLICE_ELEMENTS
+    if len(shape) == 0 or math.prod(shape) <= limit:
+        yield ()
+        return
+    row = math.prod(shape[1:])
+    if row <= limit:
+        step = limit // row
+        for i in range(0, shape[0], step):
+            yield (slice(i, min(i + step, shape[0])),)
+        return
+    for i in range(shape[0]):
+        for rest in _pieces(shape[1:], limit):
+            yield (i,) + rest
+
+
 def _update(params, grads, state: OptState, cfg: AdamWConfig,
             gn: torch.Tensor, regions=None):
     """The AdamW arithmetic on each leaf (or, with ``regions``, on the
     region of each parameter that its moments cover; None: the whole
-    leaf), in place, scaled by the clip of global norm ``gn``."""
+    leaf), in place, scaled by the clip of global norm ``gn``, a row slice
+    at a time (:func:`_pieces`)."""
     p_items = tree_items(params)
     g_leaves = [g for _, g in tree_items(grads)]
     m_leaves = [m for _, m in tree_items(state.m)]
@@ -125,17 +154,27 @@ def _update(params, grads, state: OptState, cfg: AdamWConfig,
                                               v_leaves, regions):
             if region is not None:
                 p, g = p[region], g[region]
-            # op for op as the reference, each op rounded to fp32
-            g32 = g.float() * scale
-            m32 = m.float() * b1 + g32 * (1 - b1)
-            v32 = v.float() * b2 + torch.square(g32) * (1 - b2)
-            upd = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-            if cfg.weight_decay and not _no_decay(path):
-                upd = upd + cfg.weight_decay * p.float()
-            p.copy_(p.float() - lr * upd)
-            m.copy_(m32)
-            v.copy_(v32)
+            decay = cfg.weight_decay and not _no_decay(path)
+            for piece in _pieces(tuple(p.shape)):
+                _update_slice(p[piece], g[piece], m[piece], v[piece], scale,
+                              lr, c1, c2, cfg, decay)
     return OptState(step=step, m=state.m, v=state.v), lr
+
+
+def _update_slice(p, g, m, v, scale, lr, c1, c2, cfg: AdamWConfig,
+                  decay: bool) -> None:
+    """The AdamW arithmetic on one slice of a leaf, op for op as the
+    reference, each op rounded to fp32; written into the views."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g32 = g.float() * scale
+    m32 = m.float() * b1 + g32 * (1 - b1)
+    v32 = v.float() * b2 + torch.square(g32) * (1 - b2)
+    upd = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
+    if decay:
+        upd = upd + cfg.weight_decay * p.float()
+    p.copy_(p.float() - lr * upd)
+    m.copy_(m32)
+    v.copy_(v32)
 
 
 def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):

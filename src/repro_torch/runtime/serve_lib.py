@@ -64,6 +64,8 @@ __all__ = ["cache_specs", "build_prefill_step", "build_decode_step",
 # the families the sharded execution serves, and the logical axes it cuts
 # over the model axis
 _FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the families it trains (``runtime/train_lib.py``'s sharded step)
+_TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm")
 _CUT_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_heads",
              "ssm_inner")
 
@@ -171,14 +173,15 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
     ``max_len`` None gives a training layout (``runtime/train_lib.py``'s
     sharded step): no cache and no ``seq`` span, the parameter specs
     under ``cfg.dp_only`` as ``make_train_state_specs`` takes them, and
-    ``batch`` this rank's rows under ``train_lib.batch_sharding``. Only
-    the dense family trains sharded; another raises."""
+    ``batch`` this rank's rows under ``train_lib.batch_sharding``. The
+    dense, vlm, moe and ssm families train sharded; the hybrid and the
+    encoder-decoder raise."""
     cfg = model.cfg
     fam = cfg.family
     train = max_len is None
     if fam not in _FAMILIES:
         raise _unported(f"sharded serving of the {fam} family")
-    if train and fam != "dense":
+    if train and fam not in _TRAIN_FAMILIES:
         raise _unported(f"sharded training of the {fam} family")
     if zero3:
         raise _unported("ZeRO-3 parameter specs (zero3=True)")
@@ -254,8 +257,8 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
         cut = None
         cspecs = cache_specs(model, mesh, batch, max_len)
     if fam == "ssm":
-        return ShardLayout(mesh=mesh, batch=span_of(cspecs.ssm.state[1],
-                                                    batch, mesh), **kw)
+        return ShardLayout(mesh=mesh, batch=cut["batch"] if train else
+                           span_of(cspecs.ssm.state[1], batch, mesh), **kw)
     if cut is None:
         kv = (cspecs.self_kv if fam == "encdec" else cspecs.kv).k
         if kv[2] != "model":

@@ -9,17 +9,20 @@ over the microbatches, and applies ``adamw_update``. The step writes the
 new parameters and moments into the state's tensors (the reference donates
 its state to XLA, which updates it in place as well).
 
-Over a mesh (``build_train_step(..., mesh=)``, the dense family), each rank
-holds its shards of the state under :func:`make_train_state_specs` (AdamW's
-moments like the parameters, or with ``zero1`` also cut over the batch
-axes) and takes its rows of the global batch (:func:`batch_sharding`). Its
-loss and gradients run through ``loss_fn(..., shard=)``: the serving path's
-column- and row-parallel layers under autograd, whose collectives carry
-their gradients (``sharding/layout.py``), and a vocab-parallel cross
-entropy. The reference's step is one XLA program over the global batch;
-here each rank weights its tokens as the reference's global microbatches
-weight them, so that the sums over the mesh are the reference's loss and
-gradient. The other families, ZeRO-3 and sharded checkpoints come later
+Over a mesh (``build_train_step(..., mesh=)``; the dense, vlm, moe and
+ssm families), each rank holds its shards of the state under
+:func:`make_train_state_specs` (AdamW's moments like the parameters, or
+with ``zero1`` also cut over the batch axes) and takes its rows of each
+global microbatch, as the reference's ``shard_map`` cuts it
+(:func:`group_rows`). Its loss and gradients run through ``loss_fn(...,
+shard=)``: the serving path's column- and row-parallel layers, expert-
+and head-parallel blocks under autograd, whose collectives carry their
+gradients (``sharding/layout.py``), and a vocab-parallel cross entropy.
+The reference's step is one XLA program over the global batch; here each
+rank weights its tokens as the reference's global microbatches weight
+them, and an MoE's aux loss is taken over each global microbatch, so that
+the sums over the mesh are the reference's loss and gradient. The hybrid
+and encoder-decoder families, ZeRO-3 and sharded checkpoints come later
 (ROADMAP A.12).
 """
 
@@ -39,8 +42,8 @@ from ..sharding.rules import (PartitionSpec as P, local_shape, local_slices,
                               make_rules, spec_axes, spec_tree)
 
 __all__ = ["TrainState", "abstract_train_state", "batch_sharding",
-           "build_train_step", "init_train_state", "make_train_state_specs",
-           "shard_plan", "split_microbatches"]
+           "build_train_step", "group_rows", "init_train_state",
+           "make_train_state_specs", "shard_plan", "split_microbatches"]
 
 
 class TrainState(NamedTuple):
@@ -154,10 +157,7 @@ def split_microbatches(batch: dict, mu: int) -> list[dict]:
     B = batch["tokens"].shape[0]
     if B % mu:
         raise ValueError(f"batch {B} is not divisible by {mu} microbatches")
-    n = B // mu
-    return [{k: x[:, i * n:(i + 1) * n] if k == "mrope_positions"
-             else x[i * n:(i + 1) * n] for k, x in batch.items()}
-            for i in range(mu)]
+    return [take_rows(batch, group_rows(B, mu, 1, 0, i)) for i in range(mu)]
 
 
 def build_train_step(model, opt_cfg: AdamWConfig, *, mesh=None,
@@ -173,7 +173,8 @@ def build_train_step(model, opt_cfg: AdamWConfig, *, mesh=None,
     same ``mesh`` and ``zero1``), ``batch`` the whole global batch, and the
     metrics the global loss and norm on every rank. ``zero3`` raises
     ``NotImplementedError`` naming ROADMAP A.12 item 2 before anything is
-    allocated, as does a family other than dense over a mesh."""
+    allocated, as does the hybrid or encoder-decoder family over a
+    mesh."""
     if zero3:
         raise NotImplementedError(
             "ZeRO-3 (zero3=True): the parameters cut over the data axes "
@@ -221,8 +222,7 @@ def loss_weights(batch: dict, mu: int) -> torch.Tensor:
     microbatches (consecutive rows) of each one's masked mean, so
     ``mask / (mu * max(its microbatch's mask count, 1))``; without a mask,
     1 / (B S). A rank's share of the loss is sum(nll * weights) over its
-    rows, whichever of its rows it puts together in its own
-    microbatches."""
+    rows."""
     tokens = batch["tokens"]
     B, S = tokens.shape[0], tokens.shape[1] - 1
     if B % mu:
@@ -236,22 +236,58 @@ def loss_weights(batch: dict, mu: int) -> torch.Tensor:
     return mask / (mu * counts.repeat_interleave(B // mu))[:, None]
 
 
+def group_rows(B: int, mu: int, n_batch: int, index: int, i: int) -> slice:
+    """The rows of the global batch that batch rank ``index`` of
+    ``n_batch`` trains on in microbatch ``i`` of ``mu``: its part of the
+    global microbatch of consecutive rows, ``i B/mu + index B/(mu n_batch)
+    ...``, as the reference's ``shard_map`` cuts each global microbatch
+    over the data axes (an MoE dispatches these rows as one group)."""
+    n = B // (mu * n_batch)
+    start = i * (B // mu) + index * n
+    return slice(start, start + n)
+
+
+def take_rows(batch: dict, rows: slice) -> dict:
+    """``rows`` of every leaf of ``batch``: a ``mrope_positions`` leaf,
+    (3, B, S), on axis 1 (C.1), every other leaf on axis 0."""
+    return {k: x[:, rows] if k == "mrope_positions" else x[rows]
+            for k, x in batch.items()}
+
+
+# the blocks whose execution is model-parallel, each under the layout's
+# span that cuts it: a leaf of one that the specs keep whole over the model
+# axis is used on the rank's part alone
+_PARALLEL_BLOCKS = (("attn", "heads"), ("mamba", "ssm_heads"),
+                    ("moe", "experts"))
+# leaves of those blocks used before their region is entered, on values
+# alike on every model rank: the MoE router (the reference routes outside
+# its shard_map)
+_OUTSIDE = frozenset({("moe", "router")})
+
+
 def model_partial_leaves(model, layout) -> set:
     """Paths of the parameters whose gradient on a rank is a part: those
     that the specs keep whole over the model axis while the code uses them
-    on this rank's part alone. In the dense family that is the attention's
-    leaves that are not cut where its q heads are (qwen3's ``q_norm`` and
-    ``k_norm``, on the rank's heads; ``wk``/``wv`` where the KV heads do
-    not divide, each rank reading the KV heads its q heads use). The
-    norms, the embedding and the head are used before ``enter`` (or all of
-    them on every rank) and get the whole gradient on every rank."""
-    if not layout.heads.sharded:
-        return set()
+    on this rank's part alone, found from the specs. In the attention
+    that is the leaves not cut where its q heads are (qwen3's ``q_norm``
+    and ``k_norm``, on the rank's heads; ``wk``/``wv`` where the KV heads
+    do not divide, each rank reading the KV heads its q heads use); in a
+    Mamba block ``w_B``, ``w_C``, ``conv_B`` and ``conv_C`` (each rank's
+    heads read them); none in an MoE but the router, which is outside its
+    region. The norms, the embedding and the head are used before
+    ``enter`` (or all of them on every rank) and get the whole gradient on
+    every rank."""
     specs = spec_tree(model.param_decls(), layout.mesh,
                       make_rules(layout.mesh, dp_only=model.cfg.dp_only))
-    return {("layers", "attn") + path
-            for path, spec in tree_items(specs["layers"]["attn"])
-            if "model" not in _axes_of(spec)}
+    out = set()
+    for block, span in _PARALLEL_BLOCKS:
+        if block not in specs["layers"] or not getattr(layout, span).sharded:
+            continue
+        out |= {("layers", block) + path
+                for path, spec in tree_items(specs["layers"][block])
+                if "model" not in _axes_of(spec)
+                and (block,) + path not in _OUTSIDE}
+    return out
 
 
 def _axes_of(spec) -> set:
@@ -302,12 +338,18 @@ def shard_plan(model, mesh, zero1: bool = False) -> ShardPlan:
 def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
     """One rank's ``train_step(state, batch)`` on ``mesh``.
 
-    The rank takes its rows of the global batch (:func:`batch_sharding`),
-    cuts them into ``cfg.microbatches`` microbatches of its own and runs
-    each through ``loss_fn(..., shard=, weights=)`` with the tokens'
-    weights in the reference's global loss (:func:`loss_weights`),
-    accumulating the gradient in fp32 (without microbatches, in the
-    parameters' dtype). After the backward: the leaves of
+    For each of the ``cfg.microbatches`` global microbatches (consecutive
+    rows of the batch) the rank takes its rows of it (:func:`group_rows`;
+    with ``mrope_positions`` on axis 1, :func:`take_rows`) and runs them
+    through ``loss_fn(..., shard=, weights=, aux_weight=)`` with the
+    tokens' weights in the reference's global loss (:func:`loss_weights`)
+    and the aux term's 1 / microbatches, accumulating the gradient in fp32
+    (without microbatches, in the parameters' dtype). An MoE dispatches
+    those rows as one group, its capacity from their tokens and its aux
+    loss over the global microbatch, as the reference's. A batch whose
+    microbatches do not divide over the batch ranks raises ``ValueError``
+    (the reference would replicate the microbatch's tokens over the data
+    axes). After the backward: the leaves of
     :func:`model_partial_leaves` summed over the model axis (one flat
     all_reduce, :func:`flat_sum`), every gradient summed over the batch
     axes in fp32 (one), the loss summed over them (one), and
@@ -325,19 +367,20 @@ def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
     def train_step(state: TrainState, batch):
         B = batch["tokens"].shape[0]
         if B % (n_batch * mu):
-            raise ValueError(f"batch {B} does not divide into {n_batch} "
-                             f"ranks' rows of {mu} microbatches each")
+            raise ValueError(f"batch {B} does not divide into {mu} "
+                             f"microbatches, each over {n_batch} batch "
+                             f"ranks' rows")
         layout = shard_layout(model, mesh, B)
-        rows = layout.batch.slice()
-        local = {k: x[:, rows] if k == "mrope_positions" else x[rows]
-                 for k, x in batch.items()}
-        local["weights"] = loss_weights(batch, mu)[rows]
+        index = layout.batch.start // layout.batch.size
+        weights = loss_weights(batch, mu)
         with mesh_context(mesh):
             loss, grads = 0.0, None
-            for mb in split_microbatches(local, mu):
-                weights = mb.pop("weights")
-                l, g = _loss_and_grads(model, state.params, mb,
-                                       shard=layout, weights=weights)
+            for i in range(mu):
+                rows = group_rows(B, mu, n_batch, index, i)
+                l, g = _loss_and_grads(model, state.params,
+                                       take_rows(batch, rows), shard=layout,
+                                       weights=weights[rows],
+                                       aux_weight=1.0 / mu)
                 loss = loss + l
                 g = [t for _, t in tree_items(g)]
                 if grads is None:

@@ -19,27 +19,38 @@ takes CUDA tensors in ``broadcast`` and ``all_reduce`` alone, which is what
 ranks that share one card run on; NCCL (one rank a card) takes the same
 calls.
 
-Under grad (training, dense family) three collectives carry their
-gradients, each a ``torch.autograd.Function`` whose forward is the
-serving path's call:
+Under grad (training: the dense, vlm, moe and ssm families) these
+collectives carry their gradients, each a ``torch.autograd.Function``
+whose forward is the serving path's call. The rule they keep: a tensor
+alike on every model rank holds its whole gradient on every rank.
 
 * :meth:`ShardLayout.enter`, the entry to a model-parallel region (the
   normed input of the column-parallel ``wq``/``wk``/``wv``, ``w_up``/
-  ``w_gate`` and the head's vocab columns): the identity forward, the sum
-  of the input's gradient over the model axis backward (each rank's
-  gradient is its own heads', units' or columns' part). Without grad it
-  returns its input and runs nothing;
+  ``w_gate``, the experts' dispatch and the gates their combine reads, a
+  Mamba block's input, the head's vocab columns): the identity forward,
+  the sum of the input's gradient over the model axis backward (each
+  rank's gradient is its own heads', units', experts' or columns' part).
+  Without grad it returns its input and runs nothing;
 * :meth:`ShardLayout.reduce_sum`, the row-parallel exit: the sum forward,
   the identity backward (every rank's partial takes the whole output's
   gradient);
 * :meth:`ShardLayout.sum_exact`, the vocab-parallel lookup: the sum
   forward, the identity backward (a rank's rows take the gradient of the
-  tokens they hold).
+  tokens they hold);
+* :meth:`ShardLayout.sum_partials`, a statistic summed over the model
+  ranks that each rank then applies to its own part alone (the Mamba
+  block's gated norm, its mean square over ``d_inner`` columns cut over
+  the model axis): the sum forward and the sum backward;
+* :meth:`ShardLayout.batch_sum`, over the batch ranks (the MoE aux loss's
+  per-expert sums over a global microbatch): the sum forward, the identity
+  backward, with :meth:`ShardLayout.counted_once` on the loss term that
+  reads it, so that its value enters the loss summed over the batch ranks
+  once and its gradient reaches each rank's own tokens once.
 
-The vocab-parallel cross entropy (``models/common.py::token_nll``) is the
-fourth: its forward takes ``max_`` and ``sum_with``, its backward is
-local. The rest (``gather``, ``gather_logits``, the decode step's merges)
-serve only.
+The vocab-parallel cross entropy (``models/common.py::token_nll``) is one
+more: its forward takes ``max_`` and ``sum_with``, its backward is local.
+The rest (``gather``, ``gather_logits``, the decode step's merges) serve
+only.
 """
 
 from __future__ import annotations
@@ -56,20 +67,29 @@ __all__ = ["Span", "ShardLayout", "span_of"]
 
 
 class _Enter(torch.autograd.Function):
-    """Identity forward; backward, the gradient summed over ``group`` in
-    fp32 and rounded once to its dtype."""
+    """Identity forward on each of ``xs``; backward, their gradients
+    summed over ``group`` in fp32, in one all_reduce of one flat buffer,
+    each rounded once to its dtype."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, group, *xs):
         ctx.group = group
-        return x.view_as(x)
+        ctx.metas = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, grad):
-        total = grad.to(torch.float32, memory_format=torch.contiguous_format,
-                        copy=True)
-        torch.distributed.all_reduce(total, group=ctx.group)
-        return total.to(grad.dtype), None
+    def backward(ctx, *grads):
+        flat = torch.cat([
+            torch.zeros(shape, dtype=torch.float32, device=device).reshape(-1)
+            if g is None else g.reshape(-1).float()
+            for g, (shape, _, device) in zip(grads, ctx.metas)])
+        torch.distributed.all_reduce(flat, group=ctx.group)
+        out, offset = [], 0
+        for shape, dtype, _ in ctx.metas:
+            n = math.prod(shape)
+            out.append(flat[offset:offset + n].view(shape).to(dtype))
+            offset += n
+        return (None, *out)
 
 
 class _Sum(torch.autograd.Function):
@@ -88,10 +108,29 @@ class _Sum(torch.autograd.Function):
         return grad, None
 
 
-def _sum(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum over ``group``, in place; under grad through :class:`_Sum`."""
+class _SumBoth(torch.autograd.Function):
+    """``t`` summed over ``group`` (on a copy); backward, the gradient
+    summed over it too."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(total, group=ctx.group)
+        return total, None
+
+
+def _sum(t: torch.Tensor, group, both: bool = False) -> torch.Tensor:
+    """Sum over ``group``, in place; under grad through :class:`_Sum` (or,
+    with ``both``, :class:`_SumBoth`)."""
     if torch.is_grad_enabled() and t.requires_grad:
-        return _Sum.apply(t, group)
+        return (_SumBoth if both else _Sum).apply(t, group)
     torch.distributed.all_reduce(t, group=group)
     return t
 
@@ -174,14 +213,57 @@ class ShardLayout:
         grad the sum's backward is the identity."""
         return _sum(partial, self.model_group).to(dtype)
 
-    def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``, replicated over the model axis, entering a region where
-        each model rank computes its part: the identity; under grad the
-        backward sums ``x``'s gradient over the model axis. Without grad,
-        ``x`` itself and no collective."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            return _Enter.apply(x, self.model_group)
-        return x
+    @property
+    def training(self) -> bool:
+        """A training layout (``shard_layout(..., max_len=None)``): no
+        cache."""
+        return self.seq is None
+
+    @property
+    def batch_ranks(self) -> int:
+        """The ranks that cut the batch (1 where it is not cut)."""
+        return self.batch.total // self.batch.size
+
+    def enter(self, *xs: torch.Tensor):
+        """Each of ``xs``, replicated over the model axis, entering a
+        region where each model rank computes its part: the identity; under
+        grad the backward sums their gradients over the model axis, in one
+        all_reduce. Without grad, the inputs themselves and no collective.
+        Returns one tensor for one input, else a tuple."""
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            out = _Enter.apply(self.model_group, *xs)
+        else:
+            out = xs
+        return out[0] if len(xs) == 1 else tuple(out)
+
+    def sum_partials(self, partial: torch.Tensor) -> torch.Tensor:
+        """Sum over the model ranks of each rank's ``partial`` of a
+        statistic that every rank then applies to its own part alone (a
+        norm's sum of squares over columns cut over the model axis): in
+        place; under grad on a copy, and the backward sums the gradient over
+        the model axis as well (each rank's gradient of the total is its
+        own part's)."""
+        return _sum(partial, self.model_group, both=True)
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the batch ranks (a no-op where the batch is not
+        cut): in place; under grad on a copy whose backward is the identity,
+        so each rank's own terms take the gradient of the sum that its
+        loss reads (see :meth:`counted_once`)."""
+        if self.batch_group is None:
+            return t
+        return _sum(t, self.batch_group)
+
+    def counted_once(self, t: torch.Tensor) -> torch.Tensor:
+        """A loss term alike on every batch rank (a function of
+        :meth:`batch_sum`'s sums), entering the loss that the step sums
+        over the batch ranks: its value divided by their number, so that
+        the sum counts it once, and its gradient whole, which through the
+        sum's identity backward reaches each rank's own terms once."""
+        n = self.batch_ranks
+        if n == 1:
+            return t
+        return t + t.detach() * (1.0 / n - 1.0)
 
     def sum_exact(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the model ranks where at most one rank's term is

@@ -11,6 +11,8 @@ reference's production meshes (16, 16) and (2, 16, 16), under the default
 rules, ``zero3``, ``seq_parallel`` and ``dp_only``.
 """
 
+import math
+
 import jax
 import pytest
 from jax.sharding import AbstractMesh, PartitionSpec as JP
@@ -299,6 +301,51 @@ def test_batch_sharding(mesh, dp_only):
         {k: tuple(v) for k, v in want.items()}
 
 
+@pytest.mark.parametrize("mesh", ["1x2", "2x2", "1x4", "16x16", "2x16x16"])
+def test_batch_sharding_of_a_vlm_batch(mesh):
+    """A vlm batch, tokens, vision embeddings (B, nv, M) and M-RoPE
+    positions (3, B, S), at B = 64: every leaf's spec equals the
+    reference's; the embeddings are cut as the tokens on their batch axis
+    and the positions on axis 1. At one microbatch the rows the sharded
+    step takes on each batch rank (``train_lib.group_rows``) are that
+    rank's span of the spec; at two, each rank takes its part of each
+    global microbatch, the same number of rows."""
+    import torch
+    from repro_torch.sharding.rules import local_slices
+    jmesh, tmesh = meshes(mesh)
+    B = 64
+    shapes = {"tokens": ((B, 17), "int32"),
+              "vision_embeds": ((B, 4, 64), "bfloat16"),
+              "mrope_positions": ((3, B, 16), "int32")}
+    jtree = {k: jax.ShapeDtypeStruct(s, getattr(jax.numpy, d))
+             for k, (s, d) in shapes.items()}
+    ttree = {k: torch.empty(s, dtype=getattr(torch, d), device="meta")
+             for k, (s, d) in shapes.items()}
+    want = jax_train_lib.batch_sharding(jmesh, jtree)
+    got = train_lib.batch_sharding(tmesh, ttree)
+    assert {k: tuple(v) for k, v in got.items()} == \
+        {k: tuple(v) for k, v in want.items()}
+    lead = tuple(got["tokens"])[0]
+    assert tuple(got["vision_embeds"]) == (lead, None, None)
+    assert tuple(got["mrope_positions"]) == (None, lead, None)
+    n = math.prod(tmesh.shape[a] for a in tmesh.axis_names
+                  if a != "model")
+    spans = set()
+    for index in range(n):
+        coords = dict(zip(tmesh.axis_names, divmod(index, n // 2)
+                          if len(tmesh.axis_names) == 3 else (index, 0)))
+        rank = abstract_mesh(tuple(tmesh.shape.values()),
+                             tmesh.axis_names)
+        rank.coords.update(coords)
+        span = local_slices(got["tokens"], (B, 17), rank)[0]
+        assert train_lib.group_rows(B, 1, n, index, 0) == span
+        rows = [r for i in range(2)
+                for r in range(B)[train_lib.group_rows(B, 2, n, index, i)]]
+        assert len(rows) == B // n
+        spans.update(rows)
+    assert spans == set(range(B))
+
+
 @pytest.mark.parametrize("mesh", ["1x2", "2x2", "16x16"])
 def test_batch_sharding_goes_by_name_at_a_batch_of_3(mesh):
     """The one departure, pinned: at B = 3 the reference takes an int
@@ -338,12 +385,14 @@ def test_abstract_train_state_matches_the_reference(arch):
             path
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "qwen3-moe-235b-a22b",
-                                  "mamba2-370m", "jamba-1.5-large-398b",
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2"])
 def test_sharded_training_refuses_other_families(monkeypatch, arch):
-    """Every family but dense raises ``NotImplementedError`` naming A.12
-    when its step is built over a mesh, before anything is allocated."""
+    """The hybrid and encoder-decoder families raise
+    ``NotImplementedError`` naming A.12 when their step is built over a
+    mesh, before anything is allocated (the dense, vlm, moe and ssm
+    families train sharded: ``tests/test_torch_train_sharded.py`` and
+    ``tests/test_torch_train_sharded_families.py``)."""
     model = build_model(get_config(arch, reduced=True))
     monkeypatch.setattr(train_lib, "init_params", _no_allocation)
     with pytest.raises(NotImplementedError, match="(?s)training.*A.12"):

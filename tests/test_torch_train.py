@@ -232,6 +232,56 @@ def test_adamw_update_matches_jax_three_steps():
                                            atol=1e-7)
 
 
+@pytest.mark.parametrize("limit", [1, 7, 20, 41])
+def test_adamw_in_row_slices_is_the_whole_leaf_update(monkeypatch, limit):
+    """The update a row slice at a time (``SLICE_ELEMENTS`` set to
+    ``limit``: one element, slices that cut a row, rows whole and a
+    leaf's dim 0 in uneven slices) gives the whole-leaf update's
+    parameters and moments bit for bit, three steps with clipping and
+    weight decay, bf16 and fp32 leaves of 0 to 3 dims; and so does a
+    sharded update's region (ZeRO-1's moments over part of a shard)."""
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.optim import OptState
+    rng = np.random.default_rng(3)
+
+    def draw(shape, dtype):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+    params = {"w": draw((6, 5), torch.bfloat16),
+              "ln1": draw((5,), torch.float32),
+              "layers": {"wq": draw((3, 4, 7), torch.bfloat16)},
+              "scale": draw((), torch.float32)}
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10,
+                      weight_decay=0.1, clip_norm=5.0)
+    runs = []
+    for sliced in (False, True):
+        with monkeypatch.context() as mp:
+            if sliced:
+                mp.setattr(adamw_mod, "SLICE_ELEMENTS", limit)
+                assert len(list(adamw_mod._pieces((3, 4, 7)))) > 1
+            tp = tree_map(lambda a: a.clone(), params)
+            state = adamw_init(tp, cfg)
+            grng = np.random.default_rng(4)
+            for scale in (0.1, 10.0, 1.0):
+                g = tree_map(lambda a: torch.as_tensor(
+                    grng.standard_normal(tuple(a.shape)).astype(np.float32)
+                    * scale), tp)
+                tp, state, _ = adamw_update(tp, g, state, cfg)
+            region = (slice(1, 3), slice(None), slice(2, 7))
+            wq = params["layers"]["wq"].clone()
+            m = torch.zeros((2, 4, 5))
+            adamw_mod._update({"wq": wq}, {"wq": torch.ones_like(wq)},
+                              OptState(torch.zeros((), dtype=torch.int32),
+                                       {"wq": m}, {"wq": m.clone()}),
+                              cfg, torch.tensor(3.0), [region])
+            runs.append((tp, state, wq, m))
+    (p0, s0, w0, m0), (p1, s1, w1, m1) = runs
+    for a, b in ((p0, p1), (s0.m, s1.m), (s0.v, s1.v)):
+        for (path, x), (_, y) in zip(tree_items(a), tree_items(b)):
+            assert torch.equal(x, y), path
+    assert torch.equal(w0, w1) and torch.equal(m0, m1)
+
+
 def test_adamw_reduces_quadratic_loss():
     cfg = AdamWConfig(lr=0.1, warmup_steps=1, total_steps=100,
                       weight_decay=0.0)

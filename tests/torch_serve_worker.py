@@ -65,8 +65,8 @@ def _routing(rows: slice, batch: int, fed: list | None, own: list):
     moe_mod = importlib.import_module("repro_torch.models.moe")
     route, calls = moe_mod._route, iter(fed or ())
 
-    def routed(router, x, cfg):
-        topi, gates, aux = route(router, x, cfg)
+    def routed(router, x, cfg, **kw):
+        topi, gates, aux = route(router, x, cfg, **kw)
         own.append((topi.numpy(), gates.numpy(), matmul(
             x.float().reshape(-1, x.shape[-1]), router).numpy()))
         if fed is None:
@@ -213,16 +213,84 @@ def chip_smoke():
     return module
 
 
+@contextlib.contextmanager
+def microbatch_routes(record: list | None = None, fed: list | None = None,
+                      group: slice = slice(None)):
+    """Context for a train step with MoE layers. Each microbatch (a call of
+    ``train_lib._loss_and_grads``) keys its MoE layers by their router's
+    address, in the order of their first call (remat's recompute calls a
+    layer again): with ``record``, each layer's top-k experts (T, k) numpy
+    appended to ``record``'s list of that microbatch; with ``fed`` (such
+    lists, each of a whole global microbatch), each layer takes its top-k
+    experts from them, at ``group`` of the microbatch's sequences, and
+    forms its gates and aux loss by the port's own ``_router_probs`` and
+    ``_gates_and_aux``, as ``chip_smoke.experts_as`` does, so the gradient
+    reaches the router as it does on its own routing."""
+    import importlib
+    from repro_torch.runtime import train_lib
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    smoke = chip_smoke()
+    state = {"mb": -1, "layers": {}}
+
+    def counted(loss_and_grads):
+        def run(*args, **kw):
+            state["mb"] += 1
+            state["layers"] = {}
+            if record is not None:
+                record.append([])
+            return loss_and_grads(*args, **kw)
+        return run
+
+    def routing(route):
+        def run(router, x, cfg, shard=None):
+            layers = state["layers"]
+            first = router.data_ptr() not in layers
+            if first:
+                layers[router.data_ptr()] = len(layers)
+            if fed is None:
+                out = route(router, x, cfg, **(
+                    {} if shard is None else {"shard": shard}))
+                if first:
+                    record[-1].append(out[0].numpy().copy())
+                return out
+            k = cfg.top_k
+            topi = torch.as_tensor(fed[state["mb"]][layers[
+                router.data_ptr()]]).reshape(-1, x.shape[1], k)[group]
+            topi = topi.reshape(-1, k)
+            probs = moe_mod._router_probs(router, x)
+            return (topi,) + moe_mod._gates_and_aux(probs, topi, cfg, shard)
+        return run
+    with smoke.patched(train_lib, "_loss_and_grads", counted), \
+            smoke.patched(moe_mod, "_route", routing):
+        yield
+
+
+def fed_routes(case: dict, mesh, batch: int, mu: int):
+    """``microbatch_routes`` feeding ``case["routes"]`` (the record for the
+    mesh's data axis) at this data rank's rows of each microbatch of
+    ``batch`` sequences in ``mu``; no context for a case without routes."""
+    if "routes" not in case:
+        return contextlib.nullcontext()
+    data, d = mesh.shape["data"], mesh.coords["data"]
+    n = batch // (mu * data)
+    return microbatch_routes(fed=case["routes"][data],
+                             group=slice(d * n, (d + 1) * n))
+
+
 def train_case(mesh, case: dict) -> dict:
     """One sharded train step (``build_train_step(..., mesh=)``) of
     ``case["cfg"]`` on this rank: the state's shards cut from
     ``case["params"]`` (the whole tree; its dtype is the case's) with zero
     moments, the step on ``case["batch"]`` (numpy, the global batch) with
     ``case["zero1"]``, under the planted fault ``case["fault"]`` (one of
-    ``chip_smoke.TRAIN_FAULTS``) when given. Returns, fp32 numpy by path:
-    the gradient shards the sharded AdamW took, the parameter shards
-    before and after, the moment shards after; the loss, the norm, the
-    coordinates and the step's all_reduce calls."""
+    ``chip_smoke.TRAIN_FAULTS`` or of the families' train faults) when
+    given, its step built under it. A case with ``case["routes"]`` (by the
+    size of the data axis, ``microbatch_routes``' record of the reference's
+    step) feeds its MoE layers those top-k experts at this data rank's rows
+    of each microbatch. Returns, fp32 numpy by path: the gradient shards
+    the sharded AdamW took, the parameter shards before and after, the
+    moment shards after; the loss, the norm, the coordinates and the
+    step's all_reduce calls."""
     from repro_torch.models import build_model
     from repro_torch.models.param import shard_params, tree_items
     from repro_torch.optim import AdamWConfig
@@ -247,15 +315,17 @@ def train_case(mesh, case: dict) -> dict:
                          for p, g in tree_items(grads)})
             return update(params, grads, opt_state, opt_cfg, plan)
         return recording
-    step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
     batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
     count = [0]
     fault = case.get("fault")
-    with smoke.patched(train_lib, "adamw_update_sharded", capture), \
-            smoke.counting_all_reduce(torch, count), \
-            smoke.train_faults(torch, fault, mesh) if fault \
+    routes = fed_routes(case, mesh, batch["tokens"].shape[0],
+                        model.cfg.microbatches)
+    with smoke.train_faults(torch, fault, mesh) if fault \
             else contextlib.nullcontext():
-        state, metrics = step(state, batch)
+        step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
+        with smoke.patched(train_lib, "adamw_update_sharded", capture), \
+                smoke.counting_all_reduce(torch, count), routes:
+            state, metrics = step(state, batch)
 
     def flat(tree):
         return {"/".join(p): a.float().numpy() for p, a in tree_items(tree)}
@@ -263,6 +333,21 @@ def train_case(mesh, case: dict) -> dict:
             "grad_norm": float(metrics["grad_norm"]), "grads": seen,
             "p0": p0, "p1": flat(state.params), "m": flat(state.opt.m),
             "v": flat(state.opt.v), "collectives": count[0]}
+
+
+def train_loop_case(mesh, case: dict) -> dict:
+    """``launch/train.py::train_loop`` of ``case["arch"]``, reduced, on the
+    CPU, from this rank of the process group at the mesh's shape: 2 steps
+    of 8 x 16 tokens in ``case["mu"]`` microbatches; a case with
+    ``case["routes"]`` feeds its MoE layers as ``train_case`` does. Returns
+    its losses."""
+    from repro_torch.launch.train import train_loop
+    with fed_routes(case, mesh, 8, case["mu"]):
+        out = train_loop(case["arch"], reduced=True, device="cpu", steps=2,
+                         batch=8, seq=16, microbatches=case["mu"],
+                         log_every=0, data=mesh.shape["data"],
+                         model=mesh.shape["model"])
+    return {"losses": out["losses"]}
 
 
 def run_rank(rank: int, data: int, model: int, init_file: str,
