@@ -1287,34 +1287,111 @@ def check_flash_bwd(torch, timer, gen) -> dict:
 
 # the names of the ssd kernels' launches (bf16), as the profiler shows them
 SSD_FWD = ("ssd_bf16_kernel",)
-SSD_BWD = ("ssd_bwd_tc_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
+SSD_BWD = ("ssd_bwd_wgmma_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dstate0")
+# ssd_bwd.cu's sum of a cluster's two blocks' rows, and the same sum left
+# to the block's own heads: the fourth planted fault of check_ssd_bwd,
+# built from the source
+SSD_BWD_SUM = "if (csz == 2) {\n            const float4 o = "
+SSD_BWD_LOCAL = "if (false) {\n            const float4 o = "
 
 
-def check_ssd_bwd(torch, timer, gen) -> dict:
+def ssd_bwd_moved_bytes(B: int, S: int, H: int, P: int, N: int,
+                        cluster: int, itemsize: int = 2) -> tuple[int, int]:
+    """Bytes of the SSD backward at one shape: (what the function must
+    move, what the design moves). The function reads x, dy (B, S, H, P), B,
+    C (B, S, N) in ``itemsize`` bytes and dt (B, S, H), A (H,) in fp32, and
+    writes dx, dB, dC and ddt, dA alike, each once. The design also reads
+    the forward's fp32 chunk states (B, H, ceil(S / 64), P, N) and writes
+    and reads back the fp32 partials of dB and dC the walk leaves: H / cluster
+    a batch row when that is over 1 (the wgmma walk's clusters of heads),
+    none when the cluster holds every head; ``cluster`` = 1 is the per-head
+    partials of the scalar walk and of the design before the clusters."""
+    fn = (3 * B * S * H * P * itemsize + 2 * 4 * B * S * H + 2 * 4 * H
+          + 4 * B * S * N * itemsize)
+    states = 4 * B * H * -(-S // 64) * P * N
+    parts = H // cluster if H // cluster > 1 else 0
+    return fn, fn + states + 2 * 2 * 4 * B * parts * S * N
+
+
+def start_ssd_bwd_fault_build():
+    """``nvcc`` of ssd_bwd.cu with each block of a cluster summing its
+    rows of dB and dC over its own heads alone (``SSD_BWD_LOCAL``), started
+    now so that it compiles while the card checks the other kernels:
+    (library path, process)."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "ssd_bwd.cu").read_text()
+    if src.count(SSD_BWD_SUM) != 1:
+        raise RuntimeError(f"ssd_bwd.cu: {SSD_BWD_SUM!r} found "
+                           f"{src.count(SSD_BWD_SUM)} times, want 1")
+    src = src.replace(SSD_BWD_SUM, SSD_BWD_LOCAL)
+    out = ROOT / "build" / "ssd_bwd_fault"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "ssd_bwd.cu").write_text(src)
+    lib = out / "ssd_bwd.so"
+    return lib, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         str(lib), str(out / "ssd_bwd.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def ssd_bwd_fault_kernel(fault_build):
+    """A function with ``ssd_bwd_cuda``'s arguments that runs the faulty
+    library of ``start_ssd_bwd_fault_build`` (waited for here)."""
+    import ctypes
+    from repro_torch.kernels.ssd import kernel_bwd
+    lib_path, proc = fault_build
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc of the planted fault:\n{out}")
+    fn = ctypes.CDLL(str(lib_path)).ssd_bwd
+    entry = kernel_bwd._entry()
+    fn.argtypes, fn.restype = entry.argtypes, entry.restype
+
+    def run(*args, **kwargs):
+        orig = kernel_bwd._entry
+        kernel_bwd._entry = lambda: fn
+        try:
+            return kernel_bwd.ssd_bwd_cuda(*args, **kwargs)
+        finally:
+            kernel_bwd._entry = orig
+    return run
+
+
+def check_ssd_bwd(torch, timer, gen, fault_build) -> dict:
     """The SSD backward kernel against autograd through the plain scan
     (``ssd_bwd_plain``, fp32, at the model's chunk): each of dx, ddt, dA,
     dB, dC and dstate0 within ``BWD_TOL`` of its norm (1e-2 in bf16, 1e-4
     in fp32), and the chunk states the forward writes for it within 1e-4
     of the plain scan's, at the training shape (bf16, and fp32), a random
     state0 with a final-state cotangent, a ragged S, P = 8 (the scalar
-    kernel in bf16: the tensor-core one is built for mamba2's P = 64,
-    N = 128) and a 2048-token sequence. At the training shape two calls must give the
-    same bits, and
-    three planted faults, each made by the kernel on altered inputs
-    (``tools/ssd_bwd_tolerance.py``: the chunk states read as zeros, half
-    the heads, each chunk alone), must each fail the rule. The training
-    shape and the long sequence are timed: the kernel (and each of its two
-    launches, profiled), the forward with its chunk states against
-    without, and the plain version."""
-    from ssd_bwd_tolerance import chunk_states, grad_err, planted_faults
+    kernel in bf16: the wgmma walk is built for mamba2's P = 64,
+    N = 128), a 2048-token sequence and a mamba2 rank's 16 heads. At the
+    training shape two calls must give the same bits, and four planted
+    faults must each fail the rule: three made by the kernel on altered
+    inputs (``tools/ssd_bwd_tolerance.py``: the chunk states read as zeros,
+    half the heads, each chunk alone) and one made by the kernel built with
+    each block of a cluster summing its rows of dB and dC over its own
+    heads alone (``fault_build``, from ``start_ssd_bwd_fault_build``,
+    started after the kernels' build). The training shape, the long
+    sequence and the rank's heads are timed: the kernel (and each of its
+    two launches, profiled), the forward with its chunk states against
+    without, and the plain version; the bytes are
+    ``ssd_bwd_moved_bytes``'s."""
+    import ctypes
+    from ssd_bwd_tolerance import (chunk_states, cluster_fault, grad_err,
+                                   planted_faults)
     from repro_torch.kernels.ssd import (ssd_bwd_cuda, ssd_bwd_plain,
                                          ssd_cuda)
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd.kernel_bwd import tensor_cores
+    from repro_torch.kernels.ssd.kernel_bwd import (cluster_size, layout,
+                                                    partial_heads,
+                                                    tensor_cores)
     F = torch.nn.functional
     rec, worst = None, 0.0
     lib = _build.library("ssd_bwd")
+    lib.ssd_bwd_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -1356,7 +1433,17 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
                 if b is not None}
         finite = all(bool(torch.isfinite(a).all()) for a in got
                      if a is not None)
-        kind = "tensor cores" if tensor_cores(dtype, P, N) else "scalar"
+        if tensor_cores(dtype, P, N):
+            if lib.ssd_bwd_cluster_size(B, H) != cluster_size(B, H, sms):
+                raise AssertionError(
+                    f"ssd_bwd: the C entry sums "
+                    f"{lib.ssd_bwd_cluster_size(B, H)} heads at B={B} "
+                    f"H={H}, the wrapper {cluster_size(B, H, sms)}")
+            hb, blocks = layout(B, H, sms)
+            kind = (f"wgmma, {hb} head(s) a block, clusters of {blocks} "
+                    f"blocks")
+        else:
+            kind = "scalar"
         log(f"[kernels] ssd_bwd {label} {name} B={B} S={S} H={H} P={P} "
             f"N={N} state0={'random' if with_state else 'zero'} ({kind}): "
             f"||err||/||want|| "
@@ -1373,8 +1460,11 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
             again = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
             if not all(torch.equal(a, b) for a, b in zip(got[:5], again)):
                 raise AssertionError("ssd_bwd: two calls differ")
-            for fault, (k, bad) in planted_faults(
-                    ssd_bwd_cuda, x, dt, A, Bm, Cm, dy, states).items():
+            faults = planted_faults(ssd_bwd_cuda, x, dt, A, Bm, Cm, dy,
+                                    states)
+            faults.update(cluster_fault(ssd_bwd_fault_kernel(fault_build),
+                                        x, dt, A, Bm, Cm, dy, states))
+            for fault, (k, bad) in faults.items():
                 err = grad_err(bad, want[k])
                 log(f"[kernels] ssd_bwd planted fault, {fault}: "
                     f"||err||/||want|| {err:.3e} (must exceed {tol:g})")
@@ -1401,33 +1491,38 @@ def check_ssd_bwd(torch, timer, gen) -> dict:
         Q, nc = 64, -(-S // 64)
         flops = 2 * B * H * nc * (Q * Q * (3 * N + 2 * P) * 10 // 16
                                   + 4 * Q * P * N)
-        nbytes = (3 * x.element_size() * x.numel() + 2 * 4 * dt.numel()
-                  + 2 * 4 * H + 4 * Bm.element_size() * Bm.numel())
+        cl = cluster_size(B, H, sms)
+        nbytes, moved = ssd_bwd_moved_bytes(B, S, H, P, N, cl)
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         # this design also reads the stored chunk states and writes and
-        # reads back the per-head fp32 partials of dB and dC
-        extra = 4 * states.numel() + 2 * 2 * 4 * B * H * S * N
-        bx_ms, bx_by = bound(flops, nbytes + extra, PEAK_BF16_FLOPS)
+        # reads back the fp32 partials of dB and dC that its clusters leave
+        bx_ms, bx_by = bound(flops, moved, PEAK_BF16_FLOPS)
+        scratch = 2 * 4 * B * partial_heads(dtype, B, H, P, N, sms) * S * N
         log(f"[kernels] ssd_bwd {label} bf16 B={B} S={S} H={H}: {ms:.4f} ms "
             f"(launches, profiled: "
             f"{profiled(passes)}; "
             f"plain {plain_ms:.4f} ms, no library call computes it, bound "
             f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB; with the chunk states and the "
-            f"partials, {extra / 1e6:.1f} MB more: {bx_ms:.4f} ms by "
-            f"{bx_by}; {B * H} blocks, "
-            f"{lib.ssd_bwd_tc_smem_bytes(P, N)} B shared memory each); "
+            f"partials, {moved / 1e6:.1f} MB: {bx_ms:.4f} ms by {bx_by}; "
+            f"{B * H} heads, {cl} of them summed on chip a cluster, "
+            f"{lib.ssd_bwd_tc_smem_bytes(P, N)} B shared memory a block, "
+            f"fp32 scratch of dB and dC {scratch / 1e6:.1f} MB); "
             f"the forward {fwd_ms:.4f} ms, with its chunk states "
             f"{fwd_st_ms:.4f} ms")
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "design_bound_ms": bx_ms,
+               "launch_ms": passes}
         if label == "training":
             rec = row
         elif label == "rank-train-h16":
             rank_row = dict(row, max_abs_err=max(
                 max_err(a, b) for a, b in zip(got, want) if b is not None))
+        else:
+            long_row = row
     rec["max_abs_err"] = worst
     rec["rank_train_h16"] = rank_row
+    rec["long"] = long_row
     return rec
 
 
@@ -5608,6 +5703,7 @@ def main() -> int:
                     or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    ssd_bwd_fault = start_ssd_bwd_fault_build()   # while the checks run
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[kernels] TF32 off for fp32 matmuls and convolutions")
@@ -5621,7 +5717,7 @@ def main() -> int:
     decode_partial = check_decode_partial(torch, timer, gen)
     ssd = check_ssd(torch, timer, gen)
     flash_bwd = check_flash_bwd(torch, timer, gen)
-    ssd_bwd = check_ssd_bwd(torch, timer, gen)
+    ssd_bwd = check_ssd_bwd(torch, timer, gen, ssd_bwd_fault)
     phase_done("kernels")
 
     counters = kernel_counters()

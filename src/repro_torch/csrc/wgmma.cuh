@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): warpgroup matrix multiply
+// (flash_attention.cu, flash_attention_bwd.cu) and the SSD backward
+// (ssd_bwd.cu): warpgroup matrix multiply
 // (wgmma) with its shared-memory descriptors and fences, the SFU's 2^x and
 // bf16 packing. kernels/_build.py rebuilds every source when a header in
 // csrc/ changes.

@@ -7,11 +7,15 @@ forward's chunks (``ssd_cuda(..., return_states=True)``), in the model
 layout (x, dy (B, S, H, P); dt (B, S, H); B, C (B, S, N)), read through
 strides. The JAX package has no kernel for it (it differentiates
 ``ssd_chunked`` under XLA); the source's head note gives the formulas and
-the design. Two launches: one block per (b, h) walking the chunks in
-reverse, which writes dx, ddt and fp32 partials of dB, dC (per head) and dA
-(per (b, h)); and a pass that sums the partials in a fixed order. The walk
-runs on the tensor cores (``mma.sync``, four warps) for bf16 at the sizes
-:func:`tensor_cores` names (mamba2's heads), else as scalar fp32 FMA.
+the design. Two launches: a walk over each head's chunks in reverse,
+which writes dx, ddt, dA's fp32 partial of the (b, h) and fp32 partials of
+dB and dC; and a pass that sums the partials in a fixed order. For bf16 at the sizes :func:`tensor_cores` names (mamba2's heads)
+the walk runs on ``wgmma``, one or two heads a block (a warpgroup each)
+in clusters of two blocks (:func:`layout`), which sum the dB and dC of
+their :func:`cluster_size` heads on chip (in shared and distributed shared
+memory), so that H / cluster partials leave it (none when the cluster holds
+every head: it writes dB and dC itself); else it runs as scalar fp32 FMA
+with per-head partials (:func:`partial_heads`).
 This wrapper allocates the outputs and the scratch.
 """
 
@@ -24,13 +28,14 @@ import torch
 from .. import _build
 from .kernel import CHUNK, _aligned16
 
-__all__ = ["ssd_bwd_cuda", "tensor_cores"]
+__all__ = ["ssd_bwd_cuda", "tensor_cores", "layout", "cluster_size",
+           "partial_heads"]
 
 # Calls that launched the kernel's two passes since the count was last set
 # to 0 (read by chip_smoke.py).
 launches = 0
 
-_TC_SIZES = ((64, 128),)         # (P, N) the tensor-core kernel is built for
+_TC_SIZES = ((64, 128),)         # (P, N) the wgmma walk is built for
 
 
 def tensor_cores(dtype: torch.dtype, P: int, N: int) -> bool:
@@ -38,6 +43,33 @@ def tensor_cores(dtype: torch.dtype, P: int, N: int) -> bool:
     bf16 at a (P, N) the source instantiates, mamba2-370m's P = 64, N =
     128."""
     return dtype == torch.bfloat16 and (P, N) in _TC_SIZES
+
+
+def layout(B: int, H: int, sms: int) -> tuple[int, int]:
+    """The wgmma walk's (heads a block, blocks a cluster) at B x H heads on
+    a card of ``sms`` SMs, as ``csrc/ssd_bwd.cu`` picks them: one head a
+    block when the B H blocks fit the card at once (one a SM), else two (H
+    even); blocks in clusters of two when that divides a batch row's."""
+    hb = 2 if H % 2 == 0 and B * H > sms else 1
+    return hb, 2 if (H // hb) % 2 == 0 else 1
+
+
+def cluster_size(B: int, H: int, sms: int) -> int:
+    """Heads of one batch row whose dB and dC the wgmma walk sums on chip
+    (:func:`layout`): 4, 2 or 1."""
+    hb, cl = layout(B, H, sms)
+    return hb * cl
+
+
+def partial_heads(dtype: torch.dtype, B: int, H: int, P: int, N: int,
+                  sms: int) -> int:
+    """fp32 partials of dB and dC a batch row that the walk leaves for the
+    reduce pass: H / cluster on the wgmma walk, 0 where the cluster holds
+    every head (the walk writes dB and dC), H on the scalar walk."""
+    if not tensor_cores(dtype, P, N):
+        return H
+    parts = H // cluster_size(B, H, sms)
+    return parts if parts > 1 else 0
 
 
 def _entry():
@@ -114,7 +146,10 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty((Bb, S, N), dtype=x.dtype, device=dev)
     ddt, dA = f32(Bb, S, H), f32(H)
     dstate0 = f32(Bb, H, P, N) if want_dstate0 else None
-    dBp, dCp, dAp = f32(Bb, H, S, N), f32(Bb, H, S, N), f32(Bb, H)
+    parts = partial_heads(x.dtype, Bb, H, P, N, torch.cuda
+                          .get_device_properties(dev).multi_processor_count)
+    dBp, dCp = (f32(Bb, parts, S, N) if parts else None for _ in range(2))
+    dAp = f32(Bb, H)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = _entry()(
@@ -124,7 +159,8 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(),
             dstate0.data_ptr() if dstate0 is not None else None,
-            dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), int(bf16),
+            dBp.data_ptr() if parts else None,
+            dCp.data_ptr() if parts else None, dAp.data_ptr(), int(bf16),
             int(tc), int(dt.dtype == torch.bfloat16), Bb, S, H, P, N,
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
             *Cm.stride()[:2], *dy.stride()[:3], stream)

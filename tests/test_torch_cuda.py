@@ -30,6 +30,7 @@ CPU by chip_smoke.py's train-check rule (loss 1e-2 relative, each leaf
 within 3e-2 of its norm).
 """
 
+import ctypes
 import dataclasses
 import importlib.util
 from pathlib import Path
@@ -1176,6 +1177,38 @@ def test_ssd_bwd_cuda_is_deterministic_and_fails_planted_faults():
     assert len(faults) == 3
     for name, (k, bad) in faults.items():
         assert not _bwd_close(bad, want[k], "bfloat16"), name
+
+
+@pytest.mark.parametrize("B,S,H", [(8, 512, 32), (8, 512, 16), (2, 200, 4),
+                                   (2, 128, 12), (1, 256, 3), (48, 128, 4),
+                                   (2, 128, 2), (32, 128, 6)])
+def test_ssd_bwd_walks_in_clusters_of_heads(B, S, H):
+    """The bf16 walk at mamba2's heads is ``ssd_bwd_wgmma_kernel``, laid out
+    as the wrapper's ``layout`` says (the C entry sums as many heads on
+    chip): two heads a block in clusters of two at the training shape,
+    one a block where the card holds every head at once (H = 16, 12, 3),
+    the cluster holding every head (48 x 4, 2 x 2: dB and dC written by the
+    walk, the reduce pass sums dA alone), a block's pair with no cluster
+    (32 x 6); it meets the rule."""
+    from torch.profiler import ProfilerActivity, profile
+    lib = ssd_bwd_kernel._build.library("ssd_bwd")
+    lib.ssd_bwd_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert lib.ssd_bwd_cluster_size(B, H) == \
+        ssd_bwd_kernel.cluster_size(B, H, sms)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x, dt, A, Bm, Cm, dy, _, _ = _ssd_bwd_inputs(gen, B, S, H, 64, 128,
+                                                 torch.bfloat16, False)
+    _, _, states = ssd_cuda(x, dt, A, Bm, Cm, return_states=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert any("ssd_bwd_wgmma_kernel" in n for n in names), names
+    assert not any("ssd_bwd_kernel" in n for n in names), names
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=min(S, 256))
+    for g, w in zip(got[:5], want[:5]):
+        assert _bwd_close(g, w, "bfloat16")
 
 
 def test_ssd_bwd_scalar_and_tensor_core_kernels_agree(monkeypatch):

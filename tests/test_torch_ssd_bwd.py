@@ -322,14 +322,113 @@ def test_tensor_core_kernel_takes_its_sizes(dtype, P, N, tc):
 
 def test_rule_passes_the_kernel_rounding_and_fails_planted_faults():
     """The kernel's rule (||got - want|| <= 1e-2 ||want||, bf16) against
-    the kernel's arithmetic emulated (fp32 walk, dx, dB, dC rounded to
-    bf16): under half of it; and each planted fault (chunk states read as
-    zeros, dB over half the heads, no state gradient across chunks): over
-    it. The training shape's P and N, cut to B=1, S=256, H=8."""
+    the kernel's arithmetic emulated (fp32 walk, dB and dC summed over the
+    heads in the walk's order, dx, dB, dC rounded to bf16): under half of
+    it; and each planted fault (chunk states read as zeros, dB over half
+    the heads, no state gradient across chunks, each block's rows of dB
+    left to its own pair of heads): over it. The training shape's P and N, cut to B=1,
+    S=256, H=8."""
     readings = _tool().kernel_readings(B=1, S=256, H=8, P=64, N=128)
-    assert len(readings) == 8
+    assert len(readings) == 9
     for name, value in readings.items():
         if name.startswith("rounding"):
             assert value < 0.5e-2, name
         else:
             assert value > 1e-2, name
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("H,sms", [(32, 132), (32, 8), (16, 132), (16, 8)])
+def test_kernel_rounding_in_the_cluster_order_matches_jax_vjp(H, sms):
+    """The wgmma walk's arithmetic emulated (tools/ssd_bwd_tolerance.py::
+    backward with ``kernel_rounding``: the operands it rounds to bf16
+    rounded once, dB and dC summed over pairs of heads, a cluster's two
+    pairs when it holds four (the layout of a card with fewer SMs than
+    heads, ``sms`` = 8) and then over the clusters' partials, dx, dB, dC
+    rounded to bf16) against jax.vjp of ssd_chunked at the reference's
+    chunk (256), mamba2's heads (P = 64, N = 128) at H = 32 and H = 16 (a
+    rank's heads), B=1, S=256: each gradient within half the card's 1e-2
+    rule (the rounding reads ~0.3% of each norm)."""
+    tool = _tool()
+    x, dt, A, Bm, Cm, dy, _, _ = draw(H, 1, 256, H, 64, 128, "bfloat16",
+                                      False, False)
+    want = jax_vjp(x, dt, A, Bm, Cm, dy, None, None, 256, "bfloat16")
+    t = [torch_of(a, d) for a, d in zip(
+        (x, dt, A, Bm, Cm, dy), ("bfloat16", "float32", "float32",
+                                 "bfloat16", "bfloat16", "bfloat16"))]
+    states = tool.chunk_states(*t[:5], dtype=torch.float32)
+    got = tool.backward(*t, states, kernel_rounding=True, sms=sms)
+    for name, g, w in zip(NAMES[:5], got, want):
+        assert err(g, w) <= 0.5e-2, name
+
+
+@pytest.mark.parametrize("B,H,sms,hb,blocks,parts", [
+    (8, 32, 132, 2, 2, 8), (8, 16, 132, 1, 2, 8), (8, 12, 132, 1, 2, 6),
+    (8, 3, 132, 1, 1, 3), (1, 32, 132, 1, 2, 16), (48, 4, 132, 2, 2, 0),
+    (2, 2, 132, 1, 2, 0), (32, 6, 132, 2, 1, 3)])
+def test_cluster_size_and_its_partials(B, H, sms, hb, blocks, parts):
+    """The wgmma walk's layout: one head a block when the B H blocks fit
+    the card at once, else two; clusters of two blocks when a batch row's
+    blocks pair up. It sums dB and dC over hb x blocks heads on chip and
+    leaves H / that fp32 partials a batch row, none where the cluster holds
+    every head; the scalar walk (fp32, other sizes) leaves H. The training
+    shape (B=8, H=32) on an H100 sums four heads: 8 partials."""
+    assert kernel_bwd.layout(B, H, sms) == (hb, blocks)
+    assert kernel_bwd.cluster_size(B, H, sms) == hb * blocks
+    assert kernel_bwd.partial_heads(torch.bfloat16, B, H, 64, 128,
+                                    sms) == parts
+    assert kernel_bwd.partial_heads(torch.float32, B, H, 64, 128, sms) == H
+    assert kernel_bwd.partial_heads(torch.bfloat16, B, H, 32, 128,
+                                    sms) == H
+
+
+def test_moved_bytes_and_scratch_at_the_training_shape():
+    """chip_smoke.py::ssd_bwd_moved_bytes at the training shape (B=8,
+    S=512, H=32, P=64, N=128, bf16, dt fp32) against the hand count: the
+    function moves x, dy, dx (16,777,216 B each), dt, ddt (524,288), A, dA
+    (128), B, C, dB, dC (1,048,576): 55,574,784 B; the design adds the
+    chunk states (67,108,864) and writes and reads back its fp32 partials
+    of dB and dC: per head (the parent's design) 268,435,456, so 391.1 MB;
+    8 a batch row (4 heads summed on chip) 67,108,864, so 189.8 MB. The dB
+    and dC scratch that ssd_bwd_cuda allocates there on an H100 (132 SMs)
+    is 1/4 of the per-head 134 MB."""
+    moved = _chip_smoke().ssd_bwd_moved_bytes
+    fn = 3 * 16_777_216 + 2 * 524_288 + 2 * 128 + 4 * 1_048_576
+    assert fn == 55_574_784
+    assert moved(8, 512, 32, 64, 128, 1) == (fn, fn + 67_108_864
+                                             + 268_435_456)
+    assert moved(8, 512, 32, 64, 128, 4) == (fn, fn + 67_108_864
+                                             + 67_108_864)
+    per_head = 2 * 4 * 8 * 32 * 512 * 128
+    scratch = 2 * 4 * 8 * kernel_bwd.partial_heads(
+        torch.bfloat16, 8, 32, 64, 128, 132) * 512 * 128
+    assert per_head == 134_217_728 and scratch * 4 == per_head
+
+
+def test_head_sum_order_and_its_planted_fault():
+    """tools/ssd_bwd_tolerance.py::head_sum, the walk's order over the
+    heads, is the sum over the heads (fp64 here) at each cluster size; its
+    planted fault gives the rows that block r of a cluster sums (32 r ..)
+    from its own heads alone (its pair, or its one head), in every
+    partial."""
+    tool = _tool()
+    t = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2, 8, 64, 8)))
+    for cluster in (4, 2, 1):
+        assert torch.allclose(tool.head_sum(t, cluster), t.sum(1), rtol=0,
+                              atol=1e-12)
+    four, two = (tool.head_sum(t, c, local=True) for c in (4, 2))
+    for r in range(2):
+        rows = slice(32 * r, 32 * r + 32)
+        assert torch.allclose(four[:, rows], sum(
+            t[:, 4 * k + 2 * r + e, rows] for k in range(2)
+            for e in range(2)), rtol=0, atol=1e-12)
+        assert torch.allclose(two[:, rows], sum(
+            t[:, 2 * k + r, rows] for k in range(4)), rtol=0, atol=1e-12)

@@ -12,17 +12,23 @@ batch 2 (B=2, S=512, H=32, P=64, N=128; x, B, C, dy bf16 standard normal,
 dt fp32 a softplus of a normal, A = -exp(normal)), the plain version at the
 model's chunk (256):
 
-- rounding: the bf16 kernel's arithmetic (the tensor-core walk),
-  emulated (:func:`backward` with ``kernel_rounding``: the chunk walk of
-  the source's head note in fp32, chunks of 64, the operands it stages in
-  bf16 rounded once where it rounds them: (C B^T) o L, (dy x^T) o L dt,
-  the entering state s, g, and e_in dy; dx, dB and dC rounded to bf16 at
-  the end, as the kernel writes them; ddt and dA stay fp32);
+- rounding: the bf16 kernel's arithmetic (the wgmma walk), emulated
+  (:func:`backward` with ``kernel_rounding``: the chunk walk of the
+  source's head note in fp32, chunks of 64, the operands it feeds its
+  products in bf16 rounded once where it rounds them: (C B^T) o L,
+  (dy x^T) o L dt, the entering state s, g, and e_in dy; dB and dC summed
+  over the heads in the walk's order on an H100 (:func:`head_sum`: each
+  pair of heads, then a cluster's two pairs, then the clusters' partials
+  in order); dx, dB and dC rounded to bf16 at the end, as the kernel
+  writes them; ddt and dA stay fp32);
 - planted faults, each made by the same walk on altered inputs, as
   ``chip_smoke.py`` makes them with the kernel (:func:`planted_faults`):
   the stored chunk states read as zeros (dC loses its carried-state term),
   dB summed over half the heads, and the state's gradient not carried
-  from chunk to chunk (dx).
+  from chunk to chunk (dx); and one made by the kernel itself
+  (:func:`cluster_fault`; ``chip_smoke.py`` builds it from the source):
+  each block of a cluster sums its rows of dB and dC over its own heads
+  alone, the other block's left out.
 
 Prints one line per reading and, last, all of them as one JSON object.
 """
@@ -39,6 +45,45 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 Q = 64                                   # the kernels' chunk (kQ)
+
+
+SMS = 132                                # an H100's SMs
+
+
+def cluster_size(B: int, H: int, sms: int = SMS) -> int:
+    """The heads the wgmma walk sums on chip on a card of ``sms`` SMs."""
+    from repro_torch.kernels.ssd.kernel_bwd import cluster_size
+    return cluster_size(B, H, sms)
+
+
+def head_sum(t, cluster: int, local: bool = False):
+    """One chunk's per-head (B, H, Q, N) dB or dC summed over the heads as
+    the wgmma walk sums them, in ``t``'s dtype: each pair of heads (2 k,
+    then 2 k + 1), then a cluster's two pairs (rank 0's first), then the
+    H / cluster partials in order. With ``local`` (a planted fault), the
+    rows that each block of a cluster sums (rank r: rows 32 r ..) take its
+    own heads alone."""
+    H = t.shape[1]
+    heads = t.unflatten(1, (H // cluster, cluster))
+    rows = Q // 2
+    if cluster == 1:
+        sums = heads[:, :, 0]
+    elif cluster == 2 and local:       # a head a block
+        sums = torch.cat([heads[:, :, 0, :rows], heads[:, :, 1, rows:]], 2)
+    else:
+        pairs = [heads[:, :, k] + heads[:, :, k + 1]
+                 for k in range(0, cluster, 2)]
+        if len(pairs) == 1:
+            sums = pairs[0]
+        elif local:
+            sums = torch.cat([pairs[0][:, :, :rows], pairs[1][:, :, rows:]],
+                             2)
+        else:
+            sums = pairs[0] + pairs[1]
+    out = sums[:, 0]
+    for k in range(1, sums.shape[1]):
+        out = out + sums[:, k]
+    return out
 
 
 def grad_err(got, want) -> float:
@@ -75,14 +120,16 @@ def chunk_states(x, dt, A, Bm, Cm, state0=None, dtype=torch.float64):
 
 
 def backward(x, dt, A, Bm, Cm, dy, states, dstate=None, *,
-             kernel_rounding=False):
+             kernel_rounding=False, local_sum=False, sms=SMS):
     """dx, ddt, dA, dB, dC, dstate0 by the chunk walk of
     ``csrc/ssd_bwd.cu``'s head note, in the model layout; ``states`` are
     the chunk-entry states (B, H, nc, P, N), ``dstate`` the final state's
     cotangent or None. In fp64; with ``kernel_rounding`` in fp32, with the
-    operands the bf16 tensor-core kernel stages in bf16 rounded once to it
-    (x, B, C, dy are bf16 already), and dx, dB, dC rounded to x's dtype,
-    ddt to dt's, as the kernel writes them."""
+    operands the bf16 wgmma walk feeds its products in bf16 rounded once to
+    it (x, B, C, dy are bf16 already), dB and dC summed over the heads in
+    its order on a card of ``sms`` SMs (:func:`head_sum`), and dx, dB, dC
+    rounded to x's dtype, ddt to dt's, as the kernel writes them.
+    ``local_sum`` plants :func:`head_sum`'s fault."""
     dtype = torch.float32 if kernel_rounding else torch.float64
 
     def staged(t):          # an operand the kernel stages in bf16
@@ -131,7 +178,12 @@ def backward(x, dt, A, Bm, Cm, dy, states, dstate=None, *,
         dx[:, c] = dtq[..., None] * dxdt
         ddt[:, c] = a * da + (xq * dxdt).sum(-1)
         dA += (dtq * da).sum((0, 1))
-        dB[:, c], dC[:, c] = dB_h.sum(1), dC_h.sum(1)
+        if kernel_rounding:
+            dB[:, c], dC[:, c] = (
+                head_sum(t, cluster_size(B, H, sms), local_sum)
+                for t in (dB_h, dC_h))
+        else:
+            dB[:, c], dC[:, c] = dB_h.sum(1), dC_h.sum(1)
         g = total[..., None, None] * g + torch.einsum(
             "bihp,bin->bhpn", staged(ein[..., None] * dyq), Cq)
 
@@ -163,6 +215,15 @@ def planted_faults(run, x, dt, A, Bm, Cm, dy, states) -> dict:
                 (0, torch.cat(alone, 1))}
 
 
+def cluster_fault(run_faulty, x, dt, A, Bm, Cm, dy, states) -> dict:
+    """name -> (index in (dx, ddt, dA, dB, dC), the faulty gradient) of the
+    fault the kernel itself plants: ``run_faulty`` is the kernel built with
+    each block's rows of dB and dC summed over its own heads alone (on the
+    card), or :func:`backward` with ``local_sum`` (here)."""
+    return {"dB with each block's rows left to its own heads":
+                (3, run_faulty(x, dt, A, Bm, Cm, dy, states)[3])}
+
+
 def inputs(B=2, S=512, H=32, P=64, N=128, seed=0, dtype=torch.bfloat16):
     """x, dt, A, B, C, dy as the card's checks draw them (CPU, seeded)."""
     gen = torch.Generator().manual_seed(seed)
@@ -190,8 +251,11 @@ def kernel_readings(B=2, S=512, H=32, P=64, N=128, chunk=256,
     names = ("dx", "ddt", "dA", "dB", "dC")
     out = {f"rounding {n}": grad_err(g, w)
            for n, g, w in zip(names, got, want)}
-    for name, (k, bad) in planted_faults(run, x, dt, A, Bm, Cm, dy,
-                                         states).items():
+    faults = planted_faults(run, x, dt, A, Bm, Cm, dy, states)
+    faults.update(cluster_fault(
+        lambda *args: backward(*args, kernel_rounding=True, local_sum=True),
+        x, dt, A, Bm, Cm, dy, states))
+    for name, (k, bad) in faults.items():
         out[name] = grad_err(bad, want[k])
     return out
 
