@@ -48,7 +48,9 @@ Phases, each fatal on failure:
    training at a model axis of 2, timed: flash and its backward at
    tinyllama's 16 over 2 KV heads, qwen2-vl's 32 over 4 and qwen3-moe's 32
    over 2, the ssd forward with its chunk states and the ssd backward at
-   mamba2's 16 heads; a seamless rank's decode step
+   mamba2's 16 heads and at jamba's full width's 128 (the backward's two
+   calls bit-equal and its four planted faults failing there too); a
+   seamless rank's decode step
    over its 8 heads of the memory, a strided view of the cache's 16,
    timed), and the decode kernel's partial entry (one span of a
    sequence-cut cache: out and lse, at local lengths 0, 1, a mid value
@@ -155,7 +157,18 @@ Phases, each fatal on failure:
    ZeRO-1's gather skipped (at (2, 2))), qwen3-moe's gates and tokens
    each without their model-axis sum, mamba2's norm sum with an identity
    backward and ``w_B``/``w_C`` left out of the partial leaves (at (1,
-   2); ``FAMILY_TRAIN_FAULTS_AT``);
+   2); ``FAMILY_TRAIN_FAULTS_AT``); seamless-m4t-large-v2 at 6 + 6 layers
+   over 1024 frames (its cross-attention uncached over the memory on each
+   rank's heads) and jamba's reduced config cut to one period-4 block
+   (fed the unsharded step's experts; one card cannot hold a full-width
+   block's state) over (1, 2), by the same rules, with their planted
+   faults (the cross-attention's ``wo`` sum skipped, the encoder's K/V
+   heads rolled; the Mamba sublayers' norm over the rank's own columns);
+   and the sharded checkpoint: mamba2's (1, 2) state after its checked
+   step saved over the mesh (its seconds and bytes), the directory held
+   file for file to ``save_state`` of the state assembled from the ranks'
+   shards, restored by the (2, 2) ZeRO-1 ranks bit for bit to their
+   slices, and again under ``CKPT_FAULT``, which must part a leaf;
 5. profile: ``torch.profiler`` over a few decode steps of tinyllama, mamba2,
    starcoder2-15b, the 12-layer qwen3-moe, the 2-layer kimi-k2, the
    40-layer qwen2-vl, the period-4 jamba block (its device time split
@@ -230,9 +243,10 @@ Phases, each fatal on failure:
    1 layer (``ORCH_CHECK_LAYERS``) and full width, with a checkpoint every
    2 steps, its losses and
    checkpoints against ``train_loop``'s (rtol 2e-2), also with a save that
-   waits for the next step before it snapshots; at full depth and width
-   (batch 8 x 512, remat, 4 steps) ``train_loop`` and the DAG under
-   "dataflow" and "controlflow": ms a step, 44 flash forward and 22
+   waits for the next step before it snapshots; at 8 of its 22 layers
+   (``ORCH_LAYERS``) and full width (batch 8 x 512, remat, 4 steps)
+   ``train_loop`` and the DAG under
+   "dataflow" and "controlflow": ms a step, 16 flash forward and 8
    backward launches a step in the DAG's threads (set to 0 before each
    run, read after), the engine's per-function times, and each peak
    within 1.05x of ``train_loop``'s; then "dataflow, traced", the same
@@ -262,7 +276,10 @@ D = 64), "rank_train_g8_d128" (qwen2-vl's, H = 32 over 4) and
 "rank_train_g16_d128" (qwen3-moe's, H = 32 over 2), and the ssd and ssd
 backward entries "rank_train_h16" (mamba2's 16 heads, the forward with
 its chunk states), each with the launches of every rank's checked step
-of its arch; the decode entry a seamless
+of its arch, and "rank_train_h128" (jamba's full width at a model axis of
+2, 128 heads), with the launches of the reduced jamba's sharded training
+at its own shape (``launch_shape``); the flash and backward entries'
+"seamless" also seamless's sharded training launches; the decode entry a seamless
 rank's row over the
 memory, "rank_cross", with its sharded launches; the partial decode
 entry qwen3-moe's, qwen2-vl's (and jamba's), kimi-k2's and seamless's
@@ -923,6 +940,11 @@ def check_ssd(torch, timer, gen) -> dict:
     # (sharded_train_check); its record
     rec["rank_train_h16"] = ssd_states_row(torch, timer, randn, check,
                                            bound_of, 8, 512, H // 2)
+    # jamba's at full width on one rank of a (1, 2) mesh: 128 of its 256
+    # heads (the card trains jamba's reduced config, sharded_train_check;
+    # this is the shape its full width gives a rank); its record
+    rec["rank_train_h128"] = ssd_states_row(torch, timer, randn, check,
+                                            bound_of, 8, 512, 128)
 
     # jamba-1.5-large-398b's prefill: 256 heads, state0 and state_out one
     # Mamba sublayer's slice of the block's zeroed (period - 1, B, H, P, N)
@@ -1374,7 +1396,7 @@ def check_ssd_bwd(torch, timer, gen, fault_build) -> dict:
     each block of a cluster summing its rows of dB and dC over its own
     heads alone (``fault_build``, from ``start_ssd_bwd_fault_build``,
     started after the kernels' build). The training shape, the long
-    sequence and the rank's heads are timed: the kernel (and each of its
+    sequence and the ranks' heads are timed: the kernel (and each of its
     two launches, profiled), the forward with its chunk states against
     without, and the plain version; the bytes are
     ``ssd_bwd_moved_bytes``'s."""
@@ -1388,7 +1410,7 @@ def check_ssd_bwd(torch, timer, gen, fault_build) -> dict:
                                                     partial_heads,
                                                     tensor_cores)
     F = torch.nn.functional
-    rec, worst = None, 0.0
+    rec, worst, rank_rows, faulty = None, 0.0, {}, None
     lib = _build.library("ssd_bwd")
     lib.ssd_bwd_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1412,6 +1434,11 @@ def check_ssd_bwd(torch, timer, gen, fault_build) -> dict:
             # mamba2's training backward on one rank of a (1, 2) mesh (16
             # of its 32 heads; sharded_train_check), its own record
             ("rank-train-h16", 8, 512, 16, 64, 128, torch.bfloat16, 256,
+             False, True),
+            # jamba's at full width on one rank of a (1, 2) mesh (128 of
+            # its 256 heads), its own record, with the training shape's
+            # two-call and planted-fault checks
+            ("rank-train-h128", 8, 512, 128, 64, 128, torch.bfloat16, 256,
              False, True)):
         x, dy = randn(B, S, H, P, dtype=dtype), randn(B, S, H, P, dtype=dtype)
         dt, A = F.softplus(randn(B, S, H)), -torch.exp(randn(H))
@@ -1456,22 +1483,26 @@ def check_ssd_bwd(torch, timer, gen, fault_build) -> dict:
         if dtype is torch.bfloat16:
             worst = max(worst, *(max_err(a, b) for a, b in zip(got, want)
                                  if b is not None))
-        if label == "training" and dtype is torch.bfloat16:
+        if label in ("training", "rank-train-h128") \
+                and dtype is torch.bfloat16:
             again = ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states)
             if not all(torch.equal(a, b) for a, b in zip(got[:5], again)):
-                raise AssertionError("ssd_bwd: two calls differ")
+                raise AssertionError(f"ssd_bwd {label}: two calls differ")
             faults = planted_faults(ssd_bwd_cuda, x, dt, A, Bm, Cm, dy,
                                     states)
-            faults.update(cluster_fault(ssd_bwd_fault_kernel(fault_build),
-                                        x, dt, A, Bm, Cm, dy, states))
+            if faulty is None:        # waits for its build, once
+                faulty = ssd_bwd_fault_kernel(fault_build)
+            faults.update(cluster_fault(faulty, x, dt, A, Bm, Cm, dy,
+                                        states))
             for fault, (k, bad) in faults.items():
                 err = grad_err(bad, want[k])
-                log(f"[kernels] ssd_bwd planted fault, {fault}: "
+                log(f"[kernels] ssd_bwd {label} planted fault, {fault}: "
                     f"||err||/||want|| {err:.3e} (must exceed {tol:g})")
                 if not err > tol:
                     raise AssertionError(f"the ssd backward's check passes "
-                                         f"a planted fault: {fault}")
-            log("[kernels] ssd_bwd: two calls give the same bits")
+                                         f"a planted fault at {label}: "
+                                         f"{fault}")
+            log(f"[kernels] ssd_bwd {label}: two calls give the same bits")
         if not timed:
             continue
         ms = timer.ms(lambda: ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, states))
@@ -1515,13 +1546,13 @@ def check_ssd_bwd(torch, timer, gen, fault_build) -> dict:
                "launch_ms": passes}
         if label == "training":
             rec = row
-        elif label == "rank-train-h16":
-            rank_row = dict(row, max_abs_err=max(
+        elif label.startswith("rank-train"):
+            rank_rows[label.replace("-", "_")] = dict(row, max_abs_err=max(
                 max_err(a, b) for a, b in zip(got, want) if b is not None))
         else:
             long_row = row
     rec["max_abs_err"] = worst
-    rec["rank_train_h16"] = rank_row
+    rec.update(rank_rows)
     rec["long"] = long_row
     return rec
 
@@ -2704,9 +2735,14 @@ ORCH_ARCH = "tinyllama-1.1b"
 # cut from 2 (2.19 GB) for the script's time when sharded_train_check came
 # in; every rule kept
 ORCH_CHECK_LAYERS = 1
-# the steps of each full-depth orchestrated run, cut from 6 for the same
-# reason (ms a step, launches a step and peaks kept)
+# the steps of each orchestrated run at ORCH_LAYERS, cut from 6 for the
+# same reason (ms a step, launches a step and peaks kept)
 ORCH_STEPS = 4
+# the layers of those runs, cut from tinyllama's full 22 for the script's
+# time when the hybrid's and the encoder-decoder's sharded training came
+# in (every rule kept: ms a step, 2 flash forward and 1 backward launches
+# a layer a step, the peaks within 1.05x, the traced run's spans)
+ORCH_LAYERS = 8
 
 
 def run_orchestrated(torch, train_mod, pattern: str, kw: dict, *,
@@ -2931,9 +2967,54 @@ def _ckpts_agree(got: Path, want: Path, steps) -> tuple[float, bool]:
     return worst, same
 
 
+def orchestrated_run(torch, train_mod, counters: dict, how: str, kw: dict,
+                     layers: int) -> tuple:
+    """One run of ``orchestrate_check`` at ``layers`` layers: ``train_loop``,
+    ``run_training`` under "dataflow" or "controlflow", or "dataflow,
+    traced"; its ms a step, launches a step (held to 2 flash forward and
+    1 backward a layer) and peak logged. -> (its result, its peak)."""
+    steps = kw["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    if how == "train_loop":
+        out = train_mod.train_loop(ORCH_ARCH, log_every=0, device="cuda",
+                                   **kw)
+    elif how == "dataflow, traced":
+        out = run_traced(torch, train_mod, kw)
+    else:
+        out = run_orchestrated(torch, train_mod, how, kw)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {name: k.launches for name, k in counters.items()}
+    done = ""
+    if "per_function" in out:
+        done = "; completed at (ms from the start) " + ", ".join(
+            f"{f} {t * 1e3:.1f}" for f, t in sorted(
+                out["per_function"].items(), key=lambda kv: kv[1]))
+    log(f"[orchestrate] {ORCH_ARCH} {how}, batch=8 seq=512, {layers} "
+        f"layers, remat, {steps} steps: "
+        f"{out['wall_s'] / steps * 1e3:.1f} ms/step; flash forward "
+        f"{counts['flash_attention'] / steps:g} and backward "
+        f"{counts['flash_attention_bwd'] / steps:g} launches a step; "
+        f"peak {peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB "
+        f"allocated before); losses {out['losses']}{done}")
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=steps * 2 * layers,
+                flash_attention_bwd=steps * layers)
+    if counts != want:
+        raise AssertionError(f"{how}: launches {counts}, want {want}")
+    if len(out["losses"]) != steps or not all(
+            l == l and abs(l) < float("inf") for l in out["losses"]):
+        raise AssertionError(f"{how}: losses {out['losses']}")
+    return out, peak
+
+
 def orchestrate_check(torch, counters: dict) -> None:
     """The port's train step under its DFlow engine (``runtime/
-    orchestrator.py``), on the card.
+    orchestrator.py``), on the card; each part's seconds logged.
 
     At ``ORCH_CHECK_LAYERS`` layers, full width (batch 4 x 256, 4 steps, a
     checkpoint every 2):
@@ -2941,18 +3022,19 @@ def orchestrate_check(torch, counters: dict) -> None:
     every leaf of the checkpoints at steps 2 and 4 within 2e-2 (the
     tinyllama resume rule; leaves relative to their largest magnitude),
     then again with a save that waits for the next step before it
-    snapshots. Full depth and width (batch 8 x 512, remat, ``ORCH_STEPS``
-    steps):
+    snapshots. At ``ORCH_LAYERS`` layers and full width (batch 8 x 512,
+    remat, ``ORCH_STEPS`` steps):
     ``train_loop``, then ``run_training`` under "dataflow" and
-    "controlflow": ms a step, the flash kernels' launches a step (44 and
-    22, so the kernels ran in the DAG's threads), the engine's per-function
-    completion times, and the peak memory, each orchestrated peak within
-    1.05x of ``train_loop``'s."""
+    "controlflow": ms a step, the flash kernels' launches a step (2 and 1
+    a layer, so the kernels ran in the DAG's threads), the engine's
+    per-function completion times, and the peak memory, each orchestrated
+    peak within 1.05x of ``train_loop``'s."""
     import shutil
     from repro_torch.launch import train as train_mod
     root = ROOT / "build" / "chip_smoke_orchestrate"
     shutil.rmtree(root, ignore_errors=True)
     kw = dict(steps=4, batch=4, seq=256, seed=3)
+    t0 = time.perf_counter()
     try:
         with cut_depth(train_mod, ORCH_CHECK_LAYERS):
             loop = train_mod.train_loop(ORCH_ARCH, ckpt_dir=str(root / "loop"),
@@ -2986,47 +3068,20 @@ def orchestrate_check(torch, counters: dict) -> None:
                 shutil.rmtree(root / "dag")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log(f"[orchestrate] depth-{ORCH_CHECK_LAYERS} runs with checkpoints in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kw = dict(steps=ORCH_STEPS, batch=8, seq=512, seed=0)
-    layers, steps = 22, kw["steps"]
+    layers, steps = ORCH_LAYERS, kw["steps"]
     runs = {}
-    for how in ("train_loop", "dataflow", "controlflow", "dataflow, traced"):
-        gc.collect()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        for k in counters.values():
-            k.launches = 0
-        if how == "train_loop":
-            out = train_mod.train_loop(ORCH_ARCH, log_every=0,
-                                       device="cuda", **kw)
-        elif how == "dataflow, traced":
-            out = run_traced(torch, train_mod, kw)
-        else:
-            out = run_orchestrated(torch, train_mod, how, kw)
-        peak = torch.cuda.max_memory_allocated()
-        counts = {name: k.launches for name, k in counters.items()}
-        runs[how] = (out, peak)
-        done = ""
-        if "per_function" in out:
-            done = "; completed at (ms from the start) " + ", ".join(
-                f"{f} {t * 1e3:.1f}" for f, t in sorted(
-                    out["per_function"].items(), key=lambda kv: kv[1]))
-        log(f"[orchestrate] {ORCH_ARCH} {how}, batch=8 seq=512, {layers} "
-            f"layers, remat, {steps} steps: "
-            f"{out['wall_s'] / steps * 1e3:.1f} ms/step; flash forward "
-            f"{counts['flash_attention'] / steps:g} and backward "
-            f"{counts['flash_attention_bwd'] / steps:g} launches a step; "
-            f"peak {peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB "
-            f"allocated before); losses {out['losses']}{done}")
-        want = dict.fromkeys(counters, 0)
-        want.update(flash_attention=steps * 2 * layers,
-                    flash_attention_bwd=steps * layers)
-        if counts != want:
-            raise AssertionError(f"{how}: launches {counts}, want {want}")
-        if len(out["losses"]) != steps or not all(
-                l == l and abs(l) < float("inf") for l in out["losses"]):
-            raise AssertionError(f"{how}: losses {out['losses']}")
+    t0 = time.perf_counter()
+    with cut_depth(train_mod, ORCH_LAYERS):
+        for how in ("train_loop", "dataflow", "controlflow",
+                    "dataflow, traced"):
+            runs[how] = orchestrated_run(torch, train_mod, counters, how,
+                                         kw, layers)
+    log(f"[orchestrate] the {ORCH_LAYERS}-layer runs in "
+        f"{time.perf_counter() - t0:.1f} s")
     loop, loop_peak = runs["train_loop"]
     for how in ("dataflow", "controlflow", "dataflow, traced"):
         out, peak = runs[how]
@@ -4905,6 +4960,7 @@ def sharded_serve_check(torch) -> dict:
                    for runs in SHARD_TRAIN.values() for arch, _ in runs}
     for path in train_paths.values():
         path.unlink(missing_ok=True)
+    ckpt_cleanup()
     for mesh_shape, backend, archs in SHARD_GROUPS:
         data, model = mesh_shape
         runs = []
@@ -5005,6 +5061,8 @@ def sharded_serve_check(torch) -> dict:
             mine = launched["train"].setdefault(arch, {})
             for name, n in counts.items():
                 mine[name] = mine.get(name, 0) + n
+        if mesh_shape == CKPT_SAVE_AT:
+            ckpt_directory_check(torch)
         log(f"[sharded] mesh {mesh_shape} ({backend}): "
             f"{[a for a, _ in runs]} in one spawn, {wall:.1f} s")
         # a training reference no later mesh reads leaves the disk
@@ -5016,6 +5074,7 @@ def sharded_serve_check(torch) -> dict:
                 path.unlink(missing_ok=True)
     for path in list(refs.values()) + list(train_paths.values()):
         path.unlink(missing_ok=True)
+    ckpt_cleanup()
     log(f"[sharded] sharded_serve_check phase in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launched
@@ -5037,14 +5096,39 @@ def sharded_serve_check(torch) -> dict:
 SHARD_TRAIN_ARCH = "tinyllama-1.1b"
 SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 8, 512
 SHARD_TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+# seamless-m4t-large-v2 (both stacks) at its sharded serving depth, 6 + 6
+# of 24 + 24 layers (0.80 B parameters, 12.8 GB of training state, 6.4 GB
+# a rank at (1, 2), derived), over FRAMES_LEN frames a row. jamba's full
+# width does not train on the card: one period-4 block is 276 GB of state
+# (138 GB a rank at (1, 2)), so its run takes its reduced config cut to one
+# block of period 4 (``one_block``: d_model 64, 4 heads over 2 KV heads, 8
+# SSM heads of P = 16, N = 16, 8 experts top-2), fed the unsharded step's
+# experts; its sublayers at full width are each held on the card by
+# another family's run: the attention at G = 8, D = 128 by qwen2-vl's,
+# Mamba-2 at P = 64, N = 128 by mamba2's, the MoE by qwen3-moe's
 SHARD_TRAIN_LAYERS = {SHARD_TRAIN_ARCH: SHARD_LAYERS[SHARD_TRAIN_ARCH],
                       QWEN2VL_ARCH: 1, MOE_ARCH: 1,
-                      "mamba2-370m": SHARD_LAYERS["mamba2-370m"]}
+                      "mamba2-370m": SHARD_LAYERS["mamba2-370m"],
+                      SEAMLESS_ARCH: SHARD_LAYERS[SEAMLESS_ARCH]}
 # (data, model) -> its runs, (arch, zero1), each in the mesh's spawn of
 # ``SHARD_GROUPS`` under the name ``TRAIN_RUN``:arch
 SHARD_TRAIN = {(1, 2): ((SHARD_TRAIN_ARCH, False), (QWEN2VL_ARCH, False),
-                        (MOE_ARCH, False), ("mamba2-370m", False)),
+                        (MOE_ARCH, False), ("mamba2-370m", False),
+                        (SEAMLESS_ARCH, False), (JAMBA_ARCH, False)),
                (2, 2): ((SHARD_TRAIN_ARCH, True), ("mamba2-370m", True))}
+# the sharded checkpoint check: this arch's (1, 2) run saves its state
+# after the checked step (``CKPT_SAVE_AT``), its (2, 2) ZeRO-1 run restores
+# it (``CKPT_RESTORE_AT``); the (1, 2) ranks also keep their shards on
+# disk, from which the check assembles the whole state on its own
+CKPT_ARCH, CKPT_SAVE_AT, CKPT_RESTORE_AT = "mamba2-370m", (1, 2), (2, 2)
+CKPT_DIR = ROOT / "build" / "sharded-ckpt"
+# the runs whose parameters are cast to fp32 (the CPU tests' fp32 cases
+# do the same), through the kernels' fp32 entries: jamba's reduced block,
+# whose unsharded bf16 step stands a few hundredths of a leaf's norm from
+# its own fp32 step at d_model 64 (``tools/sharded_grad_floor.py``), so
+# that a sharded bf16 step, rounding in another order, cannot be held to
+# it within the gradient rule; the full-width runs hold it in bf16
+SHARD_TRAIN_FP32 = (JAMBA_ARCH,)
 TRAIN_RUN = "train"
 # steps timed after the checked one, on the state it leaves (the checked
 # step's time holds each rank's first-call costs)
@@ -5068,9 +5152,19 @@ SSM_TRAIN_FAULTS = ("gated norm's mean square with an identity backward",
                     "w_B and w_C left out of the partial leaves")
 VLM_TRAIN_FAULTS = ("mrope_positions cut on axis 0, as a (B, 3, S) leaf",)
 FAMILY_TRAIN_FAULTS = MOE_TRAIN_FAULTS + SSM_TRAIN_FAULTS + VLM_TRAIN_FAULTS
+# the hybrid and encoder-decoder families' (the card plants each in its
+# arch's (1, 2) run; the CPU tests the encoder's where a rank holds two KV
+# heads)
+HYBRID_TRAIN_FAULTS = ("Mamba sublayers' gated norm summed over the "
+                       "rank's own columns",)
+ENCDEC_TRAIN_FAULTS = ("cross-attention's row-parallel wo sum skipped",
+                       "encoder's K/V heads rolled by one within the "
+                       "rank's")
 FAMILY_TRAIN_FAULTS_AT = {(MOE_ARCH, (1, 2)): (MOE_TRAIN_FAULTS[0],
                                                MOE_TRAIN_FAULTS[2]),
-                          ("mamba2-370m", (1, 2)): SSM_TRAIN_FAULTS}
+                          ("mamba2-370m", (1, 2)): SSM_TRAIN_FAULTS,
+                          (JAMBA_ARCH, (1, 2)): HYBRID_TRAIN_FAULTS,
+                          (SEAMLESS_ARCH, (1, 2)): ENCDEC_TRAIN_FAULTS}
 
 
 def train_faults_of(arch: str, mesh_shape: tuple) -> tuple:
@@ -5147,40 +5241,63 @@ def update_floor(opt_cfg, grad_norm: float) -> float:
 
 
 def train_collectives(cfg, mesh_shape: tuple, zero1: bool) -> int:
-    """all_reduce calls of one sharded train step of ``cfg`` (families
-    dense, vlm, moe, ssm) on a (data, model) mesh whose model axis cuts the
-    heads, the MLP or the experts, the Mamba heads and the vocab (under
-    ``dp_only`` nothing): a microbatch's forward takes the embedding's sum,
-    each layer's two (an attention layer's row-parallel ``wo`` and its MLP
-    or MoE sum; a Mamba block's norm sum and ``out_proj``; an MoE's aux
-    sums over the batch ranks too, where they are more than one) and the
-    loss's max and ``sum_with``; its backward the head's ``enter``, each
-    layer's two (the attention's and the MLP's ``enter``, or the MoE's one
-    ``enter`` of its tokens and gates; the Mamba block's ``enter`` and its
-    norm sum's backward) and, under remat, the sums before the layer's
-    last op recomputed (``wo``, or the norm's, and the MoE's aux):
-    ``torch.utils.checkpoint`` stops recomputing a layer once it has
-    remade the tensors the backward needs, and the layer's last sum is
-    not among them. Then one sum of the leaves whose gradient is a part
-    (qk-norm; ``wk``/``wv`` where the KV heads do not divide; a Mamba
-    block's ``w_B``, ``w_C``, ``conv_B``, ``conv_C``), the global norm's
-    one, and where the batch is cut over more than one rank: the
-    gradients' sum, the loss metric's and, with ``zero1``, the gather of
-    the updated slices."""
+    """all_reduce calls of one sharded train step of ``cfg`` on a (data,
+    model) mesh whose model axis cuts the heads, the MLP or the experts,
+    the Mamba heads and the vocab (under ``dp_only`` nothing): a
+    microbatch's forward takes the embedding's sum, each layer's sums (an
+    attention's row-parallel ``wo``, an MLP's or MoE's sum, a Mamba
+    block's norm sum and ``out_proj``; an MoE's aux sums over the batch
+    ranks too, where they are more than one) and the loss's max and
+    ``sum_with``; its backward the head's ``enter`` and each layer's
+    (the attention's and the MLP's ``enter``, or the MoE's one ``enter``
+    of its tokens and gates; the Mamba block's ``enter`` and its norm sum's
+    backward) and, under remat, the forward's sums of each remat unit (a
+    layer, a hybrid block) but its last (``torch.utils.checkpoint`` stops
+    recomputing a unit once it has remade the tensors the backward needs,
+    and the unit's last sum is not among them). The layers by family
+    (``layer_sums``): an attention layer's two, a Mamba layer's two, a
+    hybrid block of period p 3p - 1 (its attention's one, each Mamba
+    sublayer's two, each FFN's one), an encoder layer's two and a decoder
+    layer's three (its cross-attention's ``wo`` and ``enter``, which takes
+    the memory's gradient with the query's). Then one sum of the leaves
+    whose gradient is a part (qk-norm; ``wk``/``wv`` where the KV heads do
+    not divide; a Mamba block's ``w_B``, ``w_C``, ``conv_B``, ``conv_C``),
+    the global norm's one, and where the batch is cut over more than one
+    rank: the gradients' sum, the loss metric's and, with ``zero1``, the
+    gather of the updated slices (``optim/adamw.py::gather_updated``: one
+    all_reduce a dtype among the leaves it gathers, one in every ZeRO-1
+    run here: the CPU tests' fp32 cases cast every leaf to fp32, the
+    card's tinyllama is all bf16, and mamba2's fp32 leaves are not cut
+    over the data axis)."""
     data, model = mesh_shape
-    L, mu = cfg.n_layers, max(cfg.microbatches, 1)
+    mu = max(cfg.microbatches, 1)
     if cfg.dp_only:
         per_microbatch = extra = 0
         batch_ranks = data * model
     else:
         batch_ranks = data
-        aux = int(cfg.family == "moe" and batch_ranks > 1)
-        per_microbatch = (1 + (2 + aux) * L + 2) + (1 + 2 * L) \
-            + ((1 + aux) * L if cfg.remat else 0)
-        extra = 1 + int(cfg.family == "ssm" or cfg.qk_norm
+        # each remat unit's sums, its MoE aux sums, and its units
+        sums, aux, units = layer_sums(cfg, batch_ranks > 1)
+        per_microbatch = (1 + sums + aux + 2) + (1 + sums) \
+            + (sums + aux - units if cfg.remat else 0)
+        extra = 1 + int(cfg.family in ("ssm", "hybrid") or cfg.qk_norm
                         or cfg.n_kv_heads % model != 0)
     return mu * per_microbatch + extra + (
         2 + int(zero1) if batch_ranks > 1 else 0)
+
+
+def layer_sums(cfg, aux_summed: bool) -> tuple[int, int, int]:
+    """(the model-axis sums of one forward of every layer, the MoE aux
+    sums over the batch ranks among them where ``aux_summed``, the remat
+    units), by family (``train_collectives``)."""
+    L, fam = cfg.n_layers, cfg.family
+    if fam == "hybrid":
+        per, blocks = cfg.hybrid_period, L // cfg.hybrid_period
+        n_moe = per // cfg.hybrid_moe_every
+        return blocks * (3 * per - 1), blocks * n_moe * aux_summed, blocks
+    if fam == "encdec":
+        return 2 * cfg.n_encoder_layers + 3 * L, 0, cfg.n_encoder_layers + L
+    return 2 * L, L * (fam == "moe" and aux_summed), L
 
 
 class _EnterSome:
@@ -5210,6 +5327,7 @@ def train_faults(torch, which: str, mesh):
     step is built, the others where it runs."""
     import importlib
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import encdec as encdec_mod
     from repro_torch.optim import adamw as adamw_mod
     from repro_torch.runtime import train_lib
     from repro_torch.sharding import layout as layout_mod
@@ -5257,6 +5375,26 @@ def train_faults(torch, which: str, mesh):
                     if p[-1] not in ("w_B", "w_C")}
         return faulty
 
+    def own_columns(sum_partials):
+        return lambda self, t: t
+
+    def cross_without_sum(attention):
+        def faulty(params, x, cfg, *, kv_source=None, shard=None, **kw):
+            if kv_source is not None and shard is not None:
+                shard = _NoModelSum(shard)
+            return attention(params, x, cfg, kv_source=kv_source,
+                             shard=shard, **kw)
+        return faulty
+
+    def rolled_kv(attention):
+        def faulty(params, x, cfg, *, causal=True, kv_source=None, **kw):
+            if not causal and kv_source is None:     # the encoder's
+                params = {**params, **{n: params[n].roll(1, dims=-2)
+                                       for n in ("wk", "wv")}}
+            return attention(params, x, cfg, causal=causal,
+                             kv_source=kv_source, **kw)
+        return faulty
+
     def positions_on_axis_0(take_rows):
         def faulty(batch, rows):
             out = take_rows(batch, rows)
@@ -5280,26 +5418,211 @@ def train_faults(torch, which: str, mesh):
         SSM_TRAIN_FAULTS[1]: (train_lib, "model_partial_leaves",
                               without_b_c),
         VLM_TRAIN_FAULTS[0]: (train_lib, "take_rows",
-                              positions_on_axis_0)}[which]
+                              positions_on_axis_0),
+        HYBRID_TRAIN_FAULTS[0]: (layout_mod.ShardLayout, "sum_partials",
+                                 own_columns),
+        ENCDEC_TRAIN_FAULTS[0]: (encdec_mod, "attention", cross_without_sum),
+        ENCDEC_TRAIN_FAULTS[1]: (encdec_mod, "attention", rolled_kv)}[which]
     return patched(owner, name, wrap)
 
 
+# the sharded checkpoint's planted fault, in a restore at a data axis of 2
+# under ZeRO-1 (the card's (2, 2) run; the CPU tests')
+CKPT_FAULT = "a ZeRO-1 moment restored from the wrong data rank's slice"
+
+
+def ckpt_fault(torch):
+    """Context: ``checkpoint/ckpt.py``'s restore cuts each leaf whose spec
+    names the data axis (ZeRO-1's moments) at the next data rank's slice
+    (``CKPT_FAULT``)."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.rules import spec_axes
+
+    def next_data_rank(local_slices):
+        def faulty(spec, shape, mesh):
+            if any("data" in spec_axes(part) for part in spec):
+                coords = dict(mesh.coords)
+                coords["data"] = (coords["data"] + 1) % mesh.shape["data"]
+                mesh = Mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                            coords=coords)
+            return local_slices(spec, shape, mesh)
+        return faulty
+    return patched(ckpt_mod, "local_slices", next_data_rank)
+
+
+def ckpt_shards_path(rank: int) -> Path:
+    return ROOT / "build" / f"sharded-ckpt-shards-{rank}.pt"
+
+
+def ckpt_cleanup() -> None:
+    """The sharded checkpoint check's files off the disk."""
+    import shutil
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for r in range(CKPT_SAVE_AT[0] * CKPT_SAVE_AT[1]):
+        ckpt_shards_path(r).unlink(missing_ok=True)
+
+
+def _bit_view(torch, t):
+    """``t``'s bits as integers, for an exact comparison (signed zeros and
+    NaNs told apart)."""
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def ckpt_whole(torch):
+    """The whole state of ``CKPT_ARCH``'s (1, 2) run after its checked step,
+    assembled on the host from the ranks' shards on disk
+    (``ckpt_shards_path``, mapped) under the (1, 2) specs, independently of
+    ``checkpoint/ckpt.py``: a TrainState of CPU tensors."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_at, tree_map_with_path
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import train_lib
+    from repro_torch.sharding.rules import local_slices
+    model = build_model(sharded_train_config(CKPT_ARCH))
+    data, width = CKPT_SAVE_AT
+    specs = train_lib.make_train_state_specs(model, Mesh(CKPT_SAVE_AT, (
+        "data", "model")))
+    shards = [torch.load(ckpt_shards_path(r), mmap=True)
+              for r in range(data * width)]
+
+    def whole(path, like):
+        full = torch.empty(like.shape, dtype=like.dtype)
+        for r, shard in enumerate(shards):
+            rank = Mesh(CKPT_SAVE_AT, ("data", "model"), coords={
+                "data": r // width, "model": r % width})
+            full[local_slices(tree_at(specs, path), tuple(like.shape),
+                              rank)] = shard["__".join(path)]
+        return full
+    return tree_map_with_path(whole, train_lib.abstract_train_state(
+        model, AdamWConfig(**SHARD_TRAIN_OPT)))
+
+
+def ckpt_save(torch, mesh, state, specs) -> dict:
+    """``CKPT_ARCH``'s (1, 2) rank: its state saved over the mesh
+    (``save_state(..., specs=, mesh=)``: gathered leaf by leaf, rank 0
+    writes), timed; its shards also kept on disk for ``ckpt_whole``.
+    -> the save's seconds and the directory's bytes."""
+    from repro_torch.checkpoint import save_state
+    from repro_torch.models.param import tree_items
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = save_state(CKPT_DIR, 1, state, specs=specs, mesh=mesh)
+    seconds = time.perf_counter() - t0
+    torch.save({"__".join(p): a.detach().cpu() for p, a in tree_items(state)},
+               ckpt_shards_path(torch.distributed.get_rank()))
+    return {"save_s": seconds,
+            "bytes": sum(f.stat().st_size for f in final.iterdir())}
+
+
+def ckpt_restore(torch, mesh, state, specs) -> dict:
+    """``CKPT_ARCH``'s (2, 2) ZeRO-1 rank: the (1, 2) checkpoint restored
+    into its shards (``restore_state(..., specs=, mesh=)``), timed, each
+    leaf held bit for bit to its slice of ``ckpt_whole``; then restored
+    again under ``ckpt_fault``, which must part some leaf from its slice.
+    -> seconds, the shards' bytes, the leaves apart in each restore."""
+    from repro_torch.checkpoint import restore_state
+    from repro_torch.models.param import tree_at, tree_items
+    from repro_torch.sharding.rules import local_slices
+    whole = dict(tree_items(ckpt_whole(torch)))
+
+    def apart(restored) -> list:
+        return ["__".join(p) for p, a in tree_items(restored)
+                if not torch.equal(_bit_view(torch, a.cpu()), _bit_view(
+                    torch, whole[p][local_slices(tree_at(specs, p),
+                                                 tuple(whole[p].shape),
+                                                 mesh)]))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = restore_state(CKPT_DIR, 1, state, specs=specs, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t0,
+           "bytes": sum(a.numel() * a.element_size()
+                        for _, a in tree_items(restored)),
+           "apart": apart(restored)}
+    del restored
+    with ckpt_fault(torch):
+        faulty = restore_state(CKPT_DIR, 1, state, specs=specs, mesh=mesh)
+    out["fault_apart"] = apart(faulty)
+    return out
+
+
+def ckpt_directory_check(torch) -> None:
+    """After the (1, 2) spawn: the directory its ranks saved must equal,
+    file for file and byte for byte, what ``save_state`` writes for the
+    whole state assembled from their shards (``ckpt_whole``)."""
+    import filecmp
+    import shutil
+    from repro_torch.checkpoint import save_state
+    other = ROOT / "build" / "sharded-ckpt-whole"
+    shutil.rmtree(other, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_state(other, 1, ckpt_whole(torch))
+    got = sorted(f.name for f in (CKPT_DIR / "step_00000001").iterdir())
+    want = sorted(f.name for f in (other / "step_00000001").iterdir())
+    differ = [n for n in got if n in want and not filecmp.cmp(
+        CKPT_DIR / "step_00000001" / n, other / "step_00000001" / n,
+        shallow=False)]
+    log(f"[sharded-ckpt] {CKPT_ARCH} ({SHARD_TRAIN_LAYERS[CKPT_ARCH]} "
+        f"layers) saved at {CKPT_SAVE_AT}: {len(got)} files; against "
+        f"save_state of the state assembled from the ranks' shards "
+        f"({len(want)} files, {time.perf_counter() - t0:.1f} s): names "
+        f"equal {got == want}, files whose bytes differ {differ}")
+    shutil.rmtree(other, ignore_errors=True)
+    if got != want or differ:
+        raise AssertionError(f"the sharded checkpoint is not save_state's "
+                             f"of the whole state: {differ}")
+
+
 def sharded_train_config(arch: str = SHARD_TRAIN_ARCH):
+    """The config of ``arch``'s sharded training run: full width at
+    ``SHARD_TRAIN_LAYERS`` (an encoder-decoder's both stacks), jamba its
+    reduced config cut to one period-4 block; remat "full"."""
     from repro_torch.configs import get_config
+    if arch == JAMBA_ARCH:
+        cfg = one_block(get_config(arch, reduced=True))
+    else:
+        layers = SHARD_TRAIN_LAYERS[arch]
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, **(
+            {"n_encoder_layers": layers}
+            if get_config(arch).family == "encdec" else {}))
     return dataclasses.replace(
-        get_config(arch), n_layers=SHARD_TRAIN_LAYERS[arch],
-        q_chunk=SHARD_TRAIN_SEQ // 2, kv_chunk=SHARD_TRAIN_SEQ // 2,
+        cfg, q_chunk=SHARD_TRAIN_SEQ // 2, kv_chunk=SHARD_TRAIN_SEQ // 2,
         remat=True, remat_policy="full", microbatches=1)
+
+
+def sharded_train_state(torch, model, opt, arch: str, mesh=None,
+                        zero1: bool = False):
+    """The seeded training state of ``arch``'s sharded run on the card (this
+    rank's shards over ``mesh``, or whole), the attention at fan-in std,
+    the parameters cast to fp32 for an arch of ``SHARD_TRAIN_FP32``."""
+    from repro_torch.models.param import tree_map
+    from repro_torch.runtime import train_lib
+    state = train_lib.init_train_state(model, opt, seed=0, device="cuda",
+                                       mesh=mesh, zero1=zero1)
+    attention_at_fan_in(state.params, model.cfg)
+    if arch in SHARD_TRAIN_FP32:
+        state = train_lib.TrainState(
+            tree_map(lambda a: a.float(), state.params), state.opt)
+    return state
 
 
 def sharded_train_batch(torch, cfg) -> dict:
     """The global batch of ``cfg``'s sharded training on the host: 8
     seeded sequences of 513 tokens; for the vlm also 16 seeded bf16 vision
     embeddings a row and ``qwen2vl_positions`` (as the single-card qwen2-vl
-    train check feeds them)."""
+    train check feeds them); for the encoder-decoder ``FRAMES_LEN`` seeded
+    bf16 frame embeddings a row."""
     import numpy as np
+    from repro_torch.launch.serve import FRAMES_LEN
     batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ + 1)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            SHARD_TRAIN_BATCH, FRAMES_LEN, cfg.d_model,
+            generator=torch.Generator().manual_seed(3)).bfloat16()
     if cfg.family == "vlm":
         n_vis = QWEN2VL_GRID[0] * QWEN2VL_GRID[1]
         batch["vision_embeds"] = torch.randn(
@@ -5327,8 +5650,7 @@ def sharded_train_reference(torch, arch: str, path: Path) -> None:
     cfg = sharded_train_config(arch)
     model = build_model(cfg)
     opt = AdamWConfig(**SHARD_TRAIN_OPT)
-    state = train_lib.init_train_state(model, opt, seed=0, device="cuda")
-    attention_at_fan_in(state.params, cfg)
+    state = sharded_train_state(torch, model, opt, arch)
     batch = sharded_train_batch(torch, cfg)
     kept, routes = {}, {"cuda": [], "cpu": []}
 
@@ -5342,11 +5664,14 @@ def sharded_train_reference(torch, arch: str, path: Path) -> None:
             else contextlib.nullcontext():
         state, metrics = train_lib.build_train_step(model, opt)(
             state, {k: t.cuda() for k, t in batch.items()})
-    # the forward's calls, one a layer (remat's recompute calls them again)
+    # the forward's calls, one an MoE layer or sublayer (remat's recompute
+    # calls them again)
+    n_moe = cfg.n_layers // cfg.hybrid_moe_every \
+        if cfg.family == "hybrid" else cfg.n_layers
     torch.save({"batch": batch, "loss": float(metrics["loss"]),
                 "grad_norm": float(metrics["grad_norm"]), "grads": kept,
                 "routes": [t for t, _, _ in (routes["cuda"] + routes["cpu"])[
-                    :cfg.n_layers]]},
+                    :n_moe]]},
                path)
     del state, metrics, kept
     gc.collect()
@@ -5450,9 +5775,7 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
     def build():
         return train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
 
-    state = train_lib.init_train_state(model, opt, seed=0, device="cuda",
-                                       mesh=mesh, zero1=zero1)
-    attention_at_fan_in(state.params, cfg)
+    state = sharded_train_state(torch, model, opt, arch, mesh, zero1)
     p0 = {p: a.detach().clone() for p, a in tree_items(state.params)}
 
     def reset(state):
@@ -5524,6 +5847,8 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
               "launches": launches, "first_s": first_s,
               **rules(state, metrics, grads)}
     del grads
+    if arch == CKPT_ARCH and mesh_shape == CKPT_SAVE_AT:
+        result["ckpt"] = ckpt_save(torch, mesh, state, specs)
     state_bytes = sum(a.numel() * a.element_size() for tree in (
         state.params, state.opt.m, state.opt.v) for _, a in tree_items(tree))
     times = []
@@ -5572,6 +5897,8 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
         faults[which] = rules(state, metrics, grads)
         del grads
     result["faults"] = faults
+    if arch == CKPT_ARCH and mesh_shape == CKPT_RESTORE_AT:
+        result["ckpt"] = ckpt_restore(torch, mesh, state, specs)
     del state, metrics
     return result
 
@@ -5589,13 +5916,32 @@ def _train_line(res: dict) -> str:
 
 
 def train_kernels(cfg) -> dict:
-    """The kernel launches of one sharded train step a rank: the flash
-    forward twice a layer (remat recomputes it) and its backward once, or
-    the ssd forward twice and its backward once; no other kernel."""
-    if cfg.family == "ssm":
-        return {"ssd": 2 * cfg.n_layers, "ssd_bwd": cfg.n_layers}
-    return {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
+    """The kernel launches of one sharded train step a rank, each
+    microbatch: the flash forward once an attention, twice under remat
+    (which recomputes it), and its backward once; the ssd forward and
+    backward alike a Mamba block; no other kernel. An attention is one a
+    layer (the encoder-decoder's: its encoder's, and its decoder's self-
+    and cross-attention), one a hybrid block; a Mamba block one a layer of
+    the ssm family, ``hybrid_period - 1`` a hybrid block."""
+    mu = max(cfg.microbatches, 1)
+    fam = cfg.family
+    if fam == "ssm":
+        attn, mamba = 0, cfg.n_layers
+    elif fam == "hybrid":
+        blocks = cfg.n_layers // cfg.hybrid_period
+        attn, mamba = blocks, blocks * (cfg.hybrid_period - 1)
+    elif fam == "encdec":
+        attn, mamba = cfg.n_encoder_layers + 2 * cfg.n_layers, 0
+    else:
+        attn, mamba = cfg.n_layers, 0
+    fwd = 2 if cfg.remat else 1
+    out = {}
+    if attn:
+        out.update(flash_attention=fwd * attn * mu,
+                   flash_attention_bwd=attn * mu)
+    if mamba:
+        out.update(ssd=fwd * mamba * mu, ssd_bwd=mamba * mu)
+    return out
 
 
 def sharded_train_check(torch, mesh_shape: tuple, arch: str,
@@ -5609,13 +5955,26 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
     own routing is printed, not held (ROADMAP C.2). Ranks that share the
     one card over gloo: their times are not a multi-card figure. Returns
     the kernels' launches summed over the ranks."""
+    from repro_torch.launch.serve import FRAMES_LEN
     cfg = sharded_train_config(arch)
     launched = {}
     extra = f", {QWEN2VL_GRID[0] * QWEN2VL_GRID[1]} vision embeddings a " \
         f"row and 3-D positions" if cfg.family == "vlm" else (
             ", fed the unsharded step's experts" if cfg.n_experts else "")
+    if cfg.family == "encdec":
+        extra += f", over {FRAMES_LEN} frames a row"
+    if arch in SHARD_TRAIN_FP32:
+        extra += ", parameters in fp32"
+    if cfg.family == "hybrid":
+        extra += (f"; the reduced config, d_model {cfg.d_model}: one card "
+                  f"cannot hold a full-width block's state, and jamba's "
+                  f"sublayers at full width are held by qwen2-vl's "
+                  f"attention (G = 8, D = 128), mamba2's Mamba-2 (P = 64, "
+                  f"N = 128) and qwen3-moe's MoE runs")
+    depth = f"{cfg.n_encoder_layers} + {cfg.n_layers}" \
+        if cfg.family == "encdec" else str(cfg.n_layers)
     for rank, res in sorted(results.items()):
-        log(f"[sharded-train] {arch} ({cfg.n_layers} layers, batch "
+        log(f"[sharded-train] {arch} ({depth} layers, batch "
             f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ}{extra}, zero1 "
             f"{res['zero1']}) mesh {mesh_shape} rank {rank} "
             f"{res['coords']} (processes sharing one card over gloo, not a "
@@ -5645,6 +6004,8 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
         if res["broken"]:
             raise AssertionError(f"sharded training {arch} {mesh_shape} "
                                  f"rank {rank}: rules broken {res['broken']}")
+        if "ckpt" in res:
+            ckpt_line(mesh_shape, rank, res["ckpt"])
         for name, n in res["launches"].items():
             launched[name] = launched.get(name, 0) + n
     for which in train_faults_of(arch, mesh_shape):
@@ -5660,6 +6021,26 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
                                  f"on ranks "
                                  f"{sorted(set(results) - set(broke))}")
     return launched
+
+
+def ckpt_line(mesh_shape: tuple, rank: int, ckpt: dict) -> None:
+    """One rank's sharded checkpoint readings, logged and held: a save's
+    seconds and bytes; a restore's, its leaves bit-equal to their slices
+    and the planted ``CKPT_FAULT`` parting some leaf from its slice."""
+    if "save_s" in ckpt:
+        log(f"[sharded-ckpt] {CKPT_ARCH} save at {mesh_shape} rank {rank} "
+            f"(gathered leaf by leaf, rank 0 writes): {ckpt['save_s']:.2f} "
+            f"s, {ckpt['bytes'] / 1e9:.3f} GB on disk")
+        return
+    log(f"[sharded-ckpt] {CKPT_ARCH} restore of the {CKPT_SAVE_AT} save at "
+        f"{mesh_shape} with ZeRO-1, rank {rank}: {ckpt['restore_s']:.2f} s, "
+        f"{ckpt['bytes'] / 1e9:.3f} GB of shards; leaves apart from their "
+        f"slices of the whole state {ckpt['apart'] or 'none'} (must be "
+        f"none); planted fault '{CKPT_FAULT}': "
+        f"{len(ckpt['fault_apart'])} leaves apart (must be some)")
+    if ckpt["apart"] or not ckpt["fault_apart"]:
+        raise AssertionError(f"sharded checkpoint restore at {mesh_shape} "
+                             f"rank {rank}: {ckpt}")
 
 
 def kernel_counters() -> dict:
@@ -5916,6 +6297,15 @@ def main() -> int:
             (ssd, "rank_train_h16", "mamba2-370m", "ssd"),
             (ssd_bwd, "rank_train_h16", "mamba2-370m", "ssd_bwd")):
         rec[key]["launches"] = train[arch][name]
+    # jamba's full-width rank shape (H = 128): the card trains jamba's
+    # reduced config alone, so these rows carry that run's launches, at
+    # its own shape
+    for rec, name in ((ssd, "ssd"), (ssd_bwd, "ssd_bwd")):
+        rec["rank_train_h128"].update(
+            launches=train[JAMBA_ARCH][name],
+            launch_shape=f"jamba's reduced config, one period-4 block, "
+                         f"{sharded_train_config(JAMBA_ARCH).ssm_heads // 2}"
+                         f" heads a rank at P = 16, N = 16")
     # qwen2-vl's rows (G = 8, D = 128), each with the launches of its
     # counted serve_loop (flash: 40, one a layer; decode: 40 x 31) or of
     # its counted training run (the backward 4, the forward 8)
@@ -5943,6 +6333,11 @@ def main() -> int:
         rec["seamless"] = {"launches": launches, **{
             key.removeprefix("seamless_"): rec.pop(key)
             for key in list(rec) if key.startswith("seamless_")}}
+    # and its sharded training's (a rank's 8 of 16 heads at (1, 2))
+    for rec, name in ((flash, "flash_attention"),
+                      (flash_bwd, "flash_attention_bwd")):
+        rec["seamless"]["sharded_train_launches"] = \
+            train[SEAMLESS_ARCH][name]
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

@@ -12,11 +12,24 @@ complete, so a crash leaves either the previous checkpoint or the new one.
 The async manager copies every leaf to host memory synchronously (the train
 step updates the tensors in place right after) and writes the files on a
 thread.
+
+The layout is the reference's topology-agnostic one: every leaf a full
+array keyed by its tree path, never by rank. A sharded state (one rank's
+shards under ``runtime/train_lib.py::make_train_state_specs``) saves with
+``specs`` and ``mesh``: each leaf is gathered from its shards, one leaf at
+a time (so that no rank holds the whole state on the device), over the
+ranks that cut it (:func:`gather_leaf`), and global rank 0 writes the
+files, byte for byte what ``save_state`` writes for the same state held
+whole; every rank waits for the rename. A restore with ``specs`` and
+``mesh`` cuts each full leaf to the rank's shard (``local_slices``), so a
+checkpoint written at one mesh restores at another, or on one device, and
+into the JAX package. The directory must be one that every rank reads.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -25,7 +38,8 @@ import threading
 import numpy as np
 import torch
 
-from ..models.param import tree_items, tree_map_with_path
+from ..models.param import tree_at, tree_items, tree_map_with_path
+from ..sharding.rules import local_slices, spec_axes
 
 __all__ = ["save_state", "restore_state", "latest_step",
            "CheckpointManager"]
@@ -44,6 +58,61 @@ def _host(leaf) -> tuple[np.ndarray, str]:
 
 def _snapshot(state) -> dict[str, tuple[np.ndarray, str]]:
     return {_SEP.join(path): _host(leaf) for path, leaf in tree_items(state)}
+
+
+# the integer type that carries a leaf's bits through a sum, by its width:
+# 16-bit leaves widened to int32, which every backend sums
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather_leaf(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole of a leaf from this rank's shard ``leaf`` under ``spec``:
+    a sum, over the ranks whose coordinates the spec cuts, of a zero
+    buffer into which each writes its shard's bits (one all_reduce; each
+    element has one nonzero term, so the sum is exact, signed zeros and
+    NaNs included). A leaf the spec keeps whole comes back as it is."""
+    parts = tuple(spec) + (None,) * (leaf.dim() - len(spec))
+    axes = [a for a in mesh.axis_names
+            if any(a in spec_axes(p) for p in parts)]
+    if not axes:
+        return leaf
+    shape = tuple(n * math.prod(mesh.shape[a] for a in spec_axes(p))
+                  for n, p in zip(leaf.shape, parts))
+    bits = leaf.detach().view(_BITS[leaf.element_size()])
+    wide = torch.int32 if bits.dtype == torch.int16 else bits.dtype
+    full = torch.zeros(shape, dtype=wide, device=leaf.device)
+    full[local_slices(spec, shape, mesh)] = bits
+    torch.distributed.all_reduce(full, group=mesh.group(tuple(axes)))
+    return full.to(bits.dtype).view(leaf.dtype)
+
+
+def _writer() -> bool:
+    """The rank that writes a sharded save: global rank 0."""
+    return torch.distributed.get_rank() == 0
+
+
+def _barrier(device) -> None:
+    """Every rank of the process group waits for every other (an
+    all_reduce of one element on ``device``, which either backend
+    takes)."""
+    torch.distributed.all_reduce(torch.zeros(1, device=device))
+
+
+def _sharded_snapshot(state, specs, mesh) -> dict:
+    """Each leaf of this rank's shards gathered whole (:func:`gather_leaf`,
+    one leaf at a time); the writer keeps a host copy of each, the other
+    ranks nothing."""
+    out, writer = {}, _writer()
+    for path, leaf in tree_items(state):
+        full = gather_leaf(leaf, tree_at(specs, path), mesh)
+        if writer:
+            out[_SEP.join(path)] = _host(full)
+        del full
+    return out
+
+
+def _device_of(state):
+    return tree_items(state)[0][1].device
 
 
 def _write(directory, step: int, snapshot, extra) -> pathlib.Path:
@@ -65,9 +134,21 @@ def _write(directory, step: int, snapshot, extra) -> pathlib.Path:
 
 
 def save_state(directory: str | pathlib.Path, step: int, state,
-               extra: dict | None = None) -> pathlib.Path:
-    """Synchronous atomic save; returns the final directory."""
-    return _write(directory, step, _snapshot(state), extra)
+               extra: dict | None = None, *, specs=None,
+               mesh=None) -> pathlib.Path:
+    """Synchronous atomic save; returns the final directory. With
+    ``specs`` (the state's PartitionSpec tree) and ``mesh`` (a live mesh),
+    ``state`` is this rank's shards: every rank calls it, the leaves are
+    gathered whole and global rank 0 writes them; every rank returns once
+    the directory is renamed."""
+    if mesh is None:
+        return _write(directory, step, _snapshot(state), extra)
+    snapshot = _sharded_snapshot(state, specs, mesh)
+    final = pathlib.Path(directory) / f"step_{step:08d}"
+    if _writer():
+        _write(directory, step, snapshot, extra)
+    _barrier(_device_of(state))
+    return final
 
 
 def latest_step(directory: str | pathlib.Path) -> int | None:
@@ -79,9 +160,13 @@ def latest_step(directory: str | pathlib.Path) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_state(directory: str | pathlib.Path, step: int, like):
+def restore_state(directory: str | pathlib.Path, step: int, like, *,
+                  specs=None, mesh=None):
     """Restore into the structure of ``like``: each leaf on the device and
-    in the dtype of ``like``'s leaf at the same path."""
+    in the dtype of ``like``'s leaf at the same path. With ``specs`` and
+    ``mesh``, ``like`` is this rank's shards: each full leaf on disk is cut
+    to the rank's slice under its spec (read through a memory map), so
+    the checkpoint may come from any mesh, or from one device."""
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((directory / "manifest.json").read_text())
 
@@ -89,7 +174,15 @@ def restore_state(directory: str | pathlib.Path, step: int, like):
         key = _SEP.join(path)
         if key not in manifest["leaves"]:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = np.load(directory / f"{key}.npy")
+        arr = np.load(directory / f"{key}.npy",
+                      mmap_mode=None if mesh is None else "r")
+        if mesh is not None:
+            arr = np.array(arr[local_slices(tree_at(specs, path), arr.shape,
+                                            mesh)])
+        if tuple(arr.shape) != tuple(leaf.shape):
+            where = "this rank's slice" if mesh is not None else "on disk"
+            raise ValueError(f"{key}: {tuple(arr.shape)} ({where}), "
+                             f"{tuple(leaf.shape)} in the state")
         if "bfloat16" in manifest["leaves"][key]["dtype"] \
                 and arr.dtype == np.uint16:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -100,23 +193,50 @@ def restore_state(directory: str | pathlib.Path, step: int, like):
 
 
 class CheckpointManager:
-    """Keeps the last ``keep`` checkpoints; optional async saves."""
+    """Keeps the last ``keep`` checkpoints; optional async saves.
+
+    With ``specs`` and ``mesh`` it saves and restores a sharded state, as
+    :func:`save_state` and :func:`restore_state` do: every rank calls each
+    method; a save gathers the leaves synchronously (the writer keeping
+    them on the host, before the next step updates the shards in place),
+    global rank 0 writes them, on a thread when async, and :meth:`wait`
+    returns on every rank once that write is renamed."""
 
     def __init__(self, directory: str | pathlib.Path, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, *, specs=None, mesh=None):
         self.directory = pathlib.Path(directory)
         self.keep = keep
         self.async_save = async_save
+        self.specs, self.mesh = specs, mesh
         self._pending: threading.Thread | None = None
         self._error: BaseException | None = None
         self._lock = threading.Lock()
+        self._unsynced = None    # a sharded save's device, until wait()
 
     def save(self, step: int, state, extra: dict | None = None) -> None:
+        if self.mesh is not None:
+            self._save_sharded(step, state, extra)
+            return
         snapshot = _snapshot(state)
         if not self.async_save:
             self._write(step, snapshot, extra)
             return
         self.wait()
+        self._start(step, snapshot, extra)
+
+    def _save_sharded(self, step: int, state, extra) -> None:
+        self.wait()
+        snapshot = _sharded_snapshot(state, self.specs, self.mesh)
+        self._unsynced = _device_of(state)
+        if _writer():
+            if self.async_save:
+                self._start(step, snapshot, extra)
+            else:
+                self._write(step, snapshot, extra)
+        if not self.async_save:
+            self.wait()
+
+    def _start(self, step, snapshot, extra) -> None:
         self._pending = threading.Thread(
             target=self._write_async, args=(step, snapshot, extra),
             daemon=True)
@@ -142,10 +262,14 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def wait(self):
-        """Join the pending save; raise what it raised."""
+        """Join the pending save (over a mesh, on every rank: once the
+        writer's is renamed); raise what it raised."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._unsynced is not None:
+            device, self._unsynced = self._unsynced, None
+            _barrier(device)
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -158,4 +282,5 @@ class CheckpointManager:
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        return restore_state(self.directory, step, like), step
+        return restore_state(self.directory, step, like, specs=self.specs,
+                             mesh=self.mesh), step

@@ -12,20 +12,23 @@ On one card it trains what fits: the parameters, their gradients and
 AdamW's two fp32 moments take ~12 bytes a parameter, ~190 GB for a 15 B
 arch (starcoder2-15b, nemotron-4-15b, qwen3-14b), so a full-depth run of
 one on a single card raises ``ValueError``; a cut depth of them trains.
-The dense, vlm, moe and ssm families also train over a (data, model) mesh
-(``data=``, ``model=``; every rank of a live process group calls
-:func:`train_loop`): each rank holds its shards of the state and its rows
-of each global microbatch, and the refusal counts those shards; the
-hybrid and encoder-decoder families, checkpoints of a sharded state and
-ZeRO-3 wait for ROADMAP A.12. So does
-qwen2-vl-72b (872 GB of state at its 80 layers; at 1 layer, 40 GB), which
-trains as the reference's ``train_loop`` trains it: on the synthetic
-tokens alone, so its attention takes the 1-D RoPE (``loss_fn`` reads
-``vision_embeds`` and ``mrope_positions`` when a batch carries them).
-jamba-1.5-large-398b does not train on one card at any depth: one MoE
-sublayer alone is 9.66 B parameters, 116 GB of state, so ``train_loop``
-raises ``ValueError`` naming A.12 (4.77 TB at its 72 layers, 276 GB for
-one period-4 super-block); its ``loss_fn`` and gradients run on the CPU.
+Every family but the encoder-decoder also trains through it over a
+(data, model) mesh (``data=``, ``model=``; every rank of a live process
+group calls :func:`train_loop`): each rank holds its shards of the state
+and its rows of each global microbatch, and the refusal counts those
+shards; its checkpoints are the reference's full arrays, gathered from the
+shards and written by one rank, and a resume cuts them to each rank's
+shards again (``checkpoint/ckpt.py``), so a run may resume on another
+mesh. ZeRO-3 waits for ROADMAP A.12. qwen2-vl-72b (872 GB of state at its
+80 layers; at 1 layer, 40 GB) trains as the reference's ``train_loop``
+trains it: on the synthetic tokens alone, so its attention takes the 1-D
+RoPE (``loss_fn`` reads ``vision_embeds`` and ``mrope_positions`` when a
+batch carries them). jamba-1.5-large-398b does not train on one card at
+any depth: one MoE sublayer alone is 9.66 B parameters, 116 GB of state,
+so ``train_loop`` on one card raises ``ValueError`` naming A.12 (4.77 TB
+at its 72 layers, 276 GB for one period-4 super-block); over a mesh each
+rank's shards of it are counted instead, and its reduced config trains
+there (and on the CPU).
 
 The encoder-decoder (seamless-m4t-large-v2, 1.63 B parameters, ~20 GB of
 training state at full depth) trains as the reference trains it: not
@@ -34,7 +37,9 @@ but through :func:`setup_training`'s ``step_fn`` (``build_train_step``)
 on the ``{'frames', 'tokens'}`` batch of :func:`batch_at`, keyed by step:
 the tokens of ``SyntheticLM``, and ``FRAMES_LEN`` seeded random frame
 embeddings a sequence (16 with ``reduced=True``), as ``launch/serve.py``
-draws them for a prompt.
+draws them for a prompt. ``setup_training(..., mesh=)`` gives a rank's
+step of it over a mesh, which takes the whole batch of :func:`batch_at`
+and cuts its rows of ``frames`` with its tokens.
 
 Fault tolerance: ``--simulate-failure K`` raises after step K; rerunning
 the same command with ``--resume`` resumes from the last complete
@@ -120,9 +125,9 @@ def setup_training(arch: str, *, steps: int, batch: int, seq: int,
     encoder-decoder also ``frames_len``, the frames a sequence:
     ``FRAMES_LEN``, 16 reduced). On the card it first refuses a state
     larger than the card and builds the kernels, so no kernel builds inside
-    a step. With ``mesh`` (a live mesh; families dense, vlm, moe and ssm),
-    this rank's step and shards of the state (``build_train_step(...,
-    mesh=)``), the refusal counting those shards."""
+    a step. With ``mesh`` (a live mesh; every family), this rank's step
+    and shards of the state (``build_train_step(..., mesh=)``), the
+    refusal counting those shards."""
     device = resolve_device(device, "train_loop")
     cfg = get_config(arch, reduced=reduced)
     cfg = dataclasses.replace(cfg, q_chunk=max(seq // 2, 16),
@@ -187,11 +192,13 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     (one rank a card under NCCL, or ranks that share one under gloo, each
     with its device set): the step runs over ``make_local_mesh(data,
     model)``, each rank on its rows of the pipeline's global batch and its
-    shards of the state (families dense, vlm, moe and ssm, on tokens alone
-    as the reference's loop feeds them; the reference's signature).
+    shards of the state (every family but the encoder-decoder, on tokens
+    alone as the reference's loop feeds them; the reference's signature).
     With no process group up it raises ``RuntimeError``, as
-    ``make_local_mesh`` does; ``ckpt_dir`` with more than one rank raises
-    ``NotImplementedError`` naming ROADMAP A.12 (sharded checkpoints).
+    ``make_local_mesh`` does. Its checkpoints (``ckpt_dir``, a directory
+    every rank reads) hold the whole state in the one-device layout:
+    each save gathers the shards and rank 0 writes them, and ``resume``
+    cuts them to this mesh's shards, whatever mesh wrote them.
 
     Returns ``losses`` (one a step run, the global batch's), ``wall_s``,
     ``tokens_per_s`` (the global batch's tokens), ``final_loss`` and
@@ -199,10 +206,6 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     cfg = get_config(arch, reduced=reduced)
     mesh = None
     if data * model > 1:
-        if ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints of a sharded state (ckpt_dir with data * model "
-                "> 1): not in the port yet (ROADMAP A.12)")
         mesh = make_local_mesh(data, model)
     if cfg.family == "encdec":
         # refused before anything is allocated, as the reference's
@@ -223,7 +226,10 @@ def train_loop(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     mgr = None
     start_step = 0
     if ckpt_dir:
-        mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+        mgr = CheckpointManager(
+            ckpt_dir, keep=2, async_save=True, mesh=mesh,
+            specs=None if mesh is None else make_train_state_specs(
+                setup.model, mesh))
         if resume and mgr.latest() is not None:
             state, start_step = mgr.restore(state)
             print(f"[train] resumed from step {start_step}")

@@ -239,16 +239,13 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     length + S - 1``, whatever positions rotate q and k.
     ``shard`` runs this rank's part of a sharded call
     (:func:`_sharded_attention`: cached, or uncached as the encoder's and
-    training's; M-RoPE at ``mrope_positions``, this rank's rows, as here;
-    no ``kv_source``).
+    training's, or over ``kv_source`` uncached, as the encoder-decoder's
+    training runs its cross-attention; M-RoPE at ``mrope_positions``, this
+    rank's rows, as here).
     """
     if shard is not None:
-        if kv_source is not None:
-            raise NotImplementedError(
-                "kv_source (uncached cross-attention) in a sharded call: not "
-                "in the sharded execution of the port yet (ROADMAP A.12)")
         return _sharded_attention(params, x, cfg, cache, shard, causal,
-                                  mrope_positions)
+                                  mrope_positions, kv_source)
     B, S, M = x.shape
     H, Hk, D = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     is_cross = kv_source is not None
@@ -422,7 +419,8 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, shard) -> torch.Tensor:
 
 def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
                        cache: KVCache | None, shard, causal: bool = True,
-                       mrope_positions: torch.Tensor | None = None):
+                       mrope_positions: torch.Tensor | None = None,
+                       kv_source: torch.Tensor | None = None):
     """One rank's share of an attention call: x (B_local, S, M), params
     this rank's shards (q heads ``shard.heads``, K/V heads
     ``shard.kv_heads``), cache None (the encoder's uncached call, causal
@@ -432,6 +430,11 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     * Uncached: the flash kernel on this rank's q heads and the KV heads
       they read, which are among its own (the KV heads are cut as the q
       heads' groups, or whole on every rank); no collective but ``wo``'s.
+      With ``kv_source`` (B_local, T, M), an encoder memory alike on every
+      model rank, the cross-attention of the reference's mode: the rank's
+      KV heads projected from the memory through its columns of ``wk``
+      and ``wv``, no RoPE, not causal, no cache, and no gather (each
+      rank's q heads read only the KV heads among its own).
     * Prefill (S > 1; the cache is empty before it, as in the reference):
       the flash kernel runs on this rank's q heads and the K/V heads they
       read, over the whole prompt; the prompt's K/V for every KV head
@@ -447,40 +450,52 @@ def _sharded_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     This rank's heads of the output go through its rows of ``wo``, summed
     in fp32 over the model axis where the heads are cut and rounded once.
-    Where the heads are cut, ``x`` enters through ``shard.enter``: under
-    grad (training, uncached) the gradient of ``x``, each rank's heads'
-    part, is summed over the model axis; ``wo``'s sum passes the gradient
-    whole to every rank. q and k rotate by M-RoPE at ``mrope_positions``
+    Where the heads are cut, ``x`` (and ``kv_source``, in the same
+    all_reduce) enters through ``shard.enter``: under grad (training,
+    uncached) the gradient of each, its rank's heads' part, is summed over
+    the model axis; ``wo``'s sum passes the gradient whole to every
+    rank. q and k rotate by M-RoPE at ``mrope_positions``
     (3, B_local, S) where the config uses it and they are given (each
     rank's heads at its rows' positions), else by the 1-D RoPE at the
     cache rows. Returns (y, new cache or None)."""
     B, S, M = x.shape
     D = cfg.head_dim
     Hl, Hkl = shard.heads.size, shard.kv_heads.size
+    cross = kv_source is not None
+    if cross and cache is not None:
+        raise ValueError("kv_source takes no cache (the cached "
+                         "cross-attention is cross_attention)")
+    kv_in = kv_source if cross else x
     if shard.heads.sharded:
-        x = shard.enter(x)
+        if cross:
+            x, kv_in = shard.enter(x, kv_in)
+        else:
+            x = kv_in = shard.enter(x)
+    T = kv_in.shape[1]
     q = matmul(x, params["wq"].reshape(M, Hl * D)).view(B, S, Hl, D)
-    k = matmul(x, params["wk"].reshape(M, Hkl * D)).view(B, S, Hkl, D)
-    v = matmul(x, params["wv"].reshape(M, Hkl * D)).view(B, S, Hkl, D)
+    k = matmul(kv_in, params["wk"].reshape(M, Hkl * D)).view(B, T, Hkl, D)
+    v = matmul(kv_in, params["wv"].reshape(M, Hkl * D)).view(B, T, Hkl, D)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     rows = torch.arange(S, device=x.device)
     if cache is not None:
         rows = cache.length + rows
-    if cfg.use_mrope and mrope_positions is not None:
-        q = apply_mrope(q, mrope_positions, D, theta=cfg.rope_theta)
-        k = apply_mrope(k, mrope_positions, D, theta=cfg.rope_theta)
-    else:
-        cos, sin = rope_table(rows, D, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if not cross:           # the reference rotates no cross-attention
+        if cfg.use_mrope and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, D, theta=cfg.rope_theta)
+            k = apply_mrope(k, mrope_positions, D, theta=cfg.rope_theta)
+        else:
+            cos, sin = rope_table(rows, D, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
     span, kv = shard.seq, _kv_range(shard)
     if cache is None:
         own = slice(kv.start - shard.kv_heads.start,
                     kv.stop - shard.kv_heads.start)
         out = _prefill_core(q, k[:, :, own].contiguous(),
-                            v[:, :, own].contiguous(), cfg, causal)
+                            v[:, :, own].contiguous(), cfg,
+                            causal and not cross)
     elif S == 1:
         # every KV head's K/V (the cache holds them all) and every head's
         # q, in one gather

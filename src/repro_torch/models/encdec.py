@@ -11,6 +11,10 @@ Entry points, as in the reference:
 * ``loss_fn(params, batch)``   -> next-token cross entropy; batch is
   ``{'frames': (B, T, M), 'tokens': (B, S+1)[, 'mask': (B, S)]}``;
 * ``forward(params, frames, tokens)`` -> (logits (B, S, V), 0-dim zero);
+
+both also take ``shard``, one rank's part of a (data, model) mesh under
+autograd (``runtime/train_lib.py``'s sharded step), and ``loss_fn`` the
+per-token ``weights`` and ``aux_weight`` that ``LM.loss_fn`` takes;
 * ``encode(params, frames)``   -> memory (B, T, M);
 * ``prefill(params, frames, tokens, cache)`` -> (last-token logits, cache);
 * ``decode_step(params, token, cache)``      -> (logits (B, 1, V), cache).
@@ -35,7 +39,12 @@ which every rank holds whole) and the MLP on its hidden units, each
 row-parallel product summed over the model axis. At the prefill each rank
 projects the memory through its ``wk``/``wv`` heads of every layer, and
 the heads are gathered, in one all_reduce, into the whole cross cache
-(``_cross_kv``), as the reference's spec keeps it.
+(``_cross_kv``), as the reference's spec keeps it. ``forward`` and
+``loss_fn`` with ``shard`` (training) run the same cut under autograd:
+the encoder on the rank's heads and hidden units, the decoder's
+cross-attention uncached over the memory through the rank's columns of
+``wk``/``wv`` (no gather: a rank's q heads read only its own KV heads),
+the vocab-parallel head and cross entropy (``common.token_nll``).
 
 Parameters are the reference's tree (same paths and shapes), with leading
 stacked layer axes; a Python loop over them takes the place of
@@ -55,7 +64,7 @@ import torch
 from .attention import (KVCache, attention, attention_decls,
                         cross_attention, init_cache)
 from .common import (cross_entropy_loss, embed_tokens, matmul, remat_layer,
-                     rms_norm)
+                     rms_norm, token_nll)
 from .config import ModelConfig
 from .ffn import mlp, mlp_decls
 from .param import ArrayDecl, normal_init, ones_init, unstack_layers
@@ -166,30 +175,59 @@ class EncDecLM:
                shard=None) -> torch.Tensor:
         return embed_tokens(params["embed"], tokens, shard)
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """The logits of the normed ``x``; with ``shard`` whose vocab is
+        cut, this rank's columns of ``head``, ``x`` entering through
+        ``shard.enter`` (as ``LM._head``)."""
         x = rms_norm(x, params["final_norm"])
+        if shard is not None and shard.vocab.sharded:
+            x = shard.enter(x)
         return matmul(x, params["head"].to(x.dtype))
 
-    def forward(self, params, frames: torch.Tensor, tokens: torch.Tensor):
+    def forward(self, params, frames: torch.Tensor, tokens: torch.Tensor, *,
+                shard=None):
         """Training path: (B, T, M) frames + (B, S) tokens -> logits
-        (B, S, V) and a 0-dim fp32 zero (no aux loss)."""
-        memory = self.encode(params, frames)
-        x = self._embed(params, tokens)
+        (B, S, V) and a 0-dim fp32 zero (no aux loss).
+
+        With ``shard`` (a training ``ShardLayout`` from
+        ``runtime/serve_lib.py::shard_layout``): this rank's part of a
+        (data, model) mesh under autograd, ``frames`` and ``tokens`` its
+        rows and ``params`` its shards; the encoder's and the decoder's
+        attention on the rank's heads (the cross-attention over the
+        memory, which every model rank holds alike, uncached) and MLPs on
+        its hidden units, each row-parallel product summed over the model
+        axis; the logits at this rank's vocab columns (B, S, V_local)."""
+        memory = self.encode(params, frames, shard)
+        x = self._embed(params, tokens, shard)
 
         def body(lp, x, memory):
-            return self._decoder_layer(lp, x, memory)[0]
+            return self._decoder_layer(lp, x, memory, shard=shard)[0]
 
         for lp in unstack_layers(params["decoder"], self.cfg.n_layers):
             x = self._run(body, lp, x, memory)
-        return self._head(params, x), torch.zeros((), dtype=torch.float32,
-                                                  device=x.device)
+        return self._head(params, x, shard), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
+    def loss_fn(self, params, batch, *, shard=None,
+                weights: torch.Tensor | None = None,
+                aux_weight: float = 1.0) -> torch.Tensor:
         """batch: {'frames': (B, T, M), 'tokens': (B, S+1), optional 'mask'
-        (B, S)} -> scalar fp32 next-token cross entropy."""
+        (B, S)} -> scalar fp32 next-token cross entropy.
+
+        ``shard``: this rank's part of a mesh (:meth:`forward`), the batch
+        its rows; the cross entropy is vocab-parallel
+        (``common.token_nll``). ``weights`` (B, S) fp32: the cross entropy
+        is sum(nll * weights) in place of the masked mean (the sharded
+        train step's share of the global batch's loss; ``mask`` is then
+        unused). ``aux_weight`` is taken for ``LM.loss_fn``'s signature:
+        the family has no aux loss."""
         tokens = batch["tokens"]
-        logits, _ = self.forward(params, batch["frames"], tokens[:, :-1])
-        return cross_entropy_loss(logits, tokens[:, 1:], batch.get("mask"))
+        logits, _ = self.forward(params, batch["frames"], tokens[:, :-1],
+                                 shard=shard)
+        if weights is None:
+            return cross_entropy_loss(logits, tokens[:, 1:],
+                                      batch.get("mask"), shard)
+        return (token_nll(logits, tokens[:, 1:], shard) * weights).sum()
 
     # -- serving -----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, memory_len: int, *,

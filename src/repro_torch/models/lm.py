@@ -36,9 +36,8 @@ Entry points, as in the reference:
                                         -> (logits (B, S, V), aux);
 
 both also take ``shard``, one rank's part of a (data, model) mesh under
-autograd (families dense, vlm, moe and ssm; ``runtime/train_lib.py``'s
-sharded step), and ``loss_fn`` per-token ``weights`` and the aux term's
-``aux_weight``;
+autograd (every family; ``runtime/train_lib.py``'s sharded step), and
+``loss_fn`` per-token ``weights`` and the aux term's ``aux_weight``;
 * ``prefill(params, tokens, cache, **kw)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache, **kw)`` -> (logits (B, 1, V), cache);
   ``kw`` is ``mrope_positions``, as in the reference.
@@ -323,23 +322,17 @@ class LM:
         S) reach every layer's attention.
 
         With ``shard`` (a training ``ShardLayout`` from
-        ``runtime/serve_lib.py::shard_layout``; families dense, vlm, moe
-        and ssm): this rank's part of a (data, model) mesh under autograd.
-        ``tokens``, ``vision_embeds`` and ``mrope_positions`` are this
-        rank's rows and ``params`` its shards; the vocab-parallel
-        embedding (the rank's ``vision_embeds`` spliced in after it), each
-        layer's column- and row-parallel attention (M-RoPE on the rank's
-        heads) and MLP, expert-parallel MoE or head-parallel Mamba block
-        (under remat), and the logits at this rank's vocab columns (B, S,
-        V_local). Under grad the hybrid family raises
-        ``NotImplementedError`` naming ROADMAP A.12, whose sharded training
-        comes later."""
+        ``runtime/serve_lib.py::shard_layout``): this rank's part of a
+        (data, model) mesh under autograd. ``tokens``, ``vision_embeds``
+        and ``mrope_positions`` are this rank's rows and ``params`` its
+        shards; the vocab-parallel embedding (the rank's ``vision_embeds``
+        spliced in after it), each layer's column- and row-parallel
+        attention (M-RoPE on the rank's heads) and MLP, expert-parallel MoE
+        or head-parallel Mamba block, or a hybrid super-block whose
+        sublayers are each cut as in their own family (under remat, one
+        unit a layer or a block), and the logits at this rank's vocab
+        columns (B, S, V_local)."""
         cfg = self.cfg
-        if shard is not None and torch.is_grad_enabled() \
-                and cfg.family == "hybrid":
-            raise NotImplementedError(
-                f"sharded training of the {cfg.family} family: not in the "
-                f"sharded execution of the port yet (ROADMAP A.12)")
         x = self._embed(params, tokens) if shard is None \
             else self._embed(params, tokens, shard)
         if vision_embeds is not None:

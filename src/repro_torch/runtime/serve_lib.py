@@ -65,7 +65,7 @@ __all__ = ["cache_specs", "build_prefill_step", "build_decode_step",
 # over the model axis
 _FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 # the families it trains (``runtime/train_lib.py``'s sharded step)
-_TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm")
+_TRAIN_FAMILIES = _FAMILIES
 _CUT_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_heads",
              "ssm_inner")
 
@@ -173,9 +173,9 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
     ``max_len`` None gives a training layout (``runtime/train_lib.py``'s
     sharded step): no cache and no ``seq`` span, the parameter specs
     under ``cfg.dp_only`` as ``make_train_state_specs`` takes them, and
-    ``batch`` this rank's rows under ``train_lib.batch_sharding``. The
-    dense, vlm, moe and ssm families train sharded; the hybrid and the
-    encoder-decoder raise."""
+    ``batch`` this rank's rows under ``train_lib.batch_sharding``. Every
+    family trains sharded: the hybrid's block and the encoder-decoder's
+    stacks take the spans that serving takes."""
     cfg = model.cfg
     fam = cfg.family
     train = max_len is None

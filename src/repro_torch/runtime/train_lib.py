@@ -9,8 +9,9 @@ over the microbatches, and applies ``adamw_update``. The step writes the
 new parameters and moments into the state's tensors (the reference donates
 its state to XLA, which updates it in place as well).
 
-Over a mesh (``build_train_step(..., mesh=)``; the dense, vlm, moe and
-ssm families), each rank holds its shards of the state under
+Over a mesh (``build_train_step(..., mesh=)``; every family: dense,
+vlm, moe, ssm, the hybrid's super-blocks and the encoder-decoder's two
+stacks), each rank holds its shards of the state under
 :func:`make_train_state_specs` (AdamW's moments like the parameters, or
 with ``zero1`` also cut over the batch axes) and takes its rows of each
 global microbatch, as the reference's ``shard_map`` cuts it
@@ -21,13 +22,14 @@ gradients (``sharding/layout.py``), and a vocab-parallel cross entropy.
 The reference's step is one XLA program over the global batch; here each
 rank weights its tokens as the reference's global microbatches weight
 them, and an MoE's aux loss is taken over each global microbatch, so that
-the sums over the mesh are the reference's loss and gradient. The hybrid
-and encoder-decoder families, ZeRO-3 and sharded checkpoints come later
-(ROADMAP A.12).
+the sums over the mesh are the reference's loss and gradient. ZeRO-3
+comes later (ROADMAP A.12 item 2); a sharded state's checkpoints are the
+reference's topology-agnostic files (``checkpoint/ckpt.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -135,6 +137,26 @@ def init_train_state(model, opt_cfg: AdamWConfig, seed: int = 0,
         v=tree_map_with_path(zeros, decls)))
 
 
+@contextlib.contextmanager
+def fp32_reductions():
+    """Context: cuBLAS's reduced-precision reductions of bf16 products off
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+    on by default), so that every product of a train step accumulates in
+    fp32, as the reference's ``preferred_element_type`` asks. With them
+    on, a split-K product may sum its partials in bf16, and at some shard
+    shapes (seamless-m4t's vocab shard of 128103 columns) the sharded
+    step's gradients part from the fp32 step's several times further than
+    the unsharded step's do (``tools/sharded_grad_floor.py`` measures
+    both). On the CPU the flag is not read."""
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = flag
+
+
 def _loss_and_grads(model, params, batch, **kw):
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss = model.loss_fn(leaves, batch, **kw)
@@ -173,8 +195,7 @@ def build_train_step(model, opt_cfg: AdamWConfig, *, mesh=None,
     same ``mesh`` and ``zero1``), ``batch`` the whole global batch, and the
     metrics the global loss and norm on every rank. ``zero3`` raises
     ``NotImplementedError`` naming ROADMAP A.12 item 2 before anything is
-    allocated, as does the hybrid or encoder-decoder family over a
-    mesh."""
+    allocated."""
     if zero3:
         raise NotImplementedError(
             "ZeRO-3 (zero3=True): the parameters cut over the data axes "
@@ -187,6 +208,7 @@ def build_train_step(model, opt_cfg: AdamWConfig, *, mesh=None,
                          "pass the mesh")
     mu = max(model.cfg.microbatches, 1)
 
+    @fp32_reductions()
     def train_step(state: TrainState, batch):
         params = state.params
         if mu == 1:
@@ -254,11 +276,15 @@ def take_rows(batch: dict, rows: slice) -> dict:
             for k, x in batch.items()}
 
 
-# the blocks whose execution is model-parallel, each under the layout's
-# span that cuts it: a leaf of one that the specs keep whole over the model
-# axis is used on the rank's part alone
-_PARALLEL_BLOCKS = (("attn", "heads"), ("mamba", "ssm_heads"),
-                    ("moe", "experts"))
+# the blocks whose execution is model-parallel, by their key in the
+# parameter tree (wherever they sit: ``layers/attn``, a hybrid block's
+# ``layers/mamba``, the encoder-decoder's ``encoder/attn``,
+# ``decoder/self_attn`` and ``decoder/cross_attn``), each under the
+# layout's span that cuts it: a leaf of one that the specs keep whole over
+# the model axis is used on the rank's part alone
+_PARALLEL_BLOCKS = {"attn": "heads", "self_attn": "heads",
+                    "cross_attn": "heads", "mamba": "ssm_heads",
+                    "moe": "experts", "mlp": "mlp"}
 # leaves of those blocks used before their region is entered, on values
 # alike on every model rank: the MoE router (the reference routes outside
 # its shard_map)
@@ -268,25 +294,36 @@ _OUTSIDE = frozenset({("moe", "router")})
 def model_partial_leaves(model, layout) -> set:
     """Paths of the parameters whose gradient on a rank is a part: those
     that the specs keep whole over the model axis while the code uses them
-    on this rank's part alone, found from the specs. In the attention
-    that is the leaves not cut where its q heads are (qwen3's ``q_norm``
-    and ``k_norm``, on the rank's heads; ``wk``/``wv`` where the KV heads
-    do not divide, each rank reading the KV heads its q heads use); in a
-    Mamba block ``w_B``, ``w_C``, ``conv_B`` and ``conv_C`` (each rank's
-    heads read them); none in an MoE but the router, which is outside its
-    region. The norms, the embedding and the head are used before
-    ``enter`` (or all of them on every rank) and get the whole gradient on
-    every rank."""
+    on this rank's part alone, found from the specs, in every block of
+    ``_PARALLEL_BLOCKS`` wherever it sits in the tree (an LM's layers, a
+    hybrid block's sublayers, the encoder-decoder's encoder and decoder).
+    In an attention that is the leaves not cut where its q heads are
+    (qwen3's ``q_norm`` and ``k_norm``, on the rank's heads; ``wk``/``wv``
+    where the KV heads do not divide, each rank reading the KV heads its q
+    heads use); in a Mamba block ``w_B``, ``w_C``, ``conv_B`` and
+    ``conv_C`` (each rank's heads read them); none in an MoE but the
+    router, which is outside its region, nor in an MLP, whose leaves are
+    all cut where its hidden units are. The norms, the embedding and the
+    head are used before ``enter`` (or all of them on every rank) and get
+    the whole gradient on every rank."""
     specs = spec_tree(model.param_decls(), layout.mesh,
                       make_rules(layout.mesh, dp_only=model.cfg.dp_only))
     out = set()
-    for block, span in _PARALLEL_BLOCKS:
-        if block not in specs["layers"] or not getattr(layout, span).sharded:
-            continue
-        out |= {("layers", block) + path
-                for path, spec in tree_items(specs["layers"][block])
-                if "model" not in _axes_of(spec)
-                and (block,) + path not in _OUTSIDE}
+
+    def walk(tree, prefix):
+        for key, sub in tree.items():
+            span = _PARALLEL_BLOCKS.get(key)
+            if span is None:
+                if isinstance(sub, dict):
+                    walk(sub, prefix + (key,))
+                continue
+            if not getattr(layout, span).sharded:
+                continue
+            out.update(prefix + (key,) + path
+                       for path, spec in tree_items(sub)
+                       if "model" not in _axes_of(spec)
+                       and (key,) + path not in _OUTSIDE)
+    walk(specs, ())
     return out
 
 
@@ -364,6 +401,7 @@ def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
     paths = [path for path, _ in tree_items(model.param_decls())]
     partial = [path in cut for path in paths]
 
+    @fp32_reductions()
     def train_step(state: TrainState, batch):
         B = batch["tokens"].shape[0]
         if B % (n_batch * mu):

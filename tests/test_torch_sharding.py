@@ -388,14 +388,20 @@ def test_abstract_train_state_matches_the_reference(arch):
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2"])
 def test_sharded_training_refuses_other_families(monkeypatch, arch):
-    """The hybrid and encoder-decoder families raise
-    ``NotImplementedError`` naming A.12 when their step is built over a
-    mesh, before anything is allocated (the dense, vlm, moe and ssm
-    families train sharded: ``tests/test_torch_train_sharded.py`` and
-    ``tests/test_torch_train_sharded_families.py``)."""
+    """Every family of the JAX package trains sharded: the hybrid and the
+    encoder-decoder, refused until their slice, now pass the family check
+    and reach the live-mesh check (``ValueError``) before anything is
+    allocated (``tests/test_torch_train_sharded_hybrid_encdec.py`` trains
+    them). A family that the sharded execution does not know raises
+    ``NotImplementedError`` naming A.12 before it allocates."""
+    import dataclasses
     model = build_model(get_config(arch, reduced=True))
     monkeypatch.setattr(train_lib, "init_params", _no_allocation)
-    with pytest.raises(NotImplementedError, match="(?s)training.*A.12"):
+    with pytest.raises(ValueError, match="process group"):
+        train_lib.build_train_step(model, AdamWConfig(),
+                                   mesh=abstract_mesh((1, 2)))
+    model.cfg = dataclasses.replace(model.cfg, family="rnn")
+    with pytest.raises(NotImplementedError, match="(?s)rnn.*A.12"):
         train_lib.build_train_step(model, AdamWConfig(),
                                    mesh=abstract_mesh((1, 2)))
 
@@ -423,12 +429,14 @@ def test_the_sharded_step_needs_a_live_mesh():
 
 def test_a_sharded_checkpoint_raises_before_allocating(monkeypatch,
                                                        tmp_path):
-    """``train_loop`` over more than one rank with ``ckpt_dir`` raises
-    naming A.12 before it sets anything up (or needs a process group);
-    without ``ckpt_dir`` and no group up, ``make_local_mesh`` raises."""
+    """``train_loop`` over more than one rank, with ``ckpt_dir`` or
+    without, needs a live process group: with none up,
+    ``make_local_mesh`` raises before anything is set up. (Sharded
+    checkpoints, refused naming A.12 until their slice, are held by
+    ``tests/test_torch_ckpt_sharded.py``.)"""
     from repro_torch.launch import train as train_mod
     monkeypatch.setattr(train_mod, "setup_training", _no_allocation)
-    with pytest.raises(NotImplementedError, match="(?s)checkpoint.*A.12"):
+    with pytest.raises(RuntimeError, match="process group"):
         train_mod.train_loop("tinyllama-1.1b", reduced=True, device="cpu",
                              data=1, model=2, ckpt_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="process group"):

@@ -277,6 +277,51 @@ def fed_routes(case: dict, mesh, batch: int, mu: int):
                              group=slice(d * n, (d + 1) * n))
 
 
+@contextlib.contextmanager
+def counting_cores(counts: dict):
+    """Context: the calls of the attention's and the Mamba block's cores
+    that the card's kernels carry, counted on the CPU's plain path into
+    ``counts`` under the kernels' names: each forward of
+    ``attention._prefill_core`` ("flash_attention") and ``ssm.ssd``
+    ("ssd"), and each backward through their outputs
+    ("flash_attention_bwd", "ssd_bwd"; an identity Function on the output
+    counts its gradient's pass), where the card launches the flash and
+    ssd kernels and their backward kernels."""
+    import importlib
+    attn_mod = importlib.import_module("repro_torch.models.attention")
+    ssm_mod = importlib.import_module("repro_torch.models.ssm")
+    smoke = chip_smoke()
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, name):
+            ctx.name = name
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, grad):
+            counts[ctx.name] += 1
+            return grad, None
+
+    def counted(name, first_of_tuple):
+        def wrap(fn):
+            def run(*args, **kw):
+                counts[name] += 1
+                out = fn(*args, **kw)
+                t = out[0] if first_of_tuple else out
+                if t.requires_grad:
+                    t = Mark.apply(t, f"{name}_bwd")
+                return (t,) + tuple(out[1:]) if first_of_tuple else t
+            return run
+        return wrap
+    for name in ("flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd"):
+        counts.setdefault(name, 0)
+    with smoke.patched(attn_mod, "_prefill_core",
+                       counted("flash_attention", False)), \
+            smoke.patched(ssm_mod, "ssd", counted("ssd", True)):
+        yield
+
+
 def train_case(mesh, case: dict) -> dict:
     """One sharded train step (``build_train_step(..., mesh=)``) of
     ``case["cfg"]`` on this rank: the state's shards cut from
@@ -290,7 +335,8 @@ def train_case(mesh, case: dict) -> dict:
     of each microbatch. Returns, fp32 numpy by path: the gradient shards
     the sharded AdamW took, the parameter shards before and after, the
     moment shards after; the loss, the norm, the coordinates and the
-    step's all_reduce calls."""
+    step's all_reduce calls, and the calls the card's kernels would
+    launch (``counting_cores``)."""
     from repro_torch.models import build_model
     from repro_torch.models.param import shard_params, tree_items
     from repro_torch.optim import AdamWConfig
@@ -316,7 +362,7 @@ def train_case(mesh, case: dict) -> dict:
             return update(params, grads, opt_state, opt_cfg, plan)
         return recording
     batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
-    count = [0]
+    count, kernels = [0], {}
     fault = case.get("fault")
     routes = fed_routes(case, mesh, batch["tokens"].shape[0],
                         model.cfg.microbatches)
@@ -324,7 +370,8 @@ def train_case(mesh, case: dict) -> dict:
             else contextlib.nullcontext():
         step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
         with smoke.patched(train_lib, "adamw_update_sharded", capture), \
-                smoke.counting_all_reduce(torch, count), routes:
+                smoke.counting_all_reduce(torch, count), routes, \
+                counting_cores(kernels):
             state, metrics = step(state, batch)
 
     def flat(tree):
@@ -332,7 +379,8 @@ def train_case(mesh, case: dict) -> dict:
     return {"coords": dict(mesh.coords), "loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]), "grads": seen,
             "p0": p0, "p1": flat(state.params), "m": flat(state.opt.m),
-            "v": flat(state.opt.v), "collectives": count[0]}
+            "v": flat(state.opt.v), "collectives": count[0],
+            "kernels": kernels}
 
 
 def train_loop_case(mesh, case: dict) -> dict:
@@ -348,6 +396,88 @@ def train_loop_case(mesh, case: dict) -> dict:
                          log_every=0, data=mesh.shape["data"],
                          model=mesh.shape["model"])
     return {"losses": out["losses"]}
+
+
+def leaf_bits(t: torch.Tensor):
+    """A leaf's raw bits as numpy (bf16 as uint16), for an exact
+    comparison."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("uint16")
+    return t.numpy().copy()
+
+
+def _ckpt_setup(mesh, case: dict, zero1: bool):
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import train_lib
+    model = build_model(case["cfg"])
+    opt = AdamWConfig(**case["opt"])
+    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
+    state = train_lib.init_train_state(model, opt, device="cpu", mesh=mesh,
+                                       zero1=zero1)
+    return model, opt, specs, state
+
+
+def ckpt_save_case(mesh, case: dict) -> dict:
+    """One sharded train step of ``case["cfg"]`` from ``case["params"]``
+    (the whole tree) and zero moments on ``case["batch"]``, then
+    ``save_state(case["dir"], 1, ...)`` of this rank's shards over the
+    mesh. Returns the coordinates and the bits of each shard after the
+    step, by the checkpoint's key."""
+    from repro_torch.checkpoint import save_state
+    from repro_torch.models.param import shard_params, tree_items
+    from repro_torch.runtime import train_lib
+    model, opt, specs, state = _ckpt_setup(mesh, case, False)
+    state = train_lib.TrainState(
+        shard_params(case["params"], specs.params, mesh), state.opt)
+    step = train_lib.build_train_step(model, opt, mesh=mesh)
+    state, _ = step(state, {k: torch.as_tensor(v)
+                            for k, v in case["batch"].items()})
+    save_state(case["dir"], 1, state, specs=specs, mesh=mesh)
+    return {"coords": dict(mesh.coords),
+            "shards": {"__".join(p): leaf_bits(a)
+                       for p, a in tree_items(state)}}
+
+
+def ckpt_restore_case(mesh, case: dict) -> dict:
+    """``restore_state(case["dir"], 1, ...)`` into this rank's shards of
+    a fresh state under ZeRO-1 when ``case["zero1"]`` (under
+    ``chip_smoke.ckpt_fault`` when ``case["fault"]``). Returns the
+    coordinates and the restored shards' bits by key."""
+    from repro_torch.checkpoint import restore_state
+    from repro_torch.models.param import tree_items
+    _, _, specs, state = _ckpt_setup(mesh, case, case["zero1"])
+    with chip_smoke().ckpt_fault(torch) if case.get("fault") \
+            else contextlib.nullcontext():
+        state = restore_state(case["dir"], 1, state, specs=specs, mesh=mesh)
+    return {"coords": dict(mesh.coords),
+            "shards": {"__".join(p): leaf_bits(a)
+                       for p, a in tree_items(state)}}
+
+
+def ckpt_loop_case(mesh, case: dict) -> dict:
+    """``train_loop`` of ``case["arch"]``, reduced, on the CPU over the
+    mesh, 4 steps of 8 x 16 tokens: uninterrupted; then checkpointed every
+    step into ``case["dir"]`` (every rank's) until the failure simulated
+    after step 2; then resumed from that directory. Returns the three
+    runs' losses and the resumed run's first step."""
+    from repro_torch.launch.train import train_loop
+    kw = dict(reduced=True, device="cpu", steps=4, batch=8, seq=16,
+              log_every=0, data=mesh.shape["data"],
+              model=mesh.shape["model"])
+    whole = train_loop(case["arch"], **kw)
+    try:
+        train_loop(case["arch"], ckpt_dir=case["dir"], ckpt_every=1,
+                   simulate_failure=2, **kw)
+        raise AssertionError("the simulated failure did not happen")
+    except RuntimeError as exc:
+        if "simulated node failure" not in str(exc):
+            raise
+    resumed = train_loop(case["arch"], ckpt_dir=case["dir"], ckpt_every=1,
+                         resume=True, **kw)
+    return {"whole": whole["losses"], "resumed": resumed["losses"],
+            "start_step": resumed["start_step"]}
 
 
 def run_rank(rank: int, data: int, model: int, init_file: str,
