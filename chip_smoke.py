@@ -295,6 +295,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2937,33 +2938,51 @@ def orchestrate_trace(traced: dict, untraced: dict, steps: int) -> None:
         raise AssertionError("traced orchestrate run: " + "; ".join(problems))
 
 
-def _ckpt_leaves(directory: Path, step: int) -> dict:
-    """Every leaf of a saved checkpoint as fp64 (bf16 from its bits)."""
+def _ckpt_leaf(d: Path, key: str, meta: dict):
+    """One leaf of a saved checkpoint's directory ``d`` as fp64 (bf16 from
+    its bits)."""
     import numpy as np
-    d = directory / f"step_{step:08d}"
-    manifest = json.loads((d / "manifest.json").read_text())
-    out = {}
-    for key, meta in manifest["leaves"].items():
-        a = np.load(d / f"{key}.npy")
-        if meta["dtype"] == "bfloat16":
-            a = (a.astype(np.uint32) << 16).view(np.float32)
-        out[key] = a.astype(np.float64)
-    return out
+    a = np.load(d / f"{key}.npy")
+    if meta["dtype"] == "bfloat16":
+        a = (a.astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float64)
+
+
+def _same_bytes(a: Path, b: Path, chunk: int = 1 << 26) -> bool:
+    """Whether two files hold the same bytes, read a chunk at a time."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
 
 
 def _ckpts_agree(got: Path, want: Path, steps) -> tuple[float, bool]:
     """The largest leaf difference relative to that leaf's largest
-    magnitude over ``steps``, and whether every leaf is bit for bit."""
+    magnitude over ``steps``, and whether every leaf is bit for bit. A leaf
+    whose file holds the same bytes in both (the manifests alike) differs
+    by 0; only the others are read as fp64 (``_ckpt_leaf``)."""
     import numpy as np
     worst, same = 0.0, True
     for step in steps:
-        a, b = _ckpt_leaves(got, step), _ckpt_leaves(want, step)
-        if set(a) != set(b):
+        a_dir, b_dir = (d / f"step_{step:08d}" for d in (got, want))
+        manifests = [json.loads((d / "manifest.json").read_text())["leaves"]
+                     for d in (a_dir, b_dir)]
+        if set(manifests[0]) != set(manifests[1]):
             raise AssertionError(f"checkpoint {step}: leaves differ")
-        for k in b:
-            scale = max(float(np.abs(b[k]).max()), 1e-30)
-            worst = max(worst, float(np.abs(a[k] - b[k]).max()) / scale)
-            same = same and bool(np.array_equal(a[k], b[k]))
+        for k, meta in manifests[1].items():
+            if manifests[0][k] == meta and _same_bytes(
+                    a_dir / f"{k}.npy", b_dir / f"{k}.npy"):
+                continue
+            a, b = (_ckpt_leaf(d, k, m) for d, m in (
+                (a_dir, manifests[0][k]), (b_dir, meta)))
+            scale = max(float(np.abs(b).max()), 1e-30)
+            worst = max(worst, float(np.abs(a - b).max()) / scale)
+            same = same and bool(np.array_equal(a, b))
     return worst, same
 
 
@@ -3040,15 +3059,19 @@ def orchestrate_check(torch, counters: dict) -> None:
             loop = train_mod.train_loop(ORCH_ARCH, ckpt_dir=str(root / "loop"),
                                         ckpt_every=2, log_every=0,
                                         device="cuda", **kw)
+            seconds = {"train_loop": time.perf_counter() - t0}
             for label, late in (("dataflow", False),
                                 ("dataflow, each save waiting for the next "
                                  "step", True)):
+                t1 = time.perf_counter()
                 out = run_orchestrated(torch, train_mod, "dataflow", kw,
                                        ckpt_dir=root / "dag", save_late=late)
+                t2 = time.perf_counter()
                 rel = max(abs(a - b) / abs(b)
                           for a, b in zip(out["losses"], loop["losses"]))
                 worst, same = _ckpts_agree(root / "dag", root / "loop",
                                            (2, 4))
+                seconds[label] = (t2 - t1, time.perf_counter() - t2)
                 log(f"[orchestrate] depth-{ORCH_CHECK_LAYERS} {ORCH_ARCH} "
                     f"run_training "
                     f"({label}), 4 steps: losses {out['losses']} vs "
@@ -3069,7 +3092,11 @@ def orchestrate_check(torch, counters: dict) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[orchestrate] depth-{ORCH_CHECK_LAYERS} runs with checkpoints in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (seconds: train_loop's run "
+        f"{seconds['train_loop']:.1f}; each run_training's run and its "
+        f"checkpoints' comparison: "
+        + "; ".join(f"{k} {v[0]:.1f} and {v[1]:.1f}"
+                    for k, v in seconds.items() if k != "train_loop") + ")")
 
     kw = dict(steps=ORCH_STEPS, batch=8, seq=512, seed=0)
     layers, steps = ORCH_LAYERS, kw["steps"]
@@ -4146,13 +4173,17 @@ def shard_cut(cfg):
         {"n_encoder_layers": layers} if cfg.family == "encdec" else {}))
 
 
-def shard_collectives(cfg) -> int:
+def shard_collectives(cfg, zero3_mesh: tuple | None = None) -> int:
     """all_reduce calls a decode step of a sharded run: the embedding and
     the logits 2, and each layer's own: an attention 4 (the q and new K/V
     gather, the lse max, the merge's sums, ``wo``), an MLP or MoE 1, a
     Mamba block 2 (the norm with the conv tail, ``out_proj``); an
     encoder-decoder's decoder layer adds its cross-attention's ``wo``,
-    1."""
+    1. A ZeRO-3 run on ``zero3_mesh`` adds its gathers' (``zero3_gathers``:
+    the embedding, each layer or block, the head, one a dtype)."""
+    if zero3_mesh is not None:
+        return shard_collectives(cfg) + zero3_gathers(cfg,
+                                                      zero3_mesh)["decode"]
     fam = cfg.family
     if fam == "ssm":
         per = 2 * cfg.n_layers
@@ -4511,7 +4542,8 @@ def counting_all_reduce(torch, count: list):
         yield
 
 
-def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
+def sharded_rank_run(torch, mesh, arch: str, ref_path: str,
+                     zero3: bool = False) -> dict:
     """One rank's part of a sharded run of ``arch`` on ``mesh``: this
     rank's weights drawn from the unsharded model's seeded draw, its shard
     shapes (weights and cache) against the specs, a short warm-up, the
@@ -4549,7 +4581,14 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
       ``gate_excess`` <= 0, and, for the MoE family, within ``GATE_TOL``;
       a hybrid's absolute gate difference is printed: at jamba's router
       logits, ~7 at most, the rounding that ``ROUTER_TOL`` admits moves a
-      gate by more than ``GATE_TOL``); its fault passes run fed."""
+      gate by more than ``GATE_TOL``); its fault passes run fed.
+
+    With ``zero3`` the rank holds its ZeRO-3 regions of the weights
+    (``param_specs(..., zero3=True)``) and serves through the ZeRO-3 steps,
+    its all_reduce calls a decode step ``shard_collectives``' with the
+    gathers; after the counted pass its prefill and first decode step run
+    again on its weights without ZeRO-3, and their logits must equal the
+    counted pass's bit for bit (``zero3_bits``)."""
     import repro_torch.models.lm as lm_mod
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import Mesh
@@ -4568,12 +4607,16 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
     lm = build_model(cfg)
     B, S, T = SHARD_BATCH, SHARD_PROMPT, SHARD_MAX_LEN
     layout = serve_lib.shard_layout(lm, mesh, B, T)
-    specs = serve_lib.param_specs(lm, mesh)
+    specs = serve_lib.param_specs(lm, mesh, zero3=zero3)
     t0 = time.perf_counter()
-    params = init_params(lm.param_decls(),
-                         torch.Generator(device="cuda").manual_seed(0),
-                         "cuda", specs=specs, mesh=mesh)
-    attention_at_fan_in(params, cfg)
+
+    def draw(specs):
+        params = init_params(lm.param_decls(),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda", specs=specs, mesh=mesh)
+        attention_at_fan_in(params, cfg)
+        return params
+    params = draw(specs)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     decls = dict(tree_items(lm.param_decls()))
@@ -4607,19 +4650,22 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
 
     def run_pass(steps: int, prefill_first: bool = True,
                  keep: bool = False, resume: bool = False,
-                 count: list | None = None):
+                 count: list | None = None, params=params,
+                 zero3: bool = zero3):
         """``steps`` decode steps after a prefill (``prefill_first``), or
         from the kept K/V cache and prefill logits (``resume``); ``keep``
         keeps them after this pass's prefill; ``count`` counts the decode
-        steps' all_reduce calls."""
+        steps' all_reduce calls; ``params`` and ``zero3``: the weights and
+        the steps (the run's by default)."""
         cache = serve_lib.init_cache_shards(lm, mesh, B, T, device="cuda",
                                             memory_len=memory_len)
         for path, a in tree_items(cache):
             if a is not None and tuple(a.shape) != cache_shapes[path]:
                 shape_faults.append(("/".join(path), tuple(a.shape),
                                      cache_shapes[path]))
-        prefill = serve_lib.build_prefill_step(lm, mesh, B, S, T)
-        decode = serve_lib.build_decode_step(lm, mesh, B, T)
+        prefill = serve_lib.build_prefill_step(lm, mesh, B, S, T,
+                                               zero3=zero3)
+        decode = serve_lib.build_decode_step(lm, mesh, B, T, zero3=zero3)
         torch.cuda.reset_peak_memory_stats()
         mamba0 = {}
         with torch.inference_mode():
@@ -4772,10 +4818,20 @@ def sharded_rank_run(torch, mesh, arch: str, ref_path: str) -> dict:
                      "the first Mamba block's output")]
         counted["broken"] = [r for r in counted["broken"]
                              if r not in counted["own_logits_broken"]]
+    if zero3:
+        # the same mesh without ZeRO-3: its prefill and first decode step
+        shards = draw(serve_lib.param_specs(lm, mesh))
+        _, plain, _, _ = run_pass(1, params=shards, zero3=False)
+        counted["zero3_bits"] = {
+            "equal": [bool(torch.equal(a, b)) for a, b in zip(out, plain)],
+            "shard_gib": sum(a.numel() * a.element_size()
+                             for _, a in tree_items(shards)) / 2**30}
+        del shards, plain
     result = {"coords": dict(mesh.coords), "family": family,
               "layers": cfg.n_layers, "want_launches": shard_launches(
                   cfg, SHARD_GEN - 1),
-              "want_collectives": shard_collectives(cfg),
+              "want_collectives": shard_collectives(
+                  cfg, tuple(mesh.shape.values()) if zero3 else None),
               "span": None if span is None else (span.start, span.size),
               "init_s": init_s, "weights_gib": weights / 2**30,
               "launches": launches, "collectives_a_step":
@@ -4805,7 +4861,9 @@ def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
                 init_file: str, queue) -> None:
     """Entry of a spawned rank: its process group (``backend`` over a
     ``file://`` rendezvous), its mesh, each of ``runs`` ((arch, reference
-    path); ``TRAIN_RUN``:arch for an arch's sharded training run) one
+    path); ``TRAIN_RUN``:arch for an arch's sharded training run,
+    ``TRAIN3_RUN``:arch its ZeRO-3 run, ``ZERO3_RUN``:arch its ZeRO-3
+    serving run) one
     after another, its card memory released between them, and
     ``(rank, {arch: result} or the traceback)`` on ``queue``."""
     import datetime
@@ -4822,12 +4880,19 @@ def _shard_rank(rank: int, runs: tuple, mesh_shape: tuple, backend: str,
         mesh = make_local_mesh(data, model)
         results = {}
         for arch, ref_path in runs:
-            kind, _, trained = arch.partition(":")
-            results[arch] = sharded_train_rank_run(
-                torch, mesh, trained, ref_path,
-                dict(SHARD_TRAIN[mesh_shape])[trained]) \
-                if kind == TRAIN_RUN and trained else \
-                sharded_rank_run(torch, mesh, arch, ref_path)
+            kind, _, named = arch.partition(":")
+            if kind == TRAIN_RUN and named:
+                results[arch] = sharded_train_rank_run(
+                    torch, mesh, named, ref_path,
+                    dict(SHARD_TRAIN[mesh_shape])[named])
+            elif kind == TRAIN3_RUN:
+                results[arch] = sharded_train_rank_run(
+                    torch, mesh, named, ref_path, True, zero3=True)
+            elif kind == ZERO3_RUN:
+                results[arch] = sharded_rank_run(torch, mesh, named,
+                                                 ref_path, zero3=True)
+            else:
+                results[arch] = sharded_rank_run(torch, mesh, arch, ref_path)
             gc.collect()
             torch.cuda.empty_cache()
         queue.put((rank, results))
@@ -4950,21 +5015,27 @@ def sharded_serve_check(torch) -> dict:
     first (``sharded_train_reference``, once an arch), then each rank's
     run (``sharded_train_rank_run``), held by ``sharded_train_check``; the
     kernels' launches over every rank and mesh go under ``"train"``, by
-    arch."""
+    arch. ZeRO-3 (the (2, 2) spawn): ``SHARD_ZERO3_SERVE``'s archs served
+    and ``SHARD_TRAIN_ZERO3``'s trained again over ZeRO-3 regions, against
+    the same references, after the mesh's other runs."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     launched = {"decode_attention_partial": 0, "ssd": 0, "by_arch": {},
                 "train": {}}
     refs = {}
     train_paths = {arch: ROOT / "build" / f"sharded-train-reference-{arch}.pt"
-                   for runs in SHARD_TRAIN.values() for arch, _ in runs}
+                   for arch in [a for runs in SHARD_TRAIN.values()
+                                for a, _ in runs]
+                   + [a for archs in SHARD_TRAIN_ZERO3.values()
+                      for a in archs]}
     for path in train_paths.values():
         path.unlink(missing_ok=True)
     ckpt_cleanup()
     for mesh_shape, backend, archs in SHARD_GROUPS:
         data, model = mesh_shape
         runs = []
-        for arch in archs:
+        zero3_served = SHARD_ZERO3_SERVE.get(mesh_shape, ())
+        for arch in tuple(archs) + tuple(zero3_served):
             shards = data if get_config(arch).n_experts else 1
             path = ROOT / "build" / f"sharded-reference-{arch}-{shards}.pt"
             if path not in refs.values():
@@ -4974,8 +5045,14 @@ def sharded_serve_check(torch) -> dict:
                 log(f"[sharded] {arch}: unsharded serve_loop reference "
                     f"({shards} data shard{'s' if shards > 1 else ''}) in "
                     f"{time.perf_counter() - t0:.1f} s")
-            runs.append((arch, str(path)))
-        for arch, _ in SHARD_TRAIN.get(mesh_shape, ()):
+            # a ZeRO-3 run against the same reference as the arch's others
+            runs.append((arch if arch in archs else f"{ZERO3_RUN}:{arch}",
+                         str(path)))
+        trained = [(f"{TRAIN_RUN}:{arch}", arch)
+                   for arch, _ in SHARD_TRAIN.get(mesh_shape, ())] + [
+            (f"{TRAIN3_RUN}:{arch}", arch)
+            for arch in SHARD_TRAIN_ZERO3.get(mesh_shape, ())]
+        for name, arch in trained:
             path = train_paths[arch]
             if not path.exists():
                 t0 = time.perf_counter()
@@ -4983,16 +5060,27 @@ def sharded_serve_check(torch) -> dict:
                 log(f"[sharded-train] {arch}: unsharded train step "
                     f"reference in {time.perf_counter() - t0:.1f} s, "
                     f"{path.stat().st_size / 1e9:.2f} GB on disk")
-            runs.append((f"{TRAIN_RUN}:{arch}", str(path)))
+            runs.append((name, str(path)))
         t0 = time.perf_counter()
         results = spawn_ranks(mesh_shape, backend, tuple(runs))
         wall = time.perf_counter() - t0
         label = ("one process, NCCL" if backend == "nccl" else
                  f"{data * model} processes sharing one card over gloo's "
                  f"host-staged transport, not a multi-card figure")
-        for arch in archs:
+        served = list(archs) + [f"{ZERO3_RUN}:{a}" for a in zero3_served]
+        for arch in served:
             for rank, res in sorted((r, res[arch])
                                     for r, res in results.items()):
+                if "zero3_bits" in res:
+                    log(f"[sharded] {arch} mesh {mesh_shape} rank {rank}: "
+                        f"weights {res['weights_gib']:.3f} GiB a rank (ZeRO-3"
+                        f" regions) against {res['zero3_bits']['shard_gib']:.3f}"
+                        f" GiB without ZeRO-3; the prefill's and the first "
+                        f"decode step's logits bit-equal to the same mesh's "
+                        f"steps without ZeRO-3: "
+                        f"{res['zero3_bits']['equal']} (must be both)")
+                    if res["zero3_bits"]["equal"] != [True, True]:
+                        res["broken"].append("ZeRO-3 logits bit-equal")
                 log(f"[sharded] {arch} ({res['layers']} layers) mesh "
                     f"{mesh_shape} "
                     f"({label}) rank {rank} {res['coords']} span "
@@ -5055,12 +5143,13 @@ def sharded_serve_check(torch) -> dict:
                     raise AssertionError(f"{arch} {mesh_shape}: rank {r}'s "
                                          f"conv_x differs from rank "
                                          f"{r - r % model}'s")
-        for arch, _ in SHARD_TRAIN.get(mesh_shape, ()):
+        peaks = {}
+        for name, arch in trained:
             counts = sharded_train_check(torch, mesh_shape, arch, {
-                r: res[f"{TRAIN_RUN}:{arch}"] for r, res in results.items()})
+                r: res[name] for r, res in results.items()}, peaks)
             mine = launched["train"].setdefault(arch, {})
-            for name, n in counts.items():
-                mine[name] = mine.get(name, 0) + n
+            for kernel, n in counts.items():
+                mine[kernel] = mine.get(kernel, 0) + n
         if mesh_shape == CKPT_SAVE_AT:
             ckpt_directory_check(torch)
         log(f"[sharded] mesh {mesh_shape} ({backend}): "
@@ -5068,7 +5157,8 @@ def sharded_serve_check(torch) -> dict:
         # a training reference no later mesh reads leaves the disk
         later = {arch for m, _, _ in SHARD_GROUPS[
             [g[0] for g in SHARD_GROUPS].index(mesh_shape) + 1:]
-            for arch, _ in SHARD_TRAIN.get(m, ())}
+            for arch in [a for a, _ in SHARD_TRAIN.get(m, ())]
+            + list(SHARD_TRAIN_ZERO3.get(m, ()))}
         for arch, path in train_paths.items():
             if arch not in later:
                 path.unlink(missing_ok=True)
@@ -5121,6 +5211,17 @@ SHARD_TRAIN = {(1, 2): ((SHARD_TRAIN_ARCH, False), (QWEN2VL_ARCH, False),
 # it (``CKPT_RESTORE_AT``); the (1, 2) ranks also keep their shards on
 # disk, from which the check assembles the whole state on its own
 CKPT_ARCH, CKPT_SAVE_AT, CKPT_RESTORE_AT = "mamba2-370m", (1, 2), (2, 2)
+# (data, model) -> the archs trained again with ZeRO-3 in its spawn, after
+# its ``SHARD_TRAIN`` runs, each held to the same rules against the same
+# reference, its launches equal to its ZeRO-1 run's and its state bytes to
+# the ZeRO-3 specs' local shapes; the ``CKPT_ARCH`` run restores the
+# checkpoint into its regions too (under the name ``TRAIN3_RUN``:arch)
+SHARD_TRAIN_ZERO3 = {(2, 2): (SHARD_TRAIN_ARCH, "mamba2-370m")}
+# (data, model) -> the archs served with ZeRO-3 in its spawn (under the name
+# ``ZERO3_RUN``:arch), held to the sharded serving rules against the same
+# unsharded reference, and its prefill and first decode step bit-equal to
+# the same mesh's steps without ZeRO-3
+SHARD_ZERO3_SERVE = {(2, 2): ("tinyllama-1.1b",)}
 CKPT_DIR = ROOT / "build" / "sharded-ckpt"
 # the runs whose parameters are cast to fp32 (the CPU tests' fp32 cases
 # do the same), through the kernels' fp32 entries: jamba's reduced block,
@@ -5130,6 +5231,8 @@ CKPT_DIR = ROOT / "build" / "sharded-ckpt"
 # it within the gradient rule; the full-width runs hold it in bf16
 SHARD_TRAIN_FP32 = (JAMBA_ARCH,)
 TRAIN_RUN = "train"
+TRAIN3_RUN = "train-zero3"
+ZERO3_RUN = "zero3"
 # steps timed after the checked one, on the state it leaves (the checked
 # step's time holds each rank's first-call costs)
 TRAIN_TIMED_STEPS = 1
@@ -5160,6 +5263,13 @@ HYBRID_TRAIN_FAULTS = ("Mamba sublayers' gated norm summed over the "
 ENCDEC_TRAIN_FAULTS = ("cross-attention's row-parallel wo sum skipped",
                        "encoder's K/V heads rolled by one within the "
                        "rank's")
+# ZeRO-3's (the card plants the first two in tinyllama's (2, 2) ZeRO-3
+# run, the CPU tests all three)
+ZERO3_FAULTS = ("ZeRO-3 gather without its all_reduce: the rank's own "
+                "regions, zeros elsewhere",
+                "ZeRO-3 gather's backward keeps the rank's unsummed "
+                "gradient",
+                "ZeRO-3 regions written at the other data rank's slices")
 FAMILY_TRAIN_FAULTS_AT = {(MOE_ARCH, (1, 2)): (MOE_TRAIN_FAULTS[0],
                                                MOE_TRAIN_FAULTS[2]),
                           ("mamba2-370m", (1, 2)): SSM_TRAIN_FAULTS,
@@ -5167,9 +5277,13 @@ FAMILY_TRAIN_FAULTS_AT = {(MOE_ARCH, (1, 2)): (MOE_TRAIN_FAULTS[0],
                           (SEAMLESS_ARCH, (1, 2)): ENCDEC_TRAIN_FAULTS}
 
 
-def train_faults_of(arch: str, mesh_shape: tuple) -> tuple:
+def train_faults_of(arch: str, mesh_shape: tuple,
+                    zero3: bool = False) -> tuple:
     """The planted faults of ``arch``'s sharded training run on the card at
-    ``mesh_shape``."""
+    ``mesh_shape`` (its ZeRO-3 run's: ``ZERO3_FAULTS``' first two, in the
+    dense arch's)."""
+    if zero3:
+        return ZERO3_FAULTS[:2] if arch == SHARD_TRAIN_ARCH else ()
     if arch == SHARD_TRAIN_ARCH:
         return TRAIN_FAULTS_AT[mesh_shape]
     return FAMILY_TRAIN_FAULTS_AT.get((arch, mesh_shape), ())
@@ -5240,7 +5354,53 @@ def update_floor(opt_cfg, grad_norm: float) -> float:
                                                 / grad_norm)
 
 
-def train_collectives(cfg, mesh_shape: tuple, zero1: bool) -> int:
+def zero3_gathers(cfg, mesh_shape: tuple, one_dtype: bool = False) -> dict:
+    """ZeRO-3's gathers in one forward of ``cfg`` on a (data, model) mesh,
+    from the ZeRO-3 specs (``serve_lib.zero3_of``): one gather a unit that
+    holds a leaf the pass cuts, one all_reduce a dtype among those leaves
+    (every parameter one dtype with ``one_dtype``: parameters cast), its
+    backward one all_reduce. The units: the embedding, the final norm with
+    the head (a tied head: the embedding again), an encoder-decoder's
+    encoder final norm, and each layer or hybrid block (an
+    encoder-decoder's encoder and decoder layers), the remat units. ->
+    {"forward": the calls of one forward's gathers, "units": of the remat
+    units' alone (remat's recompute gathers them again), "gathers": the
+    gathers (their backward's calls), "decode": the calls of a decode
+    step's gathers (the embedding, each decoder layer or block, the head),
+    "whole": whether the pass keeps some leaf whole (its gradient summed
+    over the batch axes by the step)}."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_items
+    from repro_torch.runtime.serve_lib import zero3_of
+    from repro_torch.sharding.rules import make_rules, spec_tree
+    model = build_model(cfg)
+    mesh = abstract_mesh(mesh_shape)
+    decls = dict(tree_items(model.param_decls()))
+    z = zero3_of(model, mesh, spec_tree(model.param_decls(), mesh, make_rules(
+        mesh, dp_only=cfg.dp_only)), True)
+    cut = {} if z is None else z.regions
+
+    def calls(*roots) -> int:
+        dtypes = {decls[p].dtype for p in cut if p[0] in roots}
+        return min(len(dtypes), 1) if one_dtype else len(dtypes)
+    head = "head" if "head" in {p[0] for p in decls} else "embed"
+    ends = [calls("embed"), calls("final_norm", head)]
+    if cfg.family == "encdec":
+        ends.append(calls("enc_final_norm"))
+        stacks = [(calls("encoder"), cfg.n_encoder_layers),
+                  (calls("decoder"), cfg.n_layers)]
+    else:
+        stacks = [(calls("layers"), model._n_stacked())]
+    units = sum(c * n for c, n in stacks)
+    return {"forward": sum(ends) + units, "units": units,
+            "gathers": sum(map(bool, ends)) + sum(n for c, n in stacks if c),
+            "decode": ends[0] + ends[1] + stacks[-1][0] * stacks[-1][1],
+            "whole": len(cut) < len(decls)}
+
+
+def train_collectives(cfg, mesh_shape: tuple, zero1: bool,
+                      zero3: bool = False, one_dtype: bool = False) -> int:
     """all_reduce calls of one sharded train step of ``cfg`` on a (data,
     model) mesh whose model axis cuts the heads, the MLP or the experts,
     the Mamba heads and the vocab (under ``dp_only`` nothing): a
@@ -5268,7 +5428,14 @@ def train_collectives(cfg, mesh_shape: tuple, zero1: bool) -> int:
     all_reduce a dtype among the leaves it gathers, one in every ZeRO-1
     run here: the CPU tests' fp32 cases cast every leaf to fp32, the
     card's tinyllama is all bf16, and mamba2's fp32 leaves are not cut
-    over the data axis)."""
+    over the data axis).
+
+    With ``zero3`` (``zero3_gathers``; ``one_dtype``: the parameters cast
+    to one dtype) each microbatch adds its gathers' calls, forward and
+    remat's recompute of each layer unit, and each gather's backward; the
+    gradients' sum over the batch axes takes only the leaves the pass
+    keeps whole (none: no call), and nothing is gathered after the update
+    (``zero1`` changes nothing)."""
     data, model = mesh_shape
     mu = max(cfg.microbatches, 1)
     if cfg.dp_only:
@@ -5282,8 +5449,13 @@ def train_collectives(cfg, mesh_shape: tuple, zero1: bool) -> int:
             + (sums + aux - units if cfg.remat else 0)
         extra = 1 + int(cfg.family in ("ssm", "hybrid") or cfg.qk_norm
                         or cfg.n_kv_heads % model != 0)
-    return mu * per_microbatch + extra + (
-        2 + int(zero1) if batch_ranks > 1 else 0)
+    tail = 2 + int(zero1) if batch_ranks > 1 else 0
+    if zero3 and batch_ranks > 1:
+        g = zero3_gathers(cfg, mesh_shape, one_dtype)
+        per_microbatch += g["forward"] + g["gathers"] + (
+            g["units"] if cfg.remat else 0)
+        tail = 1 + int(g["whole"])
+    return mu * per_microbatch + extra + tail
 
 
 def layer_sums(cfg, aux_summed: bool) -> tuple[int, int, int]:
@@ -5340,7 +5512,7 @@ def train_faults(torch, which: str, mesh):
         return faulty
 
     def own_norm(norm):
-        def faulty(leaves, model_cut, group):
+        def faulty(leaves, cuts, mesh):
             return adamw_mod.global_norm(leaves)
         return faulty
 
@@ -5395,6 +5567,23 @@ def train_faults(torch, which: str, mesh):
                              kv_source=kv_source, **kw)
         return faulty
 
+    def no_all_reduce(fn):
+        def faulty(*args, **kw):
+            with patched(torch.distributed, "all_reduce",
+                         lambda _: lambda *a, **k: None):
+                return fn(*args, **kw)
+        return faulty
+
+    def other_data_slice(gather_regions):
+        # each region moved along its data-cut dim by its own size
+        def faulty(parts, group):
+            return gather_regions([(t, tuple(
+                slice(r.stop % n, r.stop % n + r.stop - r.start)
+                if r.stop - r.start < n else r
+                for r, n in zip(region, shape)), shape)
+                for t, region, shape in parts], group)
+        return faulty
+
     def positions_on_axis_0(take_rows):
         def faulty(batch, rows):
             out = take_rows(batch, rows)
@@ -5422,7 +5611,11 @@ def train_faults(torch, which: str, mesh):
         HYBRID_TRAIN_FAULTS[0]: (layout_mod.ShardLayout, "sum_partials",
                                  own_columns),
         ENCDEC_TRAIN_FAULTS[0]: (encdec_mod, "attention", cross_without_sum),
-        ENCDEC_TRAIN_FAULTS[1]: (encdec_mod, "attention", rolled_kv)}[which]
+        ENCDEC_TRAIN_FAULTS[1]: (encdec_mod, "attention", rolled_kv),
+        ZERO3_FAULTS[0]: (layout_mod, "_gather_regions", no_all_reduce),
+        ZERO3_FAULTS[1]: (layout_mod._Gather, "backward", no_all_reduce),
+        ZERO3_FAULTS[2]: (layout_mod, "_gather_regions",
+                          other_data_slice)}[which]
     return patched(owner, name, wrap)
 
 
@@ -5594,14 +5787,15 @@ def sharded_train_config(arch: str = SHARD_TRAIN_ARCH):
 
 
 def sharded_train_state(torch, model, opt, arch: str, mesh=None,
-                        zero1: bool = False):
+                        zero1: bool = False, zero3: bool = False):
     """The seeded training state of ``arch``'s sharded run on the card (this
-    rank's shards over ``mesh``, or whole), the attention at fan-in std,
-    the parameters cast to fp32 for an arch of ``SHARD_TRAIN_FP32``."""
+    rank's shards over ``mesh``, with ``zero3`` its regions, or whole), the
+    attention at fan-in std, the parameters cast to fp32 for an arch of
+    ``SHARD_TRAIN_FP32``."""
     from repro_torch.models.param import tree_map
     from repro_torch.runtime import train_lib
     state = train_lib.init_train_state(model, opt, seed=0, device="cuda",
-                                       mesh=mesh, zero1=zero1)
+                                       mesh=mesh, zero1=zero1, zero3=zero3)
     attention_at_fan_in(state.params, model.cfg)
     if arch in SHARD_TRAIN_FP32:
         state = train_lib.TrainState(
@@ -5727,7 +5921,7 @@ def shard_leaf_rules(torch, path: tuple, new, p0, grad, ref_grad, opt_cfg,
 
 
 def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
-                           zero1: bool) -> dict:
+                           zero1: bool, zero3: bool = False) -> dict:
     """One rank's sharded training of ``sharded_train_config(arch)``'s
     model on ``mesh``: its shards of the seeded state, the checked step on
     the reference's batch (an MoE fed the reference's experts,
@@ -5746,18 +5940,21 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
     at the norm it took, that norm within ``FED_NORM_TOL`` of the
     reference's. One state lives at a time, beside the seeded parameters
     and the reference's gradient shards on the card (a qwen3-moe rank's
-    3.7 GB each)."""
+    3.7 GB each). With ``zero3`` the state is the rank's ZeRO-3 regions
+    and every rule is held on them; the state's bytes are returned beside
+    the ZeRO-3 specs' local shapes' (``want_state_bytes``)."""
     from repro_torch.models import build_model
     from repro_torch.models.param import (tree_at, tree_items,
                                           tree_map_with_path)
     from repro_torch.optim import AdamWConfig, adamw as adamw_mod
     from repro_torch.runtime import train_lib
-    from repro_torch.sharding.rules import local_slices
+    from repro_torch.sharding.rules import local_shape, local_slices
     ref = torch.load(ref_path, mmap=True)
     cfg = sharded_train_config(arch)
     model = build_model(cfg)
     opt = AdamWConfig(**SHARD_TRAIN_OPT)
-    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
+    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1,
+                                             zero3=zero3)
     paths = [p for p, _ in tree_items(model.param_decls())]
     region = {p: local_slices(tree_at(specs.params, p), d.shape, mesh)
               for p, d in tree_items(model.param_decls())}
@@ -5773,9 +5970,10 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
         return experts_as(routes) if routes else contextlib.nullcontext()
 
     def build():
-        return train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
+        return train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1,
+                                          zero3=zero3)
 
-    state = sharded_train_state(torch, model, opt, arch, mesh, zero1)
+    state = sharded_train_state(torch, model, opt, arch, mesh, zero1, zero3)
     p0 = {p: a.detach().clone() for p, a in tree_items(state.params)}
 
     def reset(state):
@@ -5841,9 +6039,10 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in counters.items()}
-    result = {"coords": dict(mesh.coords), "zero1": zero1, "arch": arch,
-              "layers": cfg.n_layers, "collectives": count[0],
-              "want_collectives": train_collectives(cfg, mesh_shape, zero1),
+    result = {"coords": dict(mesh.coords), "zero1": zero1, "zero3": zero3,
+              "arch": arch, "layers": cfg.n_layers, "collectives": count[0],
+              "want_collectives": train_collectives(cfg, mesh_shape, zero1,
+                                                    zero3),
               "launches": launches, "first_s": first_s,
               **rules(state, metrics, grads)}
     del grads
@@ -5851,6 +6050,12 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
         result["ckpt"] = ckpt_save(torch, mesh, state, specs)
     state_bytes = sum(a.numel() * a.element_size() for tree in (
         state.params, state.opt.m, state.opt.v) for _, a in tree_items(tree))
+    # the specs' local shapes: the parameters in their dtype, fp32 moments
+    result["want_state_bytes"] = sum(
+        math.prod(local_shape(tree_at(specs.params, p), d.shape, mesh)) * (
+            (4 if arch in SHARD_TRAIN_FP32 else d.dtype.itemsize) + 8)
+        for p, d in tree_items(model.param_decls()))
+    result["state_bytes"] = state_bytes
     times = []
     for _ in range(TRAIN_TIMED_STEPS):
         torch.cuda.synchronize()
@@ -5871,7 +6076,7 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
         del grads
     # the sharded AdamW fed the reference's gradients, on the seeded state
     reset(state)
-    plan = train_lib.shard_plan(model, mesh, zero1)
+    plan = train_lib.shard_plan(model, mesh, zero1, zero3)
     params, _, fed_metrics = adamw_mod.adamw_update_sharded(
         state.params, tree_map_with_path(lambda p, _: ref_g[p].cuda(),
                                          state.params),
@@ -5890,7 +6095,7 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
         result["broken"].append("fed AdamW")
     del params
     faults = {}
-    for which in train_faults_of(arch, mesh_shape):
+    for which in train_faults_of(arch, mesh_shape, zero3):
         reset(state)
         with train_faults(torch, which, mesh):
             state, metrics, grads = run(state, build(), fed())
@@ -5898,7 +6103,8 @@ def sharded_train_rank_run(torch, mesh, arch: str, ref_path: str,
         del grads
     result["faults"] = faults
     if arch == CKPT_ARCH and mesh_shape == CKPT_RESTORE_AT:
-        result["ckpt"] = ckpt_restore(torch, mesh, state, specs)
+        result["ckpt"] = dict(ckpt_restore(torch, mesh, state, specs),
+                              under="ZeRO-3" if zero3 else "ZeRO-1")
     del state, metrics
     return result
 
@@ -5945,7 +6151,7 @@ def train_kernels(cfg) -> dict:
 
 
 def sharded_train_check(torch, mesh_shape: tuple, arch: str,
-                        results: dict) -> dict:
+                        results: dict, peaks: dict | None = None) -> dict:
     """``sharded_train_check``: one mesh's ranks of ``arch``'s sharded
     training run (``sharded_train_rank_run``, in the spawn of the mesh's
     serving group), logged and held: every rule on every rank; the
@@ -5953,8 +6159,12 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
     the kernels' launches of ``train_kernels``; each planted fault of
     ``train_faults_of`` breaking a rule on every rank. An MoE's step on its
     own routing is printed, not held (ROADMAP C.2). Ranks that share the
-    one card over gloo: their times are not a multi-card figure. Returns
-    the kernels' launches summed over the ranks."""
+    one card over gloo: their times are not a multi-card figure. A ZeRO-3
+    run is held to the same rules, its launches to ``train_kernels`` (its
+    ZeRO-1 run's) and its state bytes a rank to the ZeRO-3 specs' local
+    shapes; its peak is printed beside the arch's ZeRO-1 run's in the same
+    spawn (``peaks``, filled by each run: arch -> the ranks' largest peak).
+    Returns the kernels' launches summed over the ranks."""
     from repro_torch.launch.serve import FRAMES_LEN
     cfg = sharded_train_config(arch)
     launched = {}
@@ -5973,10 +6183,12 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
                   f"N = 128) and qwen3-moe's MoE runs")
     depth = f"{cfg.n_encoder_layers} + {cfg.n_layers}" \
         if cfg.family == "encdec" else str(cfg.n_layers)
+    zero3 = any(res["zero3"] for res in results.values())
     for rank, res in sorted(results.items()):
         log(f"[sharded-train] {arch} ({depth} layers, batch "
             f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ}{extra}, zero1 "
-            f"{res['zero1']}) mesh {mesh_shape} rank {rank} "
+            f"{res['zero1']}, zero3 {res['zero3']}) mesh {mesh_shape} rank "
+            f"{rank} "
             f"{res['coords']} (processes sharing one card over gloo, not a "
             f"multi-card figure): {res['ms_a_step']:.1f} ms a step, "
             f"{res['tokens_per_s']:.0f} tokens/s, first step "
@@ -5987,6 +6199,18 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
             f"at its norm (tol {FED_TOL:g}), that norm {res['fed_gn_rel']:.2e}"
             f" from the reference's (tol {FED_NORM_TOL:g}); "
             f"{_train_line(res)}")
+        if zero3:
+            log(f"[sharded-train] {arch} ZeRO-3 {mesh_shape} rank {rank}: "
+                f"state {res['state_bytes']} bytes (the ZeRO-3 specs' local "
+                f"shapes: {res['want_state_bytes']}); peak "
+                f"{res['peak_gib']:.2f} GiB against the ZeRO-1 run's "
+                f"{(peaks or {}).get(arch, float('nan')):.2f} GiB (the "
+                f"largest of its ranks)")
+            if res["state_bytes"] != res["want_state_bytes"]:
+                raise AssertionError(f"ZeRO-3 training {arch} {mesh_shape} "
+                                     f"rank {rank}: state "
+                                     f"{res['state_bytes']} bytes, want "
+                                     f"{res['want_state_bytes']}")
         if "own" in res:
             log(f"[sharded-train] {arch} rank {rank}, its own routing "
                 f"(printed, not held: ROADMAP C.2): {_train_line(res['own'])}")
@@ -6008,7 +6232,9 @@ def sharded_train_check(torch, mesh_shape: tuple, arch: str,
             ckpt_line(mesh_shape, rank, res["ckpt"])
         for name, n in res["launches"].items():
             launched[name] = launched.get(name, 0) + n
-    for which in train_faults_of(arch, mesh_shape):
+    if peaks is not None and not zero3:
+        peaks[arch] = max(res["peak_gib"] for res in results.values())
+    for which in train_faults_of(arch, mesh_shape, zero3):
         got = {r: res["faults"][which] for r, res in results.items()}
         broke = sorted(r for r, f in got.items() if f["broken"])
         log(f"[sharded-train] {arch} {mesh_shape} planted fault '{which}': "
@@ -6033,7 +6259,8 @@ def ckpt_line(mesh_shape: tuple, rank: int, ckpt: dict) -> None:
             f"s, {ckpt['bytes'] / 1e9:.3f} GB on disk")
         return
     log(f"[sharded-ckpt] {CKPT_ARCH} restore of the {CKPT_SAVE_AT} save at "
-        f"{mesh_shape} with ZeRO-1, rank {rank}: {ckpt['restore_s']:.2f} s, "
+        f"{mesh_shape} with {ckpt['under']}, rank {rank}: "
+        f"{ckpt['restore_s']:.2f} s, "
         f"{ckpt['bytes'] / 1e9:.3f} GB of shards; leaves apart from their "
         f"slices of the whole state {ckpt['apart'] or 'none'} (must be "
         f"none); planted fault '{CKPT_FAULT}': "
@@ -6068,8 +6295,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
 
+    last = [t_start]
+
     def phase_done(name: str) -> None:
-        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+        now = time.perf_counter()
+        log(f"[time] {name} done at {now - t_start:.1f} s ({now - last[0]:.1f}"
+            f" s in the phase)")
+        last[0] = now
 
     log(f"[card] {card_line()}")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -6078,6 +6310,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _build.build()
     log(f"[build] {sorted(report)} in {time.perf_counter() - t0:.1f} s")
+    phase_done("build")
     for name, r in report.items():
         for line in r["log"].splitlines():
             if "entry function" in line or "registers" in line \
@@ -6257,6 +6490,7 @@ def main() -> int:
     resume_check(torch, "mamba2-370m", exact=True)
     phase_done("train checks")
     orchestrate_check(torch, counters)
+    phase_done("orchestrate")
 
     # the backward's G = 16 row: launched on the qwen3-moe training path
     flash_bwd["g16"]["launches"] = n_moe_bwd

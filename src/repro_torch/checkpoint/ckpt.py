@@ -20,7 +20,9 @@ shards under ``runtime/train_lib.py::make_train_state_specs``) saves with
 a time (so that no rank holds the whole state on the device), over the
 ranks that cut it (:func:`gather_leaf`), and global rank 0 writes the
 files, byte for byte what ``save_state`` writes for the same state held
-whole; every rank waits for the rename. A restore with ``specs`` and
+whole; every rank waits for the rename (ZeRO-1's moments and ZeRO-3's
+regions alike: a leaf is gathered over whichever axes its spec names). A
+restore with ``specs`` and
 ``mesh`` cuts each full leaf to the rank's shard (``local_slices``), so a
 checkpoint written at one mesh restores at another, or on one device, and
 into the JAX package. The directory must be one that every rank reads.

@@ -19,7 +19,9 @@ and its rows of each global microbatch, and the refusal counts those
 shards; its checkpoints are the reference's full arrays, gathered from the
 shards and written by one rank, and a resume cuts them to each rank's
 shards again (``checkpoint/ckpt.py``), so a run may resume on another
-mesh. ZeRO-3 waits for ROADMAP A.12. qwen2-vl-72b (872 GB of state at its
+mesh. ZeRO-3 (each rank's regions of the state, gathered a unit at a
+time) is ``runtime/train_lib.py``'s ``build_train_step(..., mesh=,
+zero3=True)``; this loop runs without it. qwen2-vl-72b (872 GB of state at its
 80 layers; at 1 layer, 40 GB) trains as the reference's ``train_loop``
 trains it: on the synthetic tokens alone, so its attention takes the 1-D
 RoPE (``loss_fn`` reads ``vision_embeds`` and ``mrope_positions`` when a

@@ -44,7 +44,12 @@ the heads are gathered, in one all_reduce, into the whole cross cache
 the encoder on the rank's heads and hidden units, the decoder's
 cross-attention uncached over the memory through the rank's columns of
 ``wk``/``wv`` (no gather: a rank's q heads read only its own KV heads),
-the vocab-parallel head and cross entropy (``common.token_nll``).
+the vocab-parallel head and cross entropy (``common.token_nll``). Under
+ZeRO-3 (``shard.zero3``) ``params`` are the rank's regions: each encoder
+and decoder layer's leaves are gathered at the start of its body (under
+remat, again in the recompute), the embedding, the head with the final
+norm, the encoder's final norm and, at the prefill, each layer's memory
+projections just before their use (``ShardLayout.gather_params``).
 
 Parameters are the reference's tree (same paths and shapes), with leading
 stacked layer axes; a Python loop over them takes the place of
@@ -132,8 +137,11 @@ class EncDecLM:
         return body(lp, *args)
 
     # -- encoder -----------------------------------------------------------
-    def _encoder_layer(self, lp: dict, x: torch.Tensor,
-                       shard=None) -> torch.Tensor:
+    def _encoder_layer(self, lp: dict, x: torch.Tensor, shard=None,
+                       i: int = 0) -> torch.Tensor:
+        """Encoder layer ``i``; under ZeRO-3 its leaves gathered first."""
+        if shard is not None:
+            lp = shard.gather_params(lp, ("encoder",), (i,))
         h, _ = attention(lp["attn"], rms_norm(x, lp["ln1"]), self.cfg,
                          causal=False, shard=shard)
         x = x + h
@@ -146,9 +154,14 @@ class EncDecLM:
         ``shard``: this rank's part of a sharded call (every rank returns
         the memory of its rows)."""
         x = frames.to(torch.bfloat16)
-        for lp in unstack_layers(params["encoder"], self.cfg.n_encoder_layers):
-            x = self._run(self._encoder_layer, lp, x, shard)
-        return rms_norm(x, params["enc_final_norm"])
+        for i, lp in enumerate(unstack_layers(params["encoder"],
+                                              self.cfg.n_encoder_layers)):
+            x = self._run(self._encoder_layer, lp, x, shard, i)
+        norm = params["enc_final_norm"]
+        if shard is not None:
+            norm = shard.gather_params({"enc_final_norm": norm})[
+                "enc_final_norm"]
+        return rms_norm(x, norm)
 
     # -- decoder -----------------------------------------------------------
     def _decoder_layer(self, lp: dict, x: torch.Tensor,
@@ -173,12 +186,19 @@ class EncDecLM:
 
     def _embed(self, params, tokens: torch.Tensor,
                shard=None) -> torch.Tensor:
-        return embed_tokens(params["embed"], tokens, shard)
+        if shard is None:
+            return embed_tokens(params["embed"], tokens)
+        table = shard.gather_params({"embed": params["embed"]})["embed"]
+        return embed_tokens(table, tokens, shard)
 
     def _head(self, params, x: torch.Tensor, shard=None) -> torch.Tensor:
         """The logits of the normed ``x``; with ``shard`` whose vocab is
         cut, this rank's columns of ``head``, ``x`` entering through
-        ``shard.enter`` (as ``LM._head``)."""
+        ``shard.enter`` (as ``LM._head``; under ZeRO-3 the final norm and
+        the head gathered first)."""
+        params = {"final_norm": params["final_norm"], "head": params["head"]}
+        if shard is not None:
+            params = shard.gather_params(params)
         x = rms_norm(x, params["final_norm"])
         if shard is not None and shard.vocab.sharded:
             x = shard.enter(x)
@@ -200,11 +220,14 @@ class EncDecLM:
         memory = self.encode(params, frames, shard)
         x = self._embed(params, tokens, shard)
 
-        def body(lp, x, memory):
+        def body(lp, x, memory, i):
+            if shard is not None:
+                lp = shard.gather_params(lp, ("decoder",), (i,))
             return self._decoder_layer(lp, x, memory, shard=shard)[0]
 
-        for lp in unstack_layers(params["decoder"], self.cfg.n_layers):
-            x = self._run(body, lp, x, memory)
+        for i, lp in enumerate(unstack_layers(params["decoder"],
+                                              self.cfg.n_layers)):
+            x = self._run(body, lp, x, memory, i)
         return self._head(params, x, shard), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
@@ -261,7 +284,8 @@ class EncDecLM:
         KV head."""
         cfg = self.cfg
         cross = params["decoder"]["cross_attn"]
-        M, Hk, D = memory.shape[-1], cross["wk"].shape[2], cfg.head_dim
+        M, D = memory.shape[-1], cfg.head_dim
+        Hk = cfg.n_kv_heads if shard is None else shard.kv_heads.size
         if shard is None:
             k, v = cache.cross_k, cache.cross_v
         else:
@@ -269,9 +293,12 @@ class EncDecLM:
                                  + (Hk, D))
             v = torch.empty_like(k)
         for i in range(cfg.n_layers):
-            k[i].copy_(matmul(memory, cross["wk"][i].reshape(M, Hk * D))
+            w = {"wk": cross["wk"][i], "wv": cross["wv"][i]}
+            if shard is not None:
+                w = shard.gather_params(w, ("decoder", "cross_attn"), (i,))
+            k[i].copy_(matmul(memory, w["wk"].reshape(M, Hk * D))
                        .view(k.shape[1:]))
-            v[i].copy_(matmul(memory, cross["wv"][i].reshape(M, Hk * D))
+            v[i].copy_(matmul(memory, w["wv"].reshape(M, Hk * D))
                        .view(v.shape[1:]))
         if shard is not None:
             k, v = shard.gather((k, 3, shard.kv_heads),
@@ -306,12 +333,14 @@ class EncDecLM:
         new_len = kv.length
         layers = unstack_layers(params["decoder"], self.cfg.n_layers)
         for i, lp in enumerate(layers):
+            if shard is not None:
+                lp = shard.gather_params(lp, ("decoder",), (i,))
             x, new_kv = self._decoder_layer(
                 lp, x, None, self_cache=KVCache(kv.k[i], kv.v[i], kv.length),
                 cross_kv=KVCache(cache.cross_k[i], cache.cross_v[i],
                                  cache.cross_length), shard=shard)
             new_len = new_kv.length
-        logits = self._head(params, x[:, -1:])
+        logits = self._head(params, x[:, -1:], shard)
         if shard is not None:
             logits = shard.gather_logits(logits)
         return logits, cache._replace(self_kv=KVCache(kv.k, kv.v, new_len))

@@ -36,8 +36,9 @@ Entry points, as in the reference:
                                         -> (logits (B, S, V), aux);
 
 both also take ``shard``, one rank's part of a (data, model) mesh under
-autograd (every family; ``runtime/train_lib.py``'s sharded step), and
-``loss_fn`` per-token ``weights`` and the aux term's ``aux_weight``;
+autograd (every family; ``runtime/train_lib.py``'s sharded step; under
+ZeRO-3 each unit's leaves gathered before it runs), and ``loss_fn``
+per-token ``weights`` and the aux term's ``aux_weight``;
 * ``prefill(params, tokens, cache, **kw)``    -> (last-token logits, cache);
 * ``decode_step(params, token, cache, **kw)`` -> (logits (B, 1, V), cache);
   ``kw`` is ``mrope_positions``, as in the reference.
@@ -298,13 +299,23 @@ class LM:
     def _embed(self, params, tokens: torch.Tensor,
                shard=None) -> torch.Tensor:
         """Token embeddings; with ``shard``, the vocab-parallel lookup
-        (``common.embed_tokens``)."""
-        return embed_tokens(params["embed"], tokens, shard)
+        (``common.embed_tokens``), the table gathered first under ZeRO-3
+        (``ShardLayout.gather_params``)."""
+        if shard is None:
+            return embed_tokens(params["embed"], tokens)
+        table = shard.gather_params({"embed": params["embed"]})["embed"]
+        return embed_tokens(table, tokens, shard)
 
     def _head(self, params, x: torch.Tensor, shard=None) -> torch.Tensor:
         """The logits of the normed ``x``; with ``shard`` whose vocab is
         cut, this rank's columns (a tied head: its embedding rows'
-        transpose), ``x`` entering through ``shard.enter``."""
+        transpose), ``x`` entering through ``shard.enter``; under ZeRO-3
+        the final norm and the head (or the tied embedding) gathered
+        first."""
+        key = "embed" if self.cfg.tie_embeddings else "head"
+        params = {"final_norm": params["final_norm"], key: params[key]}
+        if shard is not None:
+            params = shard.gather_params(params)
         x = rms_norm(x, params["final_norm"])
         if shard is not None and shard.vocab.sharded:
             x = shard.enter(x)
@@ -331,7 +342,10 @@ class LM:
         or head-parallel Mamba block, or a hybrid super-block whose
         sublayers are each cut as in their own family (under remat, one
         unit a layer or a block), and the logits at this rank's vocab
-        columns (B, S, V_local)."""
+        columns (B, S, V_local). Under ZeRO-3 (``shard.zero3``) ``params``
+        are this rank's regions, and each unit's leaves are gathered at
+        the start of its remat body (``ShardLayout.gather_params``), so
+        that the recompute gathers them again."""
         cfg = self.cfg
         x = self._embed(params, tokens) if shard is None \
             else self._embed(params, tokens, shard)
@@ -346,7 +360,9 @@ class LM:
         if shard is not None:
             layer = functools.partial(layer, shard=shard)
 
-        def body(lp, x, positions):
+        def body(lp, x, positions, i):
+            if shard is not None:
+                lp = shard.gather_params(lp, ("layers",), (i,))
             return layer(lp, x, mrope_positions=positions)[:2]
 
         run = body
@@ -357,8 +373,9 @@ class LM:
             # any other policy name is "full", as in the reference
             run = remat_layer(body)
         aux = 0.0
-        for lp in unstack_layers(params["layers"], self._n_stacked()):
-            x, layer_aux = run(lp, x, mrope_positions)
+        for i, lp in enumerate(unstack_layers(params["layers"],
+                                              self._n_stacked())):
+            x, layer_aux = run(lp, x, mrope_positions, i)
             aux = aux + layer_aux
         return self._head(params, x, shard), aux
 
@@ -429,6 +446,8 @@ class LM:
             layer = functools.partial(layer, shard=shard)
         for i in range(self._n_stacked()):
             lp = tree_map(lambda a: a[i], params["layers"])
+            if shard is not None:
+                lp = shard.gather_params(lp, ("layers",), (i,))
             # layer (or block) i's slices of the cache, written in place
             kv_i = None if kv is None else KVCache(kv.k[i], kv.v[i],
                                                    kv.length)

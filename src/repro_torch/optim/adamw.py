@@ -187,32 +187,47 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
 
 class ShardPlan(NamedTuple):
     """How a rank's shards enter the sharded update, leaf by leaf in
-    ``tree_items`` order: ``model_cut``, whether the parameter is cut over
-    the model axis (its squares are summed over it for the global norm;
-    a replicated leaf's are counted once); ``regions``, the slices of the
-    parameter shard that the moment shard covers (ZeRO-1: cut over the
-    batch axes), None where it covers the whole shard. ``model_group``
-    and ``batch_group`` are the process groups of the model axis and of
-    the axes that cut the batch (None: not cut)."""
-    model_cut: tuple
+    ``tree_items`` order: ``cuts``, the mesh axes that cut the shard the
+    rank holds (the model axis, under ZeRO-3 the data axes too: its
+    squares are summed over them for the global norm; a replicated leaf's,
+    ``()``, are counted once); ``regions``, the slices of the parameter
+    shard that the moment shard covers (ZeRO-1: cut over the batch axes),
+    None where it covers the whole shard. ``mesh`` is the rank's;
+    ``model_group`` and ``batch_group`` are the process groups of the
+    model axis and of the axes that cut the batch (None: not cut)."""
+    cuts: tuple
     regions: tuple
+    mesh: Any
     model_group: Any
     batch_group: Any
 
 
-def sharded_norm(leaves, model_cut, group) -> torch.Tensor:
-    """The global norm of gradient shards: the squares of the leaves cut
-    over the model axis summed over it (one all_reduce, where any leaf is
-    cut), plus the replicated leaves' squares counted once."""
-    cut, rep = [], []
-    for g, is_cut in zip(leaves, model_cut):
-        (cut if is_cut else rep).append(torch.square(
-            torch.linalg.vector_norm(g, dtype=torch.float32)))
-    total = sum(rep) if rep else 0.0
-    if cut:
-        sq = sum(cut).reshape(1)
-        torch.distributed.all_reduce(sq, group=group)
-        total = total + sq[0]
+def sharded_norm(leaves, cuts, mesh) -> torch.Tensor:
+    """The global norm of gradient shards, each element counted once over
+    the mesh: the squares of the leaves cut over the same axes (``cuts``,
+    a tuple of axis names a leaf) summed, each such sum summed over the
+    ranks that hold its parts, and the replicated leaves' squares counted
+    once. One all_reduce, where any leaf is cut: over the axes that cut
+    some leaf, each class's sum entered by the ranks at coordinate 0 of
+    those axes that do not cut it (zeros elsewhere), so that no class is
+    counted twice; where the model axis alone cuts, over its group, each
+    rank's sum entered."""
+    sums: dict = {}
+    for g, axes in zip(leaves, cuts):
+        sq = torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+        sums[axes] = sums[axes] + sq if axes in sums else sq
+    total = sums.pop((), 0.0)
+    if sums:
+        classes = sorted(sums)
+        over = tuple(a for a in mesh.axis_names
+                     if any(a in axes for axes in classes))
+        parts = torch.stack([
+            sums[axes] if all(mesh.coords[a] == 0 for a in over
+                              if a not in axes)
+            else torch.zeros_like(sums[axes]) for axes in classes])
+        torch.distributed.all_reduce(parts, group=mesh.group(over))
+        for k in range(len(classes)):
+            total = total + parts[k]
     return torch.sqrt(torch.as_tensor(total))
 
 
@@ -246,10 +261,11 @@ def adamw_update_sharded(params, grads, state: OptState, cfg: AdamWConfig,
     norm is :func:`sharded_norm`'s; each rank updates its regions, op for
     op as :func:`adamw_update`, and the updated regions are gathered over
     the batch axes (:func:`gather_updated`); a leaf whose moments cover
-    its whole shard is updated alike on every rank and not gathered.
+    its whole shard (every leaf under ZeRO-3, whose parameters are the
+    moments' regions) is updated in place and not gathered.
     Returns (params, new state, metrics), written in place."""
     g_leaves = [g for _, g in tree_items(grads)]
-    gn = sharded_norm(g_leaves, plan.model_cut, plan.model_group)
+    gn = sharded_norm(g_leaves, plan.cuts, plan.mesh)
     state, lr = _update(params, grads, state, cfg, gn, plan.regions)
     parts = [(p, region) for (_, p), region in zip(tree_items(params),
                                                     plan.regions)

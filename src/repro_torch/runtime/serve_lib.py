@@ -29,11 +29,17 @@ ssd kernel on each rank's heads); a hybrid super-block's sublayers, each
 cut as its own family's; the encoder (non-causal, uncached) and the
 cross-attention over a memory K/V cache that holds every KV head; the
 batch over the data axes and the K/V cache's sequence over the model
-axis. A spec it does not cover (the ``head_dim`` fallback, ``expert_mlp``
-cut where the experts do not divide, ``ssm_inner`` cut without
-``ssm_heads``, ZeRO-3, sequence parallelism, a cache sequence over other
-axes) raises ``NotImplementedError`` naming ROADMAP A.12 before anything
-is allocated.
+axis. With ``zero3=True`` the steps take each rank's ZeRO-3 regions as
+``params`` (``param_specs(..., zero3=True)``: each leaf's model-axis shard
+cut again over the data axes) and gather each unit's leaves to their
+model-axis shards just before it runs (``sharding/layout.py``'s
+``ShardLayout.gather_params``), so their logits are the non-ZeRO-3 steps'
+bit for bit. A spec it does not cover (the ``head_dim`` fallback,
+``expert_mlp`` cut where the experts do not divide, ``ssm_inner`` cut
+without ``ssm_heads``, sequence parallelism, a cache sequence over other
+axes: the long-context branch, where the batch does not divide over the
+data axes) raises ``NotImplementedError`` naming ROADMAP A.12 before
+anything is allocated.
 
 The steps need a mesh over a process group (``launch/mesh.py::
 make_local_mesh``): NCCL with one rank a card, gloo for ranks that share
@@ -53,13 +59,13 @@ from ..models.encdec import EncDecCache
 from ..models.param import tree_at, tree_items
 from ..models.ssm import SSMCache
 from ..sharding.context import data_axes, mesh_context, model_axis
-from ..sharding.layout import ShardLayout, Span, span_of
-from ..sharding.rules import (PartitionSpec as P, local_shape, make_rules,
-                              spec_tree)
+from ..sharding.layout import ShardLayout, Span, Zero3, span_of
+from ..sharding.rules import (PartitionSpec as P, local_shape, local_slices,
+                              make_rules, spec_axes, spec_tree)
 
 __all__ = ["cache_specs", "build_prefill_step", "build_decode_step",
            "abstract_cache", "param_specs", "shard_layout",
-           "init_cache_shards"]
+           "init_cache_shards", "zero3_of"]
 
 # the families the sharded execution serves, and the logical axes it cuts
 # over the model axis
@@ -175,7 +181,11 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
     under ``cfg.dp_only`` as ``make_train_state_specs`` takes them, and
     ``batch`` this rank's rows under ``train_lib.batch_sharding``. Every
     family trains sharded: the hybrid's block and the encoder-decoder's
-    stacks take the spans that serving takes."""
+    stacks take the spans that serving takes.
+
+    ``zero3``: the spans as without it, and the layout's
+    :class:`~repro_torch.sharding.layout.Zero3`: this rank's region of
+    each leaf that the ZeRO-3 pass cuts (:func:`zero3_of`)."""
     cfg = model.cfg
     fam = cfg.family
     train = max_len is None
@@ -183,8 +193,6 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
         raise _unported(f"sharded serving of the {fam} family")
     if train and fam not in _TRAIN_FAMILIES:
         raise _unported(f"sharded training of the {fam} family")
-    if zero3:
-        raise _unported("ZeRO-3 parameter specs (zero3=True)")
     if model_axis(mesh) is None:
         raise _unported(f"a mesh without a model axis ({mesh})")
     decls = model.param_decls()
@@ -248,6 +256,8 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
                     if name == "head_dim" else
                     f"{'/'.join(path)}: spec {spec} cuts its {name!r} axis "
                     f"over {part!r}")
+    if zero3:
+        kw["zero3"] = zero3_of(model, mesh, specs, train)
     if train:
         from .train_lib import batch_sharding
         entry = batch_sharding(mesh, {"tokens": torch.empty(
@@ -277,6 +287,39 @@ def shard_layout(model, mesh: Mesh, batch: int, max_len: int | None = None,
         mesh=mesh, heads=heads,
         kv_heads=span(tuple(f"{a}/wk" for a in attn), "kv_heads",
                       cfg.n_kv_heads), **cut, **kw)
+
+
+def zero3_of(model, mesh: Mesh, specs, train: bool) -> Zero3 | None:
+    """This rank's :class:`~repro_torch.sharding.layout.Zero3` over the
+    parameters whose specs without ZeRO-3 are ``specs``: the ZeRO-3 specs
+    (training's under ``cfg.dp_only``, as ``make_train_state_specs`` takes
+    them; serving's ``param_specs(..., zero3=True)``), and for each leaf
+    they cut further, the region of its shard under ``specs`` that the
+    rank holds. None where they cut nothing further (a data axis of one
+    rank). A ZeRO-3 spec must be ``specs``' with the pass's axes on one
+    more dim."""
+    cfg = model.cfg
+    rules = make_rules(mesh, zero3=True,
+                       dp_only=cfg.dp_only if train else False)
+    decls = model.param_decls()
+    zspecs = spec_tree(decls, mesh, rules)
+    axes = tuple(rules["_zero3"] or ())
+    regions, shapes = {}, {}
+    for path, d in tree_items(decls):
+        spec, zspec = tree_at(specs, path), tree_at(zspecs, path)
+        added = [i for i, (a, b) in enumerate(zip(spec, zspec)) if a != b]
+        if len(added) > 1 or (added and (spec[added[0]] is not None or
+                                         spec_axes(zspec[added[0]]) != axes)):
+            raise _unported(f"{'/'.join(path)}: the ZeRO-3 spec {zspec} "
+                            f"is not {spec} cut over {axes} on one more dim")
+        shard = local_slices(spec, d.shape, mesh)
+        mine = local_slices(zspec, d.shape, mesh)
+        if shard == mine:
+            continue
+        regions[path] = tuple(slice(m.start - s.start, m.stop - s.start)
+                              for s, m in zip(shard, mine))
+        shapes[path] = tuple(s.stop - s.start for s in shard)
+    return Zero3(regions, shapes, axes) if regions else None
 
 
 def init_cache_shards(model, mesh: Mesh, batch: int, max_len: int, *,
@@ -339,7 +382,7 @@ def _step(model, mesh: Mesh, layout: ShardLayout, method: str, seq: int,
             raise ValueError(f"inputs {[tuple(t.shape) for t in inputs]}: "
                              f"the step was built for tokens "
                              f"({batch.total}, {seq})")
-        with mesh_context(mesh):
+        with mesh_context(mesh), torch.no_grad():
             return run(params, *(t[batch.slice()] for t in inputs), cache,
                        shard=layout)
     return step
@@ -351,7 +394,10 @@ def build_prefill_step(model, mesh: Mesh, batch: int, seq: int,
     (batch, 1, vocab), cache)`` on this rank's shards; the cache is empty
     before it. The encoder-decoder's is ``prefill(params, frames (batch,
     T, M), tokens (batch, seq), cache)``, as the reference's, with a cache
-    made for T frames (``init_cache_shards(..., memory_len=T)``)."""
+    made for T frames (``init_cache_shards(..., memory_len=T)``). With
+    ``zero3``, ``params`` are the rank's regions under
+    ``param_specs(..., zero3=True)``, each unit gathered before it runs,
+    under ``no_grad``."""
     layout = shard_layout(model, mesh, batch, max_len or seq, zero3=zero3)
     return _step(model, mesh, layout, "prefill", seq,
                  2 if model.cfg.family == "encdec" else 1)
@@ -360,6 +406,7 @@ def build_prefill_step(model, mesh: Mesh, batch: int, seq: int,
 def build_decode_step(model, mesh: Mesh, batch: int, max_len: int, *,
                       zero3: bool = False):
     """``decode(params, token (batch, 1), cache) -> (logits (batch, 1,
-    vocab), cache)`` on this rank's shards."""
+    vocab), cache)`` on this rank's shards (with ``zero3``, its regions, as
+    :func:`build_prefill_step`)."""
     layout = shard_layout(model, mesh, batch, max_len, zero3=zero3)
     return _step(model, mesh, layout, "decode_step", 1)

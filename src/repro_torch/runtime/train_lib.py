@@ -22,14 +22,21 @@ gradients (``sharding/layout.py``), and a vocab-parallel cross entropy.
 The reference's step is one XLA program over the global batch; here each
 rank weights its tokens as the reference's global microbatches weight
 them, and an MoE's aux loss is taken over each global microbatch, so that
-the sums over the mesh are the reference's loss and gradient. ZeRO-3
-comes later (ROADMAP A.12 item 2); a sharded state's checkpoints are the
-reference's topology-agnostic files (``checkpoint/ckpt.py``).
+the sums over the mesh are the reference's loss and gradient. With
+``zero3`` a rank holds only its region of each parameter that the
+reference's ZeRO-3 pass cuts (its model-axis shard cut again over the data
+axes; the moments alike), the model gathers each unit's leaves to their
+model-axis shards just before it runs them (forward and remat's
+recompute), and the gathers' backward sums their gradients over the data
+axes into each rank's region (``sharding/layout.py``). A sharded state's
+checkpoints are the reference's topology-agnostic files
+(``checkpoint/ckpt.py``), whatever its specs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -111,20 +118,25 @@ def abstract_train_state(model, opt_cfg: AdamWConfig) -> TrainState:
 
 def init_train_state(model, opt_cfg: AdamWConfig, seed: int = 0,
                      device: str | torch.device = "cuda", *, mesh=None,
-                     zero1: bool = False) -> TrainState:
+                     zero1: bool = False, zero3: bool = False) -> TrainState:
     """Seeded random parameters (drawn on ``device``) and a zero optimizer
     state. With ``mesh``, this rank's shards under
-    :func:`make_train_state_specs`: each leaf is drawn whole in slices, as
-    the unsharded call draws it, and only this rank's part is kept
-    (``init_params`` with specs), so no rank holds a whole leaf that it
-    holds a part of; the moments are zeros of their shards' shapes."""
+    :func:`make_train_state_specs` (with ``zero3``, its regions): each
+    leaf is drawn whole in slices, as the unsharded call draws it, and only
+    this rank's part is kept (``init_params`` with specs), so no rank holds
+    a whole leaf that it holds a part of; the moments are zeros of their
+    shards' shapes. ``zero1`` or ``zero3`` without a mesh raises
+    ``ValueError``."""
     device = torch.device(device)
+    if mesh is None and (zero1 or zero3):
+        raise ValueError("zero1 and zero3 cut the state over a mesh's data "
+                         "axes; pass the mesh")
     gen = torch.Generator(device=device).manual_seed(seed)
     decls = model.param_decls()
     if mesh is None:
         params = init_params(decls, gen, device)
         return TrainState(params, adamw_init(params, opt_cfg))
-    specs = make_train_state_specs(model, mesh, zero1=zero1)
+    specs = make_train_state_specs(model, mesh, zero1=zero1, zero3=zero3)
     params = init_params(decls, gen, device, specs=specs.params, mesh=mesh)
 
     def zeros(path, d):
@@ -192,20 +204,16 @@ def build_train_step(model, opt_cfg: AdamWConfig, *, mesh=None,
     With ``mesh`` (a mesh over a process group, ``launch/mesh.py::
     make_local_mesh``), the step of one rank (:func:`_sharded_step`):
     ``state`` is this rank's shards (:func:`init_train_state` with the
-    same ``mesh`` and ``zero1``), ``batch`` the whole global batch, and the
-    metrics the global loss and norm on every rank. ``zero3`` raises
-    ``NotImplementedError`` naming ROADMAP A.12 item 2 before anything is
-    allocated."""
-    if zero3:
-        raise NotImplementedError(
-            "ZeRO-3 (zero3=True): the parameters cut over the data axes "
-            "and gathered before use are not in the port yet (ROADMAP A.12 "
-            "item 2)")
+    same ``mesh``, ``zero1`` and ``zero3``), ``batch`` the whole global
+    batch, and the metrics the global loss and norm on every rank. With
+    ``zero3`` the state is the rank's regions (``zero1`` then changes
+    nothing: the moments are cut alike). ``zero1`` or ``zero3`` without a
+    mesh raises ``ValueError`` before anything is allocated."""
     if mesh is not None:
-        return _sharded_step(model, opt_cfg, mesh, zero1)
-    if zero1:
-        raise ValueError("zero1 shards the moments over a mesh's data axes; "
-                         "pass the mesh")
+        return _sharded_step(model, opt_cfg, mesh, zero1, zero3)
+    if zero1 or zero3:
+        raise ValueError("zero1 and zero3 cut the state over a mesh's data "
+                         "axes; pass the mesh")
     mu = max(model.cfg.microbatches, 1)
 
     @fp32_reductions()
@@ -343,36 +351,40 @@ def flat_sum(grads: list, group) -> list:
     return out
 
 
-def shard_plan(model, mesh, zero1: bool = False) -> ShardPlan:
+def shard_plan(model, mesh, zero1: bool = False,
+               zero3: bool = False) -> ShardPlan:
     """This rank's :class:`~repro_torch.optim.adamw.ShardPlan` under
-    :func:`make_train_state_specs`: which parameters are cut over the model
-    axis, the region of each parameter shard that its moments cover (with
-    ``zero1``, the moments' cut over the batch axes; None where they cover
-    the whole shard), and the model and batch axes' process groups. Needs
-    a live mesh; raises ``NotImplementedError`` naming ROADMAP A.12 for
-    what the sharded step does not cover (``serve_lib.shard_layout``)."""
+    :func:`make_train_state_specs`: the mesh axes that cut each parameter
+    shard the rank holds (with ``zero3``, its region), the region of each
+    that its moments cover (with ``zero1``, the moments' cut over the
+    batch axes; None where they cover the whole shard: every leaf under
+    ``zero3``), the mesh, and the model and batch axes' process groups.
+    Needs a live mesh; raises ``NotImplementedError`` naming ROADMAP A.12
+    for what the sharded step does not cover
+    (``serve_lib.shard_layout``)."""
     from .serve_lib import shard_layout
     layout = shard_layout(model, mesh, _batch_ranks(mesh, model.cfg))
     if not mesh.is_live:
         raise ValueError(f"the sharded train step runs on a mesh over a "
                          f"process group (make_local_mesh), not {mesh}")
-    specs = make_train_state_specs(model, mesh, zero1=zero1)
-    model_cut, regions = [], []
+    specs = make_train_state_specs(model, mesh, zero1=zero1, zero3=zero3)
+    cuts, regions = [], []
     for path, d in tree_items(model.param_decls()):
         pspec, mspec = tree_at(specs.params, path), tree_at(specs.opt.m,
                                                             path)
-        model_cut.append("model" in _axes_of(pspec))
         psl = local_slices(pspec, d.shape, mesh)
+        cuts.append(tuple(sorted(_axes_of(pspec))))
         msl = local_slices(mspec, d.shape, mesh)
         # a cut over axes that hold one rank leaves the whole shard
         regions.append(None if psl == msl else tuple(
             slice(m.start - p.start, m.stop - p.start)
             for p, m in zip(psl, msl)))
-    return ShardPlan(tuple(model_cut), tuple(regions), layout.model_group,
+    return ShardPlan(tuple(cuts), tuple(regions), mesh, layout.model_group,
                      layout.batch_group)
 
 
-def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
+def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool,
+                  zero3: bool):
     """One rank's ``train_step(state, batch)`` on ``mesh``.
 
     For each of the ``cfg.microbatches`` global microbatches (consecutive
@@ -391,11 +403,20 @@ def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
     all_reduce, :func:`flat_sum`), every gradient summed over the batch
     axes in fp32 (one), the loss summed over them (one), and
     ``adamw_update_sharded`` (the global norm over the mesh; with
-    ``zero1`` the updated regions gathered over the batch axes)."""
+    ``zero1`` the updated regions gathered over the batch axes).
+
+    With ``zero3`` the leaves that the ZeRO-3 pass cuts are the rank's
+    regions, gathered a unit at a time inside the model; their gradients
+    come out of the gathers' backward already summed over the batch axes,
+    in fp32 (``Zero3Grads``: a microbatch's added to the last's), so the
+    batch axes' sum takes only the leaves the pass keeps whole, the model
+    axis's sum of the partial leaves runs on the regions, and AdamW updates
+    the regions in place (no gather: the moments cover them whole)."""
+    from ..sharding.layout import Zero3Grads
     from .serve_lib import shard_layout
     cfg = model.cfg
     mu = max(cfg.microbatches, 1)
-    plan = shard_plan(model, mesh, zero1)
+    plan = shard_plan(model, mesh, zero1, zero3)
     n_batch = _batch_ranks(mesh, cfg)
     cut = model_partial_leaves(model, shard_layout(model, mesh, n_batch))
     paths = [path for path, _ in tree_items(model.param_decls())]
@@ -408,7 +429,14 @@ def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
             raise ValueError(f"batch {B} does not divide into {mu} "
                              f"microbatches, each over {n_batch} batch "
                              f"ranks' rows")
-        layout = shard_layout(model, mesh, B)
+        layout = shard_layout(model, mesh, B, zero3=zero3)
+        z = layout.zero3
+        if z is not None:
+            z = dataclasses.replace(z, grads=Zero3Grads(
+                z.region_shapes(), tree_items(state.params)[0][1].device))
+            layout = dataclasses.replace(layout, zero3=z)
+        # the leaves whose gradients the gathers' backward sums
+        gathered = [z is not None and path in z.regions for path in paths]
         index = layout.batch.start // layout.batch.size
         weights = loss_weights(batch, mu)
         with mesh_context(mesh):
@@ -422,10 +450,15 @@ def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
                 loss = loss + l
                 g = [t for _, t in tree_items(g)]
                 if grads is None:
-                    grads = [t.float() for t in g] if mu > 1 else g
+                    grads = [t.float() if mu > 1 and t is not None else t
+                             for t in g]
                 else:
                     for acc, t in zip(grads, g):
-                        acc.add_(t.float())
+                        if t is not None:
+                            acc.add_(t.float())
+            if z is not None:
+                grads = [z.grads.by_path[path] if cut3 else g
+                         for path, g, cut3 in zip(paths, grads, gathered)]
             if any(partial):
                 summed = iter(flat_sum(
                     [g for g, p in zip(grads, partial) if p],
@@ -433,7 +466,11 @@ def _sharded_step(model, opt_cfg: AdamWConfig, mesh, zero1: bool):
                 grads = [next(summed) if p else g
                          for g, p in zip(grads, partial)]
             if plan.batch_group is not None:
-                grads = flat_sum(grads, plan.batch_group)
+                whole = [g for g, cut3 in zip(grads, gathered) if not cut3]
+                if whole:
+                    summed = iter(flat_sum(whole, plan.batch_group))
+                    grads = [g if cut3 else next(summed)
+                             for g, cut3 in zip(grads, gathered)]
                 loss = loss.reshape(1).clone()
                 torch.distributed.all_reduce(loss, group=plan.batch_group)
                 loss = loss[0]

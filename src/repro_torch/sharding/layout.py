@@ -51,6 +51,21 @@ The vocab-parallel cross entropy (``models/common.py::token_nll``) is one
 more: its forward takes ``max_`` and ``sum_with``, its backward is local.
 The rest (``gather``, ``gather_logits``, the decode step's merges) serve
 only.
+
+ZeRO-3 (a layout with :class:`Zero3`, ``serve_lib.shard_layout(...,
+zero3=True)``): a rank holds only its region of each parameter that the
+ZeRO-3 pass cuts (its slice of the leaf's model-axis shard, cut over the
+data axes), and the model brings each unit's leaves up to their model-axis
+shards just before it runs the unit (:meth:`ShardLayout.gather_params`: a
+layer, a hybrid super-block, an encoder or decoder layer, the embedding,
+the final norms and the head), inside the unit's remat body, so that the
+recompute gathers again and no gathered unit outlives its use. The gather
+is a sum over the data axes of a zero buffer into which each rank writes
+its regions, one all_reduce a dtype; under grad its backward sums the
+model-axis shard's gradient over the same axes in fp32 (one all_reduce)
+and leaves the rank's region, in fp32, in the layout's ``grads`` (the
+train step's; the leaves themselves get no gradient, so no fp32 sum is
+rounded to a bf16 leaf's dtype).
 """
 
 from __future__ import annotations
@@ -61,9 +76,10 @@ import math
 import torch
 
 from ..launch.mesh import Mesh
+from ..models.param import tree_items, tree_map_with_path
 from .rules import local_slices, spec_axes, PartitionSpec
 
-__all__ = ["Span", "ShardLayout", "span_of"]
+__all__ = ["Span", "ShardLayout", "Zero3", "Zero3Grads", "span_of"]
 
 
 class _Enter(torch.autograd.Function):
@@ -124,6 +140,106 @@ class _SumBoth(torch.autograd.Function):
         total = grad.clone(memory_format=torch.contiguous_format)
         torch.distributed.all_reduce(total, group=ctx.group)
         return total, None
+
+
+def _gather_regions(parts, group) -> list:
+    """``parts``: (region tensor, its region of the model-axis shard, the
+    shard's shape). Each shard whole on every rank of ``group``: one
+    zero-filled buffer a dtype into which each rank writes its regions,
+    summed over ``group`` (exact: one nonzero term an element)."""
+    out = [None] * len(parts)
+    by_dtype: dict = {}
+    for i, (t, _, _) in enumerate(parts):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dtype, items in by_dtype.items():
+        sizes = [math.prod(parts[i][2]) for i in items]
+        flat = torch.zeros(sum(sizes), dtype=dtype,
+                           device=parts[items[0]][0].device)
+        offset = 0
+        for i, n in zip(items, sizes):
+            t, region, shape = parts[i]
+            out[i] = flat[offset:offset + n].view(shape)
+            out[i][region] = t
+            offset += n
+        torch.distributed.all_reduce(flat, group=group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """Forward, :func:`_gather_regions` of ``ts`` (their regions and
+    shards' shapes in ``keys``: (path, index, region, shape) each);
+    backward, the shards' gradients summed over ``group`` in fp32 in one
+    all_reduce, and each rank's region of each left in ``grads`` at its
+    path and index (copied by the first gradient to reach it, added by
+    the next: a tied embedding's two uses, a microbatch's); the region
+    tensors get none."""
+
+    @staticmethod
+    def forward(ctx, group, keys, grads, *ts):
+        ctx.group, ctx.keys, ctx.grads = group, keys, grads
+        ctx.device = ts[0].device
+        return tuple(_gather_regions([(t, k[2], k[3]) for t, k in
+                                      zip(ts, keys)], group))
+
+    @staticmethod
+    def backward(ctx, *outs):
+        sizes = [math.prod(k[3]) for k in ctx.keys]
+        flat = torch.cat([
+            torch.zeros(n, dtype=torch.float32, device=ctx.device)
+            if g is None else g.reshape(-1).float()
+            for g, n in zip(outs, sizes)])
+        torch.distributed.all_reduce(flat, group=ctx.group)
+        offset = 0
+        for (path, index, region, shape), n in zip(ctx.keys, sizes):
+            part = flat[offset:offset + n].view(shape)[region]
+            offset += n
+            ctx.grads.add(path, index, part)
+        return (None, None, None) + (None,) * len(outs)
+
+
+class Zero3Grads:
+    """A ZeRO-3 train step's gradients of the regions, fp32, filled by the
+    gathers' backward: ``by_path`` maps a parameter's path to its region's
+    whole gradient (every layer of a stacked leaf); a (path, index) slice
+    is copied by its first gradient and added to by the next."""
+
+    def __init__(self, shapes: dict, device):
+        self.shapes, self.device = shapes, device
+        self.by_path: dict = {}
+        self._seen: set = set()
+
+    def add(self, path: tuple, index: tuple, part: torch.Tensor) -> None:
+        dst = self.by_path.get(path)
+        if dst is None:
+            dst = self.by_path[path] = torch.zeros(
+                self.shapes[path], dtype=torch.float32, device=self.device)
+        dst = dst[index] if index else dst
+        if (path, index) in self._seen:
+            dst.add_(part)
+        else:
+            dst.copy_(part)
+            self._seen.add((path, index))
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero3:
+    """A ZeRO-3 rank's parameters: ``regions`` maps the path of each leaf
+    that the ZeRO-3 pass cuts to the region of its model-axis shard that
+    the rank holds (a slice a dim), ``shapes`` to that shard's shape;
+    ``axes`` are the mesh axes the pass cuts over (the data axes; under
+    ``dp_only`` the model axis too). A leaf the pass leaves whole is in
+    neither and is used as it is. ``grads`` is a train step's
+    :class:`Zero3Grads` (None serving)."""
+
+    regions: dict
+    shapes: dict
+    axes: tuple
+    grads: Zero3Grads | None = None
+
+    def region_shapes(self) -> dict:
+        """Each cut leaf's region's shape: the shape the rank holds."""
+        return {p: tuple(s.stop - s.start for s in r)
+                for p, r in self.regions.items()}
 
 
 def _sum(t: torch.Tensor, group, both: bool = False) -> torch.Tensor:
@@ -189,6 +305,7 @@ class ShardLayout:
     shared: Span | None = None
     ssm_heads: Span | None = None
     ssm_inner: Span | None = None
+    zero3: Zero3 | None = None
 
     @property
     def model_group(self):
@@ -205,6 +322,36 @@ class ShardLayout:
         if self.batch.size == self.batch.total:
             return None
         return self.mesh.group(self.batch.axes)
+
+    def gather_params(self, tree, prefix: tuple = (), index: tuple = ()):
+        """``tree`` (the parameters at ``prefix``, each leaf indexed by
+        ``index`` on its leading stacked axes: a layer's or a block's
+        slices) with every leaf that the ZeRO-3 pass cuts brought up from
+        this rank's region to its model-axis shard (:class:`Zero3`); the
+        tree as it is without ZeRO-3. Under grad the gather's backward
+        leaves the regions' fp32 gradients in ``zero3.grads``."""
+        z = self.zero3
+        if z is None:
+            return tree
+        cut = [(path, t) for path, t in tree_items(tree)
+               if prefix + path in z.regions]
+        if not cut:
+            return tree
+        n = len(index)
+        keys = [(prefix + path, index, z.regions[prefix + path][n:],
+                 z.shapes[prefix + path][n:]) for path, t in cut]
+        group = self.mesh.group(z.axes)
+        ts = [t for _, t in cut]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            if z.grads is None:
+                raise ValueError("a ZeRO-3 gather under grad needs the "
+                                 "train step's gradients (Zero3.grads)")
+            full = _Gather.apply(group, keys, z.grads, *ts)
+        else:
+            full = _gather_regions([(t, k[2], k[3]) for t, k in
+                                    zip(ts, keys)], group)
+        by_path = {path: f for (path, _), f in zip(cut, full)}
+        return tree_map_with_path(lambda p, t: by_path.get(p, t), tree)
 
     def reduce_sum(self, partial: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:

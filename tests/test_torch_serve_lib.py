@@ -543,18 +543,23 @@ def test_sharded_init_and_shard_params_hold_the_unsharded_model(
     ("jamba-1.5-large-398b", (1, 16), {}, "expert_mlp"),
     # 4 q heads do not divide over 8: the reference shards head_dim instead
     ("tinyllama-1.1b", (1, 8), {}, "head_dim fallback"),
-    ("tinyllama-1.1b", (2, 2), {"zero3": True}, "ZeRO-3"),
+    # the long-context branch (A.12 item 3): batch 1 does not divide over
+    # the data axis of 2, so the reference cuts the cache's sequence over
+    # every axis
+    ("tinyllama-1.1b", (2, 2), {"batch": 1}, "K/V cache spec"),
     # 34 rows do not divide over 4: the cache's sequence stays replicated
     ("starcoder2-15b", (1, 4), {"max_len": 34}, "K/V cache spec"),
 ])
 def test_uncovered_specs_raise_before_allocating(arch, mesh, kw, match):
     model = build_model(get_config(arch, reduced=True))
     max_len = kw.pop("max_len", 32)
+    batch = kw.pop("batch", 8)
     with pytest.raises(NotImplementedError, match=f"(?s){match}.*A.12"):
-        serve_lib.shard_layout(model, abstract_mesh(mesh), 8, max_len, **kw)
+        serve_lib.shard_layout(model, abstract_mesh(mesh), batch, max_len,
+                               **kw)
     with pytest.raises(NotImplementedError, match="A.12"):
-        serve_lib.build_decode_step(model, abstract_mesh(mesh), 8, max_len,
-                                    **kw)
+        serve_lib.build_decode_step(model, abstract_mesh(mesh), batch,
+                                    max_len, **kw)
 
 
 def test_steps_need_a_live_mesh():

@@ -412,12 +412,49 @@ def _no_allocation(*args, **kw):
 
 @pytest.mark.parametrize("mesh", [None, (2, 2)])
 def test_zero3_raises_before_allocating(monkeypatch, mesh):
+    """ZeRO-3 without a mesh raises ``ValueError`` (pass the mesh) before
+    anything is allocated, in the step and in the state; on a (2, 2) mesh
+    with no process group behind it the step raises for the group before
+    it allocates, and the state of each rank holds its ZeRO-3 region of
+    every leaf alone (the ZeRO-3 specs' local shapes, the moments alike;
+    ``tests/test_torch_zero3.py`` runs the step)."""
     model = build_model(get_config("tinyllama-1.1b", reduced=True))
-    monkeypatch.setattr(train_lib, "init_params", _no_allocation)
-    with pytest.raises(NotImplementedError, match="ZeRO-3.*A.12 item 2"):
-        train_lib.build_train_step(
-            model, AdamWConfig(), zero3=True,
-            mesh=None if mesh is None else abstract_mesh(mesh))
+    if mesh is None:
+        monkeypatch.setattr(train_lib, "init_params", _no_allocation)
+        with pytest.raises(ValueError, match="pass the mesh"):
+            train_lib.build_train_step(model, AdamWConfig(), zero3=True)
+        with pytest.raises(ValueError, match="pass the mesh"):
+            train_lib.init_train_state(model, AdamWConfig(), device="cpu",
+                                       zero3=True)
+        return
+    with monkeypatch.context() as mp:
+        mp.setattr(train_lib, "init_params", _no_allocation)
+        with pytest.raises(ValueError, match="process group"):
+            train_lib.build_train_step(model, AdamWConfig(), zero3=True,
+                                       mesh=abstract_mesh(mesh))
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.param import tree_at
+    from repro_torch.sharding.rules import local_shape
+    decls = dict(tree_items(model.param_decls()))
+    for coords in ({"data": 0, "model": 1}, {"data": 1, "model": 0}):
+        rank = Mesh(mesh, ("data", "model"), coords=coords)
+        specs = train_lib.make_train_state_specs(model, rank, zero3=True)
+        state = train_lib.init_train_state(model, AdamWConfig(),
+                                           device="cpu", mesh=rank,
+                                           zero3=True)
+        for tree, spec_tree_ in ((state.params, specs.params),
+                                 (state.opt.m, specs.opt.m),
+                                 (state.opt.v, specs.opt.v)):
+            for path, leaf in tree_items(tree):
+                want = local_shape(tree_at(spec_tree_, path),
+                                   decls[path].shape, rank)
+                assert tuple(leaf.shape) == want, path
+                # every leaf of the reduced tinyllama is cut over the data
+                # axis, on a dim the model axis leaves whole
+                spec = tree_at(spec_tree_, path)
+                assert "data" in spec, (path, spec)
+                assert math.prod(want) * 2 * 2 ** ("model" in spec) == \
+                    math.prod(decls[path].shape), path
 
 
 def test_the_sharded_step_needs_a_live_mesh():

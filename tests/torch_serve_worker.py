@@ -138,6 +138,51 @@ def serve_case(mesh, case: dict) -> dict:
     return out
 
 
+def zero3_serve_case(mesh, case: dict) -> dict:
+    """``serve_case``'s steps (``_steps``: the prefill, then teacher-forced
+    decode steps) on ``case["params"]`` (the whole tree) twice on this
+    rank: on its shards under ``param_specs(model, mesh)`` and on its
+    ZeRO-3 regions under ``param_specs(..., zero3=True)`` with the
+    ZeRO-3 steps. Returns, by run ("shards", "zero3"): each step's logits
+    (fp32 numpy, the whole batch), the cache after the steps (each leaf's
+    bits), the all_reduce calls of the decode steps, and the parameters'
+    bytes on the rank."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import shard_params, tree_items
+    from repro_torch.runtime import serve_lib
+    model = build_model(case["cfg"])
+    tokens = torch.as_tensor(case["tokens"])
+    frames = case.get("frames")
+    frames = None if frames is None else torch.as_tensor(frames)
+    B, S, T = tokens.shape[0], case["prompt"], case["max_len"]
+    out = {}
+    for name, zero3 in (("shards", False), ("zero3", True)):
+        params = shard_params(case["params"], serve_lib.param_specs(
+            model, mesh, zero3=zero3), mesh)
+        count = [0]
+        cache = serve_lib.init_cache_shards(
+            model, mesh, B, T, device="cpu",
+            memory_len=None if frames is None else frames.shape[1])
+        prefill = serve_lib.build_prefill_step(model, mesh, B, S, T,
+                                               zero3=zero3)
+        decode = serve_lib.build_decode_step(model, mesh, B, T, zero3=zero3)
+        inputs = () if frames is None else (frames,)
+        logits, cache = prefill(params, *inputs, tokens[:, :S], cache)
+        steps = [logits.float().numpy()]
+        with chip_smoke().counting_all_reduce(torch, count):
+            for t in range(S, tokens.shape[1]):
+                logits, cache = decode(params, tokens[:, t:t + 1], cache)
+                steps.append(logits.float().numpy())
+        out[name] = {
+            "logits": steps,
+            "cache": {"/".join(p): leaf_bits(a) for p, a in tree_items(cache)
+                      if a is not None},
+            "collectives": count[0],
+            "bytes": sum(a.numel() * a.element_size()
+                         for _, a in tree_items(params))}
+    return out
+
+
 def decoder_layer_case(mesh, case: dict) -> dict:
     """A reduced encoder-decoder's decoder layer 0 on this rank, sharded,
     against the same layer unsharded (the whole batch, every weight): a
@@ -218,7 +263,7 @@ def microbatch_routes(record: list | None = None, fed: list | None = None,
                       group: slice = slice(None)):
     """Context for a train step with MoE layers. Each microbatch (a call of
     ``train_lib._loss_and_grads``) keys its MoE layers by their router's
-    address, in the order of their first call (remat's recompute calls a
+    bits, in the order of their first call (remat's recompute calls a
     layer again): with ``record``, each layer's top-k experts (T, k) numpy
     appended to ``record``'s list of that microbatch; with ``fed`` (such
     lists, each of a whole global microbatch), each layer takes its top-k
@@ -244,9 +289,12 @@ def microbatch_routes(record: list | None = None, fed: list | None = None,
     def routing(route):
         def run(router, x, cfg, shard=None):
             layers = state["layers"]
-            first = router.data_ptr() not in layers
+            # a layer by its router's bits: under ZeRO-3 each call (the
+            # forward's and remat's recompute) gathers it anew
+            key = router.detach().cpu().numpy().tobytes()
+            first = key not in layers
             if first:
-                layers[router.data_ptr()] = len(layers)
+                layers[key] = len(layers)
             if fed is None:
                 out = route(router, x, cfg, **(
                     {} if shard is None else {"shard": shard}))
@@ -254,8 +302,8 @@ def microbatch_routes(record: list | None = None, fed: list | None = None,
                     record[-1].append(out[0].numpy().copy())
                 return out
             k = cfg.top_k
-            topi = torch.as_tensor(fed[state["mb"]][layers[
-                router.data_ptr()]]).reshape(-1, x.shape[1], k)[group]
+            topi = torch.as_tensor(fed[state["mb"]][layers[key]]).reshape(
+                -1, x.shape[1], k)[group]
             topi = topi.reshape(-1, k)
             probs = moe_mod._router_probs(router, x)
             return (topi,) + moe_mod._gates_and_aux(probs, topi, cfg, shard)
@@ -336,7 +384,9 @@ def train_case(mesh, case: dict) -> dict:
     the sharded AdamW took, the parameter shards before and after, the
     moment shards after; the loss, the norm, the coordinates and the
     step's all_reduce calls, and the calls the card's kernels would
-    launch (``counting_cores``)."""
+    launch (``counting_cores``). With ``case["zero3"]`` the state is the
+    rank's ZeRO-3 regions and the step ZeRO-3's; ``state_bytes`` are the
+    bytes of the state the rank held before the step."""
     from repro_torch.models import build_model
     from repro_torch.models.param import shard_params, tree_items
     from repro_torch.optim import AdamWConfig
@@ -344,12 +394,16 @@ def train_case(mesh, case: dict) -> dict:
     smoke = chip_smoke()
     model = build_model(case["cfg"])
     opt = AdamWConfig(**case["opt"])
-    zero1 = case["zero1"]
-    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
+    zero1, zero3 = case["zero1"], case.get("zero3", False)
+    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1,
+                                             zero3=zero3)
     state = train_lib.init_train_state(model, opt, device="cpu", mesh=mesh,
-                                       zero1=zero1)
+                                       zero1=zero1, zero3=zero3)
     state = train_lib.TrainState(
         shard_params(case["params"], specs.params, mesh), state.opt)
+    state_bytes = sum(a.numel() * a.element_size()
+                      for tree in (state.params, state.opt.m, state.opt.v)
+                      for _, a in tree_items(tree))
     # copies: an fp32 leaf's .float() is the leaf, stepped in place
     p0 = {"/".join(p): a.float().numpy().copy()
           for p, a in tree_items(state.params)}
@@ -368,7 +422,8 @@ def train_case(mesh, case: dict) -> dict:
                         model.cfg.microbatches)
     with smoke.train_faults(torch, fault, mesh) if fault \
             else contextlib.nullcontext():
-        step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1)
+        step = train_lib.build_train_step(model, opt, mesh=mesh, zero1=zero1,
+                                          zero3=zero3)
         with smoke.patched(train_lib, "adamw_update_sharded", capture), \
                 smoke.counting_all_reduce(torch, count), routes, \
                 counting_cores(kernels):
@@ -380,7 +435,7 @@ def train_case(mesh, case: dict) -> dict:
             "grad_norm": float(metrics["grad_norm"]), "grads": seen,
             "p0": p0, "p1": flat(state.params), "m": flat(state.opt.m),
             "v": flat(state.opt.v), "collectives": count[0],
-            "kernels": kernels}
+            "kernels": kernels, "state_bytes": state_bytes}
 
 
 def train_loop_case(mesh, case: dict) -> dict:
@@ -413,25 +468,42 @@ def _ckpt_setup(mesh, case: dict, zero1: bool):
     from repro_torch.runtime import train_lib
     model = build_model(case["cfg"])
     opt = AdamWConfig(**case["opt"])
-    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1)
+    zero3 = case.get("zero3", False)
+    specs = train_lib.make_train_state_specs(model, mesh, zero1=zero1,
+                                             zero3=zero3)
     state = train_lib.init_train_state(model, opt, device="cpu", mesh=mesh,
-                                       zero1=zero1)
+                                       zero1=zero1, zero3=zero3)
     return model, opt, specs, state
+
+
+def _wait_for_save(directory: str, seconds: float = 240.0) -> None:
+    """Until ``directory``'s step 1 is renamed into place (a save by
+    another group of ranks), or raise."""
+    import pathlib
+    import time
+    done = pathlib.Path(directory) / "step_00000001" / "manifest.json"
+    deadline = time.monotonic() + seconds
+    while not done.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no save in {directory}")
+        time.sleep(0.2)
 
 
 def ckpt_save_case(mesh, case: dict) -> dict:
     """One sharded train step of ``case["cfg"]`` from ``case["params"]``
     (the whole tree) and zero moments on ``case["batch"]``, then
     ``save_state(case["dir"], 1, ...)`` of this rank's shards over the
-    mesh. Returns the coordinates and the bits of each shard after the
-    step, by the checkpoint's key."""
+    mesh (with ``case["zero3"]``, its ZeRO-3 regions). Returns the
+    coordinates and the bits of each shard after the step, by the
+    checkpoint's key."""
     from repro_torch.checkpoint import save_state
     from repro_torch.models.param import shard_params, tree_items
     from repro_torch.runtime import train_lib
     model, opt, specs, state = _ckpt_setup(mesh, case, False)
     state = train_lib.TrainState(
         shard_params(case["params"], specs.params, mesh), state.opt)
-    step = train_lib.build_train_step(model, opt, mesh=mesh)
+    step = train_lib.build_train_step(model, opt, mesh=mesh,
+                                      zero3=case.get("zero3", False))
     state, _ = step(state, {k: torch.as_tensor(v)
                             for k, v in case["batch"].items()})
     save_state(case["dir"], 1, state, specs=specs, mesh=mesh)
@@ -442,11 +514,15 @@ def ckpt_save_case(mesh, case: dict) -> dict:
 
 def ckpt_restore_case(mesh, case: dict) -> dict:
     """``restore_state(case["dir"], 1, ...)`` into this rank's shards of
-    a fresh state under ZeRO-1 when ``case["zero1"]`` (under
-    ``chip_smoke.ckpt_fault`` when ``case["fault"]``). Returns the
+    a fresh state under ZeRO-1 when ``case["zero1"]`` (its ZeRO-3 regions
+    when ``case["zero3"]``; under ``chip_smoke.ckpt_fault`` when
+    ``case["fault"]``), once the save is in place (``case["wait"]``: it
+    may come from a group that runs beside this one). Returns the
     coordinates and the restored shards' bits by key."""
     from repro_torch.checkpoint import restore_state
     from repro_torch.models.param import tree_items
+    if case.get("wait"):
+        _wait_for_save(case["dir"])
     _, _, specs, state = _ckpt_setup(mesh, case, case["zero1"])
     with chip_smoke().ckpt_fault(torch) if case.get("fault") \
             else contextlib.nullcontext():
